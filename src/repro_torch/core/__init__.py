@@ -1,0 +1,21 @@
+"""repro_torch.core — the batched repeated-solve path of HYLU in PyTorch.
+
+    CSR                        sparse container
+    HyluOptions                solver options (``device``, ``use_kernels``)
+    analyze                    host preprocessing → Analysis
+    factor_batched / solve_batched / solve_sequence
+                               K value sets of one pattern, factored and
+                               solved on the device
+    torch_repeated_engine      the per-analysis engine
+    analysis_from_arrays       an analysis written by the JAX package
+"""
+from .matrix import CSR
+from .api import (HyluOptions, Analysis, BatchedFactorState, analyze,
+                  factor_batched, solve_batched, solve_sequence,
+                  torch_repeated_engine, analysis_from_arrays,
+                  pattern_key, plan_fingerprint)
+
+__all__ = ["CSR", "HyluOptions", "Analysis", "BatchedFactorState", "analyze",
+           "factor_batched", "solve_batched", "solve_sequence",
+           "torch_repeated_engine", "analysis_from_arrays",
+           "pattern_key", "plan_fingerprint"]
