@@ -17,12 +17,26 @@ Phases, each printing one JSON line:
             plain version's, a library call's where one computes the same
             function, and the card's lower bound; each panel LU also on its
             panels with the rows shuffled, where pivoting must move rows;
+            K5 (C - A.B) and K6 (sup-row TRSV + GEMV) are held the same
+            way at the largest sup-sup and sup-row edge of the unrolled
+            schedule, on the operands its program hands that edge; K1 and
+            K2 also on panels with an exactly zero pivot under a zero
+            threshold, where NaN and inf positions must match;
 5. main     the batched repeated-solve path through its entry points at
             K = 32: ``solve_sequence`` for T = 3 float64 steps, then one
             ``factor_batched`` + ``solve_batched`` step in float64 and one
             with float32 factors refined in float64; residuals, agreement
             with scipy's ``spsolve`` and the launch counts are checked;
-6. width1   circuit_like(2000, seed 3), K = 8: the scanned width-1 tail.
+6. width1   circuit_like(2000, seed 3), K = 8: the scanned width-1 tail;
+7. scalar   the one-system lifecycle ``factor`` -> ``refactor`` (new
+            values) -> ``solve`` on fem2d_10k under the bucketed and the
+            unrolled schedule in float64, and bucketed with float32
+            factors: residuals, ``spsolve``, unrolled against bucketed
+            (pivots, perturbation counts, factors) and the launches of one
+            unrolled refactor against the plan's counts;
+8. plain    one batched step at K = 32 with ``use_kernels=False`` (plain
+            factor program, level-scheduled substitution): residuals, no
+            kernel launched, and its times beside the kernel route's.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -43,6 +57,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float64": 67e12,    # fp64 (tensor core) peak, data sheet
               "float32": 67e12}    # fp32 outside the tensor cores
 TOL = {"float64": 1e-10, "float32": 1e-4}
+# K5 and K6 are also held to 1e-12 relative to the plain version's largest
+# magnitude in float64
+REL_TOL_F64 = {"gemm_update": 1e-12, "suprow_update": 1e-12}
 TOL_LEFT = {"float64": 1e-10, "float32": 1e-3}
 
 
@@ -129,6 +146,12 @@ def main() -> int:
                                   torch_repeated_engine)
     from repro_torch.matrices import circuit_like, fem2d, to_csr
 
+    # the wrappers each path launches (suprow_update has no engine caller,
+    # as in the JAX package)
+    batched_path = ("panel_lu_batched", "panel_lu", "trsm_batched",
+                    "trsm_left_unit_lower_batched", "trsm_left_upper_batched",
+                    "gemm_batched")
+
     # ---- 3. analyze ------------------------------------------------------
     t = time.perf_counter()
     a_sp = fem2d(100, 100, seed=930)
@@ -150,9 +173,16 @@ def main() -> int:
           "block_nodes": len(eng64._blocks),
           "seconds": time.perf_counter() - t})
 
+    # the same plan under the other schedule and route (matching and
+    # ordering reused)
+    t = time.perf_counter()
+    an_u = analyze(A, HyluOptions(factor_schedule="unrolled"), reuse=an64)
+    eng_u = torch_repeated_engine(an_u)
+    emit({"phase": "analyze_reuse", "unrolled_s": time.perf_counter() - t})
+
     rng = np.random.default_rng(2026)
     vals0 = A.data[None] * rng.uniform(0.8, 1.2, (K_MAIN, A.nnz))
-    records = kernel_phase(torch, np, kernels, eng64, vals0)
+    records = kernel_phase(torch, np, kernels, eng64, vals0, eng_u)
 
     # ---- 5. main path ----------------------------------------------------
     t = time.perf_counter()
@@ -231,8 +261,9 @@ def main() -> int:
         check(main[key] <= 1e-10, f"{key} = {main[key]} > 1e-10")
     check(max(scipy_err) <= 1e-10, f"scipy disagreement {scipy_err}")
     check(mixed_err <= 1e-10, f"mixed vs f64 {mixed_err}")
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} was not launched on the main path")
+    for name in batched_path:
+        check(counts[name] > 0,
+              f"kernel {name} was not launched on the main path")
 
     # ---- 6. width-1 path -------------------------------------------------
     t = time.perf_counter()
@@ -253,8 +284,15 @@ def main() -> int:
     check(np.isfinite(xc).all() and infoc["residual"].max() <= 1e-10,
           f"width-1 residual {infoc['residual'].max()}")
 
+    scalar_counts = scalar_phase(torch, np, kernels, A, an64, an_u, an32)
+    plain_phase(torch, np, kernels, A, an64, bst, values[0], b, t_factor,
+                t_solve)
+
     for rec in records:
-        rec["launches"] = counts[rec.pop("wrapper")]
+        w = rec.pop("wrapper")
+        rec["launches_by_path"] = {"batched": counts[w],
+                                   "scalar": scalar_counts[w]}
+        rec["launches"] = counts[w] + scalar_counts[w]
     emit({"kernels": records})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -263,9 +301,38 @@ def main() -> int:
     return 0
 
 
-def kernel_phase(torch, np, kernels, eng, vals0):
+def unrolled_operands(torch, np, eng_u, a_dev, pred):
+    """The operands the unrolled program hands its largest edge (by
+    nr * k * m, the product's work) among those with ``pred(target nr,
+    source nr)``: the gathered target columns x (1, nr, k+m) and the source
+    rows src (1, k, k+m), taken from the program stopped just before that
+    edge.  Also returns k and the largest k and m of all those edges."""
+    plan = eng_u.plan
+    nodes, offs = plan.nodes, plan.panel_offset
+    shapes = {(t, j): (nd.nr, nodes[e.src].nr,
+                       len(e.col_map) - nodes[e.src].nr)
+              for t, nd in enumerate(nodes) for j, e in enumerate(nd.edges)
+              if pred(nd.nr, nodes[e.src].nr)}
+    t, j = max(shapes, key=lambda tj: np.prod(shapes[tj]))
+    nd = nodes[t]
+    e = nd.edges[j]
+    snd = nodes[e.src]
+    vals, _ = eng_u.refactor_batched(a_dev, stop=(t, j))
+    off, soff = int(offs[nd.nid]), int(offs[snd.nid])
+    panel = vals[:, off:off + nd.nr * nd.width].view(1, nd.nr, nd.width)
+    cm = torch.from_numpy(e.col_map.astype(np.int64)).to(vals.device)
+    x = panel[:, :, cm].contiguous()
+    src = vals[:, soff:soff + snd.nr * snd.width].view(
+        1, snd.nr, snd.width)[:, :, snd.lsize:].contiguous()
+    return x, src, snd.nr, {"edges": len(shapes),
+                            "max_k": max(v[1] for v in shapes.values()),
+                            "max_m": max(v[2] for v in shapes.values())}
+
+
+def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     """Phase 4: each kernel against its plain version on the card."""
     from repro_torch.kernels.panel import ops as panel_ops
+    from repro_torch.kernels.suprow import ops as suprow_ops
     from repro_torch.kernels.supsup import ops as supsup_ops
     from repro_torch.kernels.trisolve import ops as trisolve_ops
 
@@ -285,7 +352,7 @@ def kernel_phase(torch, np, kernels, eng, vals0):
                   key=lambda ie: (len(ie[1].srcs) * ie[1].nr * ie[1].k
                                   * (ie[1].k + ie[1].m)))
     blk_node = max(eng._blocks, key=lambda b_: b_[1])
-    nrb, bs = blk_node[1], blk_node[-1]
+    nrb, bslots = blk_node[1], blk_node[-1]
 
     # Each kernel's operands are what the factor program hands it: the
     # value buffer (sentinel slots included) and the per-system thresholds
@@ -309,12 +376,22 @@ def kernel_phase(torch, np, kernels, eng, vals0):
     X = vals[:, xidx].reshape(K * E, eb.nr, eb.k).contiguous()
     # the substitution reads the finished factors
     f = eng.refactor_batched(a_dev)
-    bslots = eng._bflat["blk_slots"][bs[0]:bs[1]].view(nrb, nrb)
     BLK = f.vals[:, bslots].contiguous()
     RHS = torch.from_numpy(np.random.default_rng(5).normal(
         size=(K, nrb, 1))).to(dev)
     LTS = trisolve_ops.trsm_batched(U, X)
     del vals, S, f
+    # K5 and K6 on the unrolled program of system 0, which launches them one
+    # system at a time: its largest sup-sup edge (nr, k > 1) and its largest
+    # sup-row edge (nr = 1, k > 1)
+    X5, S5, k5, edges5 = unrolled_operands(
+        torch, np, eng_u, a_dev[:1], lambda nr_, k_: nr_ > 1 and k_ > 1)
+    LTS5 = trisolve_ops.trsm_batched(S5[..., :k5].contiguous(),
+                                     X5[..., :k5].contiguous())
+    X6, S6, k6, edges6 = unrolled_operands(
+        torch, np, eng_u, a_dev[:1], lambda nr_, k_: nr_ == 1 and k_ > 1)
+    X6 = X6[:, 0]
+    nr5, m5, m6 = X5.shape[1], X5.shape[2] - k5, X6.shape[1] - k6
     # The stencil's diagonal blocks may need no row swap at all, so each
     # panel LU is also held to its plain version on the same panels with
     # their rows shuffled: partial pivoting then has to move rows.
@@ -346,6 +423,10 @@ def kernel_phase(torch, np, kernels, eng, vals0):
         p1, p2, u, x, us, lts, blk, rhs = map(c, (P1, P2, U, X, Us, LTS, BLK,
                                                   RHS))
         p1s, p2s = c(P1s), c(P2s)
+        x5c, x5a, s5u, s5b = (c(X5[..., k5:]), c(LTS5), c(S5[..., :k5]),
+                              c(S5[..., k5:]))
+        x6, s6 = c(X6), c(S6)
+        x6k = x6[:, None, :k6].contiguous()
         e1, e2 = eps1.to(dt), eps2.to(dt)
         s = sz(dt)
         lower = torch.tril(blk, -1) + torch.eye(nrb, dtype=dt, device=dev)
@@ -406,6 +487,26 @@ def kernel_phase(torch, np, kernels, eng, vals0):
              2.0 * K * E * eb.nr * eb.k * eb.m,
              (lts.numel() + us.numel() + K * E * eb.nr * eb.m) * s, TOL,
              None),
+            ("gemm_update", "gemm_update",
+             "src/repro/kernels/supsup/kernel.py:21",
+             "src/repro_torch/csrc/gemm_update.cu",
+             f"C (1, {nr5}, {m5}) - A (1, {nr5}, {k5}) @ B (1, {k5}, {m5})",
+             lambda: supsup_ops.gemm_update(x5c, x5a, s5b),
+             lambda: supsup_ops.gemm_update_plain(x5c, x5a, s5b),
+             lambda: torch.baddbmm(x5c, x5a, s5b, alpha=-1),
+             2.0 * nr5 * k5 * m5,
+             (2 * nr5 * m5 + nr5 * k5 + k5 * m5) * s, TOL, None),
+            ("suprow_update", "suprow_update",
+             "src/repro/kernels/suprow/kernel.py:21",
+             "src/repro_torch/csrc/suprow.cu",
+             f"x (1, {k6} + {m6}) src (1, {k6}, {k6} + {m6})",
+             lambda: suprow_ops.suprow_update(x6, s6, k6),
+             lambda: suprow_ops.suprow_update_plain(x6, s6, k6),
+             lambda: (lambda y_: (y_, x6[:, k6:] - torch.matmul(
+                 y_, s6[:, :, k6:])[:, 0]))(torch.linalg.solve_triangular(
+                     s6[:, :, :k6], x6k, upper=True, left=False)),
+             float(k6 * k6 + 2 * k6 * m6),
+             (2 * (k6 + m6) + k6 * (k6 + 1) // 2 + k6 * m6) * s, TOL, None),
         ]
 
     def held(name, dname, tol, got, ref, what=""):
@@ -414,7 +515,7 @@ def kernel_phase(torch, np, kernels, eng, vals0):
         perturbed)."""
         torch.cuda.synchronize()
         moved = None
-        if isinstance(got, tuple):                  # panel LU outputs
+        if name.startswith("panel_lu"):             # (panels, perm, nper)
             check(torch.equal(got[1], ref[1]),
                   f"{name} {dname}{what}: pivot permutations differ")
             check(torch.equal(got[2], ref[2]),
@@ -422,10 +523,18 @@ def kernel_phase(torch, np, kernels, eng, vals0):
             ident = torch.arange(got[1].shape[-1], device=dev)
             moved = (int((got[1] != ident).sum()), int(got[2].sum()))
             got, ref = got[0], ref[0]
-        err = float((got - ref).abs().max())
-        check(bool(torch.allclose(got, ref, rtol=tol, atol=tol)),
+        pairs = (list(zip(got, ref)) if isinstance(got, tuple)
+                 else [(got, ref)])
+        err = max(float((g - r).abs().max()) for g, r in pairs)
+        check(all(bool(torch.allclose(g, r, rtol=tol, atol=tol))
+                  for g, r in pairs),
               f"{name} {dname}{what}: max |kernel - plain| = {err} "
               f"outside rtol=atol={tol}")
+        if dname == "float64" and name in REL_TOL_F64:
+            rel = err / max(float(r.abs().max()) for _, r in pairs)
+            check(rel <= REL_TOL_F64[name], f"{name} {dname}{what}: "
+                  f"relative error {rel} > {REL_TOL_F64[name]}")
+            records[name]["max_rel_err"] = rel
         return err, moved
 
     records = {}
@@ -433,10 +542,10 @@ def kernel_phase(torch, np, kernels, eng, vals0):
         dname = str(dt).replace("torch.", "")
         for (name, wrapper, replaces, source, shape, kern, plain, lib, flops,
              nbytes, tol, shuf) in cases(dt):
-            err, moved = held(name, dname, tol[dname], kern(), plain())
             rec = records.setdefault(name, {
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "wrapper": wrapper, "shape": shape})
+            err, moved = held(name, dname, tol[dname], kern(), plain())
             sfx = "" if dname == "float64" else "_f32"
             if shuf is not None:
                 err_s, moved_s = held(name, dname, tol[dname], shuf[0](),
@@ -459,10 +568,181 @@ def kernel_phase(torch, np, kernels, eng, vals0):
                 else "operations",
                 "library_ms" + sfx: (bench_ms(torch, lib) if lib is not None
                                      else None)})
+    # K1 and K2 with an exactly zero pivot under a zero threshold: the first
+    # block column of one panel set to zero.  The Pallas arithmetic turns
+    # the masked terms into 0 * inf = NaN (csrc/panel_lu.cu, "Non-finite
+    # steps"); the kernel must give the plain version's NaN and inf
+    # positions and its finite values.
+    zero_cases = [("panel_lu_bucketed", P1[:1], 0, pb.wu,
+                   lambda p_, e_: panel_ops.panel_lu_batched(p_, pb.wu, e_)),
+                  ("panel_lu", P2[:1], nd.lsize, nd.width,
+                   lambda p_, e_: panel_ops.panel_lu(p_, nd.nr, nd.lsize,
+                                                     e_))]
+    for name, P, c0, wlim, kern in zero_cases:
+        for dt in (torch.float64, torch.float32):
+            dname = str(dt).replace("torch.", "")
+            Z = P.to(dt).clone()
+            Z[:, :, c0] = 0.0
+            ez = torch.zeros(1, dtype=dt, device=dev)
+            got = kern(Z, ez)
+            ref = panel_ops.panel_lu_plain(Z, c0, wlim, ez)
+            torch.cuda.synchronize()
+            what = f"{name} {dname} (zero pivot, eps = 0)"
+            check(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
+                  f"{what}: pivots or perturbation counts differ")
+            g, r = got[0], ref[0]
+            check(torch.equal(torch.isnan(g), torch.isnan(r))
+                  and torch.equal(torch.isinf(g), torch.isinf(r)),
+                  f"{what}: NaN or inf positions differ")
+            fin = torch.isfinite(r)
+            err = float((g[fin] - r[fin]).abs().max())
+            check(bool(torch.allclose(g[fin], r[fin], rtol=TOL[dname],
+                                      atol=TOL[dname])),
+                  f"{what}: finite values differ by {err}")
+            sfx = "" if dname == "float64" else "_f32"
+            records[name].update({
+                "zero_pivot_nan" + sfx: int(torch.isnan(r).sum()),
+                "zero_pivot_finite" + sfx: int(fin.sum()),
+                "zero_pivot_max_abs_err" + sfx: err})
+
+    records["gemm_update"]["edges"] = edges5
+    records["suprow_update"]["edges"] = edges6
     out = list(records.values())
     emit({"phase": "kernels", "dtypes": ["float64", "float32"],
           "records": out, "seconds": time.perf_counter() - t})
     return out
+
+
+def scalar_phase(torch, np, kernels, A, an64, an_u, an32):
+    """Phase 7: factor -> refactor -> solve of one system at fem2d_10k under
+    both schedules (float64) and with float32 factors; returns the launches
+    of the whole phase by wrapper."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from repro_torch.core import (CSR, factor, refactor, solve,
+                                  torch_repeated_engine)
+
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(9)
+    v1, v2 = (A.data * rng.uniform(0.8, 1.2, A.nnz) for _ in range(2))
+    A1 = CSR(A.n, A.indptr, A.indices, v1)
+    A2 = CSR(A.n, A.indptr, A.indices, v2)
+    b = rng.normal(size=A.n)
+    xr = spla.spsolve(sp.csr_matrix((v2, A.indices, A.indptr),
+                                    shape=(A.n, A.n)).tocsc(), b)
+    nodes = an64.plan.nodes
+    n_supsup = sum(1 for nd in nodes for e in nd.edges
+                   if nd.nr > 1 and nodes[e.src].nr > 1)
+    n_wide = sum(1 for nd in nodes if nd.nr > 1)
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    res, states = {}, {}
+    for label, an in (("bucketed", an64), ("unrolled", an_u),
+                      ("bucketed_f32", an32)):
+        torch_repeated_engine(an)               # built outside the timing
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = factor(an, A1)
+        t_factor = time.perf_counter() - t0
+        per_factor = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = refactor(st, A2)
+        t_refactor = time.perf_counter() - t0
+        per_refactor = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        x, info = solve(st, b)
+        t_solve = time.perf_counter() - t0
+        per_solve = kernels.launch_counts()
+        for w in total:
+            total[w] += per_factor[w] + per_refactor[w] + per_solve[w]
+        states[label] = st.torch_factors
+        res[label] = {
+            "factor_ms": t_factor * 1e3, "refactor_ms": t_refactor * 1e3,
+            "solve_ms": t_solve * 1e3, "residual": info["residual"],
+            "n_refine": info["n_refine"], "n_perturb": info["n_perturb"],
+            "refine_failed": info["refine_failed"],
+            "scipy_rel_err": float(np.abs(x - xr).max() / np.abs(xr).max()),
+            "launches_per_refactor": {w: c for w, c in per_refactor.items()
+                                      if c}}
+    fb, fu = states["bucketed"], states["unrolled"]
+    unrolled_vs_bucketed = float((fu.vals - fb.vals).abs().max())
+    same_pivots = bool(torch.equal(fu.inode_perm, fb.inode_perm))
+    u_counts = res["unrolled"]["launches_per_refactor"]
+    emit({"phase": "scalar", "matrix": "fem2d_10k", "runs": res,
+          "unrolled_vs_bucketed_max_abs": unrolled_vs_bucketed,
+          "same_inode_perm": same_pivots,
+          "plan_supsup_edges": n_supsup, "plan_wide_nodes": n_wide,
+          "seconds": time.perf_counter() - t_all})
+    for label, r in res.items():
+        check(r["residual"] <= 1e-10, f"scalar {label}: residual "
+                                      f"{r['residual']} > 1e-10")
+        check(r["scipy_rel_err"] <= 1e-10, f"scalar {label}: spsolve "
+                                           f"disagreement {r['scipy_rel_err']}")
+        check(not r["refine_failed"], f"scalar {label}: refine_failed")
+    check(same_pivots, "unrolled and bucketed pivots differ")
+    check(int(fu.n_perturb) == int(fb.n_perturb),
+          "unrolled and bucketed perturbation counts differ")
+    check(unrolled_vs_bucketed <= 1e-10,
+          f"unrolled vs bucketed factors {unrolled_vs_bucketed} > 1e-10")
+    check(u_counts.get("gemm_update", 0) == n_supsup > 0,
+          f"K5 launches per unrolled refactor {u_counts} != {n_supsup}")
+    check(u_counts.get("trsm_batched", 0) == n_supsup,
+          f"K3 launches per unrolled refactor {u_counts} != {n_supsup}")
+    check(u_counts.get("panel_lu", 0) == n_wide > 0,
+          f"K2 launches per unrolled refactor {u_counts} != {n_wide}")
+    b_counts = res["bucketed"]["launches_per_refactor"]
+    for w in ("panel_lu_batched", "panel_lu", "trsm_batched",
+              "gemm_batched"):
+        check(b_counts.get(w, 0) > 0,
+              f"kernel {w} was not launched by the bucketed refactor")
+    return total
+
+
+def plain_phase(torch, np, kernels, A, an64, bst, values0, b, t_factor,
+                t_solve):
+    """Phase 8: one batched step with use_kernels=False (plain factor
+    program, level-scheduled substitution) beside the kernel route."""
+    from repro_torch.core import (HyluOptions, analyze, factor_batched,
+                                  solve_batched, torch_repeated_engine)
+
+    t_all = time.perf_counter()
+    an_p = analyze(A, HyluOptions(use_kernels=False), reuse=an64)
+    eng_p = torch_repeated_engine(an_p)
+    eng_k = torch_repeated_engine(an64)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    bst_p = factor_batched(an_p, A, values0)
+    t_factor_p = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_p, info_p = solve_batched(bst_p, b)
+    t_solve_p = time.perf_counter() - t0
+    moved = {w: c for w, c in kernels.launch_counts().items() if c}
+    # one substitution of the same factors by each schedule
+    b_dev = torch.from_numpy(b).to(eng_k.device)
+    apply_level = bench_ms(torch, lambda: eng_p.apply_batched(
+        bst.vals, bst.inode_perm, b_dev), min_ms=0.0)
+    apply_block = bench_ms(torch, lambda: eng_k.apply_batched(
+        bst.vals, bst.inode_perm, b_dev), min_ms=0.0)
+    levels = {name: len(getattr(eng_p.ss, name).rows)
+              for name in ("l_fwd", "u_bwd")}
+    emit({"phase": "plain", "matrix": "fem2d_10k", "k": K_MAIN,
+          "factor_batched_ms": t_factor_p * 1e3,
+          "solve_batched_ms": t_solve_p * 1e3,
+          "kernel_route_factor_batched_ms": t_factor * 1e3,
+          "kernel_route_solve_batched_ms": t_solve * 1e3,
+          "apply_level_scheduled_ms": apply_level,
+          "apply_node_block_ms": apply_block,
+          "levels": levels, "block_nodes": len(eng_k._blocks),
+          "max_residual": float(info_p["residual"].max()),
+          "refine_iters": info_p["n_refine"], "kernel_launches": moved,
+          "seconds": time.perf_counter() - t_all})
+    check(not moved, f"use_kernels=False launched kernels: {moved}")
+    check(np.isfinite(x_p).all() and info_p["residual"].max() <= 1e-10,
+          f"use_kernels=False residual {info_p['residual'].max()}")
 
 
 if __name__ == "__main__":

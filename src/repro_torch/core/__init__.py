@@ -1,8 +1,11 @@
-"""repro_torch.core — the batched repeated-solve path of HYLU in PyTorch.
+"""repro_torch.core — HYLU's solve lifecycle in PyTorch.
 
     CSR                        sparse container
     HyluOptions                solver options (``device``, ``use_kernels``)
     analyze                    host preprocessing → Analysis
+    factor / refactor / solve / solve_system
+                               one value set, factored on the device and
+                               solved with host refinement (FactorState)
     factor_batched / solve_batched / solve_sequence
                                K value sets of one pattern, factored and
                                solved on the device
@@ -10,12 +13,14 @@
     analysis_from_arrays       an analysis written by the JAX package
 """
 from .matrix import CSR
-from .api import (HyluOptions, Analysis, BatchedFactorState, analyze,
+from .api import (HyluOptions, Analysis, BatchedFactorState, FactorState,
+                  analyze, factor, refactor, solve, solve_system,
                   factor_batched, solve_batched, solve_sequence,
                   torch_repeated_engine, analysis_from_arrays,
                   pattern_key, plan_fingerprint)
 
-__all__ = ["CSR", "HyluOptions", "Analysis", "BatchedFactorState", "analyze",
-           "factor_batched", "solve_batched", "solve_sequence",
-           "torch_repeated_engine", "analysis_from_arrays",
+__all__ = ["CSR", "HyluOptions", "Analysis", "BatchedFactorState",
+           "FactorState", "analyze", "factor", "refactor", "solve",
+           "solve_system", "factor_batched", "solve_batched",
+           "solve_sequence", "torch_repeated_engine", "analysis_from_arrays",
            "pattern_key", "plan_fingerprint"]

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .matrix import CSR
-from .analysis import Analysis, analyze, torch_repeated_engine
+from .analysis import Analysis, _sync, analyze, torch_repeated_engine
 from .options import HyluOptions, resolve_refine_tol
 
 
@@ -85,11 +85,6 @@ def _stage_rhs(eng, b_batch, k: int) -> torch.Tensor:
     if b.ndim == 1:
         b = b.expand(k, b.shape[0])
     return b
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def factor_batched(an: Analysis, a_pattern, values_batch) -> BatchedFactorState:

@@ -11,8 +11,8 @@ fingerprints are the same as the JAX package's, with three changes:
   ``plan_fingerprint`` hash exactly as the JAX package's do with
   ``use_pallas=True`` — an analysis written by either package is
   recognised by the other;
-* ``engine`` defaults to ``"torch"``, and ``refine_dtype="auto"`` always
-  means float64 (PyTorch has no x64 switch).
+* ``engine`` is ``"torch"`` (the default) or ``"ref"``, and
+  ``refine_dtype="auto"`` always means float64 (PyTorch has no x64 switch).
 
 Options this slice of the port does not run raise ``NotImplementedError``
 (:func:`check_supported`); ROADMAP.md lists them.
@@ -135,18 +135,12 @@ def check_supported(opts: HyluOptions, device) -> None:
     not run (see ROADMAP.md), instead of computing something else."""
     def missing(what):
         raise NotImplementedError(
-            f"{what} is not ported yet (repro_torch slice 1 runs the "
-            "bucketed factor schedule with the block-substitution kernels); "
-            "see ROADMAP.md, Queue A")
+            f"{what} is not ported yet; see ROADMAP.md, Queue A")
 
-    if not opts.use_kernels:
-        missing("use_kernels=False (the level-scheduled substitution)")
-    if opts.factor_schedule != "bucketed":
-        missing(f"factor_schedule={opts.factor_schedule!r}")
     if opts.donate:
         missing("donate=True (buffer donation)")
-    if opts.engine != "torch":
-        raise ValueError(f"repro_torch runs engine='torch', got "
+    if opts.engine not in ("torch", "ref"):
+        raise ValueError(f"repro_torch runs engine='torch' or 'ref', got "
                          f"{opts.engine!r}")
     if dtype_name(opts.factor_dtype) == "bfloat16" and \
             getattr(device, "type", str(device)) == "cuda":

@@ -16,14 +16,19 @@
 // rank-1 update to rows > j, columns (c0+j, wlim), and (5) stores the
 // multipliers in column c0+j.  Columns outside [c0, wlim) are only swapped.
 //
-// What bounds it on the card: the pivot loop is sequential in j, with five
-// block-wide barriers per step, so one panel is latency bound; the card is
-// filled by running one thread block per panel (K*B panels per launch for
-// a bucket, K for a node).  The design keeps the panel in shared memory when
-// nr*wt*sizeof(T) fits (fem2d_10k's largest bucket, 32 x 448 f64, is 114,688
-// bytes, so the dynamic shared-memory limit is raised above 48 KB), and
-// otherwise works in place in the output in device memory.  Each panel is
-// then read once and written once; the rank-1 updates never leave the SM.
+// Non-finite steps.  The Pallas kernels subtract the masked rank-1 product
+// l urow from the WHOLE panel, with l = q * [i > j] (q = P[:, c0+j] / piv)
+// and urow = P[j] * [c0+j < c < wlim].  As they run (interpreted, under
+// jit) XLA turns each mask product into a select, so l is q below row j and
+// 0 elsewhere, urow the pivot row inside the window and 0 elsewhere.  With
+// finite q below row j and a finite pivot row in the window, the terms
+// outside (4)'s rows and columns are exact zeros, and (4)-(5) give the same
+// panel.  A zero pivot under a zero threshold, or a non-finite entry, makes
+// some term inf * 0 = NaN: a non-finite q_i turns all of row i > j NaN, a
+// non-finite urow_c all of column c in rows <= j.  So each step sets a block
+// flag when one of those is not finite, and only then runs the masked
+// update of the whole panel (slow, and reached only by degenerate input).
+//
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,6 +49,29 @@ __device__ __forceinline__ bool pivot_better(T a, int ia, T b, int ib) {
   const bool an = is_nan(a), bn = is_nan(b);
   if (an || bn) return an && (!bn || ia < ib);
   return a > b || (a == b && ia < ib);
+}
+
+// The Pallas step on the whole panel, for a step whose flag is set:
+// P[i, c] -= l_i urow_c with the selects above, then column pc of the rows
+// below j holds q.  q is in lcol.  Row j is read by every other row, so it
+// is updated after a barrier; column pc of the rows up to j is unchanged
+// (l = 0 there, and urow_pc = 0).
+template <typename T>
+__device__ void masked_update(T* P, const T* lcol, int nr, int wt, int j,
+                              int pc, int wlim) {
+  T* rj = P + (long long)j * wt;
+  const long long size = (long long)nr * wt;
+  for (long long idx = threadIdx.x; idx < size; idx += blockDim.x) {
+    const int i = (int)(idx / wt), c = (int)(idx % wt);
+    const bool in = c > pc && c < wlim;
+    if (i > j)
+      P[idx] = c == pc ? lcol[i] : P[idx] - lcol[i] * (in ? rj[c] : T(0));
+    else if (i < j && in)
+      P[idx] -= T(0) * rj[c];
+  }
+  __syncthreads();
+  for (int c = pc + 1 + threadIdx.x; c < wlim; c += blockDim.x)
+    rj[c] -= T(0) * rj[c];
 }
 
 template <typename T>
@@ -123,19 +151,28 @@ panel_lu_kernel(const T* __restrict__ in, T* __restrict__ out,
     }
     __syncthreads();
     const T piv = piv_val;
-    for (int i = j + 1 + tid; i < nr; i += blockDim.x)
-      lcol[i] = P[(long long)i * wt + pc] / piv;
-    __syncthreads();
-    // (4) rank-1 update: one warp per row, lanes along the columns
-    const T* rj = P + (long long)j * wt;
-    for (int i = j + 1 + warp; i < nr; i += nwarps) {
-      T* ri = P + (long long)i * wt;
-      const T li = lcol[i];
-      for (int c = pc + 1 + lane; c < wlim; c += 32) ri[c] -= li * rj[c];
+    T* rj = P + (long long)j * wt;
+    int bad = 0;
+    for (int i = j + 1 + tid; i < nr; i += blockDim.x) {
+      const T q = P[(long long)i * wt + pc] / piv;
+      lcol[i] = q;
+      bad |= !isfinite(q);
     }
-    // (5) multipliers into the pivot column (disjoint from (4)'s columns)
-    for (int i = j + 1 + tid; i < nr; i += blockDim.x)
-      P[(long long)i * wt + pc] = lcol[i];
+    for (int c = pc + 1 + tid; c < wlim; c += blockDim.x)
+      bad |= !isfinite(rj[c]);
+    if (!__syncthreads_or(bad)) {
+      // (4) rank-1 update: one warp per row, lanes along the columns
+      for (int i = j + 1 + warp; i < nr; i += nwarps) {
+        T* ri = P + (long long)i * wt;
+        const T li = lcol[i];
+        for (int c = pc + 1 + lane; c < wlim; c += 32) ri[c] -= li * rj[c];
+      }
+      // (5) multipliers into the pivot column (disjoint from (4)'s columns)
+      for (int i = j + 1 + tid; i < nr; i += blockDim.x)
+        P[(long long)i * wt + pc] = lcol[i];
+    } else {
+      masked_update(P, lcol, nr, wt, j, pc, wlim);
+    }
     __syncthreads();
   }
 

@@ -7,10 +7,12 @@ kernels by its counts)."""
 from __future__ import annotations
 
 from .panel import ops as panel_ops
+from .suprow import ops as suprow_ops
 from .supsup import ops as supsup_ops
 from .trisolve import ops as trisolve_ops
 
-#: wrapper name → wrapper, for every kernel entry point on the main path
+#: wrapper name → wrapper, for every kernel entry point (``suprow_update``
+#: has no caller on an engine path, as in the JAX package)
 WRAPPERS = {
     "panel_lu_batched": panel_ops.panel_lu_batched,
     "panel_lu": panel_ops.panel_lu,
@@ -18,6 +20,8 @@ WRAPPERS = {
     "trsm_left_unit_lower_batched": trisolve_ops.trsm_left_unit_lower_batched,
     "trsm_left_upper_batched": trisolve_ops.trsm_left_upper_batched,
     "gemm_batched": supsup_ops.gemm_batched,
+    "gemm_update": supsup_ops.gemm_update,
+    "suprow_update": suprow_ops.suprow_update,
 }
 
 

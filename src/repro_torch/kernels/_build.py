@@ -38,12 +38,16 @@ _PANEL = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _RIGHT = [_P, _P, _P, _I, _I, _I, _I, _P]
 _LEFT = [_P, _P, _P, _I, _I, _I, _P]
 _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
+_GEMM_UPDATE = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_SUPROW = [_P, _P, _P, _P, _I, _I, _I, _P]
 SIGNATURES = {
     **{f"hylu_panel_lu_{s}": _PANEL for s in ("f64", "f32")},
     **{f"hylu_trsm_right_{s}": _RIGHT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_unit_lower_{s}": _LEFT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_upper_{s}": _LEFT for s in ("f64", "f32")},
     **{f"hylu_bmm_{s}": _BMM for s in ("f64", "f32")},
+    **{f"hylu_gemm_update_{s}": _GEMM_UPDATE for s in ("f64", "f32")},
+    **{f"hylu_suprow_{s}": _SUPROW for s in ("f64", "f32")},
 }
 
 _lock = threading.Lock()

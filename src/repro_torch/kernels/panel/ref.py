@@ -41,9 +41,12 @@ def panel_lu_plain(panels: torch.Tensor, c0: int, wlim: int,
         piv = torch.where(small, torch.where(piv >= 0, eps, -eps), piv)
         P[:, j, pc] = piv
         nper += small.to(torch.int32)
-        l = P[:, :, pc] / piv[:, None]
-        l = l * (rows[None, :] > j).to(P.dtype)
-        urow = P[:, j, :] * ((cols > pc) & (cols < wlim)).to(P.dtype)[None]
+        # the masks are selects, as XLA runs the Pallas kernels' mask
+        # products: a non-finite multiplier or pivot-row entry then spreads
+        # NaN exactly as there (0 · inf), nowhere else
+        l = torch.where(rows[None, :] > j, P[:, :, pc] / piv[:, None], 0.0)
+        urow = torch.where(((cols > pc) & (cols < wlim))[None], P[:, j, :],
+                           0.0)
         P = P - l[:, :, None] * urow[:, None, :]
         P[:, :, pc] = torch.where(rows[None, :] > j, l, P[:, :, pc])
     return P, perm, nper

@@ -85,13 +85,22 @@ def test_default_device_raises_without_cuda():
         torch_repeated_engine(an)
 
 
-@pytest.mark.parametrize("kw", [dict(use_kernels=False),
-                                dict(factor_schedule="unrolled"),
-                                dict(donate=True)])
+@pytest.mark.parametrize("kw", [dict(donate=True)])
 def test_unported_options_raise(kw):
     an = analyze(_tiny(), HyluOptions(device="cpu", **kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_repeated_engine(an)
+
+
+@pytest.mark.parametrize("kw", [dict(use_kernels=False),
+                                dict(factor_schedule="unrolled")])
+def test_ported_options_build_an_engine(kw):
+    """The level-scheduled route and the unrolled schedule are ported: the
+    options build an engine that runs them."""
+    an = analyze(_tiny(), HyluOptions(device="cpu", **kw))
+    eng = torch_repeated_engine(an)
+    assert eng.use_kernels == kw.get("use_kernels", True)
+    assert eng.schedule == kw.get("factor_schedule", "bucketed")
 
 
 def test_bfloat16_on_cuda_raises():
@@ -104,7 +113,8 @@ def test_build_is_lazy_and_hashes_the_sources():
     """Importing the kernels builds nothing; the build key covers every
     CUDA source, and a missing nvcc is an error, not a fallback."""
     names = [p.name for p in _build.sources()]
-    assert names == ["bmm.cu", "panel_lu.cu", "trsm.cu"]
+    assert names == ["bmm.cu", "gemm_update.cu", "panel_lu.cu", "suprow.cu",
+                     "trsm.cu"]
     assert _build.source_hash() == _build.source_hash()
     for fn in _build.SIGNATURES:
         assert fn.startswith("hylu_")
