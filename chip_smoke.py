@@ -36,7 +36,23 @@ Phases, each printing one JSON line:
             unrolled refactor against the plan's counts;
 8. plain    one batched step at K = 32 with ``use_kernels=False`` (plain
             factor program, level-scheduled substitution): residuals, no
-            kernel launched, and its times beside the kernel route's.
+            kernel launched, and its times beside the kernel route's;
+9. model_kernels  per serving model, K7 (flash attention) on the q/k/v of
+            phi3-medium-14b's first attention layer and K8 (WKV) on the
+            r/k/v/w of rwkv6-1.6b's first time-mix layer, at the serving
+            shape (4 requests of 2,048 tokens), each against its plain
+            version in bfloat16 and float32 (K7) or float32 (K8), also at a
+            ragged T and (K7) without the causal mask, with its time, the
+            plain version's, the library call's (K7) and the bound;
+10. transformer  the serving path of each model at full width and depth
+            in bfloat16 through its entry points (``init_params`` on the
+            card, ``greedy_generate``): 4 requests of 2,048 random prompt
+            tokens, 16 new tokens each; prefill and decode times, peak
+            memory, K7 / K8 launches (one per layer per prefill, none in
+            decode), finite logits; decode against the teacher-forced
+            forward and the kernel route against ``use_kernels=False`` in
+            float32 at full width and 2 layers (2e-3); the two routes'
+            bfloat16 logits and greedy tokens at full depth, printed.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -55,12 +71,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 K_MAIN, T_STEPS, K_WIDTH1 = 32, 3, 8
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float64": 67e12,    # fp64 (tensor core) peak, data sheet
-              "float32": 67e12}    # fp32 outside the tensor cores
+              "float32": 67e12,    # fp32 outside the tensor cores
+              "bfloat16": 989e12}  # bf16 dense tensor cores
 TOL = {"float64": 1e-10, "float32": 1e-4}
 # K5 and K6 are also held to 1e-12 relative to the plain version's largest
 # magnitude in float64
 REL_TOL_F64 = {"gemm_update": 1e-12, "suprow_update": 1e-12}
 TOL_LEFT = {"float64": 1e-10, "float32": 1e-3}
+# the serving phases: two models at full width and depth, 4 requests of
+# 2,048 prompt tokens and 16 new tokens each, weights and prompts from SEED
+SERVING_MODELS = ("phi3-medium-14b", "rwkv6-1.6b")
+BATCH, PROMPT, NEW_TOKENS, SEED = 4, 2048, 16, 0
+RAGGED_T = 2000                     # not a multiple of K7's 64-row tiles
+TOL_MODEL = {"bfloat16": 3e-2, "float32": 2e-5}   # K7: tests/test_kernels.py
+TOL_WKV, TOL_DECODE = 2e-4, 2e-3    # K8 (y and state); decode ≡ forward
 
 
 def emit(obj):
@@ -293,6 +317,10 @@ def main() -> int:
         rec["launches_by_path"] = {"batched": counts[w],
                                    "scalar": scalar_counts[w]}
         rec["launches"] = counts[w] + scalar_counts[w]
+    from repro_torch.configs import registry
+
+    for name in SERVING_MODELS:
+        records.append(serving_phase(torch, np, kernels, registry.get(name)))
     emit({"kernels": records})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -743,6 +771,278 @@ def plain_phase(torch, np, kernels, A, an64, bst, values0, b, t_factor,
     check(not moved, f"use_kernels=False launched kernels: {moved}")
     check(np.isfinite(x_p).all() and info_p["residual"].max() <= 1e-10,
           f"use_kernels=False residual {info_p['residual'].max()}")
+
+
+def first_layer(T, L, cfg, params, prompt):
+    """The model's forward stopped at its first sub-layer: the embedded
+    prompt through ``ln1`` — the input of the first attention or time-mix
+    layer — and that layer's params."""
+    sub = T.layer_slice(params["blocks"][0], 0)
+    return L.rms_norm(params["embed"][prompt], sub["ln1"], cfg.norm_eps), sub
+
+
+def flash_record(torch, L, T, cfg, params, prompt):
+    """Phase 9 for phi3-medium: K7 on the q/k/v its first attention layer
+    makes (the (B, H, T, D) views of the (B, T, H, D) projections that
+    ``attention_seq`` hands the kernel), bfloat16 as served and float32."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flashattn import ops as flash
+
+    t = time.perf_counter()
+    h, sub = first_layer(T, L, cfg, params, prompt)
+    positions = torch.arange(PROMPT, device=prompt.device)[None].expand(
+        BATCH, PROMPT)
+    q, k, v = (a.transpose(1, 2) for a in L.attention_qkv(
+        cfg, sub["attn"], h, positions))
+    b, hq, tq, d = q.shape
+    rec = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attn.cu",
+           "replaces": "src/repro/kernels/flashattn/kernel.py:28",
+           "shape": f"q ({b}, {hq}, {tq}, {d}) k, v ({b}, {k.shape[1]}, "
+                    f"{tq}, {d}), causal, phi3-medium-14b layer 0",
+           "dtype": "bfloat16"}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        sfx = "" if dt == torch.bfloat16 else "_f32"
+        ops = [a.to(dt) for a in (q, k, v)]
+        cases = {"": (ops, True),
+                 "_ragged": ([a[:, :, :RAGGED_T] for a in ops], True),
+                 "_noncausal": (ops, False)}
+        for label, (args, causal) in cases.items():
+            got = flash.flash_attention(*args, causal=causal)
+            ref = flash.attention_plain(*args, causal=causal)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            tol = TOL_MODEL[dname]
+            check(bool(torch.allclose(got.float(), ref.float(), rtol=tol,
+                                      atol=tol)),
+                  f"flash_attention {dname}{label}: max |kernel - plain| = "
+                  f"{err} outside rtol=atol={tol}")
+            rec["max_abs_err" + label + sfx] = err
+        pairs = tq * (tq + 1) / 2                  # causal (row, col) pairs
+        flops = 4.0 * d * pairs * b * hq
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * ops[0].element_size()
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
+        rec.update({
+            "tol" + sfx: TOL_MODEL[dname],
+            "ms" + sfx: bench_ms(torch, lambda: flash.flash_attention(*ops)),
+            "plain_ms" + sfx: bench_ms(
+                torch, lambda: flash.attention_plain(*ops)),
+            "bound_ms" + sfx: max(t_bytes, t_ops) * 1e3,
+            "bound_by" + sfx: "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms" + sfx: bench_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    *ops, is_causal=True, enable_gqa=True))})
+    rec["library"] = ("torch.nn.functional.scaled_dot_product_attention("
+                      "is_causal=True, enable_gqa=True)")
+    rec["ragged_t"] = RAGGED_T
+    emit({"phase": "model_kernels", "model": cfg.name, "record": rec,
+          "seconds": time.perf_counter() - t})
+    return rec
+
+
+def wkv_record(torch, L, T, cfg, params, prompt):
+    """Phase 9 for rwkv6: K8 on the r/k/v/w its first time-mix layer makes
+    (the (B, H, T, hs) views ``rwkv_time_mix_seq`` hands the kernel)."""
+    from repro_torch.kernels.wkv import ops as wkvops
+
+    t = time.perf_counter()
+    h, sub = first_layer(T, L, cfg, params, prompt)
+    r, k, v, w, u, _ = L.rwkv_wkv_inputs(cfg, sub["rwkv"], h)
+    ops = [a.transpose(1, 2) for a in (r, k, v, w)]
+    b, nh, tq, hs = ops[0].shape
+    rec = {"name": "wkv", "route": "cuda", "source": "src/repro_torch/csrc/wkv.cu",
+           "replaces": "src/repro/kernels/wkv/kernel.py:26",
+           "shape": f"r, k, v, w ({b}, {nh}, {tq}, {hs}) u ({nh}, {hs}), "
+                    "rwkv6-1.6b layer 0", "dtype": "float32"}
+    for label, args in (("", ops), ("_ragged", [a[:, :, :RAGGED_T]
+                                                for a in ops])):
+        got = wkvops.wkv(*args, u)
+        ref = wkvops.wkv_plain(*args, u)
+        torch.cuda.synchronize()
+        for part, g, r_ in (("", got[0], ref[0]), ("_state", got[1], ref[1])):
+            err = float((g - r_).abs().max())
+            check(bool(torch.allclose(g, r_, rtol=TOL_WKV, atol=TOL_WKV)),
+                  f"wkv{label}{part}: max |kernel - plain| = {err} outside "
+                  f"rtol=atol={TOL_WKV}")
+            rec["max_abs_err" + label + part] = err
+    flops = 7.0 * hs * hs * tq * b * nh         # per step: k v^T, y, S update
+    nbytes = 4 * (5 * ops[0].numel() + u.numel() + b * nh * hs * hs)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
+    rec.update({"tol": TOL_WKV, "ragged_t": RAGGED_T, "steps": tq,
+                "ms": bench_ms(torch, lambda: wkvops.wkv(*ops, u)),
+                "plain_ms": bench_ms(torch, lambda: wkvops.wkv_plain(*ops, u)),
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None})
+    emit({"phase": "model_kernels", "model": cfg.name, "record": rec,
+          "seconds": time.perf_counter() - t})
+    return rec
+
+
+def f32_checks(torch, T, cfg, prompt):
+    """decode ≡ teacher-forced forward, and the kernel route against
+    ``use_kernels=False``, in float32 at full width and 2 layers."""
+    import dataclasses
+
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = T.init_params(cfg2, seed=SEED, dtype=torch.float32)
+    prefill = make_prefill_step(cfg2, s_max=PROMPT + NEW_TOKENS)
+    decode = make_decode_step(cfg2)
+    logits, cache = prefill(params, tokens=prompt)
+    steps, toks = [logits[:, -1]], [logits[:, -1].argmax(-1)]
+    for i in range(NEW_TOKENS - 1):
+        lg, cache = decode(params, toks[-1][:, None], cache, PROMPT + i)
+        steps.append(lg[:, -1])
+        toks.append(lg[:, -1].argmax(-1))
+    seq = torch.cat([prompt, torch.stack(toks[:-1], 1)], 1)
+    hidden, _, _ = T.forward(cfg2, params, tokens=seq)
+    full = T.lm_logits(cfg2, params, hidden[:, PROMPT - 1:])
+    decode_err = float((torch.stack(steps, 1) - full).abs().max())
+    plain, _ = make_prefill_step(cfg2, use_kernels=False)(params,
+                                                          tokens=prompt)
+    route_err = float((plain[:, -1] - logits[:, -1]).abs().max())
+    check(decode_err < TOL_DECODE, f"{cfg.name} f32 2 layers: decode vs "
+                                   f"forward {decode_err} >= {TOL_DECODE}")
+    check(route_err < TOL_DECODE, f"{cfg.name} f32 2 layers: kernel vs plain "
+                                  f"route {route_err} >= {TOL_DECODE}")
+    return {"decode_vs_forward_max_abs": decode_err,
+            "kernel_vs_plain_route_max_abs": route_err,
+            "teacher_forced_tokens": int(seq.shape[1])}
+
+
+def serving_phase(torch, np, kernels, cfg):
+    """Phases 9 and 10 for one model; returns its kernel's record for the
+    kernels line, with the launches of the main path's run."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import (greedy_generate,
+                                              make_decode_step,
+                                              make_prefill_step)
+
+    t_all = time.perf_counter()
+    attn = cfg.layer_kinds()[0] == "attn"
+    wrapper = "flash_attention" if attn else "wkv"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in _leaves(params))
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (BATCH, PROMPT))).cuda()
+    rec = (flash_record if attn else wkv_record)(torch, L, T, cfg, params,
+                                                 prompt)
+
+    # ---- 10. the serving path -------------------------------------------
+    t = time.perf_counter()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = greedy_generate(cfg, params, prompt, NEW_TOKENS)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    path_counts = kernels.launch_counts()
+    # the same requests step by step through the steps greedy_generate runs
+    prefill = make_prefill_step(cfg, s_max=PROMPT + NEW_TOKENS)
+    decode = make_decode_step(cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens=prompt)
+    nxt = logits[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    per_prefill = kernels.launch_counts()
+    finite = [bool(torch.isfinite(logits).all())]
+    last_kernel = logits[:, -1].float()
+    out, step_s = [nxt], []
+    kernels.reset_launch_counts()
+    for i in range(NEW_TOKENS - 1):
+        t0 = time.perf_counter()
+        lg, cache = decode(params, out[-1][:, None], cache, PROMPT + i)
+        nxt = lg[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        finite.append(bool(torch.isfinite(lg).all()))
+        out.append(nxt)
+    per_decode = kernels.launch_counts()
+    stepped = torch.stack(out, 1)
+    peak = torch.cuda.max_memory_allocated()
+    del cache, lg, logits
+    # the plain route at full depth in bfloat16, beside the kernel route
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    plain_logits, plain_cache = make_prefill_step(cfg, use_kernels=False)(
+        params, tokens=prompt)
+    torch.cuda.synchronize()
+    plain_prefill_s = time.perf_counter() - t0
+    del plain_cache
+    plain_tokens = greedy_generate(cfg, params, prompt, NEW_TOKENS,
+                                   use_kernels=False)
+    plain_counts = kernels.launch_counts()
+    route_diff = float((plain_logits[:, -1].float() - last_kernel).abs().max())
+    agree = float((plain_tokens == tokens).float().mean())
+    del params, plain_logits
+    torch.cuda.empty_cache()
+    f32 = f32_checks(torch, T, cfg, prompt)
+    torch.cuda.empty_cache()
+    n_kernel_layers = cfg.n_layers          # every layer is attn or rwkv
+    decode_ms = 1e3 * float(np.mean(step_s))
+    res = {"phase": "transformer", "model": cfg.name, "dtype": "bfloat16",
+           "batch": BATCH, "prompt_tokens": PROMPT, "new_tokens": NEW_TOKENS,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "init_params_s": init_s,
+           "greedy_generate_s": generate_s, "prefill_ms": prefill_s * 1e3,
+           "prefill_tokens_per_s": BATCH * PROMPT / prefill_s,
+           "decode_ms_per_step": decode_ms,
+           "decode_ms_per_step_all": [x_ * 1e3 for x_ in step_s],
+           "generated_tokens_per_s": BATCH * NEW_TOKENS / generate_s,
+           "max_memory_allocated": peak,
+           "launches_greedy_generate": path_counts[wrapper],
+           "launches_per_prefill": per_prefill[wrapper],
+           "launches_decode": per_decode[wrapper],
+           "launches_plain_route": plain_counts[wrapper],
+           "all_logits_finite": all(finite),
+           "stepped_equals_greedy": bool(torch.equal(stepped, tokens)),
+           "plain_route_prefill_ms": plain_prefill_s * 1e3,
+           "bf16_route_last_logits_max_abs": route_diff,
+           "bf16_route_greedy_token_agreement": agree,
+           "f32_two_layers": f32, "seconds": time.perf_counter() - t,
+           "phase_seconds": time.perf_counter() - t_all}
+    emit(res)
+    check(res["all_logits_finite"], f"{cfg.name}: non-finite bf16 logits")
+    check(tokens.shape == (BATCH, NEW_TOKENS), f"{cfg.name}: tokens "
+                                               f"{tuple(tokens.shape)}")
+    check(res["stepped_equals_greedy"],
+          f"{cfg.name}: step-by-step tokens differ from greedy_generate's")
+    check(path_counts[wrapper] == per_prefill[wrapper] == n_kernel_layers,
+          f"{cfg.name}: {wrapper} launched {path_counts[wrapper]} times by "
+          f"greedy_generate, {per_prefill[wrapper]} by one prefill; "
+          f"expected {n_kernel_layers} (one per layer)")
+    check(not any(per_decode.values()),
+          f"{cfg.name}: decode launched kernels {per_decode}")
+    check(not any(plain_counts.values()),
+          f"{cfg.name}: use_kernels=False launched kernels {plain_counts}")
+    rec["launches"] = path_counts[wrapper]
+    rec["launches_by_path"] = {"greedy_generate": path_counts[wrapper],
+                               "per_prefill": per_prefill[wrapper],
+                               "decode": per_decode[wrapper]}
+    return rec
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

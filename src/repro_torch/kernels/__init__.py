@@ -6,13 +6,16 @@ and clear the per-wrapper launch counters (a run proves it went through the
 kernels by its counts)."""
 from __future__ import annotations
 
+from .flashattn import ops as flashattn_ops
 from .panel import ops as panel_ops
 from .suprow import ops as suprow_ops
 from .supsup import ops as supsup_ops
 from .trisolve import ops as trisolve_ops
+from .wkv import ops as wkv_ops
 
 #: wrapper name → wrapper, for every kernel entry point (``suprow_update``
-#: has no caller on an engine path, as in the JAX package)
+#: has no caller on an engine path, as in the JAX package;
+#: ``flash_attention`` and ``wkv`` run in the models' prefill)
 WRAPPERS = {
     "panel_lu_batched": panel_ops.panel_lu_batched,
     "panel_lu": panel_ops.panel_lu,
@@ -22,6 +25,8 @@ WRAPPERS = {
     "gemm_batched": supsup_ops.gemm_batched,
     "gemm_update": supsup_ops.gemm_update,
     "suprow_update": suprow_ops.suprow_update,
+    "flash_attention": flashattn_ops.flash_attention,
+    "wkv": wkv_ops.wkv,
 }
 
 

@@ -34,12 +34,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 _PANEL = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _RIGHT = [_P, _P, _P, _I, _I, _I, _I, _P]
 _LEFT = [_P, _P, _P, _I, _I, _I, _P]
 _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
 _GEMM_UPDATE = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
 _SUPROW = [_P, _P, _P, _P, _I, _I, _I, _P]
+_FLASH = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, *[_L] * 9, _P]
+_WKV = [_P] * 7 + [_I] * 4 + [_L] * 8 + [_P]
 SIGNATURES = {
     **{f"hylu_panel_lu_{s}": _PANEL for s in ("f64", "f32")},
     **{f"hylu_trsm_right_{s}": _RIGHT for s in ("f64", "f32")},
@@ -48,6 +51,8 @@ SIGNATURES = {
     **{f"hylu_bmm_{s}": _BMM for s in ("f64", "f32")},
     **{f"hylu_gemm_update_{s}": _GEMM_UPDATE for s in ("f64", "f32")},
     **{f"hylu_suprow_{s}": _SUPROW for s in ("f64", "f32")},
+    **{f"hylu_flash_attn_{s}": _FLASH for s in ("f32", "bf16")},
+    "hylu_wkv_f32": _WKV,
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,69 @@
+"""Flash-attention wrapper: K7 ``flash_attention`` (``csrc/flash_attn.cu``).
+
+On a CUDA tensor it launches the kernel (or raises); on a CPU tensor it
+runs the plain version of :mod:`.ref`.  Every launch adds one to
+``flash_attention.launches``.  The operands may be strided views — the
+model hands it its (B, T, H, D) projections transposed to (B, H, T, D),
+and the kernel reads them in place — and nothing is padded: ragged tiles
+are masked in the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .ref import attention_plain
+
+__all__ = ["flash_attention", "attention_plain"]
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention of q (B, Hq, T, D) over k, v (B, Hkv, S, D); query head h
+    reads KV head h // (Hq // Hkv).  Returns (B, Hq, T, D) in q's dtype, a
+    view of a (B, T, Hq, D) buffer.  Causal attention needs T == S: the
+    Pallas kernel masks ``row >= col`` with no offset and its oracle with
+    the (S − T) offset, which agree only there.  Replaces
+    ``repro.kernels.flashattn.kernel.flash_attention``."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape \
+            or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
+            or k.shape[1] == 0 or q.shape[1] % k.shape[1] \
+            or k.shape[2] == 0:
+        raise ValueError(f"need q (B, Hq, T, D) and k, v (B, Hkv, S, D) "
+                         f"with Hq % Hkv == 0 and S > 0, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    if causal and t != s:
+        raise ValueError(f"causal attention needs T == S, got {t} and {s}")
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal)
+    if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 "
+                        f"operands of one dtype, got {q.dtype}, {k.dtype} "
+                        f"and {v.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes D in {HEAD_DIMS}, got {d}")
+    if not (q.device == k.device == v.device and q.device.type == "cuda"):
+        raise ValueError("flash_attention: every operand must lie on one "
+                         "CUDA device")
+    if q.stride(3) != 1 or k.stride(3) != 1 or k.stride() != v.stride():
+        raise ValueError("flash_attention: D must be contiguous and k, v "
+                         "must share their strides")
+    out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    o = out.transpose(1, 2)
+    if out.numel():
+        with torch.cuda.device(q.device):
+            _build.launch(f"hylu_flash_attn_{_SUFFIX[q.dtype]}",
+                          _build.ptr(q), _build.ptr(k), _build.ptr(v),
+                          _build.ptr(out), b, hq, hkv, t, s, d, int(causal),
+                          1.0 / d ** 0.5, *q.stride()[:3], *k.stride()[:3],
+                          *o.stride()[:3], _build.stream_of(q))
+        flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -2,8 +2,10 @@
 
 Each kernel against its plain PyTorch version on the same device tensors
 (K1 and K2 also on panels with a zero pivot under a zero threshold or a
-non-finite entry), the engine on the card against the engine on the CPU,
-and the unrolled one-system lifecycle against the bucketed one.  This file
+non-finite entry; K7 and K8 on the strided layouts the models hand them),
+the engine on the card against the engine on the CPU, the unrolled
+one-system lifecycle against the bucketed one, and the serving path of two
+reduced models on the card (K7 / K8 in prefill) against the CPU.  This file
 imports neither JAX nor the JAX package, so on a machine that has a card
 but no JAX it runs without the suite's conftest:
 
@@ -25,11 +27,16 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import (HyluOptions, analyze, factor,  # noqa: E402
                               factor_batched, refactor, solve, solve_batched)
+from repro_torch.kernels.flashattn import ops as flash  # noqa: E402
 from repro_torch.kernels.panel import ops as panel  # noqa: E402
 from repro_torch.kernels.suprow import ops as suprow  # noqa: E402
 from repro_torch.kernels.supsup import ops as supsup  # noqa: E402
 from repro_torch.kernels.trisolve import ops as tri  # noqa: E402
+from repro_torch.kernels.wkv import ops as wkvops  # noqa: E402
 from repro_torch.matrices import circuit_like, fem2d, to_csr  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.serve import serve_step as S  # noqa: E402
 
 # the wrappers the batched path launches (K5 runs in the unrolled schedule,
 # K6 on no engine path)
@@ -123,7 +130,9 @@ def _cases(rng, tdt, dev):
 COUNTED = {"panel_lu_global": ("panel_lu",),
            "gemm_update_ragged": ("gemm_update",),
            "supsup_update": ("trsm_batched", "gemm_update")}
-CASES = sorted(kernels.WRAPPERS) + sorted(COUNTED)
+# the solver's wrappers; K7 and K8 have their own tests below
+MODEL_WRAPPERS = ("flash_attention", "wkv")
+CASES = sorted(set(kernels.WRAPPERS) - set(MODEL_WRAPPERS)) + sorted(COUNTED)
 
 
 @pytest.mark.cuda
@@ -323,3 +332,104 @@ def test_engine_on_card_matches_cpu(name, dtype, cuda):
                                    atol=1e-10)
     assert max(ig["residual"].max(), ic["residual"].max()) < 1e-10
     assert np.abs(xg - xc).max() / np.abs(xc).max() < 1e-10
+
+
+# K7 and K8 at the cases of tests/test_kernels.py (test_flash_attention,
+# test_wkv_kernel) and at the widths of the serving configs (D = 128 of
+# phi3-medium, hs = 64 of rwkv6), with the JAX tolerances: 2e-5 (float32)
+# and 3e-2 (bfloat16) for K7 against its plain version on the float32
+# operands, 2e-4 for K8's y and final state
+FLASH_CASES = [(2, 4, 2, 64, 32, True), (1, 8, 8, 96, 64, True),
+               (2, 4, 1, 40, 16, True), (1, 2, 2, 50, 32, False),
+               (1, 4, 4, 130, 64, True), (2, 8, 2, 200, 128, True),
+               (1, 4, 1, 77, 128, False)]
+WKV_CASES = [(4, 64, 16), (2, 100, 32), (6, 33, 8), (1, 256, 64),
+             (8, 300, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,t,d,causal", FLASH_CASES)
+def test_flash_attention_matches_plain(b, hq, hkv, t, d, causal, dt, cuda):
+    tdt, tol = {"float32": (torch.float32, 2e-5),
+                "bfloat16": (torch.bfloat16, 3e-2)}[dt]
+    rng = np.random.default_rng(t + d)
+    q = torch.tensor(rng.normal(size=(b, t, hq, d)), dtype=tdt,
+                     device=cuda).transpose(1, 2)   # the model's layout
+    k, v = (torch.tensor(rng.normal(size=(b, t, hkv, d)), dtype=tdt,
+                         device=cuda).transpose(1, 2) for _ in range(2))
+    before = kernels.launch_counts()["flash_attention"]
+    got = flash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == tdt and got.shape == (b, hq, t, d)
+    ref = flash.attention_plain(q.float(), k.float(), v.float(), causal)
+    torch.testing.assert_close(got.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,hs", WKV_CASES)
+def test_wkv_matches_plain(bh, t, hs, cuda):
+    rng = np.random.default_rng(bh + t + hs)
+
+    def f(a):
+        return torch.tensor(a, dtype=torch.float32, device=cuda)
+
+    r, v = (f(rng.normal(size=(bh, t, hs))) for _ in range(2))
+    k = f(rng.normal(size=(bh, t, hs)) * 0.3)
+    w = f(rng.uniform(0.7, 0.999, size=(bh, t, hs)))
+    u = f(rng.normal(size=(bh, hs)) * 0.3)
+    before = kernels.launch_counts()["wkv"]
+    y, s = wkvops.wkv(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["wkv"] == before + 1
+    yr, sr = wkvops.wkv_plain(r, k, v, w, u)
+    torch.testing.assert_close(y, yr, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, sr, rtol=2e-4, atol=2e-4)
+    if bh % 2 == 0:            # the model's layout: (B, H, T, hs) views
+        h = bh // 2
+        ops4 = [a.reshape(2, h, t, hs).transpose(1, 2).contiguous()
+                .transpose(1, 2) for a in (r, k, v, w)]
+        y4, s4 = wkvops.wkv(*ops4, u[:h])
+        yr4, sr4 = wkvops.wkv_plain(*ops4, u[:h])
+        torch.testing.assert_close(y4, yr4, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(s4, sr4, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,wrapper", [("phi3-medium-14b",
+                                           "flash_attention"),
+                                          ("rwkv6-1.6b", "wkv")])
+def test_serving_on_card_matches_cpu(name, wrapper, cuda):
+    """Prefill and greedy decode of a reduced model in float32 on the card
+    (K7 or K8 once per layer of the prefill, nothing in decode) against the
+    same weights on the CPU (the plain routes): logits within 1e-4, the
+    same tokens."""
+    cfg = registry.get(name).reduced()
+    p_cpu = T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(cuda)
+
+    p_gpu = to_card(p_cpu)
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)))
+    out = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        kernels.reset_launch_counts()
+        logits, _ = S.make_prefill_step(cfg, s_max=44)(params,
+                                                       tokens=toks.to(dev))
+        per_prefill = kernels.launch_counts()[wrapper]
+        kernels.reset_launch_counts()
+        gen = S.greedy_generate(cfg, params, toks.to(dev), 4)
+        out[dev] = (logits.cpu(), gen.cpu(), per_prefill,
+                    kernels.launch_counts()[wrapper])
+    assert out["cuda"][2:] == (cfg.n_layers, cfg.n_layers)
+    assert out["cpu"][2:] == (0, 0)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(out["cuda"][1], out["cpu"][1])

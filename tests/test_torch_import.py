@@ -113,8 +113,8 @@ def test_build_is_lazy_and_hashes_the_sources():
     """Importing the kernels builds nothing; the build key covers every
     CUDA source, and a missing nvcc is an error, not a fallback."""
     names = [p.name for p in _build.sources()]
-    assert names == ["bmm.cu", "gemm_update.cu", "panel_lu.cu", "suprow.cu",
-                     "trsm.cu"]
+    assert names == ["bmm.cu", "flash_attn.cu", "gemm_update.cu",
+                     "panel_lu.cu", "suprow.cu", "trsm.cu", "wkv.cu"]
     assert _build.source_hash() == _build.source_hash()
     for fn in _build.SIGNATURES:
         assert fn.startswith("hylu_")
@@ -124,3 +124,39 @@ def test_build_is_lazy_and_hashes_the_sources():
             and not os.environ.get("CUDA_HOME"):
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.nvcc_path()
+
+
+@pytest.mark.parametrize("sub", ["configs", "models", "serve",
+                                 "kernels.flashattn", "kernels.wkv"])
+def test_serving_subpackages_import_without_jax(sub):
+    """The serving slice's subpackages, imported alone in a fresh
+    interpreter, pull in neither jax nor repro."""
+    mods = [m for m in _modules() if m.startswith(f"repro_torch.{sub}")]
+    assert len(mods) >= 2
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m == 'repro'\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_model_entry_points_default_to_the_card():
+    """``init_params`` and ``init_cache`` run on the card unless the CPU is
+    asked for: without one they raise."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = registry.get("phi3-medium-14b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.init_params(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.init_cache(cfg, 1, 4)
+    assert T.init_params(cfg, device="cpu")["embed"].device.type == "cpu"

@@ -16,17 +16,29 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import registry as jreg  # noqa: E402
+from repro.kernels.flashattn.kernel import flash_attention as jflash  # noqa: E402
 from repro.kernels.panel import ops as jpanel  # noqa: E402
 from repro.kernels.suprow import ops as jsuprow  # noqa: E402
 from repro.kernels.supsup import ops as jsupsup  # noqa: E402
 from repro.kernels.trisolve import ops as jtri  # noqa: E402
+from repro.kernels.wkv.ops import wkv_padded  # noqa: E402
+from repro.kernels.wkv.ref import wkv_ref  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
 from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import registry as treg  # noqa: E402
+from repro_torch.kernels.flashattn import ops as flash  # noqa: E402
 from repro_torch.kernels.panel import ops as panel  # noqa: E402
 from repro_torch.kernels.suprow import ops as suprow  # noqa: E402
 from repro_torch.kernels.supsup import ops as supsup  # noqa: E402
 from repro_torch.kernels.trisolve import ops as tri  # noqa: E402
+from repro_torch.kernels.wkv import ops as wkvops  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 DTYPES = {"float64": (jnp.float64, torch.float64, 1e-10, 1e-10),
           "float32": (jnp.float32, torch.float32, 1e-4, 1e-3)}
@@ -307,3 +319,93 @@ def test_update_wrappers_empty_and_bad_shapes():
         supsup.gemm_update(c, torch.zeros(2, 3, 5), torch.zeros(2, 4, 4))
     with pytest.raises(ValueError):
         suprow.suprow_update(torch.zeros(2, 6), torch.zeros(2, 3, 7), 3)
+
+
+# K7 and K8: the cases of tests/test_kernels.py (test_flash_attention,
+# test_wkv_kernel), with their tolerances
+FLASH_CASES = [(2, 4, 2, 64, 32, True), (1, 8, 8, 96, 64, True),
+               (2, 4, 1, 40, 16, True), (1, 2, 2, 50, 32, False),
+               (1, 4, 4, 130, 64, True)]
+FLASH_DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+WKV_CASES = [(4, 64, 16, 16), (2, 100, 32, 32), (6, 33, 8, 16),
+             (1, 256, 64, 64)]
+
+
+@pytest.mark.parametrize("dt", sorted(FLASH_DTYPES))
+@pytest.mark.parametrize("b,hq,hkv,t,d,causal", FLASH_CASES)
+def test_flash_attention(b, hq, hkv, t, d, causal, dt):
+    """K7's plain version (the CPU route of ``flash_attention``) against the
+    interpreted Pallas ``flash_attention`` (32 x 32 tiles: ragged T, GQA,
+    one non-causal case), float32 at 2e-5 and bfloat16 at 3e-2."""
+    jdt, tdt, tol = FLASH_DTYPES[dt]
+    rng = np.random.default_rng(t * 7 + d + hq)
+    q = rng.normal(size=(b, hq, t, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, hkv, t, d)).astype(np.float32)
+            for _ in range(2))
+    kernels.reset_launch_counts()
+    got = flash.flash_attention(*(torch.tensor(a).to(tdt) for a in (q, k, v)),
+                                causal=causal)
+    assert kernels.launch_counts()["flash_attention"] == 0   # plain on CPU
+    assert got.dtype == tdt and got.shape == (b, hq, t, d)
+    ref = jflash(*(jnp.asarray(a, jdt) for a in (q, k, v)), bq=32, bk=32,
+                 causal=causal)
+    _close(got.float(), np.asarray(ref, np.float32), tol)
+
+
+def test_flash_attention_refuses_what_it_does_not_take():
+    q = torch.zeros(1, 4, 8, 16)
+    with pytest.raises(ValueError, match="T == S"):
+        flash.flash_attention(q, torch.zeros(1, 2, 6, 16),
+                              torch.zeros(1, 2, 6, 16))
+    with pytest.raises(ValueError, match="Hq % Hkv"):
+        flash.flash_attention(q, torch.zeros(1, 3, 8, 16),
+                              torch.zeros(1, 3, 8, 16))
+
+
+@pytest.mark.parametrize("bh,t,hs,bt", WKV_CASES)
+def test_wkv(bh, t, hs, bt):
+    """K8's plain version (y and the final state) against the interpreted
+    Pallas ``wkv_padded`` (y) and the oracle ``wkv_ref`` (y, state), at
+    2e-4; also in the (B, H, T, hs) layout the model hands it, read through
+    strides, with one u per head shared over the batch."""
+    rng = np.random.default_rng(bh * 100 + t + hs)
+    r = rng.normal(size=(bh, t, hs)).astype(np.float32)
+    k = (rng.normal(size=(bh, t, hs)) * 0.3).astype(np.float32)
+    v = rng.normal(size=(bh, t, hs)).astype(np.float32)
+    w = rng.uniform(0.7, 0.999, size=(bh, t, hs)).astype(np.float32)
+    u = (rng.normal(size=(bh, hs)) * 0.3).astype(np.float32)
+    y, s = wkvops.wkv(*map(torch.tensor, (r, k, v, w, u)))
+    jargs = [jnp.asarray(a) for a in (r, k, v, w, u)]
+    yr, sr = wkv_ref(*jargs)
+    _close(y, wkv_padded(*jargs, bt=bt), 2e-4)
+    _close(y, yr, 2e-4)
+    _close(s, sr, 2e-4)
+    if bh % 2 == 0:              # (B=2, T, H, hs) storage, (B, H, T, hs) view
+        h = bh // 2
+        ops4 = [torch.tensor(a).reshape(2, h, t, hs).transpose(1, 2)
+                .contiguous().transpose(1, 2) for a in (r, k, v, w)]
+        u4 = torch.tensor(u[:h])
+        y4, s4 = wkvops.wkv(*ops4, u4)
+        yr4, sr4 = wkv_ref(*jargs[:4], jnp.asarray(np.tile(u[:h], (2, 1))))
+        _close(y4.reshape(bh, t, hs), yr4, 2e-4)
+        _close(s4.reshape(bh, hs, hs), sr4, 2e-4)
+
+
+def test_attention_seq_cpu_route_matches_the_flash_layer():
+    """The port's ``attention_seq`` on the CPU (the chunked attention)
+    against the JAX ``attention_seq(use_flash_kernel=True)`` (the
+    interpreted Pallas kernel), phi3-medium's reduced layer, float32."""
+    name = "phi3-medium-14b"
+    jc = jreg.get(name).reduced()
+    jp = JT.init_params(jc, jax.random.PRNGKey(5), dtype=jnp.float32)
+    blk = jax.tree.map(lambda a: a[0], jp["blocks"][0]["attn"])
+    tb = params_from_numpy(jax.tree.map(np.asarray, blk), device="cpu")
+    x = np.random.default_rng(6).normal(size=(2, 40, jc.d_model)).astype(
+        np.float32)
+    pos = np.broadcast_to(np.arange(40, dtype=np.int32)[None], (2, 40)).copy()
+    jo, _ = JL.attention_seq(jc, blk, jnp.asarray(x), jnp.asarray(pos),
+                             use_flash_kernel=True)
+    o, _ = L.attention_seq(treg.get(name).reduced(), tb, torch.tensor(x),
+                           torch.tensor(pos).long())
+    _close(o, jo, 2e-5)
