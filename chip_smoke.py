@@ -52,7 +52,9 @@ Phases, each printing one JSON line:
             decode), finite logits; decode against the teacher-forced
             forward and the kernel route against ``use_kernels=False`` in
             float32 at full width and 2 layers (2e-3); the two routes'
-            bfloat16 logits and greedy tokens at full depth, printed.
+            bfloat16 logits and greedy tokens at full depth, printed; for
+            rwkv6 the two routes also in float32 at full depth (2e-3).
+            The peak memory is that of the serving calls alone.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -83,7 +85,11 @@ TOL_LEFT = {"float64": 1e-10, "float32": 1e-3}
 SERVING_MODELS = ("phi3-medium-14b", "rwkv6-1.6b")
 BATCH, PROMPT, NEW_TOKENS, SEED = 4, 2048, 16, 0
 RAGGED_T = 2000                     # not a multiple of K7's 64-row tiles
-TOL_MODEL = {"bfloat16": 3e-2, "float32": 2e-5}   # K7: tests/test_kernels.py
+# K7 against its plain version, (rtol, atol): float32 at the 2e-5 of
+# tests/test_kernels.py; bfloat16 inside its 3e-2, at 1e-2 relative (about
+# one to two bf16 ulps of the output) plus 2e-3 for p rounded after another row
+# maximum, since the plain version rounds p to bf16 as the kernel does
+TOL_MODEL = {"bfloat16": (1e-2, 2e-3), "float32": (2e-5, 2e-5)}
 TOL_WKV, TOL_DECODE = 2e-4, 2e-3    # K8 (y and state); decode ≡ forward
 
 
@@ -810,22 +816,25 @@ def flash_record(torch, L, T, cfg, params, prompt):
                  "_ragged": ([a[:, :, :RAGGED_T] for a in ops], True),
                  "_noncausal": (ops, False)}
         for label, (args, causal) in cases.items():
-            got = flash.flash_attention(*args, causal=causal)
-            ref = flash.attention_plain(*args, causal=causal)
+            got = flash.flash_attention(*args, causal=causal).float()
+            ref = flash.attention_plain(*args, causal=causal).float()
             torch.cuda.synchronize()
-            err = float((got.float() - ref.float()).abs().max())
-            tol = TOL_MODEL[dname]
-            check(bool(torch.allclose(got.float(), ref.float(), rtol=tol,
-                                      atol=tol)),
-                  f"flash_attention {dname}{label}: max |kernel - plain| = "
-                  f"{err} outside rtol=atol={tol}")
+            diff = (got - ref).abs()
+            err = float(diff.max())
+            rtol, atol = TOL_MODEL[dname]
+            ratio = float((diff / (atol + rtol * ref.abs())).max())
+            check(ratio <= 1.0, f"flash_attention {dname}{label}: |kernel - "
+                                f"plain| up to {ratio} times rtol={rtol}, "
+                                f"atol={atol} (max {err})")
             rec["max_abs_err" + label + sfx] = err
+            rec["max_err_over_limit" + label + sfx] = ratio
+            del got, ref, diff
         pairs = tq * (tq + 1) / 2                  # causal (row, col) pairs
         flops = 4.0 * d * pairs * b * hq
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * ops[0].element_size()
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
         rec.update({
-            "tol" + sfx: TOL_MODEL[dname],
+            "rtol_atol" + sfx: TOL_MODEL[dname],
             "ms" + sfx: bench_ms(torch, lambda: flash.flash_attention(*ops)),
             "plain_ms" + sfx: bench_ms(
                 torch, lambda: flash.attention_plain(*ops)),
@@ -914,6 +923,25 @@ def f32_checks(torch, T, cfg, prompt):
             "teacher_forced_tokens": int(seq.shape[1])}
 
 
+def f32_full_depth_routes(torch, T, cfg, prompt):
+    """rwkv6 at full depth in float32: the kernel route's prefill logits
+    against ``use_kernels=False``'s, where only the order of the WKV sums
+    differs, to set beside the bfloat16 routes' difference."""
+    from repro_torch.serve.serve_step import greedy_generate, make_prefill_step
+
+    params = T.init_params(cfg, seed=SEED, dtype=torch.float32)
+    got, _ = make_prefill_step(cfg)(params, tokens=prompt)
+    ref, _ = make_prefill_step(cfg, use_kernels=False)(params, tokens=prompt)
+    got, ref = got[:, -1], ref[:, -1]
+    tokens = [greedy_generate(cfg, params, prompt, NEW_TOKENS, use_kernels=u)
+              for u in (True, False)]
+    del params
+    return {"last_logits_max_abs": float((got - ref).abs().max()),
+            "last_logits_max": float(ref.abs().max()),
+            "greedy_token_agreement": float(
+                (tokens[0] == tokens[1]).float().mean())}
+
+
 def serving_phase(torch, np, kernels, cfg):
     """Phases 9 and 10 for one model; returns its kernel's record for the
     kernels line, with the launches of the main path's run."""
@@ -927,7 +955,6 @@ def serving_phase(torch, np, kernels, cfg):
     attn = cfg.layer_kinds()[0] == "attn"
     wrapper = "flash_attention" if attn else "wkv"
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=SEED, dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -935,13 +962,18 @@ def serving_phase(torch, np, kernels, cfg):
     n_params = sum(a.numel() for a in _leaves(params))
     prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, (BATCH, PROMPT))).cuda()
+    torch.cuda.reset_peak_memory_stats()
     rec = (flash_record if attn else wkv_record)(torch, L, T, cfg, params,
                                                  prompt)
+    check_peak = torch.cuda.max_memory_allocated()
 
     # ---- 10. the serving path -------------------------------------------
+    # the peak of serving alone: weights, caches and the path's activations
     t = time.perf_counter()
     kernels.reset_launch_counts()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tokens = greedy_generate(cfg, params, prompt, NEW_TOKENS)
     torch.cuda.synchronize()
@@ -990,6 +1022,12 @@ def serving_phase(torch, np, kernels, cfg):
     torch.cuda.empty_cache()
     f32 = f32_checks(torch, T, cfg, prompt)
     torch.cuda.empty_cache()
+    if not attn:
+        f32["full_depth"] = f32_full_depth_routes(torch, T, cfg, prompt)
+        torch.cuda.empty_cache()
+        err = f32["full_depth"]["last_logits_max_abs"]
+        check(err < TOL_DECODE, f"{cfg.name} f32 full depth: kernel vs "
+                                f"plain route {err} >= {TOL_DECODE}")
     n_kernel_layers = cfg.n_layers          # every layer is attn or rwkv
     decode_ms = 1e3 * float(np.mean(step_s))
     res = {"phase": "transformer", "model": cfg.name, "dtype": "bfloat16",
@@ -1002,6 +1040,8 @@ def serving_phase(torch, np, kernels, cfg):
            "decode_ms_per_step_all": [x_ * 1e3 for x_ in step_s],
            "generated_tokens_per_s": BATCH * NEW_TOKENS / generate_s,
            "max_memory_allocated": peak,
+           "weight_bytes": n_params * 2,
+           "model_kernels_max_memory_allocated": check_peak,
            "launches_greedy_generate": path_counts[wrapper],
            "launches_per_prefill": per_prefill[wrapper],
            "launches_decode": per_decode[wrapper],

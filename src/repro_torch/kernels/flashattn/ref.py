@@ -10,21 +10,24 @@ import torch
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q (B, Hq, T, D), k/v (B, Hkv, S, D), Hq % Hkv == 0 → (B, Hq, T, D) in
-    q's dtype.  ``attention_ref``'s arithmetic carried out in float32 (the
-    kernel's working type; for float32 inputs it is ``attention_ref``
-    itself): logits times 1/sqrt(D), the causal mask with the (S − T)
-    offset, a softmax over S, then the product with v."""
+    q's dtype.  ``attention_ref``'s function with the kernels' rounding:
+    logits in float32 times 1/sqrt(D), the causal mask with the (S − T)
+    offset, p = exp(logits − row max) in float32, l the sum of the
+    unrounded p, then p rounded to v's dtype for the float32 product with
+    v, divided by l.  For float32 inputs it is ``attention_ref``; in
+    bfloat16 it rounds p as the Pallas kernel and K7 do."""
     t, d = q.shape[2], q.shape[3]
     g = q.shape[1] // k.shape[1]
-    qf, kf, vf = q.float(), k.float(), v.float()
-    kf = kf.repeat_interleave(g, dim=1)
-    vf = vf.repeat_interleave(g, dim=1)
-    logits = torch.einsum("bhtd,bhsd->bhts", qf, kf) * (1.0 / math.sqrt(d))
+    kf = k.float().repeat_interleave(g, dim=1)
+    vv = v.repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhtd,bhsd->bhts", q.float(), kf) * (
+        1.0 / math.sqrt(d))
     if causal:
         s = kf.shape[2]
         rows = torch.arange(t, device=q.device)[:, None] + (s - t)
         mask = rows >= torch.arange(s, device=q.device)[None, :]
         logits = logits.masked_fill(~mask, float("-inf"))
-    w = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    w = w / w.sum(dim=-1, keepdim=True)
-    return torch.einsum("bhts,bhsd->bhtd", w, vf).to(q.dtype)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhts,bhsd->bhtd", p.to(v.dtype).float(), vv.float())
+    return (out / l).to(q.dtype)

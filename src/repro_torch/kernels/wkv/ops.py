@@ -22,17 +22,15 @@ HEAD_SIZES = (8, 16, 32, 64)
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         u: torch.Tensor):
-    """r/k/v/w (BH, T, hs) or (B, H, T, hs), w the per-step decay (already
-    exp'd); u (BH, hs), or (H, hs) / (B, H, hs) for 4-d operands.  Returns
-    (y, s_final): y float32 of r's shape (for 4-d operands a (B, H, T, hs)
-    view of a (B, T, H, hs) buffer), s_final (..., hs, hs) float32.
+    """r/k/v/w (B, H, T, hs), w the per-step decay (already exp'd); u
+    (H, hs) or (B, H, hs).  Returns (y, s_final): y float32 (B, H, T, hs),
+    a view of a (B, T, H, hs) buffer; s_final (B, H, hs, hs) float32.
     Replaces ``repro.kernels.wkv.ops.wkv_padded`` (and returns the state
     ``wkv_ref`` returns)."""
-    if r.ndim not in (3, 4) or not r.shape == k.shape == v.shape == w.shape:
-        raise ValueError(f"need r, k, v, w of one shape (BH, T, hs) or "
-                         f"(B, H, T, hs), got {tuple(r.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)} and "
-                         f"{tuple(w.shape)}")
+    if r.ndim != 4 or not r.shape == k.shape == v.shape == w.shape:
+        raise ValueError(f"need r, k, v, w of one shape (B, H, T, hs), got "
+                         f"{tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} and {tuple(w.shape)}")
     if r.device.type == "cpu":
         return wkv_plain(r, k, v, w, u)
     ops = (r, k, v, w)
@@ -43,26 +41,18 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if r.stride(-1) != 1 or any(a.stride() != r.stride() for a in ops):
         raise ValueError("wkv: hs must be contiguous and r, k, v, w must "
                          "share their strides")
-    r4, k4, v4, w4 = (a[None] if a.ndim == 3 else a for a in ops)
-    b, nh, t, hs = r4.shape
+    b, nh, t, hs = r.shape
     if hs not in HEAD_SIZES:
         raise ValueError(f"wkv takes hs in {HEAD_SIZES}, got {hs}")
     u3 = u.float().contiguous().expand(b, nh, hs)
-    if r.ndim == 3:
-        y = torch.empty((nh, t, hs), dtype=torch.float32, device=r.device)
-        y4 = y[None]
-    else:
-        y = torch.empty((b, t, nh, hs), dtype=torch.float32,
-                        device=r.device).transpose(1, 2)
-        y4 = y
-    s = torch.empty((*r.shape[:-2], hs, hs), dtype=torch.float32,
-                    device=r.device)
+    y = torch.empty((b, t, nh, hs), dtype=torch.float32,
+                    device=r.device).transpose(1, 2)
+    s = torch.empty((b, nh, hs, hs), dtype=torch.float32, device=r.device)
     if y.numel():
         with torch.cuda.device(r.device):
-            _build.launch("hylu_wkv_f32", *map(_build.ptr, (r4, k4, v4, w4,
-                                                            u3, y4, s)),
-                          b, nh, t, hs, *r4.stride()[:3], *u3.stride()[:2],
-                          *y4.stride()[:3], _build.stream_of(r))
+            _build.launch("hylu_wkv_f32", *map(_build.ptr, (*ops, u3, y, s)),
+                          b, nh, t, hs, *r.stride()[:3], *u3.stride()[:2],
+                          *y.stride()[:3], _build.stream_of(r))
         wkv.launches += 1
     elif s.numel():
         s.zero_()

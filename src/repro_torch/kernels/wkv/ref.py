@@ -10,13 +10,12 @@ import torch
 
 
 def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor | None = None):
+              w: torch.Tensor, u: torch.Tensor):
     """r/k/v/w (..., T, hs), u broadcastable to (..., hs).  A loop over T in
-    float32 from the zero state (or ``s0``).  Returns (y (..., T, hs),
-    s_final (..., hs, hs))."""
+    float32 from the zero state.  Returns (y (..., T, hs), s_final (...,
+    hs, hs))."""
     *lead, t, hs = r.shape
-    s = (torch.zeros((*lead, hs, hs), dtype=torch.float32, device=r.device)
-         if s0 is None else s0.float())
+    s = torch.zeros((*lead, hs, hs), dtype=torch.float32, device=r.device)
     uu = u.float().expand(*lead, hs)[..., :, None]
     ys = []
     for i in range(t):

@@ -113,16 +113,15 @@ def init_attention(cfg: ArchConfig, gen, dtype, device, lead=()):
     return p
 
 
-def _chunked_causal_attention(q, k, v, chunk_k=None):
+def _chunked_causal_attention(q, k, v):
     """Online-softmax causal attention over KV chunks with (m, l, acc)
     carried for all query positions — the plain route.
     q: (B, T, H, D); k/v: (B, S, Hkv, D); returns (B, T, H, D)."""
-    chunk_k = chunk_k or ATTN_CHUNK_K
     b, t, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     scale = 1.0 / math.sqrt(d)
-    chunk_k = min(chunk_k, s)
+    chunk_k = min(ATTN_CHUNK_K, s)
     qs = (q.float() * scale).to(q.dtype).float()
     rows = torch.arange(t, device=q.device)
     m = torch.full((b, h, t), -1e30, dtype=F32, device=q.device)
@@ -303,7 +302,7 @@ def rwkv_time_mix_seq(cfg: ArchConfig, p, x, return_state=False,
     y = rms_norm(y.to(x.dtype), p["ln_x"], cfg.norm_eps)
     out = (y * g) @ p["wo"]
     if return_state:
-        return out, (x[:, -1], st_fin)
+        return out, (x[:, -1].clone(), st_fin)   # a copy: a view keeps x alive
     return out, None
 
 

@@ -94,7 +94,7 @@ def _sublayer_seq(cfg, kind, sub, x, positions, collect_cache, use_kernels):
         h2 = L.rms_norm(x, sub["rwkv"]["ln_cm"], cfg.norm_eps)
         x = x + L.rwkv_channel_mix(cfg, sub["rwkv"], h2)
         if collect_cache:
-            cache = (st[0], st[1], h2[:, -1])
+            cache = (st[0], st[1], h2[:, -1].clone())   # a copy: a view keeps h2 alive
         return x, cache
     if "ffn" in sub:
         x = x + L.mlp(cfg, sub["ffn"], L.rms_norm(x, sub["ln2"], cfg.norm_eps))

@@ -52,12 +52,12 @@ def make_decode_step(cfg: ArchConfig):
 
 
 def greedy_generate(cfg: ArchConfig, params, prompt_tokens, n_new: int,
-                    s_max: int | None = None, use_kernels: bool = True):
-    """Greedy tokens (B, n_new) for the prompts (B, S): one prefill, then
-    n_new − 1 decode steps, the argmax of each step's logits fed back."""
-    b, s = prompt_tokens.shape
-    s_max = s_max or (s + n_new)
-    prefill = make_prefill_step(cfg, s_max=s_max, use_kernels=use_kernels)
+                    use_kernels: bool = True):
+    """Greedy tokens (B, n_new) for the prompts (B, S): one prefill with the
+    caches padded to S + n_new rows, then n_new − 1 decode steps, the argmax
+    of each step's logits fed back."""
+    s = prompt_tokens.shape[1]
+    prefill = make_prefill_step(cfg, s_max=s + n_new, use_kernels=use_kernels)
     decode = make_decode_step(cfg)
     logits, cache = prefill(params, tokens=prompt_tokens)
     out = [logits[:, -1, :].argmax(dim=-1)]

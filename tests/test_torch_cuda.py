@@ -336,9 +336,10 @@ def test_engine_on_card_matches_cpu(name, dtype, cuda):
 
 # K7 and K8 at the cases of tests/test_kernels.py (test_flash_attention,
 # test_wkv_kernel) and at the widths of the serving configs (D = 128 of
-# phi3-medium, hs = 64 of rwkv6), with the JAX tolerances: 2e-5 (float32)
-# and 3e-2 (bfloat16) for K7 against its plain version on the float32
-# operands, 2e-4 for K8's y and final state
+# phi3-medium, hs = 64 of rwkv6): K7 against its plain version on the same
+# operands at the JAX 2e-5 in float32, and in bfloat16 (the plain version
+# rounding p as the kernel does) at rtol 1e-2, atol 2e-3, inside the JAX
+# 3e-2; 2e-4 for K8's y and final state
 FLASH_CASES = [(2, 4, 2, 64, 32, True), (1, 8, 8, 96, 64, True),
                (2, 4, 1, 40, 16, True), (1, 2, 2, 50, 32, False),
                (1, 4, 4, 130, 64, True), (2, 8, 2, 200, 128, True),
@@ -351,8 +352,8 @@ WKV_CASES = [(4, 64, 16), (2, 100, 32), (6, 33, 8), (1, 256, 64),
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hq,hkv,t,d,causal", FLASH_CASES)
 def test_flash_attention_matches_plain(b, hq, hkv, t, d, causal, dt, cuda):
-    tdt, tol = {"float32": (torch.float32, 2e-5),
-                "bfloat16": (torch.bfloat16, 3e-2)}[dt]
+    tdt, rtol, atol = {"float32": (torch.float32, 2e-5, 2e-5),
+                       "bfloat16": (torch.bfloat16, 1e-2, 2e-3)}[dt]
     rng = np.random.default_rng(t + d)
     q = torch.tensor(rng.normal(size=(b, t, hq, d)), dtype=tdt,
                      device=cuda).transpose(1, 2)   # the model's layout
@@ -363,8 +364,8 @@ def test_flash_attention_matches_plain(b, hq, hkv, t, d, causal, dt, cuda):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["flash_attention"] == before + 1
     assert got.dtype == tdt and got.shape == (b, hq, t, d)
-    ref = flash.attention_plain(q.float(), k.float(), v.float(), causal)
-    torch.testing.assert_close(got.float(), ref, rtol=tol, atol=tol)
+    ref = flash.attention_plain(q, k, v, causal)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda
@@ -380,10 +381,10 @@ def test_wkv_matches_plain(bh, t, hs, cuda):
     w = f(rng.uniform(0.7, 0.999, size=(bh, t, hs)))
     u = f(rng.normal(size=(bh, hs)) * 0.3)
     before = kernels.launch_counts()["wkv"]
-    y, s = wkvops.wkv(r, k, v, w, u)
+    y, s = wkvops.wkv(r[None], k[None], v[None], w[None], u)  # B = 1
     torch.cuda.synchronize()
     assert kernels.launch_counts()["wkv"] == before + 1
-    yr, sr = wkvops.wkv_plain(r, k, v, w, u)
+    yr, sr = wkvops.wkv_plain(r[None], k[None], v[None], w[None], u)
     torch.testing.assert_close(y, yr, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(s, sr, rtol=2e-4, atol=2e-4)
     if bh % 2 == 0:            # the model's layout: (B, H, T, hs) views

@@ -375,12 +375,13 @@ def test_wkv(bh, t, hs, bt):
     v = rng.normal(size=(bh, t, hs)).astype(np.float32)
     w = rng.uniform(0.7, 0.999, size=(bh, t, hs)).astype(np.float32)
     u = (rng.normal(size=(bh, hs)) * 0.3).astype(np.float32)
-    y, s = wkvops.wkv(*map(torch.tensor, (r, k, v, w, u)))
+    y, s = wkvops.wkv(*(torch.tensor(a)[None] for a in (r, k, v, w)),
+                      torch.tensor(u))              # B = 1, H = bh
     jargs = [jnp.asarray(a) for a in (r, k, v, w, u)]
     yr, sr = wkv_ref(*jargs)
-    _close(y, wkv_padded(*jargs, bt=bt), 2e-4)
-    _close(y, yr, 2e-4)
-    _close(s, sr, 2e-4)
+    _close(y[0], wkv_padded(*jargs, bt=bt), 2e-4)
+    _close(y[0], yr, 2e-4)
+    _close(s[0], sr, 2e-4)
     if bh % 2 == 0:              # (B=2, T, H, hs) storage, (B, H, T, hs) view
         h = bh // 2
         ops4 = [torch.tensor(a).reshape(2, h, t, hs).transpose(1, 2)
