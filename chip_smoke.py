@@ -21,7 +21,10 @@ Phases, each printing one JSON line:
             way at the largest sup-sup and sup-row edge of the unrolled
             schedule, on the operands its program hands that edge; K1 and
             K2 also on panels with an exactly zero pivot under a zero
-            threshold, where NaN and inf positions must match;
+            threshold, where NaN and inf positions must match; K4 (and
+            ``torch.bmm``) also per launch by CUDA-graph replay, on 2,048
+            products of its bucket's shape, and summed over all 516
+            sup-sup buckets of the bucketed schedule;
 5. main     the batched repeated-solve path through its entry points at
             K = 32: ``solve_sequence`` for T = 3 float64 steps, then one
             ``factor_batched`` + ``solve_batched`` step in float64 and one
@@ -43,7 +46,9 @@ Phases, each printing one JSON line:
             shape (4 requests of 2,048 tokens), each against its plain
             version in bfloat16 and float32 (K7) or float32 (K8), also at a
             ragged T and (K7) without the causal mask, with its time, the
-            plain version's, the library call's (K7) and the bound;
+            plain version's, the library call's (K7) and the bound; K7 in
+            bfloat16 also at gemma-7b's attention shape (D = 256), random
+            q/k/v, beside SDPA;
 10. transformer  the serving path of each model at full width and depth
             in bfloat16 through its entry points (``init_params`` on the
             card, ``greedy_generate``): 4 requests of 2,048 random prompt
@@ -84,7 +89,7 @@ TOL_LEFT = {"float64": 1e-10, "float32": 1e-3}
 # 2,048 prompt tokens and 16 new tokens each, weights and prompts from SEED
 SERVING_MODELS = ("phi3-medium-14b", "rwkv6-1.6b")
 BATCH, PROMPT, NEW_TOKENS, SEED = 4, 2048, 16, 0
-RAGGED_T = 2000                     # not a multiple of K7's 64-row tiles
+RAGGED_T = 2000                     # a multiple of none of K7's row tiles
 # K7 against its plain version, (rtol, atol): float32 at the 2e-5 of
 # tests/test_kernels.py; bfloat16 inside its 3e-2, at 1e-2 relative (about
 # one to two bf16 ulps of the output) plus 2e-3 for p rounded after another row
@@ -111,12 +116,14 @@ def smi_line() -> str:
 
 
 def bench_ms(torch, fn, min_ms=50.0):
-    """Mean time of one call by CUDA events over enough back-to-back calls
-    to fill ``min_ms``, after a warm-up call."""
+    """Mean time of one call by CUDA events over back-to-back calls that
+    fill ``min_ms``, after a warm-up call: the least of three such windows
+    (a call bound by the host's launch cost spreads by some 20% between
+    windows)."""
     fn()
     torch.cuda.synchronize()
-    reps = 1
-    while True:
+    reps, times = 1, []
+    while len(times) < 3:
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -125,9 +132,40 @@ def bench_ms(torch, fn, min_ms=50.0):
         t1.record()
         torch.cuda.synchronize()
         el = t0.elapsed_time(t1)
-        if el >= min_ms or reps >= 4096:
-            return el / reps
-        reps *= 4
+        if not times and el < min_ms and reps < 4096:
+            reps *= 4
+        else:
+            times.append(el / reps)
+    return min(times)
+
+
+def graph_ms(torch, calls, reps=5):
+    """Device time of one pass of ``calls`` (thunks launched back to back),
+    by CUDA events around replays of a CUDA graph that captured the pass:
+    the host's cost of each launch is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for fn in calls:
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del g
+    torch.cuda.empty_cache()
+    return t0.elapsed_time(t1) / reps
 
 
 def main() -> int:
@@ -641,9 +679,84 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
 
     records["gemm_update"]["edges"] = edges5
     records["suprow_update"]["edges"] = edges6
+    records["bmm"].update(bmm_extra(torch, np, supsup_ops, sched, LTS, Us, K))
     out = list(records.values())
     emit({"phase": "kernels", "dtypes": ["float64", "float32"],
           "records": out, "seconds": time.perf_counter() - t})
+    return out
+
+
+def bmm_extra(torch, np, supsup_ops, sched, lts, us, K):
+    """K4 beside ``torch.bmm``: on 2,048 products of the largest sup-sup
+    bucket's shape (its K * E operands repeated), and summed over every
+    sup-sup bucket of the bucketed schedule at K systems (random operands
+    of each bucket's shape), in float64 and float32.  Times per launch by
+    back-to-back calls (``bench_ms``, host cost included) and device times
+    by CUDA-graph replay (``graph_ms``); K4 held to its plain version on
+    the 2,048 products."""
+    out = {}
+    dev = lts.device
+    buckets = [e for s_ in sched.steps for e in s_.edges if e.k > 1]
+    shapes = [(K * len(e.srcs), e.nr, e.k, e.m) for e in buckets]
+    reps = -(-2048 // lts.shape[0])
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        sfx = "" if dt == torch.float64 else "_f32"
+        a = lts.to(dt).repeat(reps, 1, 1)[:2048].contiguous()
+        b = us.to(dt).repeat(reps, 1, 1)[:2048].contiguous()
+        got = supsup_ops.gemm_batched(a, b)
+        ref = supsup_ops.gemm_batched_plain(a, b)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        check(bool(torch.allclose(got, ref, rtol=TOL[dname], atol=TOL[dname])),
+              f"bmm {dname} (2,048 products): max |kernel - plain| = {err}")
+        del got, ref
+        x1, y1 = lts.to(dt), us.to(dt)
+        one = [lambda: supsup_ops.gemm_batched(x1, y1)] * 200
+        one_lib = [lambda: torch.bmm(x1, y1)] * 200
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        pa = torch.randn(max(e * n * k for e, n, k, _ in shapes),
+                         generator=gen, dtype=dt, device=dev)
+        pb = torch.randn(max(e * k * m for e, _, k, m in shapes),
+                         generator=gen, dtype=dt, device=dev)
+        ops = [(pa[:e * n * k].view(e, n, k), pb[:e * k * m].view(e, k, m))
+               for e, n, k, m in shapes]
+        kern = [lambda x=x, y=y: supsup_ops.gemm_batched(x, y) for x, y in ops]
+        lib = [lambda x=x, y=y: torch.bmm(x, y) for x, y in ops]
+        sz = torch.finfo(dt).bits // 8
+        flops = sum(2.0 * e * n * k * m for e, n, k, m in shapes)
+        nbytes = sz * sum(e * (n * k + k * m + n * m) for e, n, k, m in shapes)
+        bound = sum(max(2.0 * e * n * k * m / PEAK_FLOPS[dname],
+                        sz * e * (n * k + k * m + n * m) / HBM_BYTES_PER_S)
+                    for e, n, k, m in shapes) * 1e3
+        out.update({
+            "products_2048" + sfx: int(a.shape[0]),
+            "max_abs_err_2048" + sfx: err,
+            "ms_2048" + sfx: bench_ms(
+                torch, lambda: supsup_ops.gemm_batched(a, b)),
+            "library_ms_2048" + sfx: bench_ms(torch, lambda: torch.bmm(a, b)),
+            "device_ms_2048" + sfx: graph_ms(
+                torch, [lambda: supsup_ops.gemm_batched(a, b)] * 20) / 20,
+            "library_device_ms_2048" + sfx: graph_ms(
+                torch, [lambda: torch.bmm(a, b)] * 20) / 20,
+            "device_ms" + sfx: graph_ms(torch, one) / len(one),
+            "library_device_ms" + sfx: graph_ms(torch, one_lib) / len(one_lib),
+            "buckets" + sfx: len(shapes),
+            "buckets_products" + sfx: sum(e for e, _, _, _ in shapes),
+            "buckets_flops" + sfx: flops, "buckets_bytes" + sfx: nbytes,
+            "buckets_bound_ms" + sfx: bound,
+            "buckets_device_ms" + sfx: graph_ms(torch, kern),
+            "buckets_library_device_ms" + sfx: graph_ms(torch, lib),
+            "buckets_loop_ms" + sfx: bench_ms(
+                torch, lambda: [fn() for fn in kern], min_ms=200.0),
+            "buckets_library_loop_ms" + sfx: bench_ms(
+                torch, lambda: [fn() for fn in lib], min_ms=200.0)})
+        del a, b, x1, y1, pa, pb, ops, kern, lib
+        torch.cuda.empty_cache()
+    # each stream graph_ms ran torch.bmm on keeps a cuBLAS workspace
+    # allocated; drop them, so the main path's peak memory is its own
+    torch._C._cuda_clearCublasWorkspaces()
     return out
 
 
@@ -846,9 +959,53 @@ def flash_record(torch, L, T, cfg, params, prompt):
     rec["library"] = ("torch.nn.functional.scaled_dot_product_attention("
                       "is_causal=True, enable_gqa=True)")
     rec["ragged_t"] = RAGGED_T
+    rec["design"] = {"bfloat16": "tensor cores: wgmma m64 (S = Q.K^T from "
+                                 "shared memory, O += P.V with P in "
+                                 "registers), TMA K/V ring with mbarriers, "
+                                 "one producer warp, two consumer warpgroups",
+                     "float32": "SIMT, exact float32 FMA"}
+    rec.update(gemma_case(torch, F, flash))
     emit({"phase": "model_kernels", "model": cfg.name, "record": rec,
           "seconds": time.perf_counter() - t})
     return rec
+
+
+def gemma_case(torch, F, flash):
+    """K7 in bfloat16 at gemma-7b's attention shape (B 4, 16 query and KV
+    heads, D 256, T = S = 2,048, causal) on random q/k/v from SEED in the
+    model's (B, T, H, D) layout, against its plain version and beside SDPA."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    q, k, v = (torch.randn(BATCH, PROMPT, 16, 256, generator=gen,
+                           device="cuda", dtype=torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    got = flash.flash_attention(q, k, v).float()
+    ref = flash.attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    diff = (got - ref).abs()
+    rtol, atol = TOL_MODEL["bfloat16"]
+    ratio = float((diff / (atol + rtol * ref.abs())).max())
+    err = float(diff.max())
+    check(ratio <= 1.0, f"flash_attention bfloat16 (gemma-7b shape): |kernel "
+                        f"- plain| up to {ratio} times the limit (max {err})")
+    del got, ref, diff
+    flops = 4.0 * 256 * PROMPT * (PROMPT + 1) / 2 * BATCH * 16
+    nbytes = 4 * q.numel() * q.element_size()
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+    out = {"gemma_shape": f"q, k, v ({BATCH}, 16, {PROMPT}, 256), causal, "
+                          "gemma-7b attention, random",
+           "max_abs_err_gemma": err, "max_err_over_limit_gemma": ratio,
+           "ms_gemma": bench_ms(torch, lambda: flash.flash_attention(q, k, v)),
+           "plain_ms_gemma": bench_ms(
+               torch, lambda: flash.attention_plain(q, k, v)),
+           "bound_ms_gemma": max(t_bytes, t_ops) * 1e3,
+           "bound_by_gemma": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms_gemma": bench_ms(
+               torch, lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True))}
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def wkv_record(torch, L, T, cfg, params, prompt):

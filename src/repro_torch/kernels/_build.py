@@ -18,6 +18,7 @@ versions of the kernels run.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -55,6 +56,7 @@ SIGNATURES = {
     "hylu_wkv_f32": _WKV,
 }
 
+_CURRENT = contextlib.nullcontext()
 _lock = threading.Lock()
 _lib = None
 #: seconds the last nvcc build of this process took and its ptxas report
@@ -155,7 +157,7 @@ def library():
 
 def launch(name: str, *args) -> None:
     """Call one C entry point and raise if the launch was refused."""
-    lib = library()
+    lib = _lib if _lib is not None else library()
     rc = getattr(lib, name)(*args)
     if rc != 0:
         msg = lib.hylu_error_string(rc).decode()
@@ -177,11 +179,12 @@ def suffix(t) -> str:
 
 def check_cuda(name: str, *tensors) -> None:
     """Every tensor on one CUDA device, contiguous, and of one dtype."""
-    dev, dt = tensors[0].device, tensors[0].dtype
+    first = tensors[0]
+    dev, dt = first.get_device(), first.dtype
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{name}: every operand must lie on one CUDA "
-                             f"device, got {t.device} and {dev}")
+                             f"device, got {t.device} and {first.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
         if t.dtype != dt:
@@ -189,10 +192,22 @@ def check_cuda(name: str, *tensors) -> None:
 
 
 def stream_of(t):
-    """The current CUDA stream of the tensor's device, as a c_void_p."""
+    """The current CUDA stream of the tensor's device, as a c_void_p (the
+    raw handle: ``torch.cuda.current_stream`` builds a Python object on
+    every call, several microseconds per launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))
+
+
+def on_device(t):
+    """A context that makes the tensor's device current: a no-op when it
+    already is (``torch.cuda.device`` costs microseconds per launch)."""
+    import torch
+
+    if t.device.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(t.device)
 
 
 def ptr(t):

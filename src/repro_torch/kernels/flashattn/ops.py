@@ -5,7 +5,9 @@ runs the plain version of :mod:`.ref`.  Every launch adds one to
 ``flash_attention.launches``.  The operands may be strided views — the
 model hands it its (B, T, H, D) projections transposed to (B, H, T, D),
 and the kernel reads them in place — and nothing is padded: ragged tiles
-are masked in the kernel.
+are masked in the kernel.  bfloat16 runs on the tensor cores (wgmma, with
+q, k and v loaded by TMA, which needs 16-byte aligned bases and strides);
+float32 runs in exact float32 FMA.
 """
 from __future__ import annotations
 
@@ -53,10 +55,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.stride(3) != 1 or k.stride(3) != 1 or k.stride() != v.stride():
         raise ValueError("flash_attention: D must be contiguous and k, v "
                          "must share their strides")
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
     out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     o = out.transpose(1, 2)
     if out.numel():
-        with torch.cuda.device(q.device):
+        with _build.on_device(q):
             _build.launch(f"hylu_flash_attn_{_SUFFIX[q.dtype]}",
                           _build.ptr(q), _build.ptr(k), _build.ptr(v),
                           _build.ptr(out), b, hq, hkv, t, s, d, int(causal),
@@ -64,6 +68,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *o.stride()[:3], _build.stream_of(q))
         flash_attention.launches += 1
     return o
+
+
+def _check_tma(*ops) -> None:
+    """What the bfloat16 kernel's TMA loads take: 16-byte aligned base
+    pointers, and the stride of every dimension longer than 1 a positive
+    multiple of 8 elements (16 bytes)."""
+    for a in ops:
+        if a.data_ptr() % 16 or any(
+                n > 1 and (st <= 0 or st % 8)
+                for n, st in zip(a.shape[:3], a.stride()[:3])):
+            raise ValueError(f"flash_attention (bfloat16): operands must "
+                             f"start 16-byte aligned with strides that are "
+                             f"positive multiples of 8 elements, got "
+                             f"strides {a.stride()} at offset "
+                             f"{a.data_ptr() % 16} bytes")
 
 
 flash_attention.launches = 0

@@ -49,7 +49,7 @@ def _launch(panels, c0, wlim, eps):
     out = torch.empty_like(panels)
     perm = torch.empty((b, nr), dtype=torch.int32, device=panels.device)
     nper = torch.empty((b,), dtype=torch.int32, device=panels.device)
-    with torch.cuda.device(panels.device):
+    with _build.on_device(panels):
         _build.launch(f"hylu_panel_lu_{_build.suffix(panels)}",
                       _build.ptr(panels), _build.ptr(out), _build.ptr(perm),
                       _build.ptr(nper), _build.ptr(eps), b, nr, wt, c0, wlim,

@@ -38,7 +38,7 @@ def suprow_update(x: torch.Tensor, src: torch.Tensor, k: int):
     y = torch.empty((e, k), dtype=x.dtype, device=x.device)
     xr = torch.empty((e, w - k), dtype=x.dtype, device=x.device)
     if e:
-        with torch.cuda.device(x.device):
+        with _build.on_device(x):
             _build.launch(f"hylu_suprow_{_build.suffix(x)}", _build.ptr(x),
                           _build.ptr(src), _build.ptr(y), _build.ptr(xr), e,
                           k, w - k, _build.stream_of(x))

@@ -44,7 +44,7 @@ def trsm_batched(u: torch.Tensor, x: torch.Tensor,
     _build.check_cuda("trsm_batched", u, x)
     y = torch.empty_like(x)
     if b and nr:
-        with torch.cuda.device(x.device):
+        with _build.on_device(x):
             _build.launch(f"hylu_trsm_right_{_build.suffix(x)}",
                           _build.ptr(u), _build.ptr(x), _build.ptr(y), b, nr,
                           k, int(unit_diag), _build.stream_of(x))
@@ -64,7 +64,7 @@ def _left(name, plain, wrapper, blk, b):
     _build.check_cuda(name, blk, b)
     w = torch.empty_like(b)
     if nb and m:
-        with torch.cuda.device(b.device):
+        with _build.on_device(b):
             _build.launch(f"hylu_{name}_{_build.suffix(b)}", _build.ptr(blk),
                           _build.ptr(b), _build.ptr(w), nb, k, m,
                           _build.stream_of(b))

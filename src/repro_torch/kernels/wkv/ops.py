@@ -49,7 +49,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                     device=r.device).transpose(1, 2)
     s = torch.empty((b, nh, hs, hs), dtype=torch.float32, device=r.device)
     if y.numel():
-        with torch.cuda.device(r.device):
+        with _build.on_device(r):
             _build.launch("hylu_wkv_f32", *map(_build.ptr, (*ops, u3, y, s)),
                           b, nh, t, hs, *r.stride()[:3], *u3.stride()[:2],
                           *y.stride()[:3], _build.stream_of(r))

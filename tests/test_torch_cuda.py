@@ -2,7 +2,9 @@
 
 Each kernel against its plain PyTorch version on the same device tensors
 (K1 and K2 also on panels with a zero pivot under a zero threshold or a
-non-finite entry; K7 and K8 on the strided layouts the models hand them),
+non-finite entry; K4 over ragged shapes at one product and 2,048; K7 and
+K8 on the strided layouts the models hand them, K7 at every head width,
+ragged, with GQA and with S != T),
 the engine on the card against the engine on the CPU, the unrolled
 one-system lifecycle against the bucketed one, and the serving path of two
 reduced models on the card (K7 / K8 in prefill) against the CPU.  This file
@@ -340,10 +342,23 @@ def test_engine_on_card_matches_cpu(name, dtype, cuda):
 # operands at the JAX 2e-5 in float32, and in bfloat16 (the plain version
 # rounding p as the kernel does) at rtol 1e-2, atol 2e-3, inside the JAX
 # 3e-2; 2e-4 for K8's y and final state
+# (the bfloat16 route runs on the tensor cores in 128-row query tiles and
+# 128-row KV tiles, 64 at D = 256: every D below has a T that is a multiple
+# of neither, and GQA groups of 1, 4 and 5 appear)
 FLASH_CASES = [(2, 4, 2, 64, 32, True), (1, 8, 8, 96, 64, True),
                (2, 4, 1, 40, 16, True), (1, 2, 2, 50, 32, False),
                (1, 4, 4, 130, 64, True), (2, 8, 2, 200, 128, True),
-               (1, 4, 1, 77, 128, False)]
+               (1, 4, 1, 77, 128, False), (2, 8, 2, 200, 256, True),
+               (1, 10, 2, 333, 256, False), (1, 4, 4, 1000, 256, True),
+               (1, 10, 2, 150, 128, True), (2, 5, 1, 257, 64, True),
+               (1, 5, 1, 300, 16, True), (2, 4, 1, 190, 32, True)]
+# non-causal with S != T (longer and shorter KV), at every head width
+FLASH_OTHER_S = [(d, t, s) for d in (16, 32, 64, 128, 256)
+                 for t, s in ((100, 333), (260, 70))]
+# K4 at ragged shapes, one product and 2,048 (K = 32 systems times 64
+# edges), each against the plain version at the solver's limits
+BMM_SWEEP = [(1, 1, 1), (7, 3, 129), (33, 13, 5), (128, 128, 100),
+             (128, 50, 100)]
 WKV_CASES = [(4, 64, 16), (2, 100, 32), (6, 33, 8), (1, 256, 64),
              (8, 300, 64)]
 
@@ -366,6 +381,69 @@ def test_flash_attention_matches_plain(b, hq, hkv, t, d, causal, dt, cuda):
     assert got.dtype == tdt and got.shape == (b, hq, t, d)
     ref = flash.attention_plain(q, k, v, causal)
     torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,t,s", FLASH_OTHER_S)
+def test_flash_attention_noncausal_other_s(d, t, s, dt, cuda):
+    tdt, rtol, atol = {"float32": (torch.float32, 2e-5, 2e-5),
+                       "bfloat16": (torch.bfloat16, 1e-2, 2e-3)}[dt]
+    rng = np.random.default_rng(d + t + s)
+    q = torch.tensor(rng.normal(size=(2, t, 8, d)), dtype=tdt,
+                     device=cuda).transpose(1, 2)
+    k, v = (torch.tensor(rng.normal(size=(2, s, 2, d)), dtype=tdt,
+                         device=cuda).transpose(1, 2) for _ in range(2))
+    got = flash.flash_attention(q, k, v, causal=False)
+    ref = flash.attention_plain(q, k, v, False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 256])
+def test_flash_attention_contiguous_heads_layout(d, cuda):
+    """bfloat16 operands stored (B, H, T, D) rather than the model's
+    (B, T, H, D): the tensor maps take either stride order."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.tensor(rng.normal(size=(2, 4, 150, d)),
+                            dtype=torch.bfloat16, device=cuda)
+               for _ in range(3))
+    got = flash.flash_attention(q, k, v, causal=True)
+    ref = flash.attention_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2,
+                               atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_unaligned_bfloat16(cuda):
+    """TMA reads 16-byte aligned bases and strides: a bfloat16 operand
+    that starts 2 bytes into its buffer is refused, not rerouted."""
+    buf = torch.zeros(1 * 2 * 40 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    q = buf[1:].view(1, 2, 40, 64)
+    k = torch.zeros(1, 2, 40, 64, dtype=torch.bfloat16, device=cuda)
+    before = kernels.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash.flash_attention(q, k, k)
+    assert kernels.launch_counts()["flash_attention"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("e", [1, 2048])
+@pytest.mark.parametrize("nr,k,m", BMM_SWEEP)
+def test_gemm_batched_ragged_sweep(nr, k, m, e, dt, cuda):
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(nr * 7 + k * 3 + m + e)
+    a = torch.tensor(rng.normal(size=(e, nr, k)), dtype=tdt, device=cuda)
+    b = torch.tensor(rng.normal(size=(e, k, m)), dtype=tdt, device=cuda)
+    before = kernels.launch_counts()["gemm_batched"]
+    got = supsup.gemm_batched(a, b)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["gemm_batched"] == before + 1
+    torch.testing.assert_close(got, supsup.gemm_batched_plain(a, b),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

@@ -353,6 +353,25 @@ def test_flash_attention(b, hq, hkv, t, d, causal, dt):
     _close(got.float(), np.asarray(ref, np.float32), tol)
 
 
+@pytest.mark.parametrize("dt", sorted(FLASH_DTYPES))
+@pytest.mark.parametrize("t,s,causal", [(70, 70, True), (70, 45, False)])
+def test_flash_attention_head_dim_256(t, s, causal, dt):
+    """K7's plain version against the interpreted Pallas ``flash_attention``
+    at D = 256 (gemma-7b's head width) with GQA groups of 4, causal and
+    non-causal with T != S: the oracle the card holds K7 to at that D."""
+    jdt, tdt, tol = FLASH_DTYPES[dt]
+    rng = np.random.default_rng(t + s + 256)
+    q = rng.normal(size=(1, 8, t, 256)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 2, s, 256)).astype(np.float32)
+            for _ in range(2))
+    got = flash.flash_attention(*(torch.tensor(a).to(tdt) for a in (q, k, v)),
+                                causal=causal)
+    assert got.dtype == tdt and got.shape == (1, 8, t, 256)
+    ref = jflash(*(jnp.asarray(a, jdt) for a in (q, k, v)), bq=32, bk=32,
+                 causal=causal)
+    _close(got.float(), np.asarray(ref, np.float32), tol)
+
+
 def test_flash_attention_refuses_what_it_does_not_take():
     q = torch.zeros(1, 4, 8, 16)
     with pytest.raises(ValueError, match="T == S"):
