@@ -24,7 +24,13 @@ Phases, each printing one JSON line:
             threshold, where NaN and inf positions must match; K4 (and
             ``torch.bmm``) also per launch by CUDA-graph replay, on 2,048
             products of its bucket's shape, and summed over all 516
-            sup-sup buckets of the bucketed schedule;
+            sup-sup buckets of the bucketed schedule; K3 beside
+            ``torch.linalg.solve_triangular`` per launch by CUDA-graph
+            replay at the table's shapes, the right solve summed over the
+            516 sup-sup buckets (U a strided view of the source rows, as
+            the engine passes it) and both left solves over the 502 node
+            blocks of the node-block apply, each held to its plain version
+            on every bucket and block;
 5. main     the batched repeated-solve path through its entry points at
             K = 32: ``solve_sequence`` for T = 3 float64 steps, then one
             ``factor_batched`` + ``solve_batched`` step in float64 and one
@@ -680,6 +686,9 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     records["gemm_update"]["edges"] = edges5
     records["suprow_update"]["edges"] = edges6
     records["bmm"].update(bmm_extra(torch, np, supsup_ops, sched, LTS, Us, K))
+    for name, extra in trsm_extra(torch, trisolve_ops, eng, a_dev,
+                                  (U, X, BLK, RHS)).items():
+        records[name].update(extra)
     out = list(records.values())
     emit({"phase": "kernels", "dtypes": ["float64", "float32"],
           "records": out, "seconds": time.perf_counter() - t})
@@ -757,6 +766,159 @@ def bmm_extra(torch, np, supsup_ops, sched, lts, us, K):
     # each stream graph_ms ran torch.bmm on keeps a cuBLAS workspace
     # allocated; drop them, so the main path's peak memory is its own
     torch._C._cuda_clearCublasWorkspaces()
+    return out
+
+
+def trsm_extra(torch, trisolve_ops, eng, a_dev, table):
+    """K3 beside ``torch.linalg.solve_triangular`` over whole calls, in
+    float64 and float32: the right solve summed over every sup-sup bucket
+    of the bucketed schedule at K systems (shapes (K * E, nr, k) from the
+    schedule; U the strided view S[..., :k] of random (K * E, k, k + m)
+    source rows, as the engine passes it, with U = triu(., 1) / sqrt(k) +
+    3 I; X random), and both left solves summed over every node block with
+    nr > 1 of the node-block apply (the finished factors' diagonal blocks,
+    one random right-hand side each: m = 1).  Device times by CUDA-graph
+    replay (``graph_ms``), back-to-back loop times (``bench_ms``, host cost
+    included), the summed bound, and each kernel held to its plain version
+    on every bucket and block.  Also the per-launch device times at the
+    table's shapes (``table``: U, X, BLK, RHS in float64), by replay of 200
+    launches.  A library call that a CUDA graph cannot capture keeps its
+    loop time only (its device time is then None)."""
+    dev = a_dev.device
+    K = a_dev.shape[0]
+    buckets = [e for s_ in eng.sched.steps for e in s_.edges if e.k > 1]
+    blocks = [b_ for b_ in eng._blocks if b_[1] > 1]
+    f = eng.refactor_batched(a_dev)
+    out = {"trsm_right": {}, "trsm_left_unit_lower": {},
+           "trsm_left_upper": {}}
+
+    def lib_graph_ms(calls):
+        try:
+            return graph_ms(torch, calls)
+        except RuntimeError:              # not capturable: loop time only
+            torch.cuda.synchronize()
+            return None
+
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        sfx = "" if dt == torch.float64 else "_f32"
+        sz = torch.finfo(dt).bits // 8
+        pk = PEAK_FLOPS[dname]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(4)
+        # right: one operand pair per bucket
+        ops, bound, err = [], 0.0, 0.0
+        for e in buckets:
+            n_, k, m, nr = K * len(e.srcs), e.k, e.m, e.nr
+            S = torch.randn(n_, k, k + m, generator=gen, dtype=dt, device=dev)
+            S[..., :k] = (torch.triu(S[..., :k], 1) / k ** 0.5
+                          + 3 * torch.eye(k, dtype=dt, device=dev))
+            x = torch.randn(n_, nr, k, generator=gen, dtype=dt, device=dev)
+            u = S[..., :k]
+            got = trisolve_ops.trsm_batched(u, x)
+            ref = trisolve_ops.trsm_plain(u, x)
+            torch.cuda.synchronize()
+            e_ = float((got - ref).abs().max())
+            check(bool(torch.allclose(got, ref, rtol=TOL[dname],
+                                      atol=TOL[dname])),
+                  f"trsm_right {dname} bucket {(n_, nr, k, m)}: max |kernel "
+                  f"- plain| = {e_}")
+            err = max(err, e_)
+            ops.append((u, x))
+            bound += max(n_ * nr * k * k / pk,
+                         (n_ * k * (k + 1) // 2 + 2 * n_ * nr * k) * sz
+                         / HBM_BYTES_PER_S)
+        kern = [lambda u=u, x=x: trisolve_ops.trsm_batched(u, x)
+                for u, x in ops]
+        lib = [lambda u=u, x=x: torch.linalg.solve_triangular(
+            u, x, upper=True, left=False) for u, x in ops]
+        out["trsm_right"].update({
+            "buckets" + sfx: len(ops),
+            "buckets_products" + sfx: sum(u.shape[0] for u, _ in ops),
+            "buckets_max_abs_err" + sfx: err,
+            "buckets_bound_ms" + sfx: bound * 1e3,
+            "buckets_device_ms" + sfx: graph_ms(torch, kern),
+            "buckets_library_device_ms" + sfx: lib_graph_ms(lib),
+            "buckets_loop_ms" + sfx: bench_ms(
+                torch, lambda: [fn() for fn in kern], min_ms=200.0),
+            "buckets_library_loop_ms" + sfx: bench_ms(
+                torch, lambda: [fn() for fn in lib], min_ms=200.0)})
+        del ops, kern, lib
+        # left: the finished factors' diagonal blocks, m = 1
+        lops, bl, bu, el, eu = [], 0.0, 0.0, 0.0, 0.0
+        for blk_node in blocks:
+            nr = blk_node[1]
+            blk = f.vals[:, blk_node[-1]].to(dt).contiguous()
+            rhs = torch.randn(K, nr, 1, generator=gen, dtype=dt, device=dev)
+            for name, kf, pf in (
+                    ("trsm_left_unit_lower",
+                     trisolve_ops.trsm_left_unit_lower_batched,
+                     trisolve_ops.trsm_left_unit_lower_plain),
+                    ("trsm_left_upper", trisolve_ops.trsm_left_upper_batched,
+                     trisolve_ops.trsm_left_upper_plain)):
+                got, ref = kf(blk, rhs), pf(blk, rhs)
+                torch.cuda.synchronize()
+                e_ = float((got - ref).abs().max())
+                check(bool(torch.allclose(got, ref, rtol=TOL_LEFT[dname],
+                                          atol=TOL_LEFT[dname])),
+                      f"{name} {dname} block nr={nr}: max |kernel - plain| "
+                      f"= {e_}")
+                if name == "trsm_left_upper":
+                    eu = max(eu, e_)
+                else:
+                    el = max(el, e_)
+            lops.append((blk, rhs))
+            vec = 2 * K * nr * sz                      # b read, w written
+            bl += max(K * nr * (nr - 1) / pk,
+                      (K * nr * (nr - 1) // 2 * sz + vec) / HBM_BYTES_PER_S)
+            bu += max(K * nr * nr / pk,
+                      (K * nr * (nr + 1) // 2 * sz + vec) / HBM_BYTES_PER_S)
+        for name, kf, lf, err_, bnd in (
+                ("trsm_left_unit_lower",
+                 trisolve_ops.trsm_left_unit_lower_batched,
+                 lambda a_, b_: torch.linalg.solve_triangular(
+                     a_, b_, upper=False, unitriangular=True), el, bl),
+                ("trsm_left_upper", trisolve_ops.trsm_left_upper_batched,
+                 lambda a_, b_: torch.linalg.solve_triangular(
+                     a_, b_, upper=True), eu, bu)):
+            kern = [lambda a_=a_, b_=b_, kf=kf: kf(a_, b_) for a_, b_ in lops]
+            lib = [lambda a_=a_, b_=b_, lf=lf: lf(a_, b_) for a_, b_ in lops]
+            out[name].update({
+                "blocks" + sfx: len(lops),
+                "blocks_max_abs_err" + sfx: err_,
+                "blocks_bound_ms" + sfx: bnd * 1e3,
+                "blocks_device_ms" + sfx: graph_ms(torch, kern),
+                "blocks_library_device_ms" + sfx: lib_graph_ms(lib),
+                "blocks_loop_ms" + sfx: bench_ms(
+                    torch, lambda: [fn() for fn in kern], min_ms=200.0),
+                "blocks_library_loop_ms" + sfx: bench_ms(
+                    torch, lambda: [fn() for fn in lib], min_ms=200.0)})
+        del lops, kern, lib
+        # one launch at the table's shapes, by replay of 200 launches
+        u, x, blk, rhs = (t_.to(dt).contiguous() for t_ in table)
+        lower = torch.tril(blk, -1) + torch.eye(blk.shape[-1], dtype=dt,
+                                                device=dev)
+        for name, kf, lf in (
+                ("trsm_right", lambda: trisolve_ops.trsm_batched(u, x),
+                 lambda: torch.linalg.solve_triangular(u, x, upper=True,
+                                                       left=False)),
+                ("trsm_left_unit_lower",
+                 lambda: trisolve_ops.trsm_left_unit_lower_batched(blk, rhs),
+                 lambda: torch.linalg.solve_triangular(
+                     lower, rhs, upper=False, unitriangular=True)),
+                ("trsm_left_upper",
+                 lambda: trisolve_ops.trsm_left_upper_batched(blk, rhs),
+                 lambda: torch.linalg.solve_triangular(blk, rhs,
+                                                       upper=True))):
+            out[name]["device_ms" + sfx] = graph_ms(torch, [kf] * 200) / 200
+            lib_ms = lib_graph_ms([lf] * 200)
+            out[name]["library_device_ms" + sfx] = (
+                None if lib_ms is None else lib_ms / 200)
+        del u, x, blk, rhs, lower
+        torch.cuda.empty_cache()
+    del f
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
     return out
 
 

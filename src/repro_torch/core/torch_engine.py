@@ -366,9 +366,8 @@ class RepeatedSolveEngine:
                     lts = X / U[..., 0, 0][..., None, None]
                     delta = lts * Us
                 elif self.use_kernels:                     # sup-sup: K3, K4
-                    lts = trisolve_ops.trsm_batched(
-                        U.reshape(K * E, k, k).contiguous(),
-                        X.view(K * E, nr, k))
+                    lts = trisolve_ops.trsm_batched(   # U: a view of S
+                        U.reshape(K * E, k, k), X.view(K * E, nr, k))
                     delta = supsup_ops.gemm_batched(
                         lts, Us.reshape(K * E, k, m).contiguous())
                     lts = lts.view(K, E, nr, k)

@@ -7,194 +7,653 @@
 //
 // Three entry points:
 //   hylu_trsm_right_*             Y U = X per batch member (sup-sup edges);
-//                                 U upper, optionally unit-diagonal; only
-//                                 U's upper triangle is read.
+//                                 U upper, optionally unit-diagonal, taken
+//                                 with its batch and row strides (a view of
+//                                 the gathered source rows); only U's upper
+//                                 triangle is read.
 //   hylu_trsm_left_unit_lower_*   L w = b with L = tril(blk, -1) + I;
 //   hylu_trsm_left_upper_*        U w = b with U = triu(blk).
 // The left solves read the diagonal block of the panel buffer in place:
 // none of the triu / swapaxes / flip copies of trisolve/ops.py:69-90 is
 // made, and k is not padded to a multiple of 8 (any k <= 128 is taken).
 //
-// What bounds it on the card: the k-step recurrence is sequential, so a
-// solve is latency bound, not bound by bytes (k = 128 f64 is 128 KB of U
-// read once) or by operations.  The right solve keeps U and a 64-row tile of
-// X in shared memory (k = 128 f64 needs 197 KB, above the 48 KB default, so
-// the limit is raised) and gives each thread one row: the recurrence runs
-// on shared memory with U's column entries broadcast to the warp.  The left
-// solves hold the block and a tile of up to 16 right-hand-side columns in
-// shared memory and run the column-oriented (axpy) form, parallel over the
-// rows still to be updated, with one barrier per step.
+// What bounds it on the card: neither bytes (k = 128 f64 is 64 KB of a
+// triangle read once) nor operations, but the latency of the k-step
+// recurrence: each step needs the one before it.  So the recurrence is
+// blocked, and only the small diagonal solves stay sequential; each of
+// their divisions is a product by the diagonal's reciprocal corrected to
+// the true quotient's bits (div_fast below: two fma on the chain, no
+// branch, and no slow path for a zero dividend, as a true division has).
+//
+// Right solve.  One block of 128 threads per (batch member, tile of 32
+// rows of X).  cp.async stages the X tile and only U's upper triangle
+// (16-byte copies where U's rows and X are 16-byte aligned, else 8 or 4),
+// one commit group per block of 16 rows of U, all issued up front, so the
+// first diagonal block starts while the rest is still landing.  Per column
+// block of 16, right-looking: each row's thread solves the 16 x 16
+// diagonal block in registers, then all four warps apply the trailing
+// update Y[:, J+1:] -= Y[:, J] U[J, J+1:] from shared memory: float64 on
+// the fp64 tensor cores (mma.sync m8n8k4, the fragments of csrc/bmm.cu),
+// float32 on an 8 x 4 FMA register tile per thread (no TF32).  Two
+// barriers per column block; the dependent chain per row is k quotients
+// and FMAs.  Tiles of 16 or 64 rows and column blocks of 8 or 32 were no
+// faster on the card.
+//
+// Left solves.  One block per (batch member, tile of right-hand-side
+// columns: 1 for the path's single column, else 4), so m = 1 idles nothing
+// of a tile; warp w owns rows 32w..32w+31 and keeps their w values in
+// registers for the whole sweep.  cp.async stages only the triangle that
+// is read, one commit group per 32-column block in the order the sweep
+// needs them.  Per 32-column block the owning warp solves the diagonal
+// block with w_j broadcast by __shfl_sync (no block barrier inside),
+// publishes the 32 values, and after one barrier every warp with rows
+// still to update applies the block's columns to its own rows: k / 32 + 1
+// barriers per sweep (5 at k = 128).
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kMaxK = 128;
-constexpr int kRowTile = 64;       // rows of X per block (right solve)
-constexpr int kColTile = 16;       // right-hand-side columns per block
-constexpr int kLeftThreads = 128;
+constexpr int kRows = 32;          // rows of X per block (right solve)
+constexpr int kB = 16;             // column block of the right solve
+constexpr int kThreads = 128;      // right solve
+constexpr int kLeftB = 32;         // column block of the left solves (a warp)
 
+// shared-memory row length of the right solve: a multiple of 8 past k
+// (the 8-wide DMMA column blocks stay inside the row) plus 4, so that the
+// 8 rows of a DMMA fragment load fall in distinct bank pairs but for one
+// repeat (two wavefronts, the least for 256 bytes)
+__host__ __device__ constexpr int right_ld(int k) {
+  return (k + 7) / 8 * 8 + 4;
+}
+// the left solves: rows 16-byte aligned for 16-byte copies, and 16 bytes
+// past a multiple of 32, so that a column read across a warp's lanes (lane
+// i owns row i) meets 8 distinct banks or bank pairs: 4 wavefronts, not 32
 template <typename T>
-__global__ void __launch_bounds__(kRowTile)
-trsm_right_kernel(const T* __restrict__ U, const T* __restrict__ X,
-                  T* __restrict__ Y, int nr, int k, int unit_diag,
-                  int tiles) {
+__host__ __device__ constexpr int left_ld(int k) {
+  return sizeof(T) == 8 ? (k + 3) / 4 * 4 + 2 : (k + 7) / 8 * 8 + 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of `size` bytes, of which the first `src_bytes` are read and the
+// rest zero-filled.
+template <int size>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  if constexpr (size == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(size), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n committed groups are in flight (n clamped to 7: a
+// smaller n waits for more, never for less)
+__device__ __forceinline__ void cp_wait(int n) {
+  switch (n < 7 ? n : 7) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
+
+__device__ __forceinline__ void dmma(double* d, double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, "
+      "{%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
+// a / b, correctly rounded, from the reciprocal rb = 1 / b (itself a true
+// division in float64, made once per diagonal entry off the dependent
+// chain): the product q = a rb is within one ulp of a / b, so the remainder
+// a - q b is exact under fma and q + rem rb rounds to the correctly rounded
+// quotient (Markstein's theorem) -- the same bits as a / b, at a product and
+// two fma on the chain instead of a full division, and with no branch.  A
+// zero dividend gives q, exact.  float32 operands run the same steps in
+// float64 and round the float64 quotient to float32, which is the
+// correctly rounded float32 quotient (53 >= 2 * 24 + 2 bits: the double
+// rounding is innocuous), so no float32 operand ever leaves the fast path
+// (a float32 fill entry below 2^-102 would, in float32 arithmetic).  The
+// theorem needs no overflow or underflow: recip() gives NaN for a divisor
+// outside [2^-400, 2^400], and ok turns false there and, in float64, where
+// the quotient lies outside [2^-500, 2^500]; the caller then solves the
+// block again by true division.  (Short-circuit && and || here would
+// compile to branches on the chain.)
+__device__ __forceinline__ double recip(double b) {
+  const double ab = fabs(b);
+  return (ab >= 0x1p-400) & (ab <= 0x1p400)
+             ? 1.0 / b : __longlong_as_double(0x7ff8000000000000LL);
+}
+
+__device__ __forceinline__ double div_fast(double a, double b, double rb,
+                                           bool& ok) {
+  const double q = a * rb;
+  const double q1 = fma(fma(-q, b, a), rb, q);
+  const double aq = fabs(q);
+  ok &= (rb == rb) & ((a == 0.0) | ((aq >= 0x1p-500) & (aq <= 0x1p500)));
+  return a == 0.0 ? q : q1;
+}
+
+__device__ __forceinline__ float div_fast(float a, float b, double rb,
+                                          bool& ok) {
+  const double ad = a;
+  const double q = ad * rb;
+  const double q1 = fma(fma(-q, (double)b, ad), rb, q);
+  ok &= rb == rb;
+  return (float)(a == 0.f ? q : q1);
+}
+
+// the true division, a call on the rare path
+template <typename T>
+__device__ __noinline__ T true_div(T a, T b) {
+  return a / b;
+}
+
+// ------------------------------------------------------------ right solve
+// Trailing update of column block Jb.. (kB wide) on the columns t0..k-1:
+// Ys[:, t0:] -= Ys[:, Jb:Jb+kB] Us[Jb:Jb+kB, t0:], rows below `rows` skipped
+// by whole 8-row blocks.  float64: warp w takes 8-row blocks w, w+4, ...;
+// DMMA fragments A[l/4][l%4], B[l%4][l/4], C[l/4][2(l%4) + {0,1}], A negated
+// so the product subtracts.  Columns past k (up to the next multiple of 8)
+// only carry garbage within themselves and are never stored.
+__device__ __forceinline__ void right_update(double* Ys, const double* Us,
+                                             int ld, int Jb, int t0, int k,
+                                             int rows, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  const int nct = (k - t0 + 7) / 8;
+  for (int rb = warp; rb * 8 < rows; rb += kThreads / 32) {
+    const double* Ar = Ys + (rb * 8 + lane / 4) * ld + Jb + lane % 4;
+    double a[kB / 4];
+#pragma unroll
+    for (int s = 0; s < kB / 4; ++s) a[s] = -Ar[4 * s];
+    double* Cr = Ys + (rb * 8 + lane / 4) * ld + t0 + 2 * (lane % 4);
+    const double* Br = Us + (Jb + lane % 4) * ld + t0 + lane / 4;
+#pragma unroll 2
+    for (int cb = 0; cb < nct; ++cb) {
+      double2 c2 = *reinterpret_cast<double2*>(Cr + 8 * cb);
+      double d[2] = {c2.x, c2.y};
+#pragma unroll
+      for (int s = 0; s < kB / 4; ++s) dmma(d, a[s], Br[4 * s * ld + 8 * cb]);
+      *reinterpret_cast<double2*>(Cr + 8 * cb) = make_double2(d[0], d[1]);
+    }
+  }
+}
+
+// float32: thread (lane, warp) owns rows 8 rb + (0..7) of its 8-row blocks
+// and columns t0 + lane + 32 j, j < 4; per depth step 8 broadcast loads of
+// Y and 4 consecutive loads of U feed 32 FMAs.
+__device__ __forceinline__ void right_update(float* Ys, const float* Us,
+                                             int ld, int Jb, int t0, int k,
+                                             int rows, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  for (int rb = warp; rb * 8 < rows; rb += kThreads / 32) {
+    float acc[8][4];
+    float* Yr = Ys + rb * 8 * ld;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = t0 + lane + 32 * j;
+        acc[i][j] = c < k ? Yr[i * ld + c] : 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < kB; ++kk) {
+      float u[4], y[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = t0 + lane + 32 * j;
+        u[j] = c < k ? Us[(Jb + kk) * ld + c] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) y[i] = Yr[i * ld + Jb + kk];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(-y[i], u[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = t0 + lane + 32 * j;
+        if (c < k) Yr[i * ld + c] = acc[i][j];
+      }
+  }
+}
+
+// One row's kB x kB diagonal block, right-looking in registers: y (bj
+// entries at yr, this row of the tile) times U's block (Ud, row length ld)
+// equals the tile's entries; Dg, Rd: the block's diagonal and reciprocals.
+// FULL (bj == kB): no guard at all, so the loads of U leave the dependent
+// chain.  Where div_fast cannot vouch for a quotient, the block is solved
+// again from yr by true division.
+template <bool FULL, typename T>
+__device__ __forceinline__ void right_diag(T* yr, const T* Ud, const T* Dg,
+                                           const double* Rd, int ld, int bj) {
+  T y[kB];
+  bool ok = true;
+#pragma unroll
+  for (int q = 0; q < kB; ++q)
+    if (FULL || q < bj) y[q] = yr[q];
+#pragma unroll
+  for (int j = 0; j < kB; ++j) {
+    if (FULL || j < bj) {
+      y[j] = div_fast(y[j], Dg[j], Rd[j], ok);
+#pragma unroll
+      for (int q = j + 1; q < kB; ++q)
+        if (FULL || q < bj) y[q] -= y[j] * Ud[j * ld + q];
+    }
+  }
+  if (ok) {
+#pragma unroll
+    for (int q = 0; q < kB; ++q)
+      if (FULL || q < bj) yr[q] = y[q];
+  } else {
+    for (int j = 0; j < bj; ++j) {
+      const T yj = true_div(yr[j], Dg[j]);
+      yr[j] = yj;
+      for (int q = j + 1; q < bj; ++q) yr[q] -= yj * Ud[j * ld + q];
+    }
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+trsm_right_kernel(const T* __restrict__ U, long long su_b, long long su_r,
+                  const T* __restrict__ X, T* __restrict__ Y, int nr, int k,
+                  int unit_diag, int tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Us = reinterpret_cast<T*>(smem_raw);      // k x k
-  T* Ys = Us + k * k;                           // kRowTile x (k + 1)
-  const int ld = k + 1;
+  const int ld = right_ld(k);
+  T* Us = reinterpret_cast<T*>(smem_raw);      // k x ld, upper triangle
+  T* Ys = Us + k * ld;                          // kRows x ld
+  double* Rd = reinterpret_cast<double*>(Ys + kRows * ld);  // k
+  T* Dg = reinterpret_cast<T*>(Rd + k);         // U's diagonal, k
   const long long e = blockIdx.x / tiles;
-  const int r0 = (blockIdx.x % tiles) * kRowTile;
-  const int rows = min(kRowTile, nr - r0);
+  const int r0 = (blockIdx.x % tiles) * kRows;
+  const int rows = min(kRows, nr - r0);
   const int tid = threadIdx.x;
-
-  const T* Ue = U + e * k * k;
-  for (int i = tid; i < k * k; i += blockDim.x) Us[i] = Ue[i];
+  const T* Ue = U + e * su_b;
   const T* Xe = X + (e * nr + r0) * k;
-  for (int i = tid; i < rows * k; i += blockDim.x)
-    Ys[(i / k) * ld + i % k] = Xe[i];
-  __syncthreads();
+  const int nb = (k + kB - 1) / kB;
+  const int nch = (k + V - 1) / V;              // V-element chunks per row
+  constexpr int S = (int)sizeof(T);
 
-  if (tid < rows) {
-    T* y = Ys + tid * ld;
-    for (int j = 0; j < k; ++j) {
-      T acc = y[j];
-      for (int i = 0; i < j; ++i) acc -= y[i] * Us[i * k + j];
-      if (!unit_diag) acc /= Us[j * k + j];
-      y[j] = acc;
+  // group 0: the X tile and U's rows 0..kB-1; group J: U's rows of block J.
+  // Chunks wholly left of the diagonal are not copied.
+  for (int i = tid; i < rows * nch; i += kThreads) {
+    const int r = i / nch, c = (i % nch) * V;
+    cp_async<V * S>(Ys + r * ld + c, Xe + (long long)r * k + c,
+                    min(V, k - c) * S);
+  }
+  for (int J = 0; J < nb; ++J) {
+    const int Jb = J * kB, nrow = min(kB, k - Jb);
+    for (int i = tid; i < nrow * nch; i += kThreads) {
+      const int r = Jb + i / nch, c = (i % nch) * V;
+      if (c + V > r)
+        cp_async<V * S>(Us + r * ld + c, Ue + r * su_r + c,
+                        min(V, k - c) * S);
+    }
+    cp_commit();
+  }
+  // the diagonal and its reciprocals (ones for a unit diagonal), read apart
+  // from the copies and visible after the first barrier
+  for (int t = tid; t < k; t += kThreads) {
+    const T d = unit_diag ? T(1) : Ue[t * su_r + t];
+    Dg[t] = d;
+    Rd[t] = recip(d);
+  }
+
+  for (int J = 0; J < nb; ++J) {
+    const int Jb = J * kB, bj = min(kB, k - Jb);
+    cp_wait(nb - 1 - J);          // block J's rows of U (and X) have landed
+    __syncthreads();              // for every thread; last update done
+    if (tid < rows) {
+      T* yr = Ys + tid * ld + Jb;
+      const T* Ud = Us + Jb * ld + Jb;
+      if (bj == kB)
+        right_diag<true>(yr, Ud, Dg + Jb, Rd + Jb, ld, bj);
+      else
+        right_diag<false>(yr, Ud, Dg + Jb, Rd + Jb, ld, bj);
+    }
+    if (J + 1 < nb) {
+      __syncthreads();            // block J of every row is final
+      right_update(Ys, Us, ld, Jb, Jb + kB, k, rows, tid);
     }
   }
   __syncthreads();
 
   T* Ye = Y + (e * nr + r0) * k;
-  for (int i = tid; i < rows * k; i += blockDim.x)
+  for (int i = tid; i < rows * k; i += kThreads)
     Ye[i] = Ys[(i / k) * ld + i % k];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kLeftThreads)
-trsm_left_kernel(const T* __restrict__ blk, const T* __restrict__ B,
-                 T* __restrict__ W, int k, int m, int tiles, int upper) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* As = reinterpret_cast<T*>(smem_raw);      // k x (k + 1)
-  const int lda = k + 1;
-  T* Ws = As + k * lda;                         // k x kColTile
-  const long long e = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x % tiles) * kColTile;
-  const int mc = min(kColTile, m - c0);
-  const int tid = threadIdx.x;
+// ------------------------------------------------------------- left solves
+// The diagonal blocks of the left solves, one warp each: lane i holds row
+// Jb + i (w, its MC right-hand-side entries) and Ar its row of the block;
+// w_j goes to the other lanes by __shfl_sync.  Every step runs for every
+// lane under a predicate (no branch, so the block's loads leave the chain);
+// lanes at or past bj are rows past k and change nothing.
+template <typename T, int MC>
+__device__ __forceinline__ void lower_diag(T (&w)[MC], const T* Ar, int lane,
+                                           int bj) {
+#pragma unroll
+  for (int j = 0; j < kLeftB - 1; ++j) {
+    const bool upd = lane > j && lane < bj;
+    const T l = upd ? Ar[j] : T(0);
+#pragma unroll
+    for (int c = 0; c < MC; ++c) {
+      const T wj = __shfl_sync(0xffffffffu, w[c], j);
+      if (upd) w[c] -= l * wj;
+    }
+  }
+}
 
+// Backward: lane j divides by its diagonal d (reciprocal rd), then the lanes
+// above take w_j.  EXACT: by true division (the rare second pass); else by
+// div_fast, returning false where it cannot vouch for a quotient.
+template <bool EXACT, typename T, int MC>
+__device__ __forceinline__ bool upper_diag(T (&w)[MC], const T* Ar, T d,
+                                           double rd, int lane, int bj) {
+  bool ok = true;
+#pragma unroll
+  for (int j = kLeftB - 1; j >= 0; --j) {
+    if (EXACT) {
+      if (lane == j) {
+#pragma unroll
+        for (int c = 0; c < MC; ++c) w[c] = true_div(w[c], d);
+      }
+    } else {
+      bool okj = true;
+#pragma unroll
+      for (int c = 0; c < MC; ++c) {
+        const T q = div_fast(w[c], d, rd, okj);
+        if (lane == j) w[c] = q;
+      }
+      ok &= lane != j || okj;
+    }
+    const bool upd = lane < j && j < bj;
+    const T u = upd ? Ar[j] : T(0);
+#pragma unroll
+    for (int c = 0; c < MC; ++c) {
+      const T wj = __shfl_sync(0xffffffffu, w[c], j);
+      if (upd) w[c] -= u * wj;
+    }
+  }
+  return ok;
+}
+
+// MC right-hand-side columns per block: 1 on the solver's path (m = 1), 4
+// otherwise; V elements per copy.
+template <typename T, bool UPPER, int MC, int V>
+__global__ void __launch_bounds__(kMaxK)
+trsm_left_kernel(const T* __restrict__ blk, const T* __restrict__ B,
+                 T* __restrict__ W, int k, int m, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lda = left_ld<T>(k);
+  T* As = reinterpret_cast<T*>(smem_raw);      // k x lda, one triangle
+  T* Ws = As + k * lda;                         // published w, kMaxK x MC
+  const long long e = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x % tiles) * MC;
+  const int mc = min(MC, m - c0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int row = tid;                          // warp w: rows 32w..32w+31
+  const int nb = (k + kLeftB - 1) / kLeftB;
   const T* Ae = blk + e * k * k;
-  for (int i = tid; i < k * k; i += blockDim.x)
-    As[(i / k) * lda + i % k] = Ae[i];
   const T* Be = B + e * k * m + c0;
-  for (int i = tid; i < k * mc; i += blockDim.x)
-    Ws[(i / mc) * kColTile + i % mc] = Be[(i / mc) * m + i % mc];
+  constexpr int S = (int)sizeof(T);
+
+  // step s works on column block J = s (forward) or nb - 1 - s (backward);
+  // group s holds that block's columns of the triangle the sweep reads, in
+  // chunks of V elements (16 bytes where rows are 16-byte aligned)
+  constexpr int NCH = kLeftB / V;
+  for (int s = 0; s < nb; ++s) {
+    const int Jb = (UPPER ? nb - 1 - s : s) * kLeftB;
+    const int lo = UPPER ? 0 : Jb + 1;
+    const int hi = UPPER ? min(Jb + kLeftB, k) : k;
+    for (int i = tid; i < (hi - lo) * NCH; i += blockDim.x) {
+      const int r = lo + i / NCH, c = Jb + (i % NCH) * V;
+      if (c < k && (UPPER ? c + V > r : c < r))
+        cp_async<V * S>(As + r * lda + c, Ae + (long long)r * k + c,
+                        min(V, k - c) * S);
+    }
+    cp_commit();
+  }
+  T w[MC] = {};
+  T d = T(1);                         // this row's diagonal
+  double rd = 1.0;                    // and its reciprocal
+  if (row < k) {
+#pragma unroll
+    for (int c = 0; c < MC; ++c)
+      if (c < mc) w[c] = Be[(long long)row * m + c];
+    if (UPPER) {
+      d = Ae[(long long)row * k + row];
+      rd = recip(d);
+    }
+  }
+  cp_wait(nb - 1);
   __syncthreads();
 
-  if (!upper) {
-    // forward: w[j] is final at step j; rows below it take its update
-    for (int j = 0; j < k - 1; ++j) {
-      const int n_upd = (k - 1 - j) * mc;
-      for (int t = tid; t < n_upd; t += blockDim.x) {
-        const int i = j + 1 + t / mc, c = t % mc;
-        Ws[i * kColTile + c] -= As[i * lda + j] * Ws[j * kColTile + c];
+  const T* Ar = As + row * lda;
+  for (int s = 0; s < nb; ++s) {
+    const int J = UPPER ? nb - 1 - s : s, Jb = J * kLeftB;
+    const int bj = min(kLeftB, k - Jb);
+    if (warp == J) {
+      // the diagonal block: lane i holds row Jb + i
+      if (!UPPER) {
+        lower_diag(w, Ar + Jb, lane, bj);
+      } else {
+        T w0[MC];
+#pragma unroll
+        for (int c = 0; c < MC; ++c) w0[c] = w[c];
+        if (!__all_sync(0xffffffffu, upper_diag<false>(w, Ar + Jb, d, rd,
+                                                       lane, bj))) {
+#pragma unroll
+          for (int c = 0; c < MC; ++c) w[c] = w0[c];
+          upper_diag<true>(w, Ar + Jb, d, rd, lane, bj);
+        }
       }
-      __syncthreads();
+      if (lane < bj) {
+#pragma unroll
+        for (int c = 0; c < MC; ++c) Ws[row * MC + c] = w[c];
+      }
     }
-  } else {
-    // backward: divide w[j] by the diagonal, then update the rows above it
-    for (int j = k - 1; j >= 0; --j) {
-      for (int c = tid; c < mc; c += blockDim.x)
-        Ws[j * kColTile + c] /= As[j * lda + j];
-      __syncthreads();
-      const int n_upd = j * mc;
-      for (int t = tid; t < n_upd; t += blockDim.x) {
-        const int i = t / mc, c = t % mc;
-        Ws[i * kColTile + c] -= As[i * lda + j] * Ws[j * kColTile + c];
+    if (s + 1 < nb) {
+      cp_wait(nb - 2 - s);        // the next step's columns have landed
+      __syncthreads();            // and block J's w is published
+      // the rows still to be solved take block J's columns
+      if (UPPER ? warp < J : (warp > J && row < k)) {
+        const T* Wj = Ws + Jb * MC;
+        for (int j = 0; j < bj; ++j) {
+          const T a = Ar[Jb + j];
+#pragma unroll
+          for (int c = 0; c < MC; ++c) w[c] -= a * Wj[j * MC + c];
+        }
       }
-      __syncthreads();
     }
   }
 
-  T* We = W + e * k * m + c0;
-  for (int i = tid; i < k * mc; i += blockDim.x)
-    We[(i / mc) * m + i % mc] = Ws[(i / mc) * kColTile + i % mc];
+  if (row < k) {
+    T* We = W + e * k * m + c0;
+#pragma unroll
+    for (int c = 0; c < MC; ++c)
+      if (c < mc) We[(long long)row * m + c] = w[c];
+  }
 }
 
+// The shared-memory limit is raised once per device and kernel to what the
+// largest k needs (a CUDA API call on every launch would add to the host's
+// cost per launch).
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+cudaError_t allow_smem(K kernel, size_t smem, bool* sized) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && sized[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess && dev < 64) sized[dev] = true;
+  return err;
+}
+
+template <typename T>
+constexpr size_t right_smem(int k) {
+  return ((size_t)(k + kRows) * right_ld(k) + k) * sizeof(T) + k * 8;
+}
+
+template <typename T>
+constexpr size_t left_smem(int k, int mc) {
+  return ((size_t)k * left_ld<T>(k) + (size_t)kMaxK * mc) * sizeof(T);
+}
+
+template <typename T, int V>
+int launch_right_v(const T* U, long long su_b, long long su_r, const T* X,
+                   T* Y, int batch, int nr, int k, int unit_diag,
+                   cudaStream_t stream) {
+  static bool sized[64] = {};
+  cudaError_t err = allow_smem(trsm_right_kernel<T, V>, right_smem<T>(kMaxK),
+                               sized);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (nr + kRows - 1) / kRows;
+  trsm_right_kernel<T, V><<<(unsigned)((long long)batch * tiles), kThreads,
+                            right_smem<T>(k), stream>>>(
+      U, su_b, su_r, X, Y, nr, k, unit_diag, tiles);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_right(const void* U, const void* X, void* Y, int batch, int nr,
-                 int k, int unit_diag, void* stream) {
-  if (batch < 1 || nr < 1 || k < 1 || k > kMaxK)
+                 int k, int unit_diag, long long su_b, long long su_r,
+                 void* stream) {
+  if (batch < 1 || nr < 1 || k < 1 || k > kMaxK || su_r < k)
     return (int)cudaErrorInvalidValue;
-  const int tiles = (nr + kRowTile - 1) / kRowTile;
-  const size_t smem = ((size_t)k * k + (size_t)kRowTile * (k + 1)) * sizeof(T);
-  cudaError_t err = allow_smem(trsm_right_kernel<T>, smem);
+  if ((long long)batch * ((nr + kRows - 1) / kRows) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const T* u = static_cast<const T*>(U);
+  const T* x = static_cast<const T*>(X);
+  T* y = static_cast<T*>(Y);
+  cudaStream_t st = (cudaStream_t)stream;
+  // the widest copy that every row start of U and of X allows
+  auto fits = [&](int v) {
+    const uintptr_t bytes = (uintptr_t)v * sizeof(T);
+    return k % v == 0 && su_r % v == 0 && su_b % v == 0 &&
+           (reinterpret_cast<uintptr_t>(U) | reinterpret_cast<uintptr_t>(X)) %
+                   bytes == 0;
+  };
+  if constexpr (sizeof(T) == 8) {
+    if (fits(2))
+      return launch_right_v<T, 2>(u, su_b, su_r, x, y, batch, nr, k,
+                                  unit_diag, st);
+  } else {
+    if (fits(4))
+      return launch_right_v<T, 4>(u, su_b, su_r, x, y, batch, nr, k,
+                                  unit_diag, st);
+    if (fits(2))
+      return launch_right_v<T, 2>(u, su_b, su_r, x, y, batch, nr, k,
+                                  unit_diag, st);
+  }
+  return launch_right_v<T, 1>(u, su_b, su_r, x, y, batch, nr, k, unit_diag,
+                              st);
+}
+
+template <typename T, bool UPPER, int MC, int V>
+int launch_left_v(const T* blk, const T* B, T* W, int batch, int k, int m,
+                  cudaStream_t stream) {
+  const int tiles = (m + MC - 1) / MC;
+  if ((long long)batch * tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  static bool sized[64] = {};
+  cudaError_t err = allow_smem(trsm_left_kernel<T, UPPER, MC, V>,
+                               left_smem<T>(kMaxK, MC), sized);
   if (err != cudaSuccess) return (int)err;
-  trsm_right_kernel<T><<<batch * tiles, kRowTile, smem,
-                         (cudaStream_t)stream>>>(
-      static_cast<const T*>(U), static_cast<const T*>(X), static_cast<T*>(Y),
-      nr, k, unit_diag, tiles);
+  const int threads = (k + kLeftB - 1) / kLeftB * kLeftB;
+  trsm_left_kernel<T, UPPER, MC, V><<<(unsigned)((long long)batch * tiles),
+                                      threads, left_smem<T>(k, MC), stream>>>(
+      blk, B, W, k, m, tiles);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool UPPER, int MC>
+int launch_left_mc(const T* blk, const T* B, T* W, int batch, int k, int m,
+                   cudaStream_t stream) {
+  constexpr int V16 = 16 / sizeof(T);
+  if (k % V16 == 0 && reinterpret_cast<uintptr_t>(blk) % 16 == 0)
+    return launch_left_v<T, UPPER, MC, V16>(blk, B, W, batch, k, m, stream);
+  return launch_left_v<T, UPPER, MC, 1>(blk, B, W, batch, k, m, stream);
+}
+
+template <typename T, bool UPPER>
 int launch_left(const void* blk, const void* B, void* W, int batch, int k,
-                int m, int upper, void* stream) {
+                int m, void* stream) {
   if (batch < 1 || m < 1 || k < 1 || k > kMaxK)
     return (int)cudaErrorInvalidValue;
-  const int tiles = (m + kColTile - 1) / kColTile;
-  const size_t smem = ((size_t)k * (k + 1) + (size_t)k * kColTile) * sizeof(T);
-  cudaError_t err = allow_smem(trsm_left_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  trsm_left_kernel<T><<<batch * tiles, kLeftThreads, smem,
-                        (cudaStream_t)stream>>>(
-      static_cast<const T*>(blk), static_cast<const T*>(B),
-      static_cast<T*>(W), k, m, tiles, upper);
-  return (int)cudaGetLastError();
+  const T* a = static_cast<const T*>(blk);
+  const T* b = static_cast<const T*>(B);
+  T* w = static_cast<T*>(W);
+  cudaStream_t st = (cudaStream_t)stream;
+  return m == 1 ? launch_left_mc<T, UPPER, 1>(a, b, w, batch, k, m, st)
+                : launch_left_mc<T, UPPER, 4>(a, b, w, batch, k, m, st);
 }
 
 }  // namespace
 
 extern "C" int hylu_trsm_right_f64(const void* U, const void* X, void* Y,
                                    int batch, int nr, int k, int unit_diag,
+                                   long long su_b, long long su_r,
                                    void* stream) {
-  return launch_right<double>(U, X, Y, batch, nr, k, unit_diag, stream);
+  return launch_right<double>(U, X, Y, batch, nr, k, unit_diag, su_b, su_r,
+                              stream);
 }
 
 extern "C" int hylu_trsm_right_f32(const void* U, const void* X, void* Y,
                                    int batch, int nr, int k, int unit_diag,
+                                   long long su_b, long long su_r,
                                    void* stream) {
-  return launch_right<float>(U, X, Y, batch, nr, k, unit_diag, stream);
+  return launch_right<float>(U, X, Y, batch, nr, k, unit_diag, su_b, su_r,
+                             stream);
 }
 
 extern "C" int hylu_trsm_left_unit_lower_f64(const void* blk, const void* B,
                                              void* W, int batch, int k, int m,
                                              void* stream) {
-  return launch_left<double>(blk, B, W, batch, k, m, 0, stream);
+  return launch_left<double, false>(blk, B, W, batch, k, m, stream);
 }
 
 extern "C" int hylu_trsm_left_unit_lower_f32(const void* blk, const void* B,
                                              void* W, int batch, int k, int m,
                                              void* stream) {
-  return launch_left<float>(blk, B, W, batch, k, m, 0, stream);
+  return launch_left<float, false>(blk, B, W, batch, k, m, stream);
 }
 
 extern "C" int hylu_trsm_left_upper_f64(const void* blk, const void* B,
                                         void* W, int batch, int k, int m,
                                         void* stream) {
-  return launch_left<double>(blk, B, W, batch, k, m, 1, stream);
+  return launch_left<double, true>(blk, B, W, batch, k, m, stream);
 }
 
 extern "C" int hylu_trsm_left_upper_f32(const void* blk, const void* B,
                                         void* W, int batch, int k, int m,
                                         void* stream) {
-  return launch_left<float>(blk, B, W, batch, k, m, 1, stream);
+  return launch_left<float, true>(blk, B, W, batch, k, m, stream);
 }

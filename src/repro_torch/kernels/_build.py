@@ -37,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
 _PANEL = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-_RIGHT = [_P, _P, _P, _I, _I, _I, _I, _P]
+_RIGHT = [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P]
 _LEFT = [_P, _P, _P, _I, _I, _I, _P]
 _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
 _GEMM_UPDATE = [_P, _P, _P, _P, _I, _I, _I, _I, _P]

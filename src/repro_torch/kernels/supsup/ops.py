@@ -88,8 +88,7 @@ def supsup_update(x: torch.Tensor, src: torch.Tensor, k: int):
     Replaces ``repro.kernels.supsup.ops.supsup_update``."""
     if x.device.type == "cpu":
         return supsup_update_plain(x, src, k)
-    lts = trisolve_ops.trsm_batched(src[..., :k].contiguous(),
-                                    x[..., :k].contiguous())
+    lts = trisolve_ops.trsm_batched(src[..., :k], x[..., :k].contiguous())
     xr = gemm_update(x[..., k:].contiguous(), lts,
                      src[..., k:].contiguous())
     return lts, xr

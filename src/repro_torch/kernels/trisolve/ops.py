@@ -32,7 +32,10 @@ def _check_k(k):
 def trsm_batched(u: torch.Tensor, x: torch.Tensor,
                  unit_diag: bool = False) -> torch.Tensor:
     """Solve Y[i] @ U[i] = X[i]: u (B, k, k) (upper triangle read), x
-    (B, nr, k).  Replaces ``repro.kernels.trisolve.ops.trsm_batched``."""
+    (B, nr, k) contiguous.  u may be a strided view whose rows are
+    contiguous, such as the first k columns of the gathered source rows
+    (B, k, k + m): the kernel takes its batch and row strides, so no copy
+    of U is made.  Replaces ``repro.kernels.trisolve.ops.trsm_batched``."""
     if u.ndim != 3 or x.ndim != 3 or u.shape[0] != x.shape[0] \
             or u.shape[1] != u.shape[2] or x.shape[2] != u.shape[2]:
         raise ValueError(f"need u (B, k, k) and x (B, nr, k), got "
@@ -41,13 +44,25 @@ def trsm_batched(u: torch.Tensor, x: torch.Tensor,
         return trsm_plain(u, x, unit_diag=unit_diag)
     b, nr, k = x.shape
     _check_k(k)
-    _build.check_cuda("trsm_batched", u, x)
+    _build.check_cuda("trsm_batched", x)
+    if u.get_device() != x.get_device():
+        raise ValueError(f"trsm_batched: every operand must lie on one CUDA "
+                         f"device, got {u.device} and {x.device}")
+    if u.dtype != x.dtype:
+        raise TypeError(f"trsm_batched: mixed dtypes {u.dtype} and {x.dtype}")
+    # the strides of a dimension of size 1 are arbitrary: normalise them
+    su_b, su_r, su_c = u.stride()
+    su_b = su_b if b > 1 else 0
+    su_r = su_r if k > 1 else k
+    if (k > 1 and su_c != 1) or su_r < k:
+        raise ValueError(f"trsm_batched: u's rows must be contiguous and "
+                         f"apart, got strides {tuple(u.stride())}")
     y = torch.empty_like(x)
     if b and nr:
         with _build.on_device(x):
             _build.launch(f"hylu_trsm_right_{_build.suffix(x)}",
                           _build.ptr(u), _build.ptr(x), _build.ptr(y), b, nr,
-                          k, int(unit_diag), _build.stream_of(x))
+                          k, int(unit_diag), su_b, su_r, _build.stream_of(x))
         trsm_batched.launches += 1
     return y
 

@@ -158,6 +158,132 @@ def test_kernel_matches_plain(name, dt, cuda):
         torch.testing.assert_close(g, r, rtol=tol, atol=tol)
 
 
+def _src_rows(rng, b, k, m, tdt, dev):
+    """(b, k, k + m) source rows: a dominant upper triangle in the first k
+    columns (strict part scaled by 1/sqrt(k)) and NaN below its diagonal,
+    which no right solve may read."""
+    s = rng.normal(size=(b, k, k + m))
+    s[:, :, :k] = (np.triu(rng.normal(size=(b, k, k)), 1) / np.sqrt(k)
+                   + 3 * np.eye(k))
+    il = np.tril_indices(k, -1)
+    s[:, il[0], il[1]] = np.nan
+    return torch.tensor(s, dtype=tdt, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("m", [3, 8])
+@pytest.mark.parametrize("nr", [1, 31, 33, 128, 300])
+@pytest.mark.parametrize("k", [1, 2, 15, 16, 17, 33, 50, 64, 100, 128])
+def test_trsm_right_on_a_strided_view(k, nr, m, dt, cuda):
+    """K3's right solve on U = S[..., :k], the strided view of (B, k, k + m)
+    source rows the engine hands it (m odd: rows not 16-byte aligned), with
+    NaN in U's strict lower triangle: one launch per call, the plain
+    version's result, and the same bits as on a contiguous U whose lower
+    triangle is zero."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(1000 * k + nr + m)
+    S = _src_rows(rng, 3, k, m, tdt, cuda)
+    u = S[..., :k]
+    clean = torch.nan_to_num(u, nan=0.0)
+    x = torch.tensor(rng.normal(size=(3, nr, k)), dtype=tdt, device=cuda)
+    for unit in (False, True):
+        before = tri.trsm_batched.launches
+        got = tri.trsm_batched(u, x, unit_diag=unit)
+        torch.cuda.synchronize()
+        assert tri.trsm_batched.launches == before + 1
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, tri.trsm_plain(u, x, unit_diag=unit),
+                                   rtol=tol, atol=tol)
+        assert torch.equal(got, tri.trsm_batched(clean, x, unit_diag=unit))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("upper", [False, True])
+@pytest.mark.parametrize("m", [1, 3, 17])
+@pytest.mark.parametrize("k", [2, 31, 32, 33, 100, 128])
+def test_trsm_left_ignores_the_other_triangle(k, m, upper, dt, cuda):
+    """K3's left solves with NaN in the triangle each ignores (the upper
+    one and the diagonal for unit-lower, the strict lower one for upper):
+    one launch per call, the plain version's result, and the same bits as
+    on the block with that triangle zero."""
+    tdt, _, tol = TOLS[dt]
+    rng = np.random.default_rng(100 * k + m)
+    a = ((np.triu(rng.normal(size=(3, k, k)), 1)
+          + np.tril(rng.normal(size=(3, k, k)), -1)) / np.sqrt(k)
+         + 3 * np.eye(k))
+    ign = np.tril_indices(k, -1) if upper else np.triu_indices(k)
+    a0 = a.copy()
+    a0[:, ign[0], ign[1]] = 0.0
+    a[:, ign[0], ign[1]] = np.nan
+    blk, clean = (torch.tensor(v, dtype=tdt, device=cuda) for v in (a, a0))
+    b = torch.tensor(rng.normal(size=(3, k, m)), dtype=tdt, device=cuda)
+    fn, plain = ((tri.trsm_left_upper_batched, tri.trsm_left_upper_plain)
+                 if upper else (tri.trsm_left_unit_lower_batched,
+                                tri.trsm_left_unit_lower_plain))
+    before = fn.launches
+    got = fn(blk, b)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, plain(blk, b), rtol=tol, atol=tol)
+    assert torch.equal(got, fn(clean, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("k", [64, 100])
+def test_trsm_left_misaligned_block(k, dt, cuda):
+    """A block that starts 8 bytes past a 16-byte boundary takes the
+    element-wise copies: the same bits as the aligned block."""
+    tdt, _, tol = TOLS[dt]
+    rng = np.random.default_rng(k)
+    a = rng.normal(size=(2, k, k)) / np.sqrt(k) + 3 * np.eye(k)
+    blk = torch.tensor(a, dtype=tdt, device=cuda)
+    flat = torch.empty(blk.numel() + 2, dtype=tdt, device=cuda)
+    flat[1:-1] = blk.reshape(-1)
+    off = flat[1:-1].view(blk.shape)
+    b = torch.tensor(rng.normal(size=(2, k, 3)), dtype=tdt, device=cuda)
+    for fn in (tri.trsm_left_unit_lower_batched, tri.trsm_left_upper_batched):
+        assert torch.equal(fn(off, b), fn(blk, b))
+
+
+@pytest.mark.cuda
+def test_trsm_right_refuses_strided_rows(cuda):
+    """U's rows must be contiguous and not overlap: the kernel reads them
+    through a batch and a row stride only."""
+    s = torch.zeros(2, 8, 8, device=cuda, dtype=torch.float64)
+    x = torch.zeros(2, 5, 4, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        tri.trsm_batched(s[:, :4, ::2], x)
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        tri.trsm_batched(s.as_strided((2, 4, 4), (64, 2, 1)), x)
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        tri.trsm_batched(s[:, :4, :4].float(), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+def test_trsm_quotients_are_true_divisions(dt, cuda):
+    """At k = 1 each solve is one division per entry.  The kernels divide
+    by a product with the diagonal's reciprocal corrected to the correctly
+    rounded quotient; it must give the bits of a true division, with zero
+    and subnormal dividends and operands outside the fast path's range."""
+    tdt = TOLS[dt][0]
+    rng = np.random.default_rng(9)
+    lo, hi, ul = (-1070, 1000, 20) if dt == "float64" else (-140, 60, 60)
+    x = (rng.normal(size=(64, 2000, 1))
+         * 2.0 ** rng.integers(lo, hi, size=(64, 2000, 1)))
+    x[:, ::7] = 0.0
+    u = rng.normal(size=(64, 1, 1)) * 2.0 ** rng.integers(-ul, ul,
+                                                          size=(64, 1, 1))
+    X, U = (torch.tensor(v, dtype=tdt, device=cuda) for v in (x, u))
+    assert torch.equal(tri.trsm_batched(U, X), X / U)
+    b = X[:, :1].contiguous()
+    assert torch.equal(tri.trsm_left_upper_batched(U, b), b / U)
+
+
 @pytest.mark.cuda
 def test_panel_lu_global_pivots_float64(cuda):
     # the device-memory path (128 x 300 does not fit in shared memory) on a

@@ -168,6 +168,32 @@ def test_trsm_batched(nr, k, dt):
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("nr,k", TRISOLVE_SHAPES)
+def test_trsm_batched_strided_u(nr, k, dt):
+    """U as the strided view S[..., :k] of (B, k, k + m) source rows (m odd),
+    as the engine passes it: the same result as on its contiguous copy and
+    with NaN below the diagonal, and the JAX trsm_batched's."""
+    jdt, tdt, tol, _ = DTYPES[dt]
+    rng = np.random.default_rng(nr * 11 + k)
+    s = rng.normal(size=(3, k, k + 5))
+    s[:, :, :k] = _src_block(rng, 3, k)
+    S = torch.tensor(s, dtype=tdt)
+    Sn = S.clone()
+    il = np.tril_indices(k, -1)
+    Sn[:, il[0], il[1]] = float("nan")
+    x = rng.normal(size=(3, nr, k))
+    tx = torch.tensor(x, dtype=tdt)
+    for unit in (False, True):
+        y = tri.trsm_batched(S[..., :k], tx, unit_diag=unit)
+        assert torch.equal(y, tri.trsm_batched(S[..., :k].contiguous(), tx,
+                                               unit_diag=unit))
+        assert torch.equal(y, tri.trsm_batched(Sn[..., :k], tx,
+                                               unit_diag=unit))
+        _close(y, jtri.trsm_batched(jnp.asarray(s[:, :, :k], jdt),
+                                    jnp.asarray(x, jdt), unit_diag=unit), tol)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("kb,k,m", LEFT_SHAPES)
 def test_trsm_left_solves(kb, k, m, dt):
     jdt, tdt, _, tol = DTYPES[dt]
