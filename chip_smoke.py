@@ -30,7 +30,15 @@ Phases, each printing one JSON line:
             516 sup-sup buckets (U a strided view of the source rows, as
             the engine passes it) and both left solves over the 502 node
             blocks of the node-block apply, each held to its plain version
-            on every bucket and block;
+            on every bucket and block; then panel_extra: a spy on the
+            engine records what one unrolled refactor of one system hands
+            K2 (502 node panels) and K5, and what one bucketed refactor at
+            K = 32 hands K2 (32 narrow-level launches) and K1 (97 buckets);
+            every K2 and K1 call is held to its plain version in float64
+            and float32, and their device times summed over each refactor
+            by CUDA-graph replay are printed beside the summed bound, the
+            sums of K2's design before the node kernel and, as a scale,
+            library LU, triangular solve and gather on the same panels;
 5. main     the batched repeated-solve path through its entry points at
             K = 32: ``solve_sequence`` for T = 3 float64 steps, then one
             ``factor_batched`` + ``solve_batched`` step in float64 and one
@@ -47,8 +55,9 @@ Phases, each printing one JSON line:
             factor program, level-scheduled substitution): residuals, no
             kernel launched, and its times beside the kernel route's;
 9. model_kernels  per serving model, K7 (flash attention) on the q/k/v of
-            phi3-medium-14b's first attention layer and K8 (WKV) on the
-            r/k/v/w of rwkv6-1.6b's first time-mix layer, at the serving
+            phi3-medium-14b's first and last attention layers and K8 (WKV)
+            on the r/k/v/w of rwkv6-1.6b's first and last time-mix layers
+            (timed on the first), at the serving
             shape (4 requests of 2,048 tokens), each against its plain
             version in bfloat16 and float32 (K7) or float32 (K8), also at a
             ragged T and (K7) without the causal mask, with its time, the
@@ -172,6 +181,25 @@ def graph_ms(torch, calls, reps=5):
     del g
     torch.cuda.empty_cache()
     return t0.elapsed_time(t1) / reps
+
+
+def lib_graph_ms(torch, calls):
+    """``graph_ms`` of library calls, or None for calls that a CUDA graph
+    cannot capture (their loop time is reported instead)."""
+    try:
+        return graph_ms(torch, calls)
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return None
+
+
+def lu_flops(np, npan, nr, c0, wlim):
+    """Operations of ``npan`` panel LUs of nr rows eliminated over the
+    columns [c0, wlim): a division per multiplier and a multiply-add per
+    updated entry."""
+    j = np.arange(nr)
+    return npan * float(np.sum((nr - j - 1)
+                               * (1 + 2 * np.maximum(wlim - c0 - j - 1, 0))))
 
 
 def main() -> int:
@@ -486,12 +514,6 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     def sz(dt):
         return torch.finfo(dt).bits // 8
 
-    def lu_flops(npan, nr_, c0, wlim):
-        j = np.arange(nr_)
-        return npan * float(np.sum((nr_ - j - 1)
-                                   * (1 + 2 * np.maximum(wlim - c0 - j - 1,
-                                                         0))))
-
     # name, wrapper counted on the main path, replaces, source, args,
     # kernel call, plain call, library call, (flops, bytes) of the work,
     # tolerance table, and for a panel LU the (kernel, plain) calls on the
@@ -514,16 +536,17 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
              f"({K * B}, {nr}, {wt}) wu={pb.wu}",
              lambda: panel_ops.panel_lu_batched(p1, pb.wu, e1),
              lambda: panel_ops.panel_lu_plain(p1, 0, pb.wu, e1), None,
-             lu_flops(K * B, nr, 0, pb.wu),
+             lu_flops(np, K * B, nr, 0, pb.wu),
              (2 * p1.numel() + e1.numel()) * s + (p1.shape[0] * (nr + 1)) * 4,
              TOL, (lambda: panel_ops.panel_lu_batched(p1s, pb.wu, e1),
                    lambda: panel_ops.panel_lu_plain(p1s, 0, pb.wu, e1))),
             ("panel_lu", "panel_lu",
-             "src/repro/kernels/panel/kernel.py:23", "src/repro_torch/csrc/panel_lu.cu",
+             "src/repro/kernels/panel/kernel.py:23",
+             "src/repro_torch/csrc/node_panel_lu.cu",
              f"({K}, {nd.nr}, {nd.width}) lsize={nd.lsize}",
              lambda: panel_ops.panel_lu(p2, nd.nr, nd.lsize, e2),
              lambda: panel_ops.panel_lu_plain(p2, nd.lsize, nd.width, e2),
-             None, lu_flops(K, nd.nr, nd.lsize, nd.width),
+             None, lu_flops(np, K, nd.nr, nd.lsize, nd.width),
              (2 * p2.numel() + e2.numel()) * s + K * (nd.nr + 1) * 4, TOL,
              (lambda: panel_ops.panel_lu(p2s, nd.nr, nd.lsize, e2),
               lambda: panel_ops.panel_lu_plain(p2s, nd.lsize, nd.width, e2))),
@@ -689,6 +712,8 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     for name, extra in trsm_extra(torch, trisolve_ops, eng, a_dev,
                                   (U, X, BLK, RHS)).items():
         records[name].update(extra)
+    for name, extra in panel_extra(torch, np, eng, eng_u, a_dev).items():
+        records[name].update(extra)
     out = list(records.values())
     emit({"phase": "kernels", "dtypes": ["float64", "float32"],
           "records": out, "seconds": time.perf_counter() - t})
@@ -792,13 +817,6 @@ def trsm_extra(torch, trisolve_ops, eng, a_dev, table):
     out = {"trsm_right": {}, "trsm_left_unit_lower": {},
            "trsm_left_upper": {}}
 
-    def lib_graph_ms(calls):
-        try:
-            return graph_ms(torch, calls)
-        except RuntimeError:              # not capturable: loop time only
-            torch.cuda.synchronize()
-            return None
-
     for dt in (torch.float64, torch.float32):
         dname = str(dt).replace("torch.", "")
         sfx = "" if dt == torch.float64 else "_f32"
@@ -838,7 +856,7 @@ def trsm_extra(torch, trisolve_ops, eng, a_dev, table):
             "buckets_max_abs_err" + sfx: err,
             "buckets_bound_ms" + sfx: bound * 1e3,
             "buckets_device_ms" + sfx: graph_ms(torch, kern),
-            "buckets_library_device_ms" + sfx: lib_graph_ms(lib),
+            "buckets_library_device_ms" + sfx: lib_graph_ms(torch, lib),
             "buckets_loop_ms" + sfx: bench_ms(
                 torch, lambda: [fn() for fn in kern], min_ms=200.0),
             "buckets_library_loop_ms" + sfx: bench_ms(
@@ -888,7 +906,7 @@ def trsm_extra(torch, trisolve_ops, eng, a_dev, table):
                 "blocks_max_abs_err" + sfx: err_,
                 "blocks_bound_ms" + sfx: bnd * 1e3,
                 "blocks_device_ms" + sfx: graph_ms(torch, kern),
-                "blocks_library_device_ms" + sfx: lib_graph_ms(lib),
+                "blocks_library_device_ms" + sfx: lib_graph_ms(torch, lib),
                 "blocks_loop_ms" + sfx: bench_ms(
                     torch, lambda: [fn() for fn in kern], min_ms=200.0),
                 "blocks_library_loop_ms" + sfx: bench_ms(
@@ -911,7 +929,7 @@ def trsm_extra(torch, trisolve_ops, eng, a_dev, table):
                  lambda: torch.linalg.solve_triangular(blk, rhs,
                                                        upper=True))):
             out[name]["device_ms" + sfx] = graph_ms(torch, [kf] * 200) / 200
-            lib_ms = lib_graph_ms([lf] * 200)
+            lib_ms = lib_graph_ms(torch, [lf] * 200)
             out[name]["library_device_ms" + sfx] = (
                 None if lib_ms is None else lib_ms / 200)
         del u, x, blk, rhs, lower
@@ -920,6 +938,237 @@ def trsm_extra(torch, trisolve_ops, eng, a_dev, table):
     torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     return out
+
+
+def _record_calls(obj, attr, run, keep):
+    """Run ``run()`` with ``obj.attr`` replaced by a spy that records
+    ``keep(args, result)`` for every call; returns the records."""
+    calls, orig = [], getattr(obj, attr)
+
+    def spy(*args):
+        res = orig(*args)
+        calls.append(keep(args, res))
+        return res
+
+    setattr(obj, attr, spy)
+    try:
+        run()
+    finally:
+        delattr(obj, attr)               # the class's method again
+    return calls
+
+
+def ptxas_of(log, needle):
+    """ptxas's registers and spill lines of the entry functions whose
+    (mangled) name holds ``needle``, from the build's ``-Xptxas -v`` log."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif name and needle in name and ("registers" in ln or "spill" in ln):
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
+def panel_extra(torch, np, eng, eng_u, a_dev):
+    """K2 (and K1, K5) over whole refactors of fem2d_10k.  A spy on the
+    engine's wrappers records the operands one unrolled refactor of system
+    0 hands K2 (one launch per node with nr > 1, B = 1) and K5 (one per
+    sup-sup edge), and those one bucketed refactor at K systems hands K2
+    (one launch per narrow-level node, B = K) and K1 (one per panel
+    bucket).  Each K2 and K1 call is held to ``panel_lu_plain`` in float64
+    (the refactor's dtype) and float32 (the same operands): equal pivots
+    and perturbation counts, values within TOL.  Per schedule and dtype it
+    reports the device ms summed over the call's kernel launches by
+    CUDA-graph replay (for K2 also through the wrapper, as the engine
+    calls it), the summed bound, and the same sums for K2's design before
+    ``csrc/node_panel_lu.cu`` (``panel_lu.cu``'s kernel, launched with c0 =
+    lsize on contiguous copies, as its wrapper did); as a yardstick, not a
+    library call for the same function, ``torch.linalg.lu_factor_ex`` on
+    the block, ``solve_triangular`` on the U suffix and an ``index_select``
+    of the prefix, on the same panels.  Also K2's device time per launch at
+    the largest narrow node (the kernel table's shape) and ptxas's
+    registers and spills of the node kernel."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.panel import ops as panel_ops
+    from repro_torch.kernels.supsup import ops as supsup_ops
+
+    t = time.perf_counter()
+
+    def keep_panel(args, res):
+        P, eps = args[0], args[-1]
+        return (P.clone(),) + tuple(args[1:-1]) + (eps.clone(),)
+
+    k2_unrolled = _record_calls(
+        eng_u, "_panel_lu", lambda: eng_u.refactor_batched(a_dev[:1]),
+        keep_panel)
+    orig_supsup = supsup_ops.supsup_update
+    k5_calls = []
+
+    def keep_k5(args, res):
+        x, src, k = args
+        k5_calls.append((x[..., k:].contiguous().clone(), res[0].clone(),
+                         src[..., k:].contiguous().clone()))
+        return None
+
+    supsup_ops.supsup_update = lambda *a: (lambda r: keep_k5(a, r) or r)(
+        orig_supsup(*a))
+    try:
+        eng_u.refactor_batched(a_dev[:1])
+    finally:
+        supsup_ops.supsup_update = orig_supsup
+    k1_calls = []
+    k2_bucketed = _record_calls(
+        eng, "_panel_lu",
+        lambda: k1_calls.extend(_record_calls(
+            eng, "_panel_lu_batched", lambda: eng.refactor_batched(a_dev),
+            keep_panel)), keep_panel)
+    torch.cuda.synchronize()
+    K = a_dev.shape[0]
+    check(len(k2_unrolled) == sum(nd.nr > 1 for nd in eng_u.plan.nodes),
+          f"panel_extra: {len(k2_unrolled)} K2 calls in one unrolled refactor")
+    check(all(c[0].shape[0] == 1 for c in k2_unrolled)
+          and all(c[0].shape[0] == K for c in k2_bucketed),
+          "panel_extra: K2 batch sizes")
+
+    def bound_of(P, flops, dname):
+        b_, nr_, _ = P.shape
+        nbytes = 2 * P.numel() * P.element_size() + b_ * (
+            P.element_size() + 4 * (nr_ + 1))
+        return max(nbytes / HBM_BYTES_PER_S,
+                   flops / PEAK_FLOPS[dname]) * 1e3, nbytes
+
+    def held(what, got, ref, tol):
+        check(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
+              f"{what}: pivots or perturbation counts differ")
+        err = float((got[0] - ref[0]).abs().max())
+        check(bool(torch.allclose(got[0], ref[0], rtol=tol, atol=tol)),
+              f"{what}: max |kernel - plain| = {err} outside {tol}")
+        return err, int((got[1] != torch.arange(
+            got[1].shape[-1], device=got[1].device)).sum()), int(got[2].sum())
+
+    def sums(label, calls, node, dt):
+        """Check every call, then the summed device times and bounds."""
+        dname = str(dt).replace("torch.", "")
+        tol = TOL[dname]
+        kern, wrap, parent, yard = [], [], [], []
+        bound = nbytes = steps = 0.0
+        err, moved, perturbed = 0.0, 0, 0
+        for c in calls:
+            if node:
+                P, nr_, lsize, eps = c
+                w = P.shape[2]
+                P = P.to(dt)
+                e = panel_ops._eps_in(eps, P.shape[0], P)
+                got = panel_ops.panel_lu(P, nr_, lsize, e)
+                ref = panel_ops.panel_lu_plain(P, lsize, w, e)
+                c0, wlim = lsize, w
+            else:
+                P, wu, eps = c
+                nr_ = P.shape[1]
+                P = P.to(dt)
+                e = panel_ops._eps_in(eps, P.shape[0], P)
+                got = panel_ops.panel_lu_batched(P, wu, e)
+                ref = panel_ops.panel_lu_plain(P, 0, wu, e)
+                c0, wlim = 0, wu
+            torch.cuda.synchronize()
+            e_, mv, pt = held(f"{label} {dname} ({tuple(P.shape)}, "
+                              f"c0={c0})", got, ref, tol)
+            err, moved, perturbed = max(err, e_), moved + mv, perturbed + pt
+            del got, ref
+            bnd, nb = bound_of(P, lu_flops(np, P.shape[0], nr_, c0, wlim),
+                               dname)
+            bound, nbytes, steps = bound + bnd, nbytes + nb, steps + nr_
+            if node:
+                kern.append(lambda P=P, l_=lsize, e=e:
+                            panel_ops._launch_node(P, l_, e))
+                wrap.append(lambda P=P, n_=nr_, l_=lsize, e=e:
+                            panel_ops.panel_lu(P, n_, l_, e))
+                parent.append(lambda P=P, l_=lsize, w_=P.shape[2], e=e:
+                              panel_ops._launch(P, l_, w_, e))
+                idx = torch.arange(nr_, device=P.device)
+                yard.append(lambda P=P, n_=nr_, l_=lsize, idx=idx:
+                            _yardstick(torch, P, n_, l_, idx))
+            else:
+                kern.append(lambda P=P, wu=wlim, e=e:
+                            panel_ops.panel_lu_batched(P, wu, e))
+        out = {"calls": len(calls),
+               "panels": int(sum(c[0].shape[0] for c in calls)),
+               "pivot_steps": int(steps), "bytes": nbytes,
+               "max_abs_err": err, "rows_moved": moved,
+               "perturbed": perturbed, "bound_ms": bound,
+               "device_ms": graph_ms(torch, kern),
+               "loop_ms": bench_ms(torch, lambda: [f() for f in kern],
+                                   min_ms=100.0)}
+        if node:
+            yard_ms = lib_graph_ms(torch, yard)
+            out.update({
+                "wrapper_device_ms": graph_ms(torch, wrap),
+                "parent_device_ms": graph_ms(torch, parent),
+                "parent_loop_ms": bench_ms(
+                    torch, lambda: [f() for f in parent], min_ms=100.0),
+                "yardstick_device_ms": yard_ms,
+                "yardstick_loop_ms": bench_ms(
+                    torch, lambda: [f() for f in yard], min_ms=100.0)})
+        del kern, wrap, parent, yard
+        torch.cuda.empty_cache()
+        return out
+
+    res = {"panel_lu": {}, "panel_lu_bucketed": {}, "gemm_update": {}}
+    for dt in (torch.float64, torch.float32):
+        sfx = "" if dt == torch.float64 else "_f32"
+        res["panel_lu"]["refactor_unrolled" + sfx] = sums(
+            "K2 unrolled", k2_unrolled, True, dt)
+        res["panel_lu"]["refactor_bucketed" + sfx] = sums(
+            "K2 bucketed", k2_bucketed, True, dt)
+        res["panel_lu_bucketed"]["refactor_bucketed" + sfx] = sums(
+            "K1 bucketed", k1_calls, False, dt)
+        # K2 per launch at the largest narrow node, by replay of 20 launches
+        P, nr_, lsize, eps = max(k2_bucketed, key=lambda c: c[0].numel())
+        P = P.to(dt)
+        e = panel_ops._eps_in(eps, P.shape[0], P)
+        res["panel_lu"]["device_ms" + sfx] = graph_ms(
+            torch, [lambda: panel_ops.panel_lu(P, nr_, lsize, e)] * 20) / 20
+        res["panel_lu"]["parent_device_ms" + sfx] = graph_ms(
+            torch, [lambda: panel_ops._launch(P, lsize, P.shape[2], e)]
+            * 20) / 20
+        del P
+    # K5 (float64, the refactor's dtype): device time summed over the
+    # unrolled refactor's launches, beside its summed bound
+    k5 = [lambda c=c: supsup_ops.gemm_update(*c) for c in k5_calls]
+    b5 = sum(max(2.0 * a.shape[1] * a.shape[2] * b.shape[2]
+                 / PEAK_FLOPS["float64"],
+                 8 * (2 * c.numel() + a.numel() + b.numel())
+                 / HBM_BYTES_PER_S) for c, a, b in k5_calls) * 1e3
+    res["gemm_update"].update({
+        "refactor_unrolled": {"calls": len(k5_calls), "bound_ms": b5,
+                              "device_ms": graph_ms(torch, k5),
+                              "loop_ms": bench_ms(
+                                  torch, lambda: [f() for f in k5],
+                                  min_ms=100.0)}})
+    res["panel_lu"]["ptxas"] = ptxas_of(_build.last_build["log"],
+                                        "node_panel_lu")
+    res["panel_lu"]["yardstick"] = (
+        "torch.linalg.lu_factor_ex(block) + solve_triangular(L, U suffix) "
+        "+ index_select(prefix): not the same function, a scale")
+    del k2_unrolled, k2_bucketed, k1_calls, k5_calls, k5
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    emit({"phase": "panel_extra", "matrix": "fem2d_10k", "k": K,
+          "results": res, "seconds": time.perf_counter() - t})
+    return res
+
+
+def _yardstick(torch, P, nr, lsize, idx):
+    """Library calls on a node panel's three parts (a scale for K2, not
+    the same function): LU of the block, the unit-lower solve of the U
+    suffix, a row gather of the prefix."""
+    lu, _, _ = torch.linalg.lu_factor_ex(P[:, :, lsize:lsize + nr])
+    if P.shape[2] > lsize + nr:
+        torch.linalg.solve_triangular(lu, P[:, :, lsize + nr:], upper=False,
+                                      unitriangular=True)
+    if lsize:
+        P[:, :, :lsize].index_select(1, idx)
 
 
 def scalar_phase(torch, np, kernels, A, an64, an_u, an32):
@@ -1054,56 +1303,83 @@ def plain_phase(torch, np, kernels, A, an64, bst, values0, b, t_factor,
           f"use_kernels=False residual {info_p['residual'].max()}")
 
 
-def first_layer(T, L, cfg, params, prompt):
-    """The model's forward stopped at its first sub-layer: the embedded
-    prompt through ``ln1`` — the input of the first attention or time-mix
-    layer — and that layer's params."""
-    sub = T.layer_slice(params["blocks"][0], 0)
-    return L.rms_norm(params["embed"][prompt], sub["ln1"], cfg.norm_eps), sub
+def layer_input(T, L, cfg, params, prompt, layer):
+    """The model's forward stopped at sub-layer ``layer`` (every layer of
+    the served models is one attention or one RWKV6 block): its input
+    through ``ln1`` — what its attention or time-mix receives — and that
+    layer's params."""
+    kind = cfg.layer_kinds()[0]
+    x = params["embed"][prompt]
+    positions = torch_arange_like(prompt)
+    for i in range(layer):
+        x, _ = T._sublayer_seq(cfg, kind, T.layer_slice(params["blocks"][0], i),
+                               x, positions, False, True)
+    sub = T.layer_slice(params["blocks"][0], layer)
+    return L.rms_norm(x, sub["ln1"], cfg.norm_eps), sub
+
+
+def torch_arange_like(prompt):
+    """The positions of a (B, T) prompt, as the forward makes them."""
+    import torch
+
+    b, t = prompt.shape
+    return torch.arange(t, device=prompt.device)[None].expand(b, t)
 
 
 def flash_record(torch, L, T, cfg, params, prompt):
-    """Phase 9 for phi3-medium: K7 on the q/k/v its first attention layer
-    makes (the (B, H, T, D) views of the (B, T, H, D) projections that
-    ``attention_seq`` hands the kernel), bfloat16 as served and float32."""
+    """Phase 9 for phi3-medium: K7 on the q/k/v its first and last
+    attention layers make (the (B, H, T, D) views of the (B, T, H, D)
+    projections that ``attention_seq`` hands the kernel), bfloat16 as
+    served and float32, held to its plain version on both layers and timed
+    on the first."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flashattn import ops as flash
 
     t = time.perf_counter()
-    h, sub = first_layer(T, L, cfg, params, prompt)
-    positions = torch.arange(PROMPT, device=prompt.device)[None].expand(
-        BATCH, PROMPT)
-    q, k, v = (a.transpose(1, 2) for a in L.attention_qkv(
-        cfg, sub["attn"], h, positions))
+    positions = torch_arange_like(prompt)
+    last = cfg.n_layers - 1
+    layers = {}
+    for layer in (0, last):
+        h, sub = layer_input(T, L, cfg, params, prompt, layer)
+        layers[layer] = [a.transpose(1, 2) for a in L.attention_qkv(
+            cfg, sub["attn"], h, positions)]
+        del h
+    q, k, v = layers[0]
     b, hq, tq, d = q.shape
     rec = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attn.cu",
            "replaces": "src/repro/kernels/flashattn/kernel.py:28",
            "shape": f"q ({b}, {hq}, {tq}, {d}) k, v ({b}, {k.shape[1]}, "
-                    f"{tq}, {d}), causal, phi3-medium-14b layer 0",
-           "dtype": "bfloat16"}
+                    f"{tq}, {d}), causal, phi3-medium-14b layer 0 (timed) "
+                    f"and layer {last} (held)",
+           "dtype": "bfloat16", "layers_held": [0, last]}
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).replace("torch.", "")
         sfx = "" if dt == torch.bfloat16 else "_f32"
+        for layer, qkv in layers.items():
+            tag = "" if layer == 0 else "_last"
+            lops = [a.to(dt) for a in qkv]
+            cases = {"": (lops, True),
+                     "_ragged": ([a[:, :, :RAGGED_T] for a in lops], True),
+                     "_noncausal": (lops, False)}
+            for label, (args, causal) in cases.items():
+                got = flash.flash_attention(*args, causal=causal).float()
+                ref = flash.attention_plain(*args, causal=causal).float()
+                torch.cuda.synchronize()
+                diff = (got - ref).abs()
+                err = float(diff.max())
+                rtol, atol = TOL_MODEL[dname]
+                ratio = float((diff / (atol + rtol * ref.abs())).max())
+                check(ratio <= 1.0, f"flash_attention {dname} layer {layer}"
+                                    f"{label}: |kernel - plain| up to {ratio} "
+                                    f"times rtol={rtol}, atol={atol} (max "
+                                    f"{err})")
+                rec["max_abs_err" + label + tag + sfx] = err
+                rec["max_err_over_limit" + label + tag + sfx] = ratio
+                del got, ref, diff
+            del lops
         ops = [a.to(dt) for a in (q, k, v)]
-        cases = {"": (ops, True),
-                 "_ragged": ([a[:, :, :RAGGED_T] for a in ops], True),
-                 "_noncausal": (ops, False)}
-        for label, (args, causal) in cases.items():
-            got = flash.flash_attention(*args, causal=causal).float()
-            ref = flash.attention_plain(*args, causal=causal).float()
-            torch.cuda.synchronize()
-            diff = (got - ref).abs()
-            err = float(diff.max())
-            rtol, atol = TOL_MODEL[dname]
-            ratio = float((diff / (atol + rtol * ref.abs())).max())
-            check(ratio <= 1.0, f"flash_attention {dname}{label}: |kernel - "
-                                f"plain| up to {ratio} times rtol={rtol}, "
-                                f"atol={atol} (max {err})")
-            rec["max_abs_err" + label + sfx] = err
-            rec["max_err_over_limit" + label + sfx] = ratio
-            del got, ref, diff
         pairs = tq * (tq + 1) / 2                  # causal (row, col) pairs
         flops = 4.0 * d * pairs * b * hq
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * ops[0].element_size()
@@ -1171,30 +1447,40 @@ def gemma_case(torch, F, flash):
 
 
 def wkv_record(torch, L, T, cfg, params, prompt):
-    """Phase 9 for rwkv6: K8 on the r/k/v/w its first time-mix layer makes
-    (the (B, H, T, hs) views ``rwkv_time_mix_seq`` hands the kernel)."""
+    """Phase 9 for rwkv6: K8 on the r/k/v/w its first and last time-mix
+    layers make (the (B, H, T, hs) views ``rwkv_time_mix_seq`` hands the
+    kernel), held on both and timed on the first."""
     from repro_torch.kernels.wkv import ops as wkvops
 
     t = time.perf_counter()
-    h, sub = first_layer(T, L, cfg, params, prompt)
-    r, k, v, w, u, _ = L.rwkv_wkv_inputs(cfg, sub["rwkv"], h)
-    ops = [a.transpose(1, 2) for a in (r, k, v, w)]
+    last = cfg.n_layers - 1
+    layers = {}
+    for layer in (0, last):
+        h, sub = layer_input(T, L, cfg, params, prompt, layer)
+        r, k, v, w, u, _ = L.rwkv_wkv_inputs(cfg, sub["rwkv"], h)
+        layers[layer] = ([a.transpose(1, 2) for a in (r, k, v, w)], u)
+        del h, r, k, v, w
+    ops, u = layers[0]
     b, nh, tq, hs = ops[0].shape
     rec = {"name": "wkv", "route": "cuda", "source": "src/repro_torch/csrc/wkv.cu",
            "replaces": "src/repro/kernels/wkv/kernel.py:26",
            "shape": f"r, k, v, w ({b}, {nh}, {tq}, {hs}) u ({nh}, {hs}), "
-                    "rwkv6-1.6b layer 0", "dtype": "float32"}
-    for label, args in (("", ops), ("_ragged", [a[:, :, :RAGGED_T]
-                                                for a in ops])):
-        got = wkvops.wkv(*args, u)
-        ref = wkvops.wkv_plain(*args, u)
-        torch.cuda.synchronize()
-        for part, g, r_ in (("", got[0], ref[0]), ("_state", got[1], ref[1])):
-            err = float((g - r_).abs().max())
-            check(bool(torch.allclose(g, r_, rtol=TOL_WKV, atol=TOL_WKV)),
-                  f"wkv{label}{part}: max |kernel - plain| = {err} outside "
-                  f"rtol=atol={TOL_WKV}")
-            rec["max_abs_err" + label + part] = err
+                    f"rwkv6-1.6b layer 0 (timed) and layer {last} (held)",
+           "dtype": "float32", "layers_held": [0, last]}
+    for layer, (lops, lu) in layers.items():
+        tag = "" if layer == 0 else "_last"
+        for label, args in (("", lops), ("_ragged", [a[:, :, :RAGGED_T]
+                                                     for a in lops])):
+            got = wkvops.wkv(*args, lu)
+            ref = wkvops.wkv_plain(*args, lu)
+            torch.cuda.synchronize()
+            for part, g, r_ in (("", got[0], ref[0]),
+                                ("_state", got[1], ref[1])):
+                err = float((g - r_).abs().max())
+                check(bool(torch.allclose(g, r_, rtol=TOL_WKV, atol=TOL_WKV)),
+                      f"wkv layer {layer}{label}{part}: max |kernel - plain| "
+                      f"= {err} outside rtol=atol={TOL_WKV}")
+                rec["max_abs_err" + label + tag + part] = err
     flops = 7.0 * hs * hs * tq * b * nh         # per step: k v^T, y, S update
     nbytes = 4 * (5 * ops[0].numel() + u.numel() + b * nh * hs * hs)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]

@@ -348,9 +348,8 @@ class RepeatedSolveEngine:
             if stop == (i, "seq"):
                 return vals, eps
             for nr, w, lsize, off, r0 in seq:     # narrow level: per node
-                panel = vals[:, off:off + nr * w].reshape(K, nr, w)
-                P, lperm, npn = self._panel_lu(panel.contiguous(), nr,
-                                               lsize, eps)
+                panel = vals[:, off:off + nr * w].view(K, nr, w)  # a view
+                P, lperm, npn = self._panel_lu(panel, nr, lsize, eps)
                 nper += npn
                 inode[:, r0:r0 + nr] = torch.gather(
                     inode[:, r0:r0 + nr], 1, lperm.long())
@@ -442,8 +441,7 @@ class RepeatedSolveEngine:
                     small, torch.where(d >= 0, eps, -eps), d)
                 nper += small.to(torch.int32)
                 continue
-            P, lperm, npn = self._panel_lu(panel.contiguous(), nr, lsize,
-                                           eps)
+            P, lperm, npn = self._panel_lu(panel, nr, lsize, eps)
             nper += npn
             inode[:, r0:r0 + nr] = torch.gather(inode[:, r0:r0 + nr], 1,
                                                 lperm.long())

@@ -37,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
 _PANEL = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_NODE_PANEL = [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _RIGHT = [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P]
 _LEFT = [_P, _P, _P, _I, _I, _I, _P]
 _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
@@ -46,6 +47,7 @@ _FLASH = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, *[_L] * 9, _P]
 _WKV = [_P] * 7 + [_I] * 4 + [_L] * 8 + [_P]
 SIGNATURES = {
     **{f"hylu_panel_lu_{s}": _PANEL for s in ("f64", "f32")},
+    **{f"hylu_node_panel_lu_{s}": _NODE_PANEL for s in ("f64", "f32")},
     **{f"hylu_trsm_right_{s}": _RIGHT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_unit_lower_{s}": _LEFT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_upper_{s}": _LEFT for s in ("f64", "f32")},
@@ -149,6 +151,8 @@ def library():
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+            lib.hylu_node_panel_lu_scratch.argtypes = [_I] * 4
+            lib.hylu_node_panel_lu_scratch.restype = ctypes.c_longlong
             lib.hylu_error_string.argtypes = [ctypes.c_int]
             lib.hylu_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -346,6 +346,128 @@ def test_panel_lu_nonfinite_steps(case, bucketed, cuda):
     torch.testing.assert_close(g[fin], r[fin], rtol=1e-10, atol=1e-10)
 
 
+def _node_panels(rng, b, nr, lsize, us, dominant):
+    """(b, nr, lsize + nr + us) node panels with their rows shuffled, so
+    that partial pivoting has to move rows; a dominant block (16 I before
+    the shuffle) keeps float32 inside 1e-4 through 128 pivot steps."""
+    p = rng.normal(size=(b, nr, lsize + nr + us))
+    if dominant:
+        p[:, :, lsize:lsize + nr] += 16 * np.eye(nr)
+    rows = np.argsort(rng.random((b, nr)), axis=1)
+    return np.take_along_axis(p, rows[:, :, None], axis=1)
+
+
+def _node_held(P, nr, lsize, eps, tol):
+    """K2 on P against its plain version: one launch, equal pivots and
+    perturbation counts, values within tol."""
+    before = panel.panel_lu.launches
+    got = panel.panel_lu(P, nr, lsize, eps)
+    ref = panel.panel_lu_plain(P, lsize, P.shape[2], eps)
+    torch.cuda.synchronize()
+    assert panel.panel_lu.launches == before + 1
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    torch.testing.assert_close(got[0], ref[0], rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("us", [0, 22, 100])
+@pytest.mark.parametrize("lsize", [0, 3, 2197])
+@pytest.mark.parametrize("nr", [2, 3, 17, 31, 32, 33, 64, 128])
+def test_node_panel_lu_shapes(nr, lsize, us, dt, cuda):
+    """K2 at one panel (the unrolled schedule) and at 32 (a narrow level
+    at K = 32): every block size (one warp per panel up to nr = 32, with
+    several panels a block, then 4 and 8 warps), prefixes longer than one
+    round of the prefix copy, and U suffixes of 0 to 100 columns; rows
+    shuffled, random blocks in float64."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(nr * 10007 + lsize * 31 + us)
+    for b in (1, 32):
+        p = _node_panels(rng, b, nr, lsize, us, dominant=dt == "float32")
+        P = torch.tensor(p, dtype=tdt, device=cuda)
+        eps = torch.full((b,), 1e-8, dtype=tdt, device=cuda)
+        got = _node_held(P, nr, lsize, eps, tol)
+        if b > 1:
+            assert (got[1] != torch.arange(nr, device=cuda)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+def test_node_panel_lu_window_in_device_memory(dt, cuda):
+    """A window [lsize, w) above the 227 KB a block may stage (128 rows by
+    350 columns in float64, 550 in float32): K2 works on it in a scratch
+    buffer in device memory, with the same pivots and values."""
+    tdt, tol, _ = TOLS[dt]
+    nr, lsize = 128, 50
+    us = (350 if dt == "float64" else 550) - nr
+    w = lsize + nr + us
+    elem = torch.finfo(tdt).bits // 8
+    assert nr * (w - lsize) * elem > 227 * 1024
+    assert panel._node_scratch(nr, w, lsize, elem) > 0
+    rng = np.random.default_rng(12)
+    for b in (1, 3):
+        p = _node_panels(rng, b, nr, lsize, us, dominant=dt == "float32")
+        P = torch.tensor(p, dtype=tdt, device=cuda)
+        eps = torch.full((b,), 1e-8, dtype=tdt, device=cuda)
+        _node_held(P, nr, lsize, eps, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("nr,lsize", [(8, 2197), (40, 2197), (128, 300)])
+def test_node_panel_lu_nonfinite_multiplier_poisons_prefix(nr, lsize, dt,
+                                                           cuda):
+    """Two infinities in the first block column: the first is the pivot,
+    the other's multiplier is inf / inf = NaN, which (0 * NaN in the Pallas
+    arithmetic) turns that row's whole prefix NaN; the NaN row is the next
+    pivot, so every later row follows.  NaN and inf positions and the
+    finite values match the plain version."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(nr + lsize)
+    p = _node_panels(rng, 2, nr, lsize, 7, dominant=True)
+    p[:, 2, lsize] = np.inf
+    p[:, nr - 1, lsize] = np.inf
+    P = torch.tensor(p, dtype=tdt, device=cuda)
+    eps = torch.full((2,), 1e-8, dtype=tdt, device=cuda)
+    got = panel.panel_lu(P, nr, lsize, eps)
+    ref = panel.panel_lu_plain(P, lsize, P.shape[2], eps)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    g, r = got[0], ref[0]
+    assert torch.isnan(r[:, 1:, :lsize]).all()
+    assert torch.isfinite(r[:, 0, :lsize]).all()
+    assert torch.equal(torch.isnan(g), torch.isnan(r))
+    assert torch.equal(torch.isinf(g), torch.isinf(r))
+    fin = torch.isfinite(r)
+    torch.testing.assert_close(g[fin], r[fin], rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("off", [0, 3])
+def test_node_panel_lu_reads_a_strided_view(off, dt, cuda):
+    """K2 on the (K, nr, w) view of a slice of each system's value buffer
+    that the engine hands it (batch stride = the buffer's row length; off
+    odd: rows not 16-byte aligned) gives exactly what it gives on the
+    contiguous copy, in one launch each."""
+    tdt, tol, _ = TOLS[dt]
+    nr, lsize, w, k = 24, 40, 80, 32
+    rng = np.random.default_rng(off)
+    buf = rng.normal(size=(k, off + nr * w + 17))
+    seg = buf[:, off:off + nr * w].reshape(k, nr, w)
+    seg[:, :, lsize:lsize + nr] += 16 * np.eye(nr)
+    buf[:, off:off + nr * w] = seg.reshape(k, -1)
+    B = torch.tensor(buf, dtype=tdt, device=cuda)
+    view = B[:, off:off + nr * w].view(k, nr, w)
+    assert not view.is_contiguous()
+    eps = torch.full((k,), 1e-8, dtype=tdt, device=cuda)
+    got = _node_held(view, nr, lsize, eps, tol)
+    again = _node_held(view.contiguous(), nr, lsize, eps, tol)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_plain_route_on_card_matches_cpu(dtype, cuda):

@@ -99,6 +99,49 @@ def test_panel_lu(nr, ls, us, dt):
     assert int(nper) == int(jn)
 
 
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_panel_lu_wide_prefix(dt):
+    """A node panel whose L prefix holds most of its columns (6 x 300, the
+    block at column 280), as fem2d_10k's largest node does (its prefix is
+    2,197 of 2,347 columns): only [280, 300) is eliminated, and the prefix
+    comes out as the input's rows in pivot order."""
+    jdt, tdt, tol, _ = DTYPES[dt]
+    p = np.random.default_rng(280).normal(size=(6, 300))
+    out, perm, nper = panel.panel_lu(torch.tensor(p, dtype=tdt), 6, 280,
+                                     1e-10)
+    jo, jp, jn = jpanel.panel_lu(jnp.asarray(p, jdt), 6, 280, 1e-10)
+    _close(out, jo, tol)
+    assert np.array_equal(perm.numpy(), np.asarray(jp))
+    assert int(nper) == int(jn)
+    assert (perm.numpy() != np.arange(6)).any()
+    assert np.array_equal(out[:, :280].numpy(),
+                          p[perm.numpy(), :280].astype(out.numpy().dtype))
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_panel_lu_strided_view(dt):
+    """K2 on the (K, nr, w) view of a slice of each system's value buffer,
+    as the engine hands it (rows dense, batch stride the buffer's row
+    length): the same result as on the contiguous copy, and the JAX
+    wrapper's on each system."""
+    jdt, tdt, tol, _ = DTYPES[dt]
+    nr, ls, w = 6, 10, 30
+    buf = torch.tensor(np.random.default_rng(31).normal(
+        size=(3, 5 + nr * w + 7)), dtype=tdt)
+    view = buf[:, 5:5 + nr * w].view(3, nr, w)
+    assert not view.is_contiguous()
+    got = panel.panel_lu(view, nr, ls, 1e-10)
+    ref = panel.panel_lu(view.contiguous(), nr, ls, 1e-10)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    for k in range(3):
+        jo, jp, jn = jpanel.panel_lu(jnp.asarray(view[k].numpy(), jdt), nr,
+                                     ls, 1e-10)
+        _close(got[0][k], jo, tol)
+        assert np.array_equal(got[1][k].numpy(), np.asarray(jp))
+        assert int(got[2][k]) == int(jn)
+
+
 def test_panel_lu_per_panel_eps():
     """One threshold per panel (the batched engine's per-system eps): each
     batch member equals the JAX kernel run alone with its own eps."""
