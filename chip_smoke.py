@@ -542,7 +542,7 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
                    lambda: panel_ops.panel_lu_plain(p1s, 0, pb.wu, e1))),
             ("panel_lu", "panel_lu",
              "src/repro/kernels/panel/kernel.py:23",
-             "src/repro_torch/csrc/node_panel_lu.cu",
+             "src/repro_torch/csrc/panel_lu.cu",
              f"({K}, {nd.nr}, {nd.width}) lsize={nd.lsize}",
              lambda: panel_ops.panel_lu(p2, nd.nr, nd.lsize, e2),
              lambda: panel_ops.panel_lu_plain(p2, nd.lsize, nd.width, e2),
@@ -982,8 +982,8 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
     reports the device ms summed over the call's kernel launches by
     CUDA-graph replay (for K2 also through the wrapper, as the engine
     calls it), the summed bound, and the same sums for K2's design before
-    ``csrc/node_panel_lu.cu`` (``panel_lu.cu``'s kernel, launched with c0 =
-    lsize on contiguous copies, as its wrapper did); as a yardstick, not a
+    its own kernel (K1's kernel in ``csrc/panel_lu.cu``, launched with c0 =
+    lsize on contiguous copies, as K2's wrapper did); as a yardstick, not a
     library call for the same function, ``torch.linalg.lu_factor_ex`` on
     the block, ``solve_triangular`` on the U suffix and an ``index_select``
     of the prefix, on the same panels.  Also K2's device time per launch at
@@ -1147,7 +1147,7 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
                                   torch, lambda: [f() for f in k5],
                                   min_ms=100.0)}})
     res["panel_lu"]["ptxas"] = ptxas_of(_build.last_build["log"],
-                                        "node_panel_lu")
+                                        "node_panel_lu_kernel")
     res["panel_lu"]["yardstick"] = (
         "torch.linalg.lu_factor_ex(block) + solve_triangular(L, U suffix) "
         "+ index_select(prefix): not the same function, a scale")

@@ -1,7 +1,7 @@
 """Panel LU wrappers: K1 (bucketed) and K2 (one node panel per system).
 
-On a CUDA tensor each wrapper launches its hand-written kernel (K1:
-``csrc/panel_lu.cu``, K2: ``csrc/node_panel_lu.cu``) or raises; on a CPU
+On a CUDA tensor each wrapper launches its hand-written kernel (both in
+``csrc/panel_lu.cu``, each with its own entry points) or raises; on a CPU
 tensor it runs the plain PyTorch version of :mod:`.ref`.  Every launch adds
 one to the wrapper's ``launches`` count.
 
@@ -74,8 +74,9 @@ def _node_scratch(nr: int, w: int, c0: int, elem_bytes: int) -> int:
 
 
 def _launch_node(p3, lsize, eps):
-    """One launch of ``csrc/node_panel_lu.cu`` on (B, nr, w) panels whose
-    rows are dense, read in place through their batch stride."""
+    """One launch of K2's kernel (``hylu_node_panel_lu_*``) on (B, nr, w)
+    panels whose rows are dense, read in place through their batch
+    stride."""
     b, nr, w = p3.shape
     _check_rows(nr)
     _build.check_cuda("panel_lu", eps)

@@ -114,8 +114,7 @@ def test_build_is_lazy_and_hashes_the_sources():
     CUDA source, and a missing nvcc is an error, not a fallback."""
     names = [p.name for p in _build.sources()]
     assert names == ["bmm.cu", "flash_attn.cu", "gemm_update.cu",
-                     "node_panel_lu.cu", "panel_lu.cu", "suprow.cu",
-                     "trsm.cu", "wkv.cu"]
+                     "panel_lu.cu", "suprow.cu", "trsm.cu", "wkv.cu"]
     assert _build.source_hash() == _build.source_hash()
     for fn in _build.SIGNATURES:
         assert fn.startswith("hylu_")
