@@ -33,8 +33,10 @@ Phases, each printing one JSON line:
             on every bucket and block; then panel_extra: a spy on the
             engine records what one unrolled refactor of one system hands
             K2 (502 node panels) and K5, and what one bucketed refactor at
-            K = 32 hands K2 (32 narrow-level launches) and K1 (97 buckets);
-            every K2 and K1 call is held to its plain version in float64
+            K = 32 hands K2 (32 narrow-level launches) and K1 (97 buckets),
+            with each panel's layout (K2's are strided views of the value
+            buffer); every K2 and K1 call, replayed at that layout, is
+            held to its plain version in float64
             and float32, and their device times summed over each refactor
             by CUDA-graph replay are printed beside the summed bound, the
             sums of K2's design before the node kernel and, as a scale,
@@ -976,9 +978,12 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
     0 hands K2 (one launch per node with nr > 1, B = 1) and K5 (one per
     sup-sup edge), and those one bucketed refactor at K systems hands K2
     (one launch per narrow-level node, B = K) and K1 (one per panel
-    bucket).  Each K2 and K1 call is held to ``panel_lu_plain`` in float64
-    (the refactor's dtype) and float32 (the same operands): equal pivots
-    and perturbation counts, values within TOL.  Per schedule and dtype it
+    bucket).  The spy keeps each panel's values and its layout (storage
+    offset and strides: K2's panels are strided views of the value buffer),
+    and every call is replayed on a copy at that layout (``in_layout``).
+    Each K2 and K1 call is held to ``panel_lu_plain`` in float64 (the
+    refactor's dtype) and float32 (the same operands): equal pivots and
+    perturbation counts, values within TOL.  Per schedule and dtype it
     reports the device ms summed over the call's kernel launches by
     CUDA-graph replay (for K2 also through the wrapper, as the engine
     calls it), the summed bound, and the same sums for K2's design before
@@ -997,7 +1002,8 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
 
     def keep_panel(args, res):
         P, eps = args[0], args[-1]
-        return (P.clone(),) + tuple(args[1:-1]) + (eps.clone(),)
+        layout = (P.storage_offset(), tuple(P.stride()), P.untyped_storage())
+        return (P.clone(), layout) + tuple(args[1:-1]) + (eps.clone(),)
 
     k2_unrolled = _record_calls(
         eng_u, "_panel_lu", lambda: eng_u.refactor_batched(a_dev[:1]),
@@ -1027,6 +1033,8 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
     K = a_dev.shape[0]
     check(len(k2_unrolled) == sum(nd.nr > 1 for nd in eng_u.plan.nodes),
           f"panel_extra: {len(k2_unrolled)} K2 calls in one unrolled refactor")
+    check(any(c[1][1] != c[0].stride() for c in k2_bucketed),
+          "panel_extra: K2 is handed strided views")
     check(all(c[0].shape[0] == 1 for c in k2_unrolled)
           and all(c[0].shape[0] == K for c in k2_bucketed),
           "panel_extra: K2 batch sizes")
@@ -1053,8 +1061,10 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
         tol = TOL[dname]
         kern, wrap, parent, yard = [], [], [], []
         bound = nbytes = steps = 0.0
-        err, moved, perturbed = 0.0, 0, 0
-        for c in calls:
+        err, moved, perturbed, strided, unaligned = 0.0, 0, 0, 0, 0
+        for c in in_layout(torch, calls, dt):
+            strided += not c[0].is_contiguous()
+            unaligned += c[0].data_ptr() % 16 != 0
             if node:
                 P, nr_, lsize, eps = c
                 w = P.shape[2]
@@ -1084,7 +1094,8 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
                             panel_ops._launch_node(P, l_, e))
                 wrap.append(lambda P=P, n_=nr_, l_=lsize, e=e:
                             panel_ops.panel_lu(P, n_, l_, e))
-                parent.append(lambda P=P, l_=lsize, w_=P.shape[2], e=e:
+                parent.append(lambda P=P.contiguous(), l_=lsize,
+                              w_=P.shape[2], e=e:
                               panel_ops._launch(P, l_, w_, e))
                 idx = torch.arange(nr_, device=P.device)
                 yard.append(lambda P=P, n_=nr_, l_=lsize, idx=idx:
@@ -1096,7 +1107,8 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
                "panels": int(sum(c[0].shape[0] for c in calls)),
                "pivot_steps": int(steps), "bytes": nbytes,
                "max_abs_err": err, "rows_moved": moved,
-               "perturbed": perturbed, "bound_ms": bound,
+               "perturbed": perturbed, "strided_views": strided,
+               "unaligned_views": unaligned, "bound_ms": bound,
                "device_ms": graph_ms(torch, kern),
                "loop_ms": bench_ms(torch, lambda: [f() for f in kern],
                                    min_ms=100.0)}
@@ -1124,15 +1136,16 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
         res["panel_lu_bucketed"]["refactor_bucketed" + sfx] = sums(
             "K1 bucketed", k1_calls, False, dt)
         # K2 per launch at the largest narrow node, by replay of 20 launches
-        P, nr_, lsize, eps = max(k2_bucketed, key=lambda c: c[0].numel())
-        P = P.to(dt)
+        P, nr_, lsize, eps = in_layout(
+            torch, [max(k2_bucketed, key=lambda c: c[0].numel())], dt)[0]
         e = panel_ops._eps_in(eps, P.shape[0], P)
         res["panel_lu"]["device_ms" + sfx] = graph_ms(
             torch, [lambda: panel_ops.panel_lu(P, nr_, lsize, e)] * 20) / 20
+        Pc = P.contiguous()
         res["panel_lu"]["parent_device_ms" + sfx] = graph_ms(
-            torch, [lambda: panel_ops._launch(P, lsize, P.shape[2], e)]
+            torch, [lambda: panel_ops._launch(Pc, lsize, Pc.shape[2], e)]
             * 20) / 20
-        del P
+        del P, Pc
     # K5 (float64, the refactor's dtype): device time summed over the
     # unrolled refactor's launches, beside its summed bound
     k5 = [lambda c=c: supsup_ops.gemm_update(*c) for c in k5_calls]
@@ -1157,6 +1170,28 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
     emit({"phase": "panel_extra", "matrix": "fem2d_10k", "k": K,
           "results": res, "seconds": time.perf_counter() - t})
     return res
+
+
+def in_layout(torch, calls, dt):
+    """Recorded panel calls ``(values, (offset, strides, storage), *args)``
+    as ``(panel, *args)`` with each panel in dtype ``dt`` at its recorded
+    layout: one NaN-filled buffer per storage the program handed the
+    panels in, each panel copied into its view there.  The panels of one
+    storage must not overlap, so every view is checked after all copies."""
+    bufs, out = {}, []
+    for P, (off, stride, stor), *rest in calls:
+        key = stor.data_ptr()
+        if key not in bufs:
+            bufs[key] = torch.full((stor.nbytes() // P.element_size(),),
+                                   float("nan"), dtype=dt, device=P.device)
+        view = torch.as_strided(bufs[key], P.shape, stride, off)
+        view.copy_(P)
+        out.append((view, *rest))
+    for (P, *_), (view, *_) in zip(calls, out):
+        check(torch.equal(torch.isnan(view), torch.isnan(P))
+              and bool((view == P.to(dt))[~torch.isnan(view)].all()),
+              "panel_extra: recorded panels overlap in their buffer")
+    return out
 
 
 def _yardstick(torch, P, nr, lsize, idx):

@@ -1,13 +1,15 @@
 """End-to-end solver times of two checkouts in turns on one card.
 
-    python -m repro_torch.paired_times OTHER_ROOT
+    python -m repro_torch.paired_times OTHER_ROOT [--rounds N]
 
 runs the measurement below once per checkout in the order OTHER, this,
-this, OTHER, each in its own process that imports ``repro_torch`` from
-that checkout's ``src`` (and so builds that checkout's kernels into its
-own ``build/``), then prints one JSON line per run and a summary line.
-Two versions are only compared inside one such call: the card and its
-host are the same, and the turns expose drift.
+this, OTHER (N rounds of it, one by default), each in its own process
+that imports ``repro_torch`` from that checkout's ``src`` (and so builds
+that checkout's kernels into its own ``build/``), then prints one JSON
+line per run and a summary line: per metric and checkout each process's
+best, and their median and range.  Two versions are only compared inside
+one such call: the card and its host are the same, and the turns expose
+drift.
 
 The measurement, on fem2d_10k (``fem2d(100, 100, seed=930)``), float64:
 
@@ -87,7 +89,10 @@ def main(argv) -> int:
         out.update(measure())
         print(json.dumps(out), flush=True)
         return 0
-    if len(argv) != 1:
+    rounds = 1
+    if len(argv) == 3 and argv[1] == "--rounds" and argv[2].isdigit():
+        rounds = int(argv[2])
+    elif len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     this = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -96,8 +101,8 @@ def main(argv) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    runs = []
-    for root in (other, this, this, other):
+    runs, order = [], ["other", "this", "this", "other"] * rounds
+    for root in (other if side == "other" else this for side in order):
         env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--one", root], env=env, cwd=root,
@@ -107,12 +112,18 @@ def main(argv) -> int:
             return 1
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-    summary = {"smi": smi, "order": ["other", "this", "this", "other"]}
-    for key in ("systems_per_s",):
-        summary[key] = [max(r[key]) for r in runs]
+    summary = {"smi": smi, "order": order}
+    best = {"systems_per_s": [max(r["systems_per_s"]) for r in runs]}
     for label in ("bucketed", "unrolled"):
-        summary[f"refactor_ms_{label}"] = [min(r["refactor_ms"][label])
-                                           for r in runs]
+        best[f"refactor_ms_{label}"] = [min(r["refactor_ms"][label])
+                                        for r in runs]
+    for key, vals in best.items():
+        summary[key] = vals
+        for side in ("other", "this"):
+            v = sorted(x for x, s in zip(vals, order) if s == side)
+            summary[f"{key}_{side}"] = {
+                "median": (v[(len(v) - 1) // 2] + v[len(v) // 2]) / 2,
+                "min": v[0], "max": v[-1]}
     print(json.dumps(summary), flush=True)
     return 0
 

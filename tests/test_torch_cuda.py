@@ -377,8 +377,8 @@ def _node_held(P, nr, lsize, eps, tol):
 @pytest.mark.parametrize("nr", [2, 3, 17, 31, 32, 33, 64, 128])
 def test_node_panel_lu_shapes(nr, lsize, us, dt, cuda):
     """K2 at one panel (the unrolled schedule) and at 32 (a narrow level
-    at K = 32): every block size (one warp per panel up to nr = 32, with
-    several panels a block, then 4 and 8 warps), prefixes longer than one
+    at K = 32): every block size (a lone pivot warp with three copying
+    warps up to nr = 8, then 4 and 8 warps), prefixes longer than one
     round of the prefix copy, and U suffixes of 0 to 100 columns; rows
     shuffled, random blocks in float64."""
     tdt, tol, _ = TOLS[dt]
@@ -437,6 +437,56 @@ def test_node_panel_lu_nonfinite_multiplier_poisons_prefix(nr, lsize, dt,
     g, r = got[0], ref[0]
     assert torch.isnan(r[:, 1:, :lsize]).all()
     assert torch.isfinite(r[:, 0, :lsize]).all()
+    assert torch.equal(torch.isnan(g), torch.isnan(r))
+    assert torch.equal(torch.isinf(g), torch.isinf(r))
+    fin = torch.isfinite(r)
+    torch.testing.assert_close(g[fin], r[fin], rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("nr,lsize,us", [(2, 8, 13), (9, 0, 0), (24, 262, 58),
+                                         (32, 2197, 22)])
+@pytest.mark.parametrize("b", [133, 300, 1001])
+def test_node_panel_lu_more_panels_than_sms(b, nr, lsize, us, dt, cuda):
+    """More panels than SMs (a narrow level at K = 133 to 1,001 systems),
+    at a lone pivot warp's size (nr = 2) and at four warps' (nr = 9 to 32),
+    prefixes from none to one that does not fit beside the window (lsize
+    2,197 at nr = 32): every panel has its own pivots."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(b + nr)
+    p = _node_panels(rng, b, nr, lsize, us, dominant=True)
+    P = torch.tensor(p, dtype=tdt, device=cuda)
+    eps = torch.full((b,), 1e-8, dtype=tdt, device=cuda)
+    got = _node_held(P, nr, lsize, eps, tol)
+    assert (got[1] != torch.arange(nr, device=cuda)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("b", [1, 2, 300])
+@pytest.mark.parametrize("nr,lsize", [(24, 262), (32, 2197)])
+def test_node_panel_lu_nonfinite_with_nan_in_u(nr, lsize, b, dt, cuda):
+    """The non-finite rules with both kinds at once, also with the prefix
+    split over several blocks (b = 1, lsize 2,197) and with more panels
+    than SMs: an infinite first-column entry below the pivot poisons its
+    row's prefix and, as the next pivot, every later row; a NaN in the U
+    suffix turns its column NaN in the rows above the step that reads
+    it."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(nr * b)
+    p = _node_panels(rng, b, nr, lsize, 9, dominant=True)
+    p[:, 2, lsize] = np.inf
+    p[:, nr - 1, lsize] = np.inf
+    p[:, 5, lsize + nr + 3] = np.nan
+    P = torch.tensor(p, dtype=tdt, device=cuda)
+    eps = torch.full((b,), 1e-8, dtype=tdt, device=cuda)
+    got = panel.panel_lu(P, nr, lsize, eps)
+    ref = panel.panel_lu_plain(P, lsize, P.shape[2], eps)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    g, r = got[0], ref[0]
+    assert torch.isnan(r[:, 1:, :lsize]).all()
     assert torch.equal(torch.isnan(g), torch.isnan(r))
     assert torch.equal(torch.isinf(g), torch.isinf(r))
     fin = torch.isfinite(r)
