@@ -1,15 +1,16 @@
 """End-to-end solver times of two checkouts in turns on one card.
 
-    python -m repro_torch.paired_times OTHER_ROOT [--rounds N]
+    python -m repro_torch.paired_times OTHER_ROOT
 
 runs the measurement below once per checkout in the order OTHER, this,
-this, OTHER (N rounds of it, one by default), each in its own process
+this, OTHER, ROUNDS times over (16 processes), each in its own process
 that imports ``repro_torch`` from that checkout's ``src`` (and so builds
 that checkout's kernels into its own ``build/``), then prints one JSON
 line per run and a summary line: per metric and checkout each process's
 best, and their median and range.  Two versions are only compared inside
 one such call: the card and its host are the same, and the turns expose
-drift.
+drift.  The host-bound times spread by up to 1.7x within a call, so one
+round (two processes a side) could show no change of that size.
 
 The measurement, on fem2d_10k (``fem2d(100, 100, seed=930)``), float64:
 
@@ -29,7 +30,7 @@ import subprocess
 import sys
 import time
 
-K, REPEATS = 32, 3
+K, REPEATS, ROUNDS = 32, 3, 4
 
 
 def measure() -> dict:
@@ -89,10 +90,7 @@ def main(argv) -> int:
         out.update(measure())
         print(json.dumps(out), flush=True)
         return 0
-    rounds = 1
-    if len(argv) == 3 and argv[1] == "--rounds" and argv[2].isdigit():
-        rounds = int(argv[2])
-    elif len(argv) != 1:
+    if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     this = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -101,7 +99,7 @@ def main(argv) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    runs, order = [], ["other", "this", "this", "other"] * rounds
+    runs, order = [], ["other", "this", "this", "other"] * ROUNDS
     for root in (other if side == "other" else this for side in order):
         env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
