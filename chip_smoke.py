@@ -12,6 +12,7 @@ Phases, each printing one JSON line:
 4. kernels  every CUDA kernel of the main path against its plain PyTorch
             version on the card, in float64 and float32, on the operands
             fem2d_10k's factor program hands it (largest panel bucket,
+            which K1 reads and writes in place in the value buffer,
             largest narrow-level node, largest sup-sup edge bucket) and on
             an nr = 128 block of the finished factors, with its time, the
             plain version's, a library call's where one computes the same
@@ -33,19 +34,24 @@ Phases, each printing one JSON line:
             on every bucket and block; then panel_extra: a spy on the
             engine records what one unrolled refactor of one system hands
             K2 (502 node panels) and K5, and what one bucketed refactor at
-            K = 32 hands K2 (32 narrow-level launches) and K1 (97 buckets),
-            with each panel's layout (K2's are strided views of the value
-            buffer); every K2 and K1 call, replayed at that layout, is
-            held to its plain version in float64
-            and float32, and their device times summed over each refactor
+            K = 32 hands K2 (32 narrow-level launches) and K1 (97 buckets,
+            in place), with each panel's layout (K2's are strided views of
+            the value buffer); every K2 and K1 call, replayed at that
+            layout (K1's from restored values), is held to its plain
+            version in float64 and float32 (K1 also: no other slot
+            written), and their device times summed over each refactor
             by CUDA-graph replay are printed beside the summed bound, the
-            sums of K2's design before the node kernel and, as a scale,
-            library LU, triangular solve and gather on the same panels;
+            sums of the design before (for K1 the engine's former gather,
+            kernel and scatter) and, as a scale, library LU, triangular
+            solve and gather on the same panels; K1's bucket census;
 5. main     the batched repeated-solve path through its entry points at
             K = 32: ``solve_sequence`` for T = 3 float64 steps, then one
             ``factor_batched`` + ``solve_batched`` step in float64 and one
             with float32 factors refined in float64; residuals, agreement
-            with scipy's ``spsolve`` and the launch counts are checked;
+            with scipy's ``spsolve`` and the launch counts are checked
+            (one K1 launch per panel bucket), and the device kernels of
+            one bucketed refactor counted with and without the in-place
+            K1 (torch.profiler);
 6. width1   circuit_like(2000, seed 3), K = 8: the scanned width-1 tail;
 7. scalar   the one-system lifecycle ``factor`` -> ``refactor`` (new
             values) -> ``solve`` on fem2d_10k under the bucketed and the
@@ -252,7 +258,7 @@ def main() -> int:
 
     # the wrappers each path launches (suprow_update has no engine caller,
     # as in the JAX package)
-    batched_path = ("panel_lu_batched", "panel_lu", "trsm_batched",
+    batched_path = ("panel_lu_bucket_inplace", "panel_lu", "trsm_batched",
                     "trsm_left_unit_lower_batched", "trsm_left_upper_batched",
                     "gemm_batched")
 
@@ -325,6 +331,24 @@ def main() -> int:
     kernels.reset_launch_counts()
     eng64.apply_batched(f.vals, f.inode_perm, b_dev)
     per_apply = kernels.launch_counts()
+    # everything the device runs in one bucketed refactor (torch.profiler),
+    # and with K1's bucket phase as the engine ran it before the in-place
+    # kernel (gather, threshold repeat, parent kernel, scatter)
+    from repro_torch.kernels.panel import ops as panel_ops
+
+    n_buckets = sum(len(s_.panels) for s_ in sched.steps)
+    dk = {"in_place": device_kernels(
+        torch, lambda: eng64.refactor_batched(bst.values_dev))}
+    eng64._panel_lu_bucket = lambda v_, l_, e_: parent_bucket(panel_ops, v_,
+                                                              l_, e_)
+    try:
+        dk["parent_bucket_phase"] = device_kernels(
+            torch, lambda: eng64.refactor_batched(bst.values_dev))
+    finally:
+        del eng64._panel_lu_bucket
+    dk["panel_buckets"] = n_buckets
+    dk["fewer_per_bucket"] = (dk["parent_bucket_phase"]
+                              - dk["in_place"]) / n_buckets
 
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
@@ -356,6 +380,7 @@ def main() -> int:
             "scipy_rel_err": scipy_err, "mixed_vs_f64_rel_err": mixed_err,
             "sequence_step0_vs_step_rel_err": seq_vs_step,
             "launches": counts, "launches_per_refactor": per_refactor,
+            "device_kernels_per_refactor": dk,
             "launches_per_apply": per_apply, "max_memory_allocated": peak,
             "seconds": time.perf_counter() - t}
     emit(main)
@@ -368,6 +393,10 @@ def main() -> int:
     for name in batched_path:
         check(counts[name] > 0,
               f"kernel {name} was not launched on the main path")
+    check(per_refactor["panel_lu_bucket_inplace"] == n_buckets
+          and per_refactor["panel_lu_batched"] == 0,
+          f"K1 launches per bucketed refactor {per_refactor} != one per "
+          f"panel bucket ({n_buckets})")
 
     # ---- 6. width-1 path -------------------------------------------------
     t = time.perf_counter()
@@ -465,11 +494,13 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     # Each kernel's operands are what the factor program hands it: the
     # value buffer (sentinel slots included) and the per-system thresholds
     # just before the phase of the level step that runs the case.
-    vals, eps = eng.refactor_batched(a_dev, stop=(st1, "panels"))
+    # K1 reads its bucket in the value buffer: the slots of the largest
+    # bucket, copied out with the layout that reads them (``Compact``)
+    vals, eps1 = eng.refactor_batched(a_dev, stop=(st1, "panels"))
     B, nr, wt = pb.gather.shape
-    gidx = torch.from_numpy(pb.gather.reshape(-1).astype(np.int64)).to(dev)
-    P1 = vals[:, gidx].view(K * B, nr, wt).contiguous()
-    eps1 = eps.repeat_interleave(B)
+    C1 = Compact(torch, np, vals, next(
+        lay for p_, (lay, _) in zip(sched.steps[st1].panels,
+                                    eng._steps[st1][1]) if p_ is pb))
     vals, eps2 = eng.refactor_batched(a_dev, stop=(st2, "seq"))
     off = int(plan.panel_offset[seq_t])
     P2 = vals[:, off:off + nd.nr * nd.width].reshape(K, nd.nr, nd.width)
@@ -510,7 +541,8 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
         idx = torch.from_numpy(rows).to(dev)[..., None].expand(P.shape)
         return torch.gather(P, 1, idx).contiguous()
 
-    P1s, P2s = shuffled(P1), shuffled(P2)
+    P2s = shuffled(P2)
+    C1s = shuffle_members(torch, np, C1, shuf_rng)
     torch.cuda.synchronize()
 
     def sz(dt):
@@ -518,13 +550,22 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
 
     # name, wrapper counted on the main path, replaces, source, args,
     # kernel call, plain call, library call, (flops, bytes) of the work,
-    # tolerance table, and for a panel LU the (kernel, plain) calls on the
-    # row-shuffled panels
+    # tolerance table, for a panel LU the (kernel, plain) calls on the
+    # row-shuffled panels, and for K1 (in place) the copy that restores its
+    # operands before each call, timed alone and taken off its times
     def cases(dt):
         c = lambda t_: t_.to(dt).contiguous()          # noqa: E731
-        p1, p2, u, x, us, lts, blk, rhs = map(c, (P1, P2, U, X, Us, LTS, BLK,
-                                                  RHS))
-        p1s, p2s = c(P1s), c(P2s)
+        p2, u, x, us, lts, blk, rhs = map(c, (P2, U, X, Us, LTS, BLK, RHS))
+        p2s = c(P2s)
+        b1, b1s = c(C1.base), c(C1s)
+        w1k, w1p = torch.empty_like(b1), torch.empty_like(b1)
+
+        def k1(fn, work, base):
+            def run():
+                work.copy_(base)
+                perm, nper = fn(work, C1.lay, e1)
+                return work[:, :C1.zero], perm, nper   # sentinels aside
+            return run
         x5c, x5a, s5u, s5b = (c(X5[..., k5:]), c(LTS5), c(S5[..., :k5]),
                               c(S5[..., k5:]))
         x6, s6 = c(X6), c(S6)
@@ -532,16 +573,17 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
         e1, e2 = eps1.to(dt), eps2.to(dt)
         s = sz(dt)
         lower = torch.tril(blk, -1) + torch.eye(nrb, dtype=dt, device=dev)
+        f1, n1 = bucket_work(np, C1.lay, K, s)
         return [
-            ("panel_lu_bucketed", "panel_lu_batched",
+            ("panel_lu_bucketed", "panel_lu_bucket_inplace",
              "src/repro/kernels/panel/kernel.py:59", "src/repro_torch/csrc/panel_lu.cu",
-             f"({K * B}, {nr}, {wt}) wu={pb.wu}",
-             lambda: panel_ops.panel_lu_batched(p1, pb.wu, e1),
-             lambda: panel_ops.panel_lu_plain(p1, 0, pb.wu, e1), None,
-             lu_flops(np, K * B, nr, 0, pb.wu),
-             (2 * p1.numel() + e1.numel()) * s + (p1.shape[0] * (nr + 1)) * 4,
-             TOL, (lambda: panel_ops.panel_lu_batched(p1s, pb.wu, e1),
-                   lambda: panel_ops.panel_lu_plain(p1s, 0, pb.wu, e1))),
+             f"{K} systems x {B} members in place, padded ({nr}, {wt}) "
+             f"wu={pb.wu}",
+             k1(panel_ops.panel_lu_bucket_inplace, w1k, b1),
+             k1(panel_ops.panel_lu_bucket_plain, w1p, b1), None, f1, n1,
+             TOL, (k1(panel_ops.panel_lu_bucket_inplace, w1k, b1s),
+                   k1(panel_ops.panel_lu_bucket_plain, w1p, b1s)),
+             lambda: w1k.copy_(b1)),
             ("panel_lu", "panel_lu",
              "src/repro/kernels/panel/kernel.py:23",
              "src/repro_torch/csrc/panel_lu.cu",
@@ -644,7 +686,7 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     for dt in (torch.float64, torch.float32):
         dname = str(dt).replace("torch.", "")
         for (name, wrapper, replaces, source, shape, kern, plain, lib, flops,
-             nbytes, tol, shuf) in cases(dt):
+             nbytes, tol, shuf, *restore) in cases(dt):
             rec = records.setdefault(name, {
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "wrapper": wrapper, "shape": shape})
@@ -662,10 +704,13 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
                             "perturbed_shuffled" + sfx: moved_s[1]})
             t_bytes = nbytes / HBM_BYTES_PER_S
             t_ops = flops / PEAK_FLOPS[dname]
+            r_ms = bench_ms(torch, restore[0]) if restore else 0.0
+            if restore:
+                rec["restore_ms" + sfx] = r_ms
             rec.update({
                 "max_abs_err" + sfx: err, "tol" + sfx: tol[dname],
-                "ms" + sfx: bench_ms(torch, kern),
-                "plain_ms" + sfx: bench_ms(torch, plain),
+                "ms" + sfx: bench_ms(torch, kern) - r_ms,
+                "plain_ms" + sfx: bench_ms(torch, plain) - r_ms,
                 "bound_ms" + sfx: max(t_bytes, t_ops) * 1e3,
                 "bound_by" + sfx: "bytes" if t_bytes >= t_ops
                 else "operations",
@@ -676,19 +721,27 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     # the masked terms into 0 * inf = NaN (csrc/panel_lu.cu, "Non-finite
     # steps"); the kernel must give the plain version's NaN and inf
     # positions and its finite values.
-    zero_cases = [("panel_lu_bucketed", P1[:1], 0, pb.wu,
-                   lambda p_, e_: panel_ops.panel_lu_batched(p_, pb.wu, e_)),
-                  ("panel_lu", P2[:1], nd.lsize, nd.width,
-                   lambda p_, e_: panel_ops.panel_lu(p_, nd.nr, nd.lsize,
-                                                     e_))]
-    for name, P, c0, wlim, kern in zero_cases:
+    def zero_k1(dt):            # member 0's first block column, in place
+        Z = C1.base.to(dt, copy=True)
+        off, nr_, w, ls, _ = C1.lay.desc[0].tolist()
+        Z[:, off + ls:off + nr_ * w:w] = 0.0
+        ez = torch.zeros(K, dtype=dt, device=dev)
+        g, r = Z.clone(), Z.clone()
+        gp, gn = panel_ops.panel_lu_bucket_inplace(g, C1.lay, ez)
+        rp, rn = panel_ops.panel_lu_bucket_plain(r, C1.lay, ez)
+        return (g[:, C1.real], gp, gn), (r[:, C1.real], rp, rn)
+
+    def zero_k2(dt):
+        Z = P2[:1].to(dt).clone()
+        Z[:, :, nd.lsize] = 0.0
+        ez = torch.zeros(1, dtype=dt, device=dev)
+        return (panel_ops.panel_lu(Z, nd.nr, nd.lsize, ez),
+                panel_ops.panel_lu_plain(Z, nd.lsize, nd.width, ez))
+
+    for name, run in (("panel_lu_bucketed", zero_k1), ("panel_lu", zero_k2)):
         for dt in (torch.float64, torch.float32):
             dname = str(dt).replace("torch.", "")
-            Z = P.to(dt).clone()
-            Z[:, :, c0] = 0.0
-            ez = torch.zeros(1, dtype=dt, device=dev)
-            got = kern(Z, ez)
-            ref = panel_ops.panel_lu_plain(Z, c0, wlim, ez)
+            got, ref = run(dt)
             torch.cuda.synchronize()
             what = f"{name} {dname} (zero pivot, eps = 0)"
             check(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]),
@@ -973,27 +1026,35 @@ def ptxas_of(log, needle):
 
 
 def panel_extra(torch, np, eng, eng_u, a_dev):
-    """K2 (and K1, K5) over whole refactors of fem2d_10k.  A spy on the
+    """K2, K1 and K5 over whole refactors of fem2d_10k.  A spy on the
     engine's wrappers records the operands one unrolled refactor of system
     0 hands K2 (one launch per node with nr > 1, B = 1) and K5 (one per
     sup-sup edge), and those one bucketed refactor at K systems hands K2
     (one launch per narrow-level node, B = K) and K1 (one per panel
-    bucket).  The spy keeps each panel's values and its layout (storage
+    bucket).  The spy keeps each K2 panel's values and its layout (storage
     offset and strides: K2's panels are strided views of the value buffer),
-    and every call is replayed on a copy at that layout (``in_layout``).
-    Each K2 and K1 call is held to ``panel_lu_plain`` in float64 (the
-    refactor's dtype) and float32 (the same operands): equal pivots and
-    perturbation counts, values within TOL.  Per schedule and dtype it
-    reports the device ms summed over the call's kernel launches by
-    CUDA-graph replay (for K2 also through the wrapper, as the engine
-    calls it), the summed bound, and the same sums for K2's design before
-    its own kernel (K1's kernel in ``csrc/panel_lu.cu``, launched with c0 =
-    lsize on contiguous copies, as K2's wrapper did); as a yardstick, not a
-    library call for the same function, ``torch.linalg.lu_factor_ex`` on
-    the block, ``solve_triangular`` on the U suffix and an ``index_select``
-    of the prefix, on the same panels.  Also K2's device time per launch at
-    the largest narrow node (the kernel table's shape) and ptxas's
-    registers and spills of the node kernel."""
+    and every K2 call is replayed on a copy at that layout (``in_layout``).
+    K1 reads and writes the value buffer in place: the spy checks on the
+    engine's own buffer that each call leaves every slot outside its
+    bucket's real slots bit-identical, and keeps the call's slots
+    (``Compact``, row alignment kept).  Each K2 and K1 call is held to its
+    plain version in float64 (the refactor's dtype) and float32 (the same
+    operands), each side on its own copy: equal pivots and perturbation
+    counts, values within TOL, and for K1 no other slot written.  Per
+    schedule and dtype it reports the device ms summed over the call's
+    kernel launches by CUDA-graph replay (for K2 also through the wrapper,
+    as the engine calls it), the summed bound, and the same sums for the
+    design before (``csrc/panel_lu.cu``'s ``panel_lu_kernel``: for K2
+    launched with c0 = lsize on contiguous copies, as K2's wrapper did; for
+    K1 the parent's whole bucket phase, gather, threshold repeat, kernel
+    and scatter, as the engine ran it); as a yardstick, not a library call
+    for the same function, ``torch.linalg.lu_factor_ex`` on the block,
+    ``solve_triangular`` on the U suffix and an ``index_select`` of the
+    prefix, on the same (for K1 the padded) panels.  K1's in-place calls
+    are replayed on copies that ``fresh_graph_ms`` restores before each
+    replay, outside the timed events.  Also K2's device time per launch at
+    the largest narrow node (the kernel table's shape), K1's bucket census
+    and ptxas's registers and spills of the window kernel."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.panel import ops as panel_ops
     from repro_torch.kernels.supsup import ops as supsup_ops
@@ -1023,13 +1084,34 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
         eng_u.refactor_batched(a_dev[:1])
     finally:
         supsup_ops.supsup_update = orig_supsup
-    k1_calls = []
-    k2_bucketed = _record_calls(
-        eng, "_panel_lu",
-        lambda: k1_calls.extend(_record_calls(
-            eng, "_panel_lu_batched", lambda: eng.refactor_batched(a_dev),
-            keep_panel)), keep_panel)
+    k1_calls, untouched = [], []
+    orig_k1 = eng._panel_lu_bucket
+
+    def spy_k1(vals, lay, eps):
+        comp = Compact(torch, np, vals, lay)            # before the call
+        before = vals.clone()
+        res = orig_k1(vals, lay, eps)
+        real = torch.zeros(vals.shape[1], dtype=torch.bool,
+                           device=vals.device)
+        for off, nr_, w, _, _ in lay.desc.tolist():
+            real[off:off + nr_ * w] = True
+        untouched.append(torch.equal(_bits(torch, vals[:, ~real]),
+                                     _bits(torch, before[:, ~real])))
+        k1_calls.append((comp, eps.clone()))
+        return res
+
+    eng._panel_lu_bucket = spy_k1
+    try:
+        k2_bucketed = _record_calls(
+            eng, "_panel_lu", lambda: eng.refactor_batched(a_dev),
+            keep_panel)
+    finally:
+        del eng._panel_lu_bucket
     torch.cuda.synchronize()
+    check(len(k1_calls) == sum(len(s_.panels) for s_ in eng.sched.steps),
+          f"panel_extra: {len(k1_calls)} K1 calls in one bucketed refactor")
+    check(all(untouched), "panel_extra: K1 wrote a slot outside its "
+          "bucket's real slots in the engine's buffer")
     K = a_dev.shape[0]
     check(len(k2_unrolled) == sum(nd.nr > 1 for nd in eng_u.plan.nodes),
           f"panel_extra: {len(k2_unrolled)} K2 calls in one unrolled refactor")
@@ -1055,54 +1137,37 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
         return err, int((got[1] != torch.arange(
             got[1].shape[-1], device=got[1].device)).sum()), int(got[2].sum())
 
-    def sums(label, calls, node, dt):
-        """Check every call, then the summed device times and bounds."""
+    def sums(label, calls, dt):
+        """K2: check every call, then the summed device times and bounds."""
         dname = str(dt).replace("torch.", "")
         tol = TOL[dname]
         kern, wrap, parent, yard = [], [], [], []
         bound = nbytes = steps = 0.0
         err, moved, perturbed, strided, unaligned = 0.0, 0, 0, 0, 0
-        for c in in_layout(torch, calls, dt):
-            strided += not c[0].is_contiguous()
-            unaligned += c[0].data_ptr() % 16 != 0
-            if node:
-                P, nr_, lsize, eps = c
-                w = P.shape[2]
-                P = P.to(dt)
-                e = panel_ops._eps_in(eps, P.shape[0], P)
-                got = panel_ops.panel_lu(P, nr_, lsize, e)
-                ref = panel_ops.panel_lu_plain(P, lsize, w, e)
-                c0, wlim = lsize, w
-            else:
-                P, wu, eps = c
-                nr_ = P.shape[1]
-                P = P.to(dt)
-                e = panel_ops._eps_in(eps, P.shape[0], P)
-                got = panel_ops.panel_lu_batched(P, wu, e)
-                ref = panel_ops.panel_lu_plain(P, 0, wu, e)
-                c0, wlim = 0, wu
+        for P, nr_, lsize, eps in in_layout(torch, calls, dt):
+            strided += not P.is_contiguous()
+            unaligned += P.data_ptr() % 16 != 0
+            w = P.shape[2]
+            e = panel_ops._eps_in(eps, P.shape[0], P)
+            got = panel_ops.panel_lu(P, nr_, lsize, e)
+            ref = panel_ops.panel_lu_plain(P, lsize, w, e)
             torch.cuda.synchronize()
             e_, mv, pt = held(f"{label} {dname} ({tuple(P.shape)}, "
-                              f"c0={c0})", got, ref, tol)
+                              f"c0={lsize})", got, ref, tol)
             err, moved, perturbed = max(err, e_), moved + mv, perturbed + pt
             del got, ref
-            bnd, nb = bound_of(P, lu_flops(np, P.shape[0], nr_, c0, wlim),
+            bnd, nb = bound_of(P, lu_flops(np, P.shape[0], nr_, lsize, w),
                                dname)
             bound, nbytes, steps = bound + bnd, nbytes + nb, steps + nr_
-            if node:
-                kern.append(lambda P=P, l_=lsize, e=e:
-                            panel_ops._launch_node(P, l_, e))
-                wrap.append(lambda P=P, n_=nr_, l_=lsize, e=e:
-                            panel_ops.panel_lu(P, n_, l_, e))
-                parent.append(lambda P=P.contiguous(), l_=lsize,
-                              w_=P.shape[2], e=e:
-                              panel_ops._launch(P, l_, w_, e))
-                idx = torch.arange(nr_, device=P.device)
-                yard.append(lambda P=P, n_=nr_, l_=lsize, idx=idx:
-                            _yardstick(torch, P, n_, l_, idx))
-            else:
-                kern.append(lambda P=P, wu=wlim, e=e:
-                            panel_ops.panel_lu_batched(P, wu, e))
+            kern.append(lambda P=P, l_=lsize, e=e:
+                        panel_ops._launch_node(P, l_, e))
+            wrap.append(lambda P=P, n_=nr_, l_=lsize, e=e:
+                        panel_ops.panel_lu(P, n_, l_, e))
+            parent.append(lambda P=P.contiguous(), l_=lsize, w_=w, e=e:
+                          panel_ops._launch(P, l_, w_, e))
+            idx = torch.arange(nr_, device=P.device)
+            yard.append(lambda P=P, n_=nr_, l_=lsize, idx=idx:
+                        _yardstick(torch, P, n_, l_, idx))
         out = {"calls": len(calls),
                "panels": int(sum(c[0].shape[0] for c in calls)),
                "pivot_steps": int(steps), "bytes": nbytes,
@@ -1111,18 +1176,118 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
                "unaligned_views": unaligned, "bound_ms": bound,
                "device_ms": graph_ms(torch, kern),
                "loop_ms": bench_ms(torch, lambda: [f() for f in kern],
-                                   min_ms=100.0)}
-        if node:
-            yard_ms = lib_graph_ms(torch, yard)
-            out.update({
-                "wrapper_device_ms": graph_ms(torch, wrap),
-                "parent_device_ms": graph_ms(torch, parent),
-                "parent_loop_ms": bench_ms(
-                    torch, lambda: [f() for f in parent], min_ms=100.0),
-                "yardstick_device_ms": yard_ms,
-                "yardstick_loop_ms": bench_ms(
-                    torch, lambda: [f() for f in yard], min_ms=100.0)})
+                                   min_ms=100.0),
+               "wrapper_device_ms": graph_ms(torch, wrap),
+               "parent_device_ms": graph_ms(torch, parent),
+               "parent_loop_ms": bench_ms(
+                   torch, lambda: [f() for f in parent], min_ms=100.0),
+               "yardstick_device_ms": lib_graph_ms(torch, yard),
+               "yardstick_loop_ms": bench_ms(
+                   torch, lambda: [f() for f in yard], min_ms=100.0)}
         del kern, wrap, parent, yard
+        torch.cuda.empty_cache()
+        return out
+
+    def k1_sums(dt):
+        """K1: every recorded call held to its plain version, each on its
+        own copy of the call's slots, then the device times summed over
+        the refactor's calls (each replay from the recorded values) beside
+        the parent's bucket phase, the yardstick and the summed bound."""
+        dname = str(dt).replace("torch.", "")
+        tol = TOL[dname]
+        bases = [c.base.to(dt) for c, _ in k1_calls]
+        works = [torch.empty_like(b_) for b_ in bases]
+        es = [panel_ops._eps_in(e_, b_.shape[0], b_)
+              for (_, e_), b_ in zip(k1_calls, bases)]
+
+        def restore():
+            for w_, b_ in zip(works, bases):
+                w_.copy_(b_)
+
+        kern, wrap, parent, yard, bounds = [], [], [], [], []
+        bound = nbytes = flops = 0.0
+        err, moved, perturbed, steps = 0.0, 0, 0, 0
+        for (c, _), b_, w_, e in zip(k1_calls, bases, works, es):
+            g, r = b_.clone(), b_.clone()
+            gp, gn = panel_ops.panel_lu_bucket_inplace(g, c.lay, e)
+            rp, rn = panel_ops.panel_lu_bucket_plain(r, c.lay, e)
+            torch.cuda.synchronize()
+            what = (f"K1 bucketed {dname} (nrp {c.lay.nr}, wt {c.lay.wt}, "
+                    f"B {c.lay.desc.shape[0]})")
+            check(torch.equal(gp, rp) and torch.equal(gn, rn),
+                  f"{what}: pivots or perturbation counts differ")
+            check(torch.equal(_bits(torch, g[:, c.other]),
+                              _bits(torch, b_[:, c.other])),
+                  f"{what}: a slot outside the bucket's real slots changed")
+            gr, rr = g[:, c.real], r[:, c.real]
+            e_ = float((gr - rr).abs().max())
+            check(bool(torch.allclose(gr, rr, rtol=tol, atol=tol)),
+                  f"{what}: max |kernel - plain| = {e_} outside {tol}")
+            err = max(err, e_)
+            moved += int((gp != torch.arange(c.lay.nr,
+                                             device=gp.device)).sum())
+            perturbed += int(gn.sum())
+            del g, r, gr, rr
+            f_, nb = bucket_work(np, c.lay, b_.shape[0], b_.element_size())
+            flops, nbytes = flops + f_, nbytes + nb
+            bounds.append(max(nb / HBM_BYTES_PER_S, f_ / PEAK_FLOPS[dname]))
+            bound += bounds[-1]
+            steps += b_.shape[0] * int(c.lay.desc[:, 1].sum())
+            kern.append(lambda w_=w_, c=c, e=e:
+                        panel_ops._launch_bucket(w_, c.lay, e))
+            wrap.append(lambda w_=w_, c=c, e=e:
+                        panel_ops.panel_lu_bucket_inplace(w_, c.lay, e))
+            parent.append(lambda w_=w_, c=c, e=e:
+                          parent_bucket(panel_ops, w_, c.lay, e))
+            # the padded panels as [prefix | block | U] for the yardstick
+            kk, bb = b_.shape[0], c.lay.desc.shape[0]
+            P = b_[:, c.lay.gather].view(kk * bb, c.lay.nr, c.lay.wt)
+            P = torch.cat([P[:, :, c.lay.wu:], P[:, :, :c.lay.wu]], dim=2)
+            idx = torch.arange(c.lay.nr, device=P.device)
+            yard.append(lambda P=P, n_=c.lay.nr, l_=c.lay.wt - c.lay.wu,
+                        idx=idx: _yardstick(torch, P, n_, l_, idx))
+        r_ms = bench_ms(torch, restore, min_ms=100.0)
+        out = {"calls": len(k1_calls),
+               "panels": int(sum(b_.shape[0] * c.lay.desc.shape[0]
+                                 for (c, _), b_ in zip(k1_calls, bases))),
+               "pivot_steps": steps, "flops": flops, "bytes": nbytes,
+               "max_abs_err": err, "rows_moved": moved,
+               "perturbed": perturbed,
+               "member_rows": sum(c.rows for c, _ in k1_calls),
+               "unaligned_member_rows": sum(c.unaligned_rows[dname]
+                                            for c, _ in k1_calls),
+               "bound_ms": bound * 1e3,
+               "device_ms": fresh_graph_ms(torch, kern, restore),
+               "wrapper_device_ms": fresh_graph_ms(torch, wrap, restore),
+               "parent_device_ms": fresh_graph_ms(torch, parent, restore),
+               "restore_loop_ms": r_ms,
+               "loop_ms": bench_ms(torch, lambda: (
+                   restore(), [f() for f in wrap]), min_ms=100.0) - r_ms,
+               "parent_loop_ms": bench_ms(torch, lambda: (
+                   restore(), [f() for f in parent]), min_ms=100.0) - r_ms,
+               "yardstick_device_ms": lib_graph_ms(torch, yard),
+               "yardstick_loop_ms": bench_ms(
+                   torch, lambda: [f() for f in yard], min_ms=100.0)}
+        # the same sums over the buckets of each padded row count
+        out["by_nrp"] = {}
+        for nrp in sorted({c.lay.nr for c, _ in k1_calls}):
+            sel = [i for i, (c, _) in enumerate(k1_calls) if c.lay.nr == nrp]
+
+            def restore_sel(sel=sel):
+                for i in sel:
+                    works[i].copy_(bases[i])
+
+            out["by_nrp"][str(nrp)] = {
+                "calls": len(sel),
+                "panels": sum(bases[i].shape[0]
+                              * k1_calls[i][0].lay.desc.shape[0]
+                              for i in sel),
+                "bound_ms": sum(bounds[i] for i in sel) * 1e3,
+                "device_ms": fresh_graph_ms(torch, [kern[i] for i in sel],
+                                            restore_sel),
+                "parent_device_ms": fresh_graph_ms(
+                    torch, [parent[i] for i in sel], restore_sel)}
+        del kern, wrap, parent, yard, bases, works
         torch.cuda.empty_cache()
         return out
 
@@ -1130,11 +1295,10 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
     for dt in (torch.float64, torch.float32):
         sfx = "" if dt == torch.float64 else "_f32"
         res["panel_lu"]["refactor_unrolled" + sfx] = sums(
-            "K2 unrolled", k2_unrolled, True, dt)
+            "K2 unrolled", k2_unrolled, dt)
         res["panel_lu"]["refactor_bucketed" + sfx] = sums(
-            "K2 bucketed", k2_bucketed, True, dt)
-        res["panel_lu_bucketed"]["refactor_bucketed" + sfx] = sums(
-            "K1 bucketed", k1_calls, False, dt)
+            "K2 bucketed", k2_bucketed, dt)
+        res["panel_lu_bucketed"]["refactor_bucketed" + sfx] = k1_sums(dt)
         # K2 per launch at the largest narrow node, by replay of 20 launches
         P, nr_, lsize, eps = in_layout(
             torch, [max(k2_bucketed, key=lambda c: c[0].numel())], dt)[0]
@@ -1159,11 +1323,30 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
                               "loop_ms": bench_ms(
                                   torch, lambda: [f() for f in k5],
                                   min_ms=100.0)}})
+    # the window kernel's instantiations: <type, pivot warps, window in
+    # shared memory, bucket members in place>
     res["panel_lu"]["ptxas"] = ptxas_of(_build.last_build["log"],
-                                        "node_panel_lu_kernel")
-    res["panel_lu"]["yardstick"] = (
+                                        "panel_lu_window_kernel")
+    res["panel_lu"]["yardstick"] = res["panel_lu_bucketed"]["yardstick"] = (
         "torch.linalg.lu_factor_ex(block) + solve_triangular(L, U suffix) "
         "+ index_select(prefix): not the same function, a scale")
+    res["panel_lu_bucketed"]["timing"] = (
+        "in place: each graph replay starts from the recorded values, "
+        "restored by a copy outside the timed events; loop times have "
+        "the restoring copy's loop time taken off")
+    # per bucket: (nrp, wu, wt, B), the share of padded rows and of padded
+    # entries of the (B, nrp, wt) panels
+    census = []
+    for c, _ in k1_calls:
+        d = c.lay.desc.cpu().numpy().astype(np.int64)
+        bb = len(d)
+        census.append([c.lay.nr, c.lay.wu, c.lay.wt, bb,
+                       float(1.0 - d[:, 1].sum() / (bb * c.lay.nr)),
+                       float(1.0 - (d[:, 1] * d[:, 2]).sum()
+                             / (bb * c.lay.nr * c.lay.wt))])
+    res["panel_lu_bucketed"]["census"] = census
+    res["panel_lu_bucketed"]["census_keys"] = [
+        "nrp", "wu", "wt", "B", "padded_row_share", "padded_entry_share"]
     del k2_unrolled, k2_bucketed, k1_calls, k5_calls, k5
     torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
@@ -1204,6 +1387,147 @@ def _yardstick(torch, P, nr, lsize, idx):
                                       unitriangular=True)
     if lsize:
         P[:, :, :lsize].index_select(1, idx)
+
+
+def _bits(torch, t):
+    """A float tensor's bits, for comparisons that NaN and -0.0 pass."""
+    return t.contiguous().view(torch.int64 if t.element_size() == 8
+                               else torch.int32)
+
+
+class Compact:
+    """The slots one in-place K1 call reads and writes, copied out of the
+    value buffer into a (K, L) buffer of their own: each member's panel at
+    an offset congruent to its own mod 4 (and L to the buffer's row length
+    mod 4), so every row keeps its 16-byte alignment in float64 and
+    float32; pi in the few slots between them; then the zero, one and
+    scratch slots.  ``lay`` describes the members there, ``real`` indexes
+    their slots, ``other`` every other slot, ``zero`` the first
+    sentinel."""
+
+    def __init__(self, torch, np, vals, lay):
+        from repro_torch.kernels.panel import ops as panel_ops
+
+        desc = lay.desc.cpu().numpy().astype(np.int64)
+        k, n_ext = vals.shape
+        new, src, dst, pos = desc.copy(), [], [], 0
+        for i, (off, nr, w, _, _) in enumerate(desc):
+            pos += (off - pos) % 4
+            new[i, 0] = pos
+            src.append(np.arange(off, off + nr * w))
+            dst.append(np.arange(pos, pos + nr * w))
+            pos += nr * w
+        zero = pos
+        width = zero + 3 + (n_ext - zero - 3) % 4
+        dev = vals.device
+        src, dst = (torch.from_numpy(np.concatenate(a)).to(dev)
+                    for a in (src, dst))
+        self.base = torch.full((k, width), np.pi, dtype=vals.dtype,
+                               device=dev)
+        self.base[:, dst] = vals[:, src]
+        self.base[:, zero] = vals[:, lay.zero_slot]
+        self.base[:, zero + 1] = vals[:, lay.one_slot]
+        self.base[:, zero + 2] = 0.0
+        g, sc = panel_ops.bucket_maps(new, lay.nr, lay.wu, lay.wt, zero,
+                                      zero + 1, zero + 2)
+        self.lay = panel_ops.bucket_layout(new, lay.nr, lay.wu, lay.wt, zero,
+                                           zero + 1, g, sc, dev)
+        mask = torch.zeros(width, dtype=torch.bool, device=dev)
+        mask[dst] = True
+        self.real, self.other = dst, (~mask).nonzero()[:, 0]
+        self.zero = zero
+        # the members' rows, and those that start off a 16-byte boundary
+        # in the engine's buffer (system k's row at k * n_ext)
+        starts = (n_ext * np.arange(k))[:, None] + np.concatenate(
+            [off + np.arange(nr) * w for off, nr, w, _, _ in desc])[None]
+        self.rows = int(starts.size)
+        self.unaligned_rows = {"float64": int((starts % 2 != 0).sum()),
+                               "float32": int((starts % 4 != 0).sum())}
+
+
+def bucket_work(np, lay, k, elem):
+    """(operations, bytes) of one K1 call on ``k`` systems of a bucket:
+    its members' real pivot steps over their real windows, their real
+    slots read and written once, the thresholds, the descriptors and the
+    perm and counts of every padded row."""
+    desc = lay.desc.cpu().numpy().astype(np.int64)
+    flops = sum(lu_flops(np, k, int(nr), 0, int(nr + us))
+                for _, nr, _, _, us in desc)
+    nbytes = (2 * k * int((desc[:, 1] * desc[:, 2]).sum()) * elem + k * elem
+              + 4 * k * len(desc) * (lay.nr + 1) + 4 * desc.size)
+    return flops, nbytes
+
+
+def parent_bucket(panel_ops, vals, lay, eps):
+    """K1's bucket phase as the engine ran it before the in-place kernel:
+    gather the padded panels, repeat each system's threshold per member,
+    the parent kernel (``hylu_panel_lu_*``), scatter back."""
+    k, b = vals.shape[0], lay.desc.shape[0]
+    P = vals[:, lay.gather].view(k * b, lay.nr, lay.wt)
+    out, perm, nper = panel_ops._launch(P, 0, lay.wu, eps.repeat_interleave(b))
+    vals[:, lay.scatter] = out.view(k, -1)
+    return perm, nper
+
+
+def fresh_graph_ms(torch, calls, restore, reps=5):
+    """Device time of one pass of ``calls``, thunks that work in place, by
+    CUDA events around replays of a CUDA graph that captured the pass;
+    before each replay ``restore()`` copies the recorded values back,
+    outside the timed events, so every replay starts from them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        restore()
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for fn in calls:
+            fn()
+    total = 0.0
+    for _ in range(reps):
+        restore()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        g.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        total += t0.elapsed_time(t1)
+    del g
+    torch.cuda.empty_cache()
+    return total / reps
+
+
+def shuffle_members(torch, np, comp, rng):
+    """The compact buffer with each member's rows shuffled (per system),
+    so that pivoting has to move rows."""
+    out = comp.base.clone()
+    k = out.shape[0]
+    for off, nr, w, _, _ in comp.lay.desc.tolist():
+        blk = out[:, off:off + nr * w].view(k, nr, w)
+        idx = torch.from_numpy(np.argsort(rng.random((k, nr)), axis=1)).to(
+            out.device)
+        blk.copy_(torch.gather(blk, 1, idx[..., None].expand(k, nr, w)))
+    return out
+
+
+def device_kernels(torch, fn):
+    """Kernels (and copies) the device runs in ``fn()``, by torch.profiler
+    with CPU and CUDA activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
 
 
 def scalar_phase(torch, np, kernels, A, an64, an_u, an32):
@@ -1287,7 +1611,7 @@ def scalar_phase(torch, np, kernels, A, an64, an_u, an32):
     check(u_counts.get("panel_lu", 0) == n_wide > 0,
           f"K2 launches per unrolled refactor {u_counts} != {n_wide}")
     b_counts = res["bucketed"]["launches_per_refactor"]
-    for w in ("panel_lu_batched", "panel_lu", "trsm_batched",
+    for w in ("panel_lu_bucket_inplace", "panel_lu", "trsm_batched",
               "gemm_batched"):
         check(b_counts.get(w, 0) > 0,
               f"kernel {w} was not launched by the bucketed refactor")

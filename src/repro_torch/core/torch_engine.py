@@ -26,6 +26,10 @@ the JAX package.  What differs:
   TRSM (edge buckets, the unrolled sup-sup edges and both block
   substitution sweeps), the batched GEMM and the unrolled schedule's
   C − A·B.  On the CPU the same wrappers run their plain PyTorch versions.
+  The bucketed panel LU reads each bucket's members from the value buffer
+  and writes them back in place (no gather, scatter or per-panel
+  threshold copy on the kernel route); its plain version runs the JAX
+  engine's gather, LU and scatter.
 * Each system perturbs pivots against its own ``perturb_eps · max|A_k|``
   (under ``vmap`` the JAX threshold is per system too), so the panel
   kernels take one threshold per panel.
@@ -212,9 +216,15 @@ class RepeatedSolveEngine:
         dev = self.device
         nodes, offs = self.plan.nodes, self.plan.panel_offset
         diag = _index(step.diag.slots, dev) if step.diag is not None else None
-        panels = [(pb.wu, pb.gather.shape, _index(pb.gather, dev).view(-1),
-                   _index(pb.scatter, dev).view(-1), _index(pb.rows, dev))
-                  for pb in step.panels]
+        panels = []
+        for pb in step.panels:                 # K1's descriptors, per member
+            desc = [(int(offs[t]), nodes[t].nr, nodes[t].width,
+                     nodes[t].lsize, nodes[t].usize)
+                    for t in pb.nids.tolist()]
+            panels.append((panel_ops.bucket_layout(
+                desc, pb.nr, pb.wu, pb.wt, self.sched.zero_slot,
+                self.sched.one_slot, pb.gather, pb.scatter, dev),
+                _index(pb.rows, dev)))
         seq = [(nodes[int(t)].nr, nodes[int(t)].width, nodes[int(t)].lsize,
                 int(offs[int(t)]), nodes[int(t)].r0) for t in step.seq]
         edges = [(eb.k, eb.nr, eb.m, _index(eb.src_idx, dev),
@@ -303,10 +313,10 @@ class RepeatedSolveEngine:
         return TorchFactors(vals=f.vals[0], inode_perm=f.inode_perm[0],
                             n_perturb=f.n_perturb[0])
 
-    def _panel_lu_batched(self, P, wu, eps):
+    def _panel_lu_bucket(self, vals, layout, eps):
         if self.use_kernels:
-            return panel_ops.panel_lu_batched(P, wu, eps)
-        return panel_ops.panel_lu_plain(P, 0, wu, eps)
+            return panel_ops.panel_lu_bucket_inplace(vals, layout, eps)
+        return panel_ops.panel_lu_bucket_plain(vals, layout, eps)
 
     def _panel_lu(self, P, nr, lsize, eps):
         if self.use_kernels:
@@ -336,11 +346,9 @@ class RepeatedSolveEngine:
                 nper += perturb(diag)
             if stop == (i, "panels"):
                 return vals, eps
-            for wu, (B, nr, wt), gather, scatter, rows in panels:
-                P = vals[:, gather].view(K * B, nr, wt)
-                P, perm, npb = self._panel_lu_batched(
-                    P, wu, eps.repeat_interleave(B))
-                vals[:, scatter] = P.view(K, -1)
+            for layout, rows in panels:           # K1 reads vals in place
+                B, nr = rows.shape
+                perm, npb = self._panel_lu_bucket(vals, layout, eps)
                 nper += npb.view(K, B).sum(dim=1, dtype=torch.int32)
                 seg = inode[:, rows]                           # (K, B, nr)
                 inode[:, rows] = torch.gather(seg, 2,

@@ -14,9 +14,11 @@ from .trisolve import ops as trisolve_ops
 from .wkv import ops as wkv_ops
 
 #: wrapper name → wrapper, for every kernel entry point (``suprow_update``
-#: has no caller on an engine path, as in the JAX package;
+#: has no caller on an engine path, as in the JAX package, and
+#: ``panel_lu_batched`` none in the engine, which runs K1 in place;
 #: ``flash_attention`` and ``wkv`` run in the models' prefill)
 WRAPPERS = {
+    "panel_lu_bucket_inplace": panel_ops.panel_lu_bucket_inplace,
     "panel_lu_batched": panel_ops.panel_lu_batched,
     "panel_lu": panel_ops.panel_lu,
     "trsm_batched": trisolve_ops.trsm_batched,

@@ -38,6 +38,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
 _PANEL = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _NODE_PANEL = [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_BATCHED_PANEL = [_P] * 6 + [_I] * 4 + [_P]
+_BUCKET_PANEL = [_P, _L] + [_P] * 5 + [_I] * 7 + [_P]
 _RIGHT = [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P]
 _LEFT = [_P, _P, _P, _I, _I, _I, _P]
 _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
@@ -48,6 +50,8 @@ _WKV = [_P] * 7 + [_I] * 4 + [_L] * 8 + [_P]
 SIGNATURES = {
     **{f"hylu_panel_lu_{s}": _PANEL for s in ("f64", "f32")},
     **{f"hylu_node_panel_lu_{s}": _NODE_PANEL for s in ("f64", "f32")},
+    **{f"hylu_panel_lu_batched_{s}": _BATCHED_PANEL for s in ("f64", "f32")},
+    **{f"hylu_bucket_panel_lu_{s}": _BUCKET_PANEL for s in ("f64", "f32")},
     **{f"hylu_trsm_right_{s}": _RIGHT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_unit_lower_{s}": _LEFT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_upper_{s}": _LEFT for s in ("f64", "f32")},
@@ -151,8 +155,8 @@ def library():
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
-            lib.hylu_node_panel_lu_scratch.argtypes = [_I] * 4
-            lib.hylu_node_panel_lu_scratch.restype = ctypes.c_longlong
+            lib.hylu_panel_lu_scratch.argtypes = [_I] * 5
+            lib.hylu_panel_lu_scratch.restype = ctypes.c_longlong
             lib.hylu_error_string.argtypes = [ctypes.c_int]
             lib.hylu_error_string.restype = ctypes.c_char_p
             _lib = lib

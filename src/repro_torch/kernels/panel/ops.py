@@ -1,28 +1,105 @@
 """Panel LU wrappers: K1 (bucketed) and K2 (one node panel per system).
 
-On a CUDA tensor each wrapper launches its hand-written kernel (both in
-``csrc/panel_lu.cu``, each with its own entry points) or raises; on a CPU
-tensor it runs the plain PyTorch version of :mod:`.ref`.  Every launch adds
-one to the wrapper's ``launches`` count.
+On a CUDA tensor each wrapper launches its hand-written kernel (all in
+``csrc/panel_lu.cu``, one kernel template behind their entry points) or
+raises; on a CPU tensor it runs the plain PyTorch version of :mod:`.ref`.
+Every launch adds one to the wrapper's ``launches`` count.
+
+K1 has two wrappers: ``panel_lu_bucket_inplace``, which the engine calls,
+factors the members of one panel bucket where they lie in the value buffer
+and writes them back in place; ``panel_lu_batched`` takes contiguous
+column-reordered panels, as the Pallas wrapper does.
 
 Dtype contract (as ``src/repro/kernels/panel/ops.py``): the LU runs in the
 panel dtype; the threshold is cast to it and clamped against underflow
 (``_eps_in``).  Unlike the Pallas wrappers, ``eps_p`` may hold one
-threshold per panel, because the batched engine perturbs each system
-against its own max|A|.
+threshold per panel (per system for the in-place K1), because the batched
+engine perturbs each system against its own max|A|.
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import _build
-from .ref import panel_lu_plain
+from .ref import panel_lu_bucket_plain, panel_lu_plain
 
-__all__ = ["panel_lu", "panel_lu_batched", "panel_lu_plain"]
+__all__ = ["BucketLayout", "bucket_layout", "bucket_maps", "panel_lu",
+           "panel_lu_batched", "panel_lu_bucket_inplace",
+           "panel_lu_bucket_plain", "panel_lu_plain"]
 
 MAX_ROWS = 128
+DESC_FIELDS = ("offset", "nr", "w", "lsize", "usize")
+
+
+class BucketLayout(NamedTuple):
+    """One panel bucket of B members (nodes) as K1 reads it in the value
+    buffer.  Member i's padded panel is [block | block pads | U suffix | U
+    pads | L prefix | prefix pads] of ``nr`` rows (``wu`` = nrp + usp
+    eliminated columns, ``wt`` = wu + lsp in all); pads read the zero slot,
+    and a padded row r >= the member's nr the one slot on its own diagonal
+    (``src/repro_torch/core/structure.py``, ``_panel_bucket``)."""
+    desc: torch.Tensor     # (B, 5) int32: slot offset, nr, w, lsize, usize
+    nr: int                # padded rows nrp (a power of two)
+    wu: int
+    wt: int
+    zero_slot: int
+    one_slot: int
+    gather: torch.Tensor   # (B * nr * wt,) int64: the padded panels' slots
+    scatter: torch.Tensor  # (B * nr * wt,) int64: where the plain version
+    #                        writes them back (pads to the scratch slot)
+
+
+def bucket_maps(desc, nrp: int, wu: int, wt: int, zero_slot: int,
+                one_slot: int, scratch_slot: int):
+    """The gather and scatter maps (B, nrp, wt) of the padded panels that
+    the descriptors (B, 5) describe: the maps the analysis builds for a
+    panel bucket, from the descriptors alone."""
+    desc = np.asarray(desc, np.int64).reshape(-1, len(DESC_FIELDS))
+    nb = desc.shape[0]
+    gather = np.full((nb, nrp, wt), zero_slot, np.int64)
+    gather[:, np.arange(nrp), np.arange(nrp)] = one_slot
+    scatter = np.full((nb, nrp, wt), scratch_slot, np.int64)
+    for i, (off, nr, w, ls, us) in enumerate(desc):
+        cols = np.concatenate([ls + np.arange(nr), np.full(nrp - nr, -1),
+                               ls + nr + np.arange(us),
+                               np.full(wu - nrp - us, -1), np.arange(ls),
+                               np.full(wt - wu - ls, -1)])
+        real = cols >= 0
+        slots = off + np.arange(nr)[:, None] * w + cols[real][None, :]
+        gather[i][:nr, real] = slots
+        scatter[i][:nr, real] = slots
+    return gather, scatter
+
+
+def bucket_layout(desc, nrp: int, wu: int, wt: int, zero_slot: int,
+                  one_slot: int, gather, scatter, device) -> BucketLayout:
+    """A :class:`BucketLayout` on ``device`` from host arrays: the (B, 5)
+    descriptors and the (B, nrp, wt) gather / scatter maps of the same
+    bucket.  Raises for a member that does not fit the padded sizes."""
+    desc = np.ascontiguousarray(desc, np.int64).reshape(-1, len(DESC_FIELDS))
+    off, nr, w, ls, us = desc.T
+    if not (1 <= nrp <= MAX_ROWS and nrp <= wu <= wt):
+        raise ValueError(f"need 1 <= nrp <= {MAX_ROWS} and nrp <= wu <= wt, "
+                         f"got nrp={nrp} wu={wu} wt={wt}")
+    if ((nr < 1) | (nr > nrp) | (us < 0) | (us > wu - nrp) | (ls < 0)
+            | (ls > wt - wu) | (w != ls + nr + us) | (off < 0)).any():
+        raise ValueError(f"bucket descriptors {desc.tolist()} do not fit "
+                         f"nrp={nrp} wu={wu} wt={wt}")
+    if int((off + nr * w).max()) >= 2 ** 31:
+        raise ValueError("slot offsets past 2^31 are not supported")
+    dev = torch.device(device)
+    return BucketLayout(
+        desc=torch.from_numpy(desc.astype(np.int32)).to(dev), nr=int(nrp),
+        wu=int(wu), wt=int(wt), zero_slot=int(zero_slot),
+        one_slot=int(one_slot),
+        gather=torch.from_numpy(np.asarray(gather, np.int64).reshape(-1)
+                                ).to(dev),
+        scatter=torch.from_numpy(np.asarray(scatter, np.int64).reshape(-1)
+                                 ).to(dev))
 
 
 def _eps_in(eps_p, n: int, like: torch.Tensor) -> torch.Tensor:
@@ -50,8 +127,9 @@ def _check_rows(nr):
 
 
 def _launch(panels, c0, wlim, eps):
-    """One launch of ``csrc/panel_lu.cu`` (K1's kernel; with c0 = lsize and
-    wlim = w it is also K2's design before the node kernel)."""
+    """One launch of the parent design (``hylu_panel_lu_*``, the kernel K1
+    and K2 ran before ``panel_lu_window_kernel``): no wrapper calls it;
+    ``chip_smoke.py`` times it beside the kernels that replaced it."""
     b, nr, wt = panels.shape
     _check_rows(nr)
     _build.check_cuda("panel_lu", panels, eps)
@@ -67,10 +145,23 @@ def _launch(panels, c0, wlim, eps):
 
 
 @functools.lru_cache(maxsize=4096)
+def _scratch(nr: int, ww: int, np_: int, inplace: bool,
+             elem_bytes: int) -> int:
+    """Elements of device-memory scratch a launch needs per panel of nr
+    rows, a window of ww columns and a prefix of np_: 0 when the window
+    fits shared memory."""
+    return _build.library().hylu_panel_lu_scratch(nr, ww, np_, int(inplace),
+                                                  elem_bytes)
+
+
 def _node_scratch(nr: int, w: int, c0: int, elem_bytes: int) -> int:
-    """Elements of device-memory scratch K2 needs per panel: 0 when its
-    window [c0, w) fits shared memory."""
-    return _build.library().hylu_node_panel_lu_scratch(nr, w, c0, elem_bytes)
+    """K2's scratch per panel (window [c0, w), prefix [0, c0))."""
+    return _scratch(nr, w - c0, c0, False, elem_bytes)
+
+
+def _scratch_for(b, per_panel, like):
+    return (torch.empty(b * per_panel, dtype=like.dtype, device=like.device)
+            if per_panel else None)
 
 
 def _launch_node(p3, lsize, eps):
@@ -94,9 +185,8 @@ def _launch_node(p3, lsize, eps):
     out = torch.empty((b, nr, w), dtype=p3.dtype, device=p3.device)
     perm = torch.empty((b, nr), dtype=torch.int32, device=p3.device)
     nper = torch.empty((b,), dtype=torch.int32, device=p3.device)
-    per_panel = _node_scratch(nr, w, lsize, p3.element_size())
-    scratch = (torch.empty(b * per_panel, dtype=p3.dtype, device=p3.device)
-               if per_panel else None)
+    scratch = _scratch_for(b, _node_scratch(nr, w, lsize, p3.element_size()),
+                           p3)
     with _build.on_device(p3):
         _build.launch(f"hylu_node_panel_lu_{_build.suffix(p3)}",
                       _build.ptr(p3), sb, _build.ptr(out), _build.ptr(perm),
@@ -104,6 +194,78 @@ def _launch_node(p3, lsize, eps):
                       None if scratch is None else _build.ptr(scratch), b,
                       nr, w, lsize, _build.stream_of(p3))
     return out, perm, nper
+
+
+def _launch_batched(panels, wu, eps):
+    """One launch of K1's kernel on contiguous (B, nr, wt) panels
+    [window (wu) | prefix] (``hylu_panel_lu_batched_*``)."""
+    b, nr, wt = panels.shape
+    _check_rows(nr)
+    _build.check_cuda("panel_lu_batched", panels, eps)
+    out = torch.empty_like(panels)
+    perm = torch.empty((b, nr), dtype=torch.int32, device=panels.device)
+    nper = torch.empty((b,), dtype=torch.int32, device=panels.device)
+    scratch = _scratch_for(
+        b, _scratch(nr, wu, wt - wu, False, panels.element_size()), panels)
+    with _build.on_device(panels):
+        _build.launch(f"hylu_panel_lu_batched_{_build.suffix(panels)}",
+                      _build.ptr(panels), _build.ptr(out), _build.ptr(perm),
+                      _build.ptr(nper), _build.ptr(eps),
+                      None if scratch is None else _build.ptr(scratch), b,
+                      nr, wt, wu, _build.stream_of(panels))
+    return out, perm, nper
+
+
+def _launch_bucket(vals, lay, eps):
+    """One launch of K1's in-place kernel (``hylu_bucket_panel_lu_*``) on
+    the K x B members of one bucket in the value buffer ``vals``."""
+    k, ldv = vals.shape
+    _build.check_cuda("panel_lu_bucket_inplace", vals, eps)
+    if lay.desc.device != vals.device or lay.desc.dtype != torch.int32:
+        raise ValueError(f"panel_lu_bucket_inplace: descriptors must be "
+                         f"int32 on {vals.device}, got {lay.desc.dtype} on "
+                         f"{lay.desc.device}")
+    if not max(lay.zero_slot, lay.one_slot) < ldv:
+        raise ValueError(f"panel_lu_bucket_inplace: sentinel slots "
+                         f"{lay.zero_slot}, {lay.one_slot} outside a value "
+                         f"buffer of {ldv}")
+    b = lay.desc.shape[0]
+    perm = torch.empty((k * b, lay.nr), dtype=torch.int32,
+                       device=vals.device)
+    nper = torch.empty((k * b,), dtype=torch.int32, device=vals.device)
+    scratch = _scratch_for(
+        k * b, _scratch(lay.nr, lay.wu, lay.wt - lay.wu, True,
+                        vals.element_size()), vals)
+    with _build.on_device(vals):
+        _build.launch(f"hylu_bucket_panel_lu_{_build.suffix(vals)}",
+                      _build.ptr(vals), ldv, _build.ptr(lay.desc),
+                      _build.ptr(perm), _build.ptr(nper), _build.ptr(eps),
+                      None if scratch is None else _build.ptr(scratch), k, b,
+                      lay.nr, lay.wu, lay.wt - lay.wu, lay.zero_slot,
+                      lay.one_slot, _build.stream_of(vals))
+    return perm, nper
+
+
+def panel_lu_bucket_inplace(vals: torch.Tensor, layout: BucketLayout,
+                            eps_p):
+    """K1 — the LU of one panel bucket's members, read from and written
+    back to the value buffer ``vals`` (K, slots) in place: the padded
+    panels the Pallas kernel factors (:class:`BucketLayout`), eliminated
+    over [0, wu), the prefix only permuted; rows at positions below a
+    member's nr go back to its real slots, and no other slot is written.
+    ``eps_p`` is one threshold per system (or a scalar).  Returns (perms
+    (K * B, nrp) int32, n_perturb (K * B,) int32), panel k * B + i for
+    member i of system k.  Replaces the engine's gather +
+    ``repro.kernels.panel.ops.panel_lu_batched`` + scatter
+    (``src/repro/core/jax_engine.py:215–219``)."""
+    if vals.ndim != 2:
+        raise ValueError(f"vals must be (K, slots), got {tuple(vals.shape)}")
+    eps = _eps_in(eps_p, vals.shape[0], vals)
+    if vals.device.type == "cpu":
+        return panel_lu_bucket_plain(vals, layout, eps)
+    out = _launch_bucket(vals, layout, eps)
+    panel_lu_bucket_inplace.launches += 1
+    return out
 
 
 def panel_lu_batched(panels: torch.Tensor, wu: int, eps_p):
@@ -119,7 +281,7 @@ def panel_lu_batched(panels: torch.Tensor, wu: int, eps_p):
     eps = _eps_in(eps_p, b, panels)
     if panels.device.type == "cpu":
         return panel_lu_plain(panels, 0, wu, eps)
-    out = _launch(panels, 0, wu, eps)
+    out = _launch_batched(panels, wu, eps)
     panel_lu_batched.launches += 1
     return out
 
@@ -149,5 +311,6 @@ def panel_lu(panel: torch.Tensor, nr: int, lsize: int, eps_p):
     return out, perm, nper
 
 
+panel_lu_bucket_inplace.launches = 0
 panel_lu_batched.launches = 0
 panel_lu.launches = 0

@@ -6,7 +6,11 @@ One loop serves both kernels: the diagonal block starts at column ``c0``
 (0 for the column-reordered bucket panels, ``lsize`` for a node panel)
 and the elimination runs over the columns ``(c0 + j, wlim)`` (``wu`` for a
 bucket, the panel width for a node); every other column is only
-row-swapped.  ``eps`` is one threshold per panel."""
+row-swapped.  ``eps`` is one threshold per panel.
+
+``panel_lu_bucket_plain`` is the bucketed LU as the engine ran it before
+K1 read the value buffer in place: gather the padded panels, factor them,
+scatter them back."""
 from __future__ import annotations
 
 import torch
@@ -50,3 +54,18 @@ def panel_lu_plain(panels: torch.Tensor, c0: int, wlim: int,
         P = P - l[:, :, None] * urow[:, None, :]
         P[:, :, pc] = torch.where(rows[None, :] > j, l, P[:, :, pc])
     return P, perm, nper
+
+
+def panel_lu_bucket_plain(vals: torch.Tensor, layout, eps: torch.Tensor):
+    """One panel bucket of the value buffer ``vals`` (K, slots), in place:
+    the padded panels gathered through ``layout.gather``, factored over
+    [0, wu) with system k's threshold ``eps[k]``, scattered back through
+    ``layout.scatter`` (``src/repro/core/jax_engine.py:215–219``).  Returns
+    (perm (K * B, nrp) int32, n_perturb (K * B,) int32)."""
+    K = vals.shape[0]
+    B = layout.desc.shape[0]
+    P = vals[:, layout.gather].view(K * B, layout.nr, layout.wt)
+    P, perm, nper = panel_lu_plain(P, 0, layout.wu,
+                                   eps.repeat_interleave(B))
+    vals[:, layout.scatter] = P.view(K, -1)
+    return perm, nper

@@ -42,7 +42,7 @@ from repro_torch.serve import serve_step as S  # noqa: E402
 
 # the wrappers the batched path launches (K5 runs in the unrolled schedule,
 # K6 on no engine path)
-BATCHED_PATH = ("panel_lu_batched", "panel_lu", "trsm_batched",
+BATCHED_PATH = ("panel_lu_bucket_inplace", "panel_lu", "trsm_batched",
                 "trsm_left_unit_lower_batched", "trsm_left_upper_batched",
                 "gemm_batched")
 TOLS = {"float64": (torch.float64, 1e-10, 1e-10),
@@ -98,7 +98,20 @@ def _cases(rng, tdt, dev):
     def eps(n):
         return torch.full((n,), 1e-8, dtype=tdt, device=dev)
 
+    # K1 in place: one padded bucket of three members, 4 systems
+    desc, parts, n = _place(rng, 4, [(5, 20, 28), (8, 24, 32), (6, 1, 3)],
+                            3, 1)
+    vb, lay = _bucket_vals(4, n, parts, tdt, dev), _layout(desc, 8, 24, 32,
+                                                           n, dev)
+
+    def in_place(fn):           # the buffer but the plain version's scratch
+        v = vb.clone()
+        return (v[:, :-1],) + tuple(fn(v, lay, eps(4)))
+
     return {
+        "panel_lu_bucket_inplace": (
+            lambda: in_place(panel.panel_lu_bucket_inplace),
+            lambda: in_place(panel.panel_lu_bucket_plain)),
         "panel_lu_batched": (lambda: panel.panel_lu_batched(pb, 50, eps(6)),
                              lambda: panel.panel_lu_plain(pb, 0, 50, eps(6))),
         "panel_lu": (lambda: panel.panel_lu(p2, 24, 10, eps(4)),
@@ -516,6 +529,253 @@ def test_node_panel_lu_reads_a_strided_view(off, dt, cuda):
     again = _node_held(view.contiguous(), nr, lsize, eps, tol)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+def _place(rng, k, members, start, gap):
+    """Node panels (nr, us, ls) -> (k, nr, ls + nr + us) with a dominant
+    block and their rows shuffled, laid out from slot ``start`` on with
+    ``gap`` slots before each (an odd gap: rows not 16-byte aligned).
+    Returns (descriptors, [(offset, values (k, nr * w))], end)."""
+    desc, parts, off = [], [], start
+    for nr, us, ls in members:
+        off += gap
+        w = ls + nr + us
+        p = rng.normal(size=(k, nr, w))
+        p[:, :, ls:ls + nr] += 16 * np.eye(nr)
+        rows = np.argsort(rng.random((k, nr)), axis=1)
+        p = np.take_along_axis(p, rows[:, :, None], axis=1)
+        desc.append((off, nr, w, ls, us))
+        parts.append((off, p.reshape(k, -1)))
+        off += nr * w
+    return desc, parts, off
+
+
+def _bucket_vals(k, n, parts, tdt, dev):
+    """A (k, n + 3) value buffer: the panels' values, pi in every other
+    slot, then the zero, one (1e30) and scratch slots."""
+    vals = np.full((k, n + 3), np.pi)
+    for off, v in parts:
+        vals[:, off:off + v.shape[1]] = v
+    vals[:, n:] = (0.0, 1e30, 0.0)
+    return torch.tensor(vals, dtype=tdt, device=dev)
+
+
+def _layout(desc, nrp, usp, lsp, n, dev):
+    """The bucket's layout in a buffer whose sentinel slots are n, n + 1,
+    n + 2."""
+    wu, wt = nrp + usp, nrp + usp + lsp
+    g, s = panel.bucket_maps(desc, nrp, wu, wt, n, n + 1, n + 2)
+    return panel.bucket_layout(desc, nrp, wu, wt, n, n + 1, g, s, dev)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int64 if t.element_size() == 8
+                               else torch.int32)
+
+
+def _bucket_held(vals, lay, eps, tol):
+    """K1 in place on a copy of vals against its plain version on another:
+    one launch, equal pivots and perturbation counts, the real slots'
+    NaN and inf positions equal and finite values within tol, and every
+    slot outside the bucket's real slots bit-identical to before (the
+    plain version's scratch slot aside).  Returns the kernel's (perm,
+    nper, vals)."""
+    before = panel.panel_lu_bucket_inplace.launches
+    got, ref = vals.clone(), vals.clone()
+    gp, gn = panel.panel_lu_bucket_inplace(got, lay, eps)
+    rp, rn = panel.panel_lu_bucket_plain(ref, lay, eps)
+    torch.cuda.synchronize()
+    assert panel.panel_lu_bucket_inplace.launches == before + 1
+    assert torch.equal(gp, rp) and torch.equal(gn, rn)
+    real = torch.zeros(vals.shape[1], dtype=torch.bool, device=vals.device)
+    for off, nr, w, _, _ in lay.desc.tolist():
+        real[off:off + nr * w] = True
+    assert torch.equal(_bits(got[:, ~real]), _bits(vals[:, ~real]))
+    g, r = got[:, real], ref[:, real]
+    assert torch.equal(torch.isnan(g), torch.isnan(r))
+    assert torch.equal(torch.isinf(g), torch.isinf(r))
+    fin = torch.isfinite(r)
+    torch.testing.assert_close(g[fin], r[fin], rtol=tol, atol=tol)
+    return gp, gn, got
+
+
+def _eps_per_system(k, tdt, dev):
+    """1e-8 for most systems, 1e3 (above every pivot of a block whose
+    diagonal is 16 plus noise: all perturbed) for every third from the
+    second on."""
+    eps = torch.full((k,), 1e-8, dtype=tdt, device=dev)
+    eps[1::3] = 1e3
+    return eps
+
+
+# K1 in place: (nrp, usp, lsp, members (nr, usize, lsize)) from a lone
+# pivot warp (nrp <= 8, windows up to 208 columns, more than one 128-column
+# round of its update) to eight warps; members below every padded size;
+# at nrp = 128 a prefix of 2,197 columns passes through shared memory in
+# chunks, beside a window staged in shared memory (float32) or, at 129 x
+# 226 float64 values, in device memory
+BUCKETS = [(2, 8, 16, [(2, 8, 16), (2, 3, 0), (2, 0, 9)]),
+           (4, 16, 24, [(3, 15, 19), (4, 16, 24), (3, 0, 0)]),
+           (8, 24, 32, [(5, 20, 28), (8, 24, 32), (6, 1, 3)]),
+           (8, 120, 16, [(7, 120, 16), (8, 119, 0)]),
+           (8, 200, 10, [(5, 190, 10), (8, 200, 0)]),
+           (16, 40, 64, [(9, 33, 64), (16, 40, 5)]),
+           (32, 64, 304, [(17, 64, 300), (32, 0, 299), (31, 50, 1)]),
+           (64, 104, 448, [(33, 100, 448), (64, 104, 0)]),
+           (128, 96, 2200, [(100, 96, 2197), (128, 7, 1000)])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("gap", [0, 1])
+@pytest.mark.parametrize("k", [1, 32])
+@pytest.mark.parametrize("bucket", range(len(BUCKETS)))
+def test_bucket_panel_lu_inplace(bucket, k, gap, dt, cuda):
+    """K1 in place on padded buckets, one system and 32, rows aligned and
+    not, with a threshold per system (every third system perturbs every
+    pivot): the plain version's pivots, counts and values; no other slot
+    written; rows moved by pivoting."""
+    tdt, tol, _ = TOLS[dt]
+    nrp, usp, lsp, members = BUCKETS[bucket]
+    rng = np.random.default_rng(bucket * 100 + k + gap)
+    desc, parts, n = _place(rng, k, members, 5, gap)
+    vals = _bucket_vals(k, n, parts, tdt, cuda)
+    perm, nper, _ = _bucket_held(vals, _layout(desc, nrp, usp, lsp, n, cuda),
+                                 _eps_per_system(k, tdt, cuda), tol)
+    b = len(members)
+    assert (perm != torch.arange(nrp, device=cuda)).any()
+    assert int(nper.view(k, b)[0].sum()) == 0
+    if k > 1:
+        assert (nper.view(k, b)[1] == torch.tensor(
+            [m[0] for m in members], device=cuda)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("k,members,nrp,usp,lsp",
+                         [(300, [(3, 5, 7)], 4, 8, 8),
+                          (32, [(5, 20, 28), (8, 24, 32), (6, 1, 3)] * 2, 8,
+                           24, 32),
+                          (40, [(24, 58, 262), (20, 30, 100)], 32, 64, 264)])
+def test_bucket_panel_lu_more_panels_than_sms(k, members, nrp, usp, lsp, dt,
+                                             cuda):
+    """More panels than SMs (K x B = 300, 192, 80 at four warps' size with
+    a wide prefix): every panel has its own pivots and threshold."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(k + nrp)
+    desc, parts, n = _place(rng, k, members, 3, 1)
+    vals = _bucket_vals(k, n, parts, tdt, cuda)
+    _bucket_held(vals, _layout(desc, nrp, usp, lsp, n, cuda),
+                 _eps_per_system(k, tdt, cuda), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+def test_bucket_panel_lu_window_in_device_memory(dt, cuda):
+    """nrp = 128 with a wide U suffix (window 128 + 250 columns in float64,
+    128 + 450 in float32, above the 227 KB a block may stage): the window
+    lives in a scratch buffer in device memory, the prefix still passes
+    through shared memory."""
+    tdt, tol, _ = TOLS[dt]
+    elem = torch.finfo(tdt).bits // 8
+    usp = 250 if dt == "float64" else 450
+    members = [(128, usp, 40), (90, usp - 3, 0), (127, 1, 33)]
+    assert panel._scratch(128, 128 + usp, 40, True, elem) > 0
+    rng = np.random.default_rng(usp)
+    for k in (1, 3):
+        desc, parts, n = _place(rng, k, members, 0, 1)
+        vals = _bucket_vals(k, n, parts, tdt, cuda)
+        _bucket_held(vals, _layout(desc, 128, usp, 40, n, cuda),
+                     _eps_per_system(k, tdt, cuda), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("nrp,usp,lsp,members",
+                         [(8, 24, 32, [(5, 20, 28), (8, 24, 32)]),
+                          (8, 200, 10, [(5, 190, 10), (8, 200, 0)]),
+                          (32, 64, 304, [(20, 60, 300), (32, 0, 5)])])
+@pytest.mark.parametrize("case", ["zero_pivot", "nan_pivot_row",
+                                  "padded_row_wins"])
+def test_bucket_panel_lu_nonfinite(case, nrp, usp, lsp, members, dt, cuda):
+    """Member 0 (nr < nrp; a lone pivot warp on a narrow and a wide window,
+    and four warps) degenerate in every system: an exactly zero
+    first block column under a zero threshold; a NaN that wins the first
+    pivot; a dominant first pivot row infinite in the second block column
+    above nonzero multipliers, so that every real candidate of step 1 is
+    infinite, every padded row NaN there, and a padded row wins the pivot.
+    NaN and inf positions, pivots and finite values as the plain version,
+    whose arithmetic tests/test_torch_kernels.py holds to the JAX
+    engine's."""
+    tdt, tol, _ = TOLS[dt]
+    k = 2
+    rng = np.random.default_rng(nrp)
+    desc, parts, n = _place(rng, k, members, 0, 1)
+    off, nr, w, ls, _ = desc[0]
+    p = parts[0][1].reshape(k, nr, w)
+    eps = torch.full((k,), 1e-8, dtype=tdt, device=cuda)
+    if case == "zero_pivot":
+        p[:, :, ls] = 0.0
+        eps.zero_()
+    elif case == "nan_pivot_row":
+        p[:, 2, ls] = np.nan
+    else:
+        p[:, :, ls] = 1.0
+        p[:, 0, ls] = 1e3
+        p[:, 0, ls + 1] = np.inf
+    vals = _bucket_vals(k, n, parts, tdt, cuda)
+    perm, _, got = _bucket_held(vals, _layout(desc, nrp, usp, lsp, n, cuda),
+                                eps, tol)
+    assert not torch.isfinite(got[:, off:off + nr * w]).all()
+    if case == "padded_row_wins":
+        assert (perm[::len(members), 1] == nr).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+def test_bucket_panel_lu_buckets_of_one_level(dt, cuda):
+    """Two buckets of one level whose members interleave in the value
+    buffer, run back to back: each leaves the other's slots (and the
+    sentinels) bit-identical, and each matches its plain version."""
+    tdt, tol, _ = TOLS[dt]
+    k = 8
+    rng = np.random.default_rng(77)
+    da, pa, end = _place(rng, k, [(3, 10, 14)], 1, 1)
+    db, pb, end = _place(rng, k, [(16, 30, 60)], end, 3)
+    da2, pa2, end = _place(rng, k, [(4, 12, 0)], end, 1)
+    db2, pb2, n = _place(rng, k, [(9, 1, 64)], end, 0)
+    vals = _bucket_vals(k, n, pa + pb + pa2 + pb2, tdt, cuda)
+    eps = _eps_per_system(k, tdt, cuda)
+    _, _, after_a = _bucket_held(vals, _layout(da + da2, 4, 16, 16, n, cuda),
+                                 eps, tol)
+    _bucket_held(after_a, _layout(db + db2, 16, 32, 64, n, cuda), eps, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("b,nr,wu,wt", [(6, 32, 50, 80), (300, 4, 20, 44),
+                                        (2, 128, 378, 400),
+                                        (3, 128, 150, 2400), (5, 1, 3, 5)])
+def test_panel_lu_batched_runs_the_window_kernel(b, nr, wu, wt, dt, cuda):
+    """The contiguous K1 wrapper launches the same kernel template
+    (``hylu_panel_lu_batched_*``): one launch, the plain version's pivots,
+    counts and values, also with the window in device memory (128 x 378)
+    and a prefix split over several blocks (128 x 150 + 2,250)."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(b + nr + wt)
+    p = rng.normal(size=(b, nr, wt))
+    p[:, :, :nr] += 16 * np.eye(nr)
+    p = np.take_along_axis(p, np.argsort(rng.random((b, nr)), axis=1)[
+        :, :, None], axis=1)
+    P = torch.tensor(p, dtype=tdt, device=cuda)
+    eps = _eps_per_system(b, tdt, cuda)
+    before = panel.panel_lu_batched.launches
+    got = panel.panel_lu_batched(P, wu, eps)
+    ref = panel.panel_lu_plain(P, 0, wu, eps)
+    torch.cuda.synchronize()
+    assert panel.panel_lu_batched.launches == before + 1
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    torch.testing.assert_close(got[0], ref[0], rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

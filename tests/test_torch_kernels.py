@@ -11,6 +11,8 @@ and perturbation counts must match exactly.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py``.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -376,6 +378,125 @@ def test_panel_lu_nonfinite_steps(case, bucketed):
     np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-12, atol=1e-12)
     assert np.array_equal(perm.numpy(), np.asarray(jp))
     assert np.array_equal(np.asarray(nper).ravel(), np.asarray(jn).ravel())
+
+
+@functools.lru_cache(maxsize=1)
+def _bucket_program():
+    """The panel buckets of fem2d(16, 16) under max_super=5 (nine buckets;
+    members with nr < nrp, usize < usp and lsize < lsp, nrp 2 to 8) and,
+    for each, the value buffer (K = 3 systems, sentinel slots included)
+    and thresholds the port's factor program hands it: (engine, [(the
+    analysis's bucket, the engine's layout, vals, eps)])."""
+    from repro_torch.core import HyluOptions, analyze, torch_repeated_engine
+    from repro_torch.matrices import fem2d, to_csr
+
+    A = to_csr(fem2d(16, 16, seed=1))
+    eng = torch_repeated_engine(analyze(A, HyluOptions(
+        device="cpu", force_mode="supernodal", max_super=5,
+        bulk_min_width=2)))
+    a = torch.tensor(A.data[None] * np.random.default_rng(18).uniform(
+        0.8, 1.2, (3, A.nnz)))
+    out = []
+    for i, step in enumerate(eng.sched.steps):
+        if step.panels:
+            vals, eps = eng.refactor_batched(a, stop=(i, "panels"))
+            for pb, (lay, _) in zip(step.panels, eng._steps[i][1]):
+                out.append((pb, lay, vals.numpy(), eps.numpy()))
+    return eng, out
+
+
+def _bucket_held(pb, lay, vals, eps, dt, total):
+    """K1 in place (its plain route on the CPU) on every system of vals
+    against the JAX engine's gather, interpreted Pallas kernel and scatter
+    on that system (``jax_engine.py:215–219``): equal pivots and
+    perturbation counts, the same NaN and inf positions, finite values of
+    vals[:, :total] within the dtype's tolerance.  Returns (perm, nper)."""
+    jdt, tdt, tol, _ = DTYPES[dt]
+    v = torch.tensor(vals, dtype=tdt)
+    perm, nper = panel.panel_lu_bucket_inplace(v, lay, torch.tensor(eps))
+    b = len(pb.nids)
+    assert perm.shape == (vals.shape[0] * b, pb.nr)
+    for k in range(vals.shape[0]):
+        jv = jnp.asarray(vals[k], jdt)
+        P, jp, jn = jpanel.panel_lu_batched(jv[jnp.asarray(pb.gather)],
+                                            pb.wu, eps[k], interpret=True)
+        jv = np.asarray(jv.at[jnp.asarray(pb.scatter)].set(P))[:total]
+        assert np.array_equal(perm[k * b:(k + 1) * b].numpy(),
+                              np.asarray(jp))
+        assert np.array_equal(nper[k * b:(k + 1) * b].numpy(),
+                              np.asarray(jn))
+        got = v[k, :total].numpy()
+        assert np.array_equal(np.isnan(got), np.isnan(jv))
+        assert np.array_equal(np.isinf(got), np.isinf(jv))
+        fin = np.isfinite(jv)
+        np.testing.assert_allclose(got[fin], jv[fin], rtol=tol, atol=tol)
+    return perm, nper
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_panel_lu_bucket_inplace_matches_jax(dt):
+    """Every bucket of the program at its own operands, with a threshold
+    per system: the engine's for system 0, one that perturbs many pivots
+    for system 1, none for system 2."""
+    eng, buckets = _bucket_program()
+    assert any((lay.desc[:, 1] < lay.nr).any()
+               and (lay.desc[:, 4] < lay.wu - lay.nr).any()
+               and (lay.desc[:, 3] < lay.wt - lay.wu).any()
+               for _, lay, _, _ in buckets)
+    counts = np.zeros(3, np.int64)
+    for pb, lay, vals, eps in buckets:
+        eps = np.array([eps[0], 3.5, 0.0])
+        _, nper = _bucket_held(pb, lay, vals, eps, dt,
+                               eng.sched.total_slots)
+        counts += nper.view(3, -1).sum(dim=1).numpy()
+    assert counts[0] == counts[2] == 0 < counts[1]
+
+
+@pytest.mark.parametrize("case", ["zero_pivot", "nan_pivot_row",
+                                  "padded_row_wins"])
+def test_panel_lu_bucket_inplace_nonfinite(case):
+    """Degenerate values in member 0 of a bucket whose members have nr = 5
+    < nrp = 8, in every system: an exactly zero first block column under a
+    zero threshold; a NaN that wins the first pivot; and a dominant first
+    pivot row that is infinite in the second block column, with nonzero
+    multipliers below it, so that every real candidate of step 1 is
+    infinite while each padded row turns NaN there (0 * inf) and a padded
+    row wins the pivot (tests/test_kernels.py's arithmetic)."""
+    eng, buckets = _bucket_program()
+    pb, lay, vals, eps = next(c for c in buckets if c[1].nr == 8)
+    off, nr, w, ls, _ = (int(x) for x in lay.desc[0])
+    assert nr < lay.nr
+    vals = vals.copy()
+    rows = off + np.arange(nr) * w
+    if case == "zero_pivot":
+        vals[:, rows + ls] = 0.0
+        eps = np.zeros_like(eps)
+    elif case == "nan_pivot_row":
+        vals[:, rows[2] + ls] = np.nan
+    else:
+        vals[:, rows + ls] = 1.0
+        vals[:, rows[0] + ls] = 1e3
+        vals[:, rows[0] + ls + 1] = np.inf
+    perm, _ = _bucket_held(pb, lay, vals, eps, "float64",
+                           eng.sched.total_slots)
+    b = lay.desc.shape[0]
+    if case == "padded_row_wins":
+        assert (perm[::b, 1] == nr).all()
+
+
+def test_bucket_descriptors_give_the_analysis_maps():
+    """The descriptors the engine uploads describe each bucket's members
+    exactly: the gather and scatter maps built from them alone are the
+    analysis's."""
+    eng, buckets = _bucket_program()
+    sched = eng.sched
+    for pb, lay, _, _ in buckets:
+        g, s = panel.bucket_maps(lay.desc.numpy(), pb.nr, pb.wu, pb.wt,
+                                 sched.zero_slot, sched.one_slot,
+                                 sched.scratch_slot)
+        assert np.array_equal(g, pb.gather) and np.array_equal(s, pb.scatter)
+        assert torch.equal(lay.gather, torch.from_numpy(
+            pb.gather.reshape(-1).astype(np.int64)))
 
 
 def test_update_wrappers_empty_and_bad_shapes():
