@@ -19,99 +19,465 @@
 // port returns the function the oracle returns.  T is not padded: the loop
 // runs to T (the JAX wrapper pads w with 1.0 to a tile multiple instead).
 //
-// What bounds it on the card: per step and head 7 hs^2 operations on 5 hs
-// floats moved, about 22 operations per byte at hs = 64 - near the float32
-// ridge (67 TFLOP/s over 3.35 TB/s, 20 per byte) - but the recurrence is
-// sequential in T, so one (batch, head) is a chain of T dependent steps: it
-// is bound by the latency of one step.  The design keeps that step short:
-// one block per (batch, head), 4 threads per column v of S, each holding
-// hs/4 rows of that column in registers (rows kc, kc + 4, ...), so a step is
-// hs/4 dependent FMAs and two warp shuffles with no block barrier; r, k, v,
-// w of 32 steps are staged in shared memory, and y of those steps is written
-// back from shared memory, with three barriers per 32 steps.
+// What bounds it on the card.  Per step and head the work is 7 hs^2
+// operations on 5 hs floats moved (about 22 operations per byte at hs = 64,
+// near the float32 ridge of 20), and the recurrence is sequential in T, but
+// it carries only one FMA per element from step to step, so the chain of
+// steps is not what sets the pace: the issue of each step's instructions is.
+// rwkv6 has B*H = 128 heads for 132 SMs, so each SM runs one head and each
+// of its four schedulers one warp; a step costs every warp 3 FP
+// instructions per element of S it holds (k.v, the y FMA, the S FMA) plus
+// whatever else it issues: shared loads, the reduction of y over rows, the
+// staging of the inputs and barriers.  The design cuts everything but the
+// FP work:
+//   - each thread holds an R x C register tile of S (rows contiguous), so a
+//     step loads r, k, w of its R rows as float4 (each value serving C
+//     FMAs) and v of its C columns; at hs = 64, R = 8 and C = 4: 10 shared
+//     loads for 96 FP instructions;
+//   - the G = hs/R threads of a column group are lanes of one warp and
+//     reduce y's partial sums by shuffles with no block barrier, halving
+//     the values exchanged at each step (C - 1 + log2(G/C) shuffles a
+//     step).  A lane keeps its columns in the order i ^ sigma, sigma a
+//     function of its row group, so that every exchange uses the same
+//     register indices on every lane; only the addresses of v and of the
+//     final state's columns depend on sigma;
+//   - the bonus term is taken out of the step: y_t = r_t . S_{t-1} + b_t v_t
+//     with b_t = sum_k r_t[k] u[k] k_t[k], which does not depend on S, is
+//     computed for all steps of a tile at once (lane t of each warp for step
+//     t) before the tile's sequential loop.  It rounds differently from the
+//     plain r . (S + u k v^T), within the 2e-4 the kernel is held to;
+//   - r, k, v, w of BT steps are staged in shared memory by cp.async, double
+//     buffered: tile n+1 is in flight while tile n runs, with one barrier a
+//     tile, and y is written by the lanes that hold it, once per step, with
+//     no barrier;
+//   - a head's columns can be split over NS blocks (each loads r, k, w again
+//     from L2), which puts more blocks on the card when B*H is small.
+// The design per head size is the table Design<HS> below; the one kept for
+// hs = 64 is the fastest of the variants timed on the card (PERF.md).
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
-constexpr int kKC = 4;    // threads per column of S (k is split over them)
-constexpr int kBT = 32;   // time steps staged per tile
+// R x C register tile per thread, NS blocks per head (column split), BT
+// steps per staged tile
+template <int HS>
+struct Design;
+template <>
+struct Design<64> {
+  static constexpr int R = 8, C = 4, NS = 1, BT = 32;
+  static constexpr bool SCALED = false;
+};
+template <>
+struct Design<32> {
+  static constexpr int R = 4, C = 4, NS = 1, BT = 32;
+  static constexpr bool SCALED = false;
+};
+template <>
+struct Design<16> {
+  static constexpr int R = 2, C = 4, NS = 1, BT = 32;
+  static constexpr bool SCALED = false;
+};
+template <>
+struct Design<8> {
+  static constexpr int R = 1, C = 2, NS = 1, BT = 32;
+  static constexpr bool SCALED = false;
+};
 
 template <int HS>
-__global__ void __launch_bounds__(HS * kKC)
+struct Shape {
+  using D = Design<HS>;
+  static constexpr int R = D::R, C = D::C, NS = D::NS, BT = D::BT;
+  static constexpr int G = HS / R;     // row groups: the lanes of one column
+  static constexpr int W = HS / NS;    // columns of one block
+  static constexpr int CG = W / C;     // column groups of one block
+  static constexpr int NT = G * CG;    // threads of one block
+  static constexpr int NW = NT / 32;
+  static constexpr int CGW = 32 / G;   // column groups of one warp
+  static constexpr int LOG_C = C == 1 ? 0 : C == 2 ? 1 : C == 4 ? 2 : 3;
+  static constexpr bool SCALED = D::SCALED;
+  // floats of shared memory: r, k, w tiles, the v tile, twice; scaled: the
+  // tile's r~, k~, f, the bonus of the block, the final alpha and the fold
+  // masks (two floats each); not: the bonus of each warp; u
+  static constexpr int SMEM =
+      2 * BT * (3 * HS + W) + HS +
+      (SCALED ? 3 * BT * HS + BT + HS + 2 * (HS / 32) : NW * BT);
+  static_assert(!SCALED || (HS % 32 == 0 && NT - HS >= BT &&
+                            (NT - HS) % BT == 0 && BT <= 64),
+                "scaled: whole row warps, bonus threads for every step");
+  static_assert(G <= 32 && 32 % G == 0, "a column's row groups in one warp");
+  static_assert(NT % 32 == 0 && NT <= 1024, "whole warps");
+  static_assert(C <= G && (C & (C - 1)) == 0 && C <= 8, "C halvings");
+  static_assert(W % 4 == 0 && BT % 32 == 0, "16-byte rows, whole tiles");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// N contiguous floats of shared memory, in the widest loads their
+// alignment (a multiple of N floats) allows
+template <int N>
+__device__ __forceinline__ void lds(float (&out)[N], const float* p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + i);
+      out[i] = a.x, out[i + 1] = a.y, out[i + 2] = a.z, out[i + 3] = a.w;
+    }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 a = *reinterpret_cast<const float2*>(p + i);
+      out[i] = a.x, out[i + 1] = a.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = p[i];
+  }
+}
+
+// Stage rows [t0, t0 + nt) of one array (n floats a row from column c0) in
+// granules of V floats: the rows are dst[tt * n ...].
+template <int BT, int NT, int V>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int n, long long st, int t0,
+                                           int nt, int tid) {
+  const int q = n / V;                 // granules a row
+  for (int i = tid; i < nt * q; i += NT) {
+    const int tt = i / q, c = (i - tt * q) * V;
+    cp_async<V * 4>(dst + tt * n + c, src + (t0 + tt) * st + c);
+  }
+}
+
+// The same for the full rows of a tile with n a compile-time width: the
+// row of each granule advances by a constant, so the loop is unrolled with
+// no division.
+template <int BT, int NT, int N>
+__device__ __forceinline__ void stage_tile16(float* dst, const float* src,
+                                             long long st, int t0, int nt,
+                                             int tid) {
+  constexpr int Q = N / 4;             // 16-byte granules a row
+  static_assert((BT * Q) % NT == 0 && NT % Q == 0, "whole passes");
+  constexpr int ROWS = NT / Q;         // rows one pass covers
+  const int tt0 = tid / Q, c = (tid % Q) * 4;
+  const float* s = src + (t0 + tt0) * st + c;
+  float* d = dst + tt0 * N + c;
+#pragma unroll
+  for (int j = 0; j < BT * Q / NT; ++j) {
+    if (tt0 + j * ROWS < nt) cp_async<16>(d + j * ROWS * N, s);
+    s += ROWS * st;
+  }
+}
+
+template <int HS>
+__global__ void __launch_bounds__(Shape<HS>::NT)
 wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ w,
            const float* __restrict__ u, float* __restrict__ y,
            float* __restrict__ s_out, int nh, int t, long long sb,
            long long sh, long long st, long long u_sb, long long u_sh,
-           long long y_sb, long long y_sh, long long y_st) {
-  constexpr int kP = HS / kKC;          // rows of S per thread
-  constexpr int kThreads = HS * kKC;
-  __shared__ float rs[kBT][HS], ks[kBT][HS], vs[kBT][HS], ws[kBT][HS],
-      ys[kBT][HS];
-  const int bh = blockIdx.x;
+           long long y_sb, long long y_sh, long long y_st, bool vec) {
+  using S_ = Shape<HS>;
+  constexpr int R = S_::R, C = S_::C, NS = S_::NS, BT = S_::BT, G = S_::G,
+                W = S_::W, NT = S_::NT, CGW = S_::CGW, LOG_C = S_::LOG_C;
+  constexpr bool SC = S_::SCALED;
+  constexpr unsigned kFull = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  // [buffer][array r, k, w][BT][HS], [buffer][BT][W] of v, then (scaled)
+  // the tile's r~, k~, f [BT][HS] or (not) nothing, the bonus (scaled: of
+  // the block [BT]; not: of each warp [NW][BT]), u [HS], (scaled) the
+  // final alpha [HS] and the fold masks of the row warps
+  float* const rkw = sm;
+  float* const vsm = rkw + 2 * 3 * BT * HS;
+  float* const rt = vsm + 2 * BT * W;
+  float* const kt = rt + BT * HS;
+  float* const ft = kt + BT * HS;
+  float* const bsm = SC ? ft + BT * HS : rt;
+  float* const usm = bsm + (SC ? BT : S_::NW * BT);
+  float* const alf = usm + HS;
+  unsigned long long* const fms =
+      reinterpret_cast<unsigned long long*>(alf + HS);
+
+  const int split = blockIdx.x % NS, bh = blockIdx.x / NS;
   const int b = bh / nh, h = bh % nh;
-  const int tid = threadIdx.x;
-  const int col = tid / kKC, kc = tid % kKC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane / CGW;                          // row group
+  const int c0 = (warp * CGW + lane % CGW) * C;      // block column
+  int sigma = 0;                                     // column order of a lane
+#pragma unroll
+  for (int kk = 0; kk < LOG_C; ++kk) sigma |= ((g >> kk) & 1) * (C >> (kk + 1));
   const long long in0 = b * sb + h * sh;
-  const float* rb = r + in0;
-  const float* kb = k + in0;
-  const float* vb = v + in0;
-  const float* wb = w + in0;
-  float* yb = y + b * y_sb + h * y_sh;
-  const float* ub = u + b * u_sb + h * u_sh;
-  float S[kP], uk[kP];
+  const float* const src[4] = {r + in0, k + in0, w + in0, v + in0 + split * W};
+  float* const yb = y + b * y_sb + h * y_sh + split * W + c0 + sigma;
+  const float* const ub = u + b * u_sb + h * u_sh;
+  for (int i = tid; i < HS; i += NT) usm[i] = ub[i];
+
+  auto stage = [&](int buf, int t0, int nt) {
+    float* const base = rkw + buf * 3 * BT * HS;
+    float* const vdst = vsm + buf * BT * W;
+    if (vec) {
 #pragma unroll
-  for (int i = 0; i < kP; ++i) {
-    S[i] = 0.f;
-    uk[i] = ub[kc + kKC * i];
-  }
-  for (int t0 = 0; t0 < t; t0 += kBT) {
-    const int nt = min(kBT, t - t0);
-    __syncthreads();               // the last tile's y written out
-    for (int i = tid; i < nt * HS; i += kThreads) {
-      const int tt = i / HS, c = i % HS;
-      const long long off = (t0 + tt) * st + c;
-      rs[tt][c] = rb[off];
-      ks[tt][c] = kb[off];
-      vs[tt][c] = vb[off];
-      ws[tt][c] = wb[off];
+      for (int a = 0; a < 3; ++a)
+        stage_tile16<BT, NT, HS>(base + a * BT * HS, src[a], st, t0, nt, tid);
+      stage_tile16<BT, NT, W>(vdst, src[3], st, t0, nt, tid);
+    } else {
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        stage_rows<BT, NT, 1>(base + a * BT * HS, src[a], HS, st, t0, nt, tid);
+      stage_rows<BT, NT, 1>(vdst, src[3], W, st, t0, nt, tid);
     }
-    __syncthreads();
-    for (int tt = 0; tt < nt; ++tt) {
-      const float vt = vs[tt][col];
-      float acc = 0.f;
+    cp_commit();
+  };
+
+  float S[R][C];
 #pragma unroll
-      for (int i = 0; i < kP; ++i) {
-        const int kk = kc + kKC * i;
-        const float kv = ks[tt][kk] * vt;
-        acc = fmaf(rs[tt][kk], fmaf(uk[i], kv, S[i]), acc);
-        S[i] = fmaf(ws[tt][kk], S[i], kv);
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) S[i][j] = 0.f;
+  float alpha = 1.f;       // scaled: the row scale of row tid (tid < HS)
+
+  stage(0, 0, min(BT, t));
+  for (int t0 = 0, buf = 0; t0 < t; t0 += BT, buf ^= 1) {
+    const int nt = min(BT, t - t0);
+    cp_wait_all();
+    __syncthreads();       // tile `buf` visible; every thread past the last
+    if (t0 + BT < t) stage(buf ^ 1, t0 + BT, min(BT, t - t0 - BT));
+    const float* const rs = rkw + buf * 3 * BT * HS;
+    const float* const ks = rs + BT * HS;
+    const float* const ws = ks + BT * HS;
+    const float* const vs = vsm + buf * BT * W + c0;
+    unsigned long long fmask = 0;        // scaled: the steps that fold
+    if constexpr (SC) {
+      if (tid < HS) {
+        // row tid's scale through the tile: r~ = r alpha_{t-1}; with
+        // a = w alpha_{t-1}, k~ = k / a and f = 1 while a stays in
+        // [2^-60, 2^60], else the row folds (f = a, k~ = k, alpha = 1)
+        unsigned long long fm = 0;
+#pragma unroll 8
+        for (int tt = 0; tt < nt; ++tt) {
+          const int e = tt * HS + tid;
+          const float a = ws[e] * alpha;
+          const bool fold = !(a >= 0x1p-60f && a <= 0x1p60f);
+          rt[e] = rs[e] * alpha;
+          kt[e] = fold ? ks[e] : __fdividef(ks[e], a);
+          ft[e] = fold ? a : 1.f;
+          alpha = fold ? 1.f : a;
+          if (__any_sync(kFull, fold)) fm |= 1ull << tt;
+        }
+        if (lane == 0) fms[warp] = fm;
+      } else {
+        // the bonus b_t, QB threads a step, each over HS / QB of k (each
+        // lane starts at another float4, so the loads hit distinct banks)
+        constexpr int QB = (NT - HS) / BT, NQ = HS / 4 / QB;
+        const int idx = tid - HS, tt = idx / QB, part = idx % QB;
+        const float4* const r4 = reinterpret_cast<const float4*>(rs + tt * HS);
+        const float4* const k4 = reinterpret_cast<const float4*>(ks + tt * HS);
+        const float4* const u4 = reinterpret_cast<const float4*>(usm);
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int qq = part * NQ + (q + tt * QB + part) % NQ;
+          const float4 a = r4[qq], c = k4[qq], e = u4[qq];
+          acc.x = fmaf(a.x * e.x, c.x, acc.x);
+          acc.y = fmaf(a.y * e.y, c.y, acc.y);
+          acc.z = fmaf(a.z * e.z, c.z, acc.z);
+          acc.w = fmaf(a.w * e.w, c.w, acc.w);
+        }
+        float bsum = (acc.x + acc.y) + (acc.z + acc.w);
+#pragma unroll
+        for (int m = 1; m < QB; m *= 2) bsum += __shfl_xor_sync(kFull, bsum, m);
+        if (part == 0 && tt < nt) bsm[tt] = bsum;
       }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      if (kc == 0) ys[tt][col] = acc;
+      __syncthreads();     // r~, k~, f, the bonus and the masks visible
+#pragma unroll
+      for (int i = 0; i < HS / 32; ++i) fmask |= fms[i];
+    } else {
+      // the bonus b_t of each step, lane t of each warp for step t (each
+      // lane starts at another float4 of its row, so the warp's loads hit
+      // distinct banks; four partial sums keep the chain short)
+      float* const bw = bsm + warp * BT;
+      for (int tt = lane; tt < nt; tt += 32) {
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int q = 0; q < HS / 4; ++q) {
+          const int qq = (q + tt) % (HS / 4);
+          const float4 a = reinterpret_cast<const float4*>(rs + tt * HS)[qq];
+          const float4 c = reinterpret_cast<const float4*>(ks + tt * HS)[qq];
+          const float4 e = reinterpret_cast<const float4*>(usm)[qq];
+          acc.x = fmaf(a.x * e.x, c.x, acc.x);
+          acc.y = fmaf(a.y * e.y, c.y, acc.y);
+          acc.z = fmaf(a.z * e.z, c.z, acc.z);
+          acc.w = fmaf(a.w * e.w, c.w, acc.w);
+        }
+        bw[tt] = (acc.x + acc.y) + (acc.z + acc.w);
+      }
+      __syncwarp();
     }
-    __syncthreads();
-    for (int i = tid; i < nt * HS; i += kThreads) {
-      const int tt = i / HS, c = i % HS;
-      yb[(t0 + tt) * y_st + c] = ys[tt][c];
+    const float* const rq = SC ? rt : rs;          // the rows a step reads
+    const float* const kq = SC ? kt : ks;
+    const float* const bq = SC ? bsm : bsm + warp * BT;
+    // a step's operands, loaded one step ahead of their use so that the
+    // shared loads' latency hides behind the step before
+    struct Ops {
+      float r[R], k[R], w[SC ? 1 : R], v[C], b;
+    };
+    auto load = [&](Ops& o, int tt) {
+      lds<R>(o.r, rq + tt * HS + g * R);
+      lds<R>(o.k, kq + tt * HS + g * R);
+      if constexpr (!SC) lds<R>(o.w, ws + tt * HS + g * R);
+#pragma unroll
+      for (int j = 0; j < C; ++j) o.v[j] = vs[tt * W + (j ^ sigma)];
+      o.b = bq[tt];
+    };
+    float* yp = yb + t0 * y_st;
+    auto step = [&](const Ops& o, int tt) {
+      // y's partial sum over this lane's rows, in two chains (even and odd
+      // rows) to halve the dependent FMAs
+      float acc[C], acc2[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[j] = acc2[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          if (i % 2) acc2[j] = fmaf(o.r[i], S[i][j], acc2[j]);
+          else acc[j] = fmaf(o.r[i], S[i][j], acc[j]);
+        }
+      if constexpr (SC) {
+        if ((fmask >> tt) & 1) {         // a row folds: S = f S + k~ v
+          float f[R];
+          lds<R>(f, ft + tt * HS + g * R);
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < C; ++j)
+              S[i][j] = fmaf(f[i], S[i][j], o.k[i] * o.v[j]);
+        } else {                         // S = S + k~ v: one FMA
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < C; ++j) S[i][j] = fmaf(o.k[i], o.v[j], S[i][j]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < C; ++j)
+            S[i][j] = fmaf(o.w[i], S[i][j], o.k[i] * o.v[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[j] += acc2[j];
+      // y over the G row groups: exchange the upper half of the columns
+      // still held with the lane whose row group differs in bit kk; a
+      // lane's register j is column j ^ sigma, so the partner's register
+      // j + h is this lane's column j
+#pragma unroll
+      for (int kk = 0, hh = C / 2; hh >= 1; ++kk, hh /= 2)
+#pragma unroll
+        for (int j = 0; j < hh; ++j)
+          acc[j] += __shfl_xor_sync(kFull, acc[j + hh], CGW << kk);
+#pragma unroll
+      for (int kk = LOG_C; (1 << kk) < G; ++kk)
+        acc[0] += __shfl_xor_sync(kFull, acc[0], CGW << kk);
+      if (g < C) *yp = fmaf(o.b, o.v[0], acc[0]);
+      yp += y_st;
+    };
+    Ops o[2];
+    load(o[0], 0);
+    if (nt == BT) {
+#pragma unroll 2
+      for (int tt = 0; tt < BT; tt += 2) {
+        load(o[1], tt + 1);
+        step(o[0], tt);
+        if (tt + 2 < BT) load(o[0], tt + 2);
+        step(o[1], tt + 1);
+      }
+    } else {                 // the same, stopped at nt (static indices
+                             // keep o in registers)
+      for (int tt = 0; tt < nt; tt += 2) {
+        if (tt + 1 < nt) load(o[1], tt + 1);
+        step(o[0], tt);
+        if (tt + 1 < nt) {
+          if (tt + 2 < nt) load(o[0], tt + 2);
+          step(o[1], tt + 1);
+        }
+      }
     }
   }
-  float* so = s_out + (long long)bh * HS * HS;
+  if constexpr (SC) {      // S = alpha S~, alpha of each row
+    if (tid < HS) alf[tid] = alpha;
+    __syncthreads();
 #pragma unroll
-  for (int i = 0; i < kP; ++i) so[(kc + kKC * i) * HS + col] = S[i];
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) S[i][j] *= alf[g * R + i];
+  }
+  float* const so = s_out + (long long)bh * HS * HS + split * W + c0;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) so[(g * R + i) * HS + (j ^ sigma)] = S[i][j];
 }
 
 template <int HS>
 int launch_hs(const void* r, const void* k, const void* v, const void* w,
               const void* u, void* y, void* s_out, int b, int nh, int t,
               const long long* st, cudaStream_t stream) {
-  wkv_kernel<HS><<<b * nh, HS * kKC, 0, stream>>>(
+  using S_ = Shape<HS>;
+  constexpr int bytes = S_::SMEM * 4;
+  static unsigned ready = 0;           // devices whose limit is raised
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 32 && !(ready & (1u << dev))) {
+    e = cudaFuncSetAttribute(wkv_kernel<HS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return (int)e;
+    ready |= 1u << dev;
+  } else if (dev >= 32) {
+    e = cudaFuncSetAttribute(wkv_kernel<HS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // 16-byte copies when every base and stride allows them
+  const auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = al(r) && al(k) && al(v) && al(w) && st[0] % 4 == 0 &&
+                   st[1] % 4 == 0 && st[2] % 4 == 0;
+  wkv_kernel<HS><<<b * nh * S_::NS, S_::NT, bytes, stream>>>(
       static_cast<const float*>(r), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<float*>(y),
       static_cast<float*>(s_out), nh, t, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7]);
+      st[5], st[6], st[7], vec);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@ Each kernel against its plain PyTorch version on the same device tensors
 (K1 and K2 also on panels with a zero pivot under a zero threshold or a
 non-finite entry; K4 over ragged shapes at one product and 2,048; K7 and
 K8 on the strided layouts the models hand them, K7 at every head width,
-ragged, with GQA and with S != T),
+ragged, with GQA and with S != T, K8 at every head width, ragged, at
+rwkv6's full shape and at extreme decays),
 the engine on the card against the engine on the CPU, the unrolled
 one-system lifecycle against the bucketed one, and the serving path of two
 reduced models on the card (K7 / K8 in prefill) against the CPU.  This file
@@ -1031,6 +1032,74 @@ def test_wkv_matches_plain(bh, t, hs, cuda):
         yr4, sr4 = wkvops.wkv_plain(*ops4, u[:h])
         torch.testing.assert_close(y4, yr4, rtol=2e-4, atol=2e-4)
         torch.testing.assert_close(s4, sr4, rtol=2e-4, atol=2e-4)
+
+
+# K8's design cases (y and the final state against the plain version at
+# 2e-4): rwkv6-1.6b's full shape in the model's (B, T, H, hs) storage; T of
+# one step, of one more than a tile of 32 or 64 steps, and ragged at 2,000;
+# decays from the model's range, from [1e-6, 0.05] and exactly 1.0; every
+# head size; u shared over the batch (stride 0) or one per request; more
+# blocks than SMs; a NaN in one head's v.  Each call's outputs are allocated
+# where a NaN-filled buffer was just freed, so a column that no block
+# writes shows as NaN.
+WKV_DESIGN = {
+    "rwkv6_full": (4, 32, 2048, 64, "model", False, False),
+    "rwkv6_full_tiny_decay": (4, 32, 2048, 64, "tiny", False, False),
+    "rwkv6_full_unit_decay": (4, 32, 2048, 64, "one", False, False),
+    "t1": (2, 3, 1, 64, "model", False, False),
+    "t33": (2, 3, 33, 64, "model", False, False),
+    "t65": (2, 3, 65, 64, "model", False, False),
+    "t2000": (1, 4, 2000, 64, "model", False, False),
+    **{f"hs{hs}_{d}": (2, 5, 77, hs, d, False, False)
+       for hs in wkvops.HEAD_SIZES for d in ("model", "tiny", "one")},
+    **{f"hs{hs}_u_per_request": (3, 2, 40, hs, "model", True, False)
+       for hs in wkvops.HEAD_SIZES},
+    "more_blocks_than_sms": (10, 30, 70, 64, "model", False, False),
+    "nan_in_one_head": (2, 4, 90, 64, "model", False, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WKV_DESIGN))
+def test_wkv_design_cases(case, cuda):
+    b, h, t, hs, decay, u_per_request, nan = WKV_DESIGN[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+
+    def f(a):                  # (B, T, H, hs) storage, (B, H, T, hs) view
+        return torch.tensor(a, dtype=torch.float32,
+                            device=cuda).transpose(1, 2)
+
+    shape = (b, t, h, hs)
+    r, v = (f(rng.normal(size=shape)) for _ in range(2))
+    k = f(rng.normal(size=shape) * 0.3)
+    w = {"model": lambda: f(np.exp(-np.exp(rng.normal(-2.0, 0.5, shape)))),
+         "tiny": lambda: f(rng.uniform(1e-6, 0.05, shape)),
+         "one": lambda: torch.ones_like(r)}[decay]()
+    u = torch.tensor(rng.normal(size=(b, h, hs) if u_per_request else (h, hs))
+                     * 0.3, dtype=torch.float32, device=cuda)
+    if nan:
+        v[1, 2, 40, 7] = float("nan")
+    junk = torch.full((2 * b * h * t * hs + b * h * hs * hs,), float("nan"),
+                      device=cuda)
+    del junk
+    before = kernels.launch_counts()["wkv"]
+    y, s = wkvops.wkv(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["wkv"] == before + 1
+    assert y.shape == (b, h, t, hs) and s.shape == (b, h, hs, hs)
+    yr, sr = wkvops.wkv_plain(r, k, v, w, u)
+    torch.testing.assert_close(y, yr, rtol=2e-4, atol=2e-4, equal_nan=nan)
+    torch.testing.assert_close(s, sr, rtol=2e-4, atol=2e-4, equal_nan=nan)
+    if nan:                     # only column 7 of head (1, 2), from step 40
+        mask = torch.zeros_like(y, dtype=torch.bool)
+        mask[1, 2, 40:, 7] = True
+        assert torch.equal(torch.isnan(y), mask)
+        assert torch.equal(torch.isnan(yr), mask)
+        smask = torch.zeros_like(s, dtype=torch.bool)
+        smask[1, 2, :, 7] = True
+        assert torch.equal(torch.isnan(s), smask)
+    else:
+        assert torch.isfinite(y).all() and torch.isfinite(s).all()
 
 
 @pytest.mark.cuda

@@ -520,6 +520,12 @@ FLASH_DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
                 "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 WKV_CASES = [(4, 64, 16, 16), (2, 100, 32, 32), (6, 33, 8, 16),
              (1, 256, 64, 64)]
+# the decays: the JAX test's range, then those where a float32 redesign of K8
+# is most likely to part from the plain version: near zero and exactly one
+WKV_DECAYS = {"model": (0.7, 0.999), "tiny": (1e-6, 0.05), "one": None}
+WKV_PARAMS = [pytest.param(*c, d, id="-".join(map(str, c))
+                           + ("" if d == "model" else f"-{d}"))
+              for d in WKV_DECAYS for c in WKV_CASES]
 
 
 @pytest.mark.parametrize("dt", sorted(FLASH_DTYPES))
@@ -572,17 +578,20 @@ def test_flash_attention_refuses_what_it_does_not_take():
                               torch.zeros(1, 3, 8, 16))
 
 
-@pytest.mark.parametrize("bh,t,hs,bt", WKV_CASES)
-def test_wkv(bh, t, hs, bt):
+@pytest.mark.parametrize("bh,t,hs,bt,decay", WKV_PARAMS)
+def test_wkv(bh, t, hs, bt, decay):
     """K8's plain version (y and the final state) against the interpreted
     Pallas ``wkv_padded`` (y) and the oracle ``wkv_ref`` (y, state), at
-    2e-4; also in the (B, H, T, hs) layout the model hands it, read through
-    strides, with one u per head shared over the batch."""
+    2e-4, with decays from the JAX test's range, from [1e-6, 0.05] and
+    exactly 1.0; also in the (B, H, T, hs) layout the model hands it, read
+    through strides, with one u per head shared over the batch."""
     rng = np.random.default_rng(bh * 100 + t + hs)
     r = rng.normal(size=(bh, t, hs)).astype(np.float32)
     k = (rng.normal(size=(bh, t, hs)) * 0.3).astype(np.float32)
     v = rng.normal(size=(bh, t, hs)).astype(np.float32)
-    w = rng.uniform(0.7, 0.999, size=(bh, t, hs)).astype(np.float32)
+    lo_hi = WKV_DECAYS[decay]
+    w = (rng.uniform(*lo_hi, size=(bh, t, hs)).astype(np.float32) if lo_hi
+         else np.ones((bh, t, hs), np.float32))
     u = (rng.normal(size=(bh, hs)) * 0.3).astype(np.float32)
     y, s = wkvops.wkv(*(torch.tensor(a)[None] for a in (r, k, v, w)),
                       torch.tensor(u))              # B = 1, H = bh
