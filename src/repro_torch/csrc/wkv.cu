@@ -67,22 +67,18 @@ struct Design;
 template <>
 struct Design<64> {
   static constexpr int R = 8, C = 4, NS = 1, BT = 32;
-  static constexpr bool SCALED = false;
 };
 template <>
 struct Design<32> {
   static constexpr int R = 4, C = 4, NS = 1, BT = 32;
-  static constexpr bool SCALED = false;
 };
 template <>
 struct Design<16> {
   static constexpr int R = 2, C = 4, NS = 1, BT = 32;
-  static constexpr bool SCALED = false;
 };
 template <>
 struct Design<8> {
   static constexpr int R = 1, C = 2, NS = 1, BT = 32;
-  static constexpr bool SCALED = false;
 };
 
 template <int HS>
@@ -96,16 +92,9 @@ struct Shape {
   static constexpr int NW = NT / 32;
   static constexpr int CGW = 32 / G;   // column groups of one warp
   static constexpr int LOG_C = C == 1 ? 0 : C == 2 ? 1 : C == 4 ? 2 : 3;
-  static constexpr bool SCALED = D::SCALED;
-  // floats of shared memory: r, k, w tiles, the v tile, twice; scaled: the
-  // tile's r~, k~, f, the bonus of the block, the final alpha and the fold
-  // masks (two floats each); not: the bonus of each warp; u
-  static constexpr int SMEM =
-      2 * BT * (3 * HS + W) + HS +
-      (SCALED ? 3 * BT * HS + BT + HS + 2 * (HS / 32) : NW * BT);
-  static_assert(!SCALED || (HS % 32 == 0 && NT - HS >= BT &&
-                            (NT - HS) % BT == 0 && BT <= 64),
-                "scaled: whole row warps, bonus threads for every step");
+  // floats of shared memory: r, k, w tiles and the v tile, three times;
+  // the bonus of each step, twice
+  static constexpr int SMEM = 3 * BT * (3 * HS + W) + 2 * BT;
   static_assert(G <= 32 && 32 % G == 0, "a column's row groups in one warp");
   static_assert(NT % 32 == 0 && NT <= 1024, "whole warps");
   static_assert(C <= G && (C & (C - 1)) == 0 && C <= 8, "C halvings");
@@ -160,27 +149,16 @@ __device__ __forceinline__ void lds(float (&out)[N], const float* p) {
   }
 }
 
-// Stage rows [t0, t0 + nt) of one array (n floats a row from column c0) in
-// granules of V floats: the rows are dst[tt * n ...].
-template <int BT, int NT, int V>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int n, long long st, int t0,
-                                           int nt, int tid) {
-  const int q = n / V;                 // granules a row
-  for (int i = tid; i < nt * q; i += NT) {
-    const int tt = i / q, c = (i - tt * q) * V;
-    cp_async<V * 4>(dst + tt * n + c, src + (t0 + tt) * st + c);
-  }
-}
-
-// The same for the full rows of a tile with n a compile-time width: the
-// row of each granule advances by a constant, so the loop is unrolled with
-// no division.
-template <int BT, int NT, int N>
-__device__ __forceinline__ void stage_tile16(float* dst, const float* src,
-                                             long long st, int t0, int nt,
-                                             int tid) {
-  constexpr int Q = N / 4;             // 16-byte granules a row
+// Stage rows [t0, t0 + nt) of one (T, N) array, N a multiple of 4, into
+// dst[tt * N ...]: thread tid copies granule tid % Q (4 floats) of rows
+// tid / Q + j * NT / Q, as one 16-byte cp.async (VEC) or four 4-byte ones.
+// The rows a thread copies are fixed, so it may read them back after its
+// own cp.async.wait_group without a barrier.
+template <int BT, int NT, int N, bool VEC>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           long long st, int t0, int nt,
+                                           int tid) {
+  constexpr int Q = N / 4;             // granules a row
   static_assert((BT * Q) % NT == 0 && NT % Q == 0, "whole passes");
   constexpr int ROWS = NT / Q;         // rows one pass covers
   const int tt0 = tid / Q, c = (tid % Q) * 4;
@@ -188,7 +166,14 @@ __device__ __forceinline__ void stage_tile16(float* dst, const float* src,
   float* d = dst + tt0 * N + c;
 #pragma unroll
   for (int j = 0; j < BT * Q / NT; ++j) {
-    if (tt0 + j * ROWS < nt) cp_async<16>(d + j * ROWS * N, s);
+    if (tt0 + j * ROWS < nt) {
+      if constexpr (VEC) {
+        cp_async<16>(d + j * ROWS * N, s);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cp_async<4>(d + j * ROWS * N + e, s + e);
+      }
+    }
     s += ROWS * st;
   }
 }
@@ -204,24 +189,13 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
   using S_ = Shape<HS>;
   constexpr int R = S_::R, C = S_::C, NS = S_::NS, BT = S_::BT, G = S_::G,
                 W = S_::W, NT = S_::NT, CGW = S_::CGW, LOG_C = S_::LOG_C;
-  constexpr bool SC = S_::SCALED;
   constexpr unsigned kFull = 0xffffffffu;
   extern __shared__ float4 smem4[];
-  float* const sm = reinterpret_cast<float*>(smem4);
-  // [buffer][array r, k, w][BT][HS], [buffer][BT][W] of v, then (scaled)
-  // the tile's r~, k~, f [BT][HS] or (not) nothing, the bonus (scaled: of
-  // the block [BT]; not: of each warp [NW][BT]), u [HS], (scaled) the
-  // final alpha [HS] and the fold masks of the row warps
-  float* const rkw = sm;
-  float* const vsm = rkw + 2 * 3 * BT * HS;
-  float* const rt = vsm + 2 * BT * W;
-  float* const kt = rt + BT * HS;
-  float* const ft = kt + BT * HS;
-  float* const bsm = SC ? ft + BT * HS : rt;
-  float* const usm = bsm + (SC ? BT : S_::NW * BT);
-  float* const alf = usm + HS;
-  unsigned long long* const fms =
-      reinterpret_cast<unsigned long long*>(alf + HS);
+  // [buffer][array r, k, w][BT][HS] and [buffer][BT][W] of v, three
+  // buffers; [2][BT] of the bonus
+  float* const rkw = reinterpret_cast<float*>(smem4);
+  float* const vsm = rkw + 3 * 3 * BT * HS;
+  float* const bsm = vsm + 3 * BT * W;
 
   const int split = blockIdx.x % NS, bh = blockIdx.x / NS;
   const int b = bh / nh, h = bh % nh;
@@ -234,24 +208,47 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const long long in0 = b * sb + h * sh;
   const float* const src[4] = {r + in0, k + in0, w + in0, v + in0 + split * W};
   float* const yb = y + b * y_sb + h * y_sh + split * W + c0 + sigma;
-  const float* const ub = u + b * u_sb + h * u_sh;
-  for (int i = tid; i < HS; i += NT) usm[i] = ub[i];
+  // the bonus: this thread's granule of r and k in each row it stages
+  constexpr int QB = HS / 4, JB = BT * QB / NT, RB = NT / QB, NQ = BT / 8;
+  const int cb = (tid % QB) * 4;
+  float ug[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) ug[e] = u[b * u_sb + h * u_sh + cb + e];
 
+  // stage tile [t0, t0 + nt) into buffer buf (an empty group when nt <= 0)
   auto stage = [&](int buf, int t0, int nt) {
     float* const base = rkw + buf * 3 * BT * HS;
     float* const vdst = vsm + buf * BT * W;
     if (vec) {
 #pragma unroll
       for (int a = 0; a < 3; ++a)
-        stage_tile16<BT, NT, HS>(base + a * BT * HS, src[a], st, t0, nt, tid);
-      stage_tile16<BT, NT, W>(vdst, src[3], st, t0, nt, tid);
+        stage_tile<BT, NT, HS, true>(base + a * BT * HS, src[a], st, t0, nt,
+                                     tid);
+      stage_tile<BT, NT, W, true>(vdst, src[3], st, t0, nt, tid);
     } else {
 #pragma unroll
       for (int a = 0; a < 3; ++a)
-        stage_rows<BT, NT, 1>(base + a * BT * HS, src[a], HS, st, t0, nt, tid);
-      stage_rows<BT, NT, 1>(vdst, src[3], W, st, t0, nt, tid);
+        stage_tile<BT, NT, HS, false>(base + a * BT * HS, src[a], st, t0, nt,
+                                      tid);
+      stage_tile<BT, NT, W, false>(vdst, src[3], st, t0, nt, tid);
     }
     cp_commit();
+  };
+  // the bonus b_t of step j * RB + tid / QB of the tile in buffer buf (nt
+  // steps) into bdst: from this thread's own copies, which are visible to
+  // it once its copies have landed, summed over the QB neighbouring lanes
+  // that staged the step's row
+  auto bonus = [&](int buf, int j, int nt, float* bdst) {
+    const int row = tid / QB + j * RB;
+    const float* const rs = rkw + buf * 3 * BT * HS;
+    const float4 a = *reinterpret_cast<const float4*>(rs + row * HS + cb);
+    const float4 c =
+        *reinterpret_cast<const float4*>(rs + BT * HS + row * HS + cb);
+    float p = fmaf(a.x * ug[0], c.x, a.y * ug[1] * c.y) +
+              fmaf(a.z * ug[2], c.z, a.w * ug[3] * c.w);
+#pragma unroll
+    for (int m = 1; m < QB; m *= 2) p += __shfl_xor_sync(kFull, p, m);
+    if (tid % QB == 0 && row < nt) bdst[row] = p;
   };
 
   float S[R][C];
@@ -259,103 +256,42 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < C; ++j) S[i][j] = 0.f;
-  float alpha = 1.f;       // scaled: the row scale of row tid (tid < HS)
 
+  // tiles n + 1 and n + 2 are in flight while tile n runs, and the bonus of
+  // tile n + 1 is computed among tile n's steps
   stage(0, 0, min(BT, t));
-  for (int t0 = 0, buf = 0; t0 < t; t0 += BT, buf ^= 1) {
-    const int nt = min(BT, t - t0);
-    cp_wait_all();
-    __syncthreads();       // tile `buf` visible; every thread past the last
-    if (t0 + BT < t) stage(buf ^ 1, t0 + BT, min(BT, t - t0 - BT));
+  stage(1, BT, min(BT, t - BT));
+  cp_wait_all();
+#pragma unroll
+  for (int j = 0; j < JB; ++j) bonus(0, j, min(BT, t), bsm);
+  for (int t0 = 0, n = 0, buf = 0; t0 < t; t0 += BT, ++n, buf = (buf + 1) % 3) {
+    const int nt = min(BT, t - t0), nt1 = min(BT, t - t0 - BT);
+    const int buf1 = (buf + 1) % 3;
     const float* const rs = rkw + buf * 3 * BT * HS;
     const float* const ks = rs + BT * HS;
     const float* const ws = ks + BT * HS;
     const float* const vs = vsm + buf * BT * W + c0;
-    unsigned long long fmask = 0;        // scaled: the steps that fold
-    if constexpr (SC) {
-      if (tid < HS) {
-        // row tid's scale through the tile: r~ = r alpha_{t-1}; with
-        // a = w alpha_{t-1}, k~ = k / a and f = 1 while a stays in
-        // [2^-60, 2^60], else the row folds (f = a, k~ = k, alpha = 1)
-        unsigned long long fm = 0;
-#pragma unroll 8
-        for (int tt = 0; tt < nt; ++tt) {
-          const int e = tt * HS + tid;
-          const float a = ws[e] * alpha;
-          const bool fold = !(a >= 0x1p-60f && a <= 0x1p60f);
-          rt[e] = rs[e] * alpha;
-          kt[e] = fold ? ks[e] : __fdividef(ks[e], a);
-          ft[e] = fold ? a : 1.f;
-          alpha = fold ? 1.f : a;
-          if (__any_sync(kFull, fold)) fm |= 1ull << tt;
-        }
-        if (lane == 0) fms[warp] = fm;
-      } else {
-        // the bonus b_t, QB threads a step, each over HS / QB of k (each
-        // lane starts at another float4, so the loads hit distinct banks)
-        constexpr int QB = (NT - HS) / BT, NQ = HS / 4 / QB;
-        const int idx = tid - HS, tt = idx / QB, part = idx % QB;
-        const float4* const r4 = reinterpret_cast<const float4*>(rs + tt * HS);
-        const float4* const k4 = reinterpret_cast<const float4*>(ks + tt * HS);
-        const float4* const u4 = reinterpret_cast<const float4*>(usm);
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) {
-          const int qq = part * NQ + (q + tt * QB + part) % NQ;
-          const float4 a = r4[qq], c = k4[qq], e = u4[qq];
-          acc.x = fmaf(a.x * e.x, c.x, acc.x);
-          acc.y = fmaf(a.y * e.y, c.y, acc.y);
-          acc.z = fmaf(a.z * e.z, c.z, acc.z);
-          acc.w = fmaf(a.w * e.w, c.w, acc.w);
-        }
-        float bsum = (acc.x + acc.y) + (acc.z + acc.w);
-#pragma unroll
-        for (int m = 1; m < QB; m *= 2) bsum += __shfl_xor_sync(kFull, bsum, m);
-        if (part == 0 && tt < nt) bsm[tt] = bsum;
-      }
-      __syncthreads();     // r~, k~, f, the bonus and the masks visible
-#pragma unroll
-      for (int i = 0; i < HS / 32; ++i) fmask |= fms[i];
-    } else {
-      // the bonus b_t of each step, lane t of each warp for step t (each
-      // lane starts at another float4 of its row, so the warp's loads hit
-      // distinct banks; four partial sums keep the chain short)
-      float* const bw = bsm + warp * BT;
-      for (int tt = lane; tt < nt; tt += 32) {
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int q = 0; q < HS / 4; ++q) {
-          const int qq = (q + tt) % (HS / 4);
-          const float4 a = reinterpret_cast<const float4*>(rs + tt * HS)[qq];
-          const float4 c = reinterpret_cast<const float4*>(ks + tt * HS)[qq];
-          const float4 e = reinterpret_cast<const float4*>(usm)[qq];
-          acc.x = fmaf(a.x * e.x, c.x, acc.x);
-          acc.y = fmaf(a.y * e.y, c.y, acc.y);
-          acc.z = fmaf(a.z * e.z, c.z, acc.z);
-          acc.w = fmaf(a.w * e.w, c.w, acc.w);
-        }
-        bw[tt] = (acc.x + acc.y) + (acc.z + acc.w);
-      }
-      __syncwarp();
-    }
-    const float* const rq = SC ? rt : rs;          // the rows a step reads
-    const float* const kq = SC ? kt : ks;
-    const float* const bq = SC ? bsm : bsm + warp * BT;
+    const float* const bt = bsm + (n & 1) * BT;
+    float* const bt1 = bsm + ((n + 1) & 1) * BT;
+    cp_wait_all();         // tile n + 1 landed (own copies)
+    __syncthreads();       // tile n and its bonus visible; every thread past
+                           // tile n - 1, whose buffers are free
+    stage((buf + 2) % 3, t0 + 2 * BT, min(BT, t - t0 - 2 * BT));
     // a step's operands, loaded one step ahead of their use so that the
     // shared loads' latency hides behind the step before
     struct Ops {
-      float r[R], k[R], w[SC ? 1 : R], v[C], b;
+      float r[R], k[R], w[R], v[C], b;
     };
     auto load = [&](Ops& o, int tt) {
-      lds<R>(o.r, rq + tt * HS + g * R);
-      lds<R>(o.k, kq + tt * HS + g * R);
-      if constexpr (!SC) lds<R>(o.w, ws + tt * HS + g * R);
+      lds<R>(o.r, rs + tt * HS + g * R);
+      lds<R>(o.k, ks + tt * HS + g * R);
+      lds<R>(o.w, ws + tt * HS + g * R);
 #pragma unroll
       for (int j = 0; j < C; ++j) o.v[j] = vs[tt * W + (j ^ sigma)];
-      o.b = bq[tt];
+      o.b = bt[tt];
     };
     float* yp = yb + t0 * y_st;
-    auto step = [&](const Ops& o, int tt) {
+    auto step = [&](const Ops& o) {
       // y's partial sum over this lane's rows, in two chains (even and odd
       // rows) to halve the dependent FMAs
       float acc[C], acc2[C];
@@ -367,29 +303,8 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
         for (int j = 0; j < C; ++j) {
           if (i % 2) acc2[j] = fmaf(o.r[i], S[i][j], acc2[j]);
           else acc[j] = fmaf(o.r[i], S[i][j], acc[j]);
+          S[i][j] = fmaf(o.w[i], S[i][j], o.k[i] * o.v[j]);
         }
-      if constexpr (SC) {
-        if ((fmask >> tt) & 1) {         // a row folds: S = f S + k~ v
-          float f[R];
-          lds<R>(f, ft + tt * HS + g * R);
-#pragma unroll
-          for (int i = 0; i < R; ++i)
-#pragma unroll
-            for (int j = 0; j < C; ++j)
-              S[i][j] = fmaf(f[i], S[i][j], o.k[i] * o.v[j]);
-        } else {                         // S = S + k~ v: one FMA
-#pragma unroll
-          for (int i = 0; i < R; ++i)
-#pragma unroll
-            for (int j = 0; j < C; ++j) S[i][j] = fmaf(o.k[i], o.v[j], S[i][j]);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int j = 0; j < C; ++j)
-            S[i][j] = fmaf(o.w[i], S[i][j], o.k[i] * o.v[j]);
-      }
 #pragma unroll
       for (int j = 0; j < C; ++j) acc[j] += acc2[j];
       // y over the G row groups: exchange the upper half of the columns
@@ -410,32 +325,31 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
     Ops o[2];
     load(o[0], 0);
     if (nt == BT) {
-#pragma unroll 2
-      for (int tt = 0; tt < BT; tt += 2) {
-        load(o[1], tt + 1);
-        step(o[0], tt);
-        if (tt + 2 < BT) load(o[0], tt + 2);
-        step(o[1], tt + 1);
+      for (int q = 0; q < NQ; ++q) {     // 8 steps and a share of the bonus
+#pragma unroll
+        for (int jj = 0; jj < (JB + NQ - 1) / NQ; ++jj)
+          if (JB % NQ == 0 || q + jj * NQ < JB)
+            bonus(buf1, q + jj * NQ, nt1, bt1);
+#pragma unroll
+        for (int i = 0; i < 8; i += 2) {
+          const int tt = q * 8 + i;
+          load(o[1], tt + 1);
+          step(o[0]);
+          load(o[0], min(tt + 2, BT - 1));  // (the last one unused)
+          step(o[1]);
+        }
       }
-    } else {                 // the same, stopped at nt (static indices
+    } else {                 // the last tile, stopped at nt (static indices
                              // keep o in registers)
       for (int tt = 0; tt < nt; tt += 2) {
         if (tt + 1 < nt) load(o[1], tt + 1);
-        step(o[0], tt);
+        step(o[0]);
         if (tt + 1 < nt) {
           if (tt + 2 < nt) load(o[0], tt + 2);
-          step(o[1], tt + 1);
+          step(o[1]);
         }
       }
     }
-  }
-  if constexpr (SC) {      // S = alpha S~, alpha of each row
-    if (tid < HS) alf[tid] = alpha;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < C; ++j) S[i][j] *= alf[g * R + i];
   }
   float* const so = s_out + (long long)bh * HS * HS + split * W + c0;
 #pragma unroll

@@ -1,10 +1,10 @@
 """K8 design variants at rwkv6-1.6b's WKV shape.
 
-    python3 tools/k8_variants/compare.py [PARENT_WKV_CU]   # checkout root, one card
+    python3 tools/k8_variants/compare.py [OTHER.cu ...]   # checkout root, one card
 
 Builds each variant of ``src/repro_torch/csrc/wkv.cu`` (the package's source
-with the text edits below; with an argument, also that file as it stands,
-e.g. an earlier commit's ``wkv.cu``) into its own library under
+with the text edits below; also each file named as an argument, as it
+stands, e.g. an earlier commit's ``wkv.cu``, under its file name) into its own library under
 ``artifacts/k8var/``, prints each build's ptxas registers and spills for
 hs = 64, holds every variant's y and final state to the plain version at
 2e-4 (the ablations below are timed only) on r, k, v, w of shape (4, 32, 2,048, 64) float32 in the model's
@@ -20,39 +20,31 @@ import chip_smoke as cs
 from repro_torch.kernels import _build
 from repro_torch.kernels.wkv import ops as wkvops
 
-DESIGN = ("struct Design<64> {\n  static constexpr int R = 8, C = 4, NS = 1, "
-          "BT = 32;\n  static constexpr bool SCALED = false;")
+DESIGN = "struct Design<64> {\n  static constexpr int R = 8, C = 4, NS = 1, BT = 32;"
 
 
-def design(r, c, ns, bt, scaled=False):
-    return [(DESIGN, DESIGN.replace(
-        "R = 8, C = 4, NS = 1, BT = 32",
-        f"R = {r}, C = {c}, NS = {ns}, BT = {bt}").replace(
-        "SCALED = false", f"SCALED = {str(scaled).lower()}"))]
+def design(r, c, ns, bt):
+    return [(DESIGN, DESIGN.replace("R = 8, C = 4, NS = 1, BT = 32",
+                                    f"R = {r}, C = {c}, NS = {ns}, BT = {bt}"))]
 
 
-PAIRS = "#pragma unroll 2\n      for (int tt = 0; tt < BT; tt += 2) {"
+INNER = ("NQ = BT / 8;", "for (int i = 0; i < 8; i += 2) {\n          const int tt = q * 8 + i;")
 
 
-def pairs(n):        # steps of a full tile unrolled: 2 n (n = 0: the whole tile)
-    return [(PAIRS, PAIRS.replace("unroll 2", f"unroll {n}" if n else "unroll"))]
+def inner(n):        # steps between two shares of the bonus (and unrolled)
+    return [(INNER[0], f"NQ = BT / {n};"),
+            (INNER[1], INNER[1].replace("8", str(n)))]
 
 
 VARIANTS = {
     "base": [],
-    "scaled": design(8, 4, 1, 32, True),
-    "scaled_unroll8": design(8, 4, 1, 32, True) + pairs(4),
-    "scaled_bt64": design(8, 4, 1, 64, True),
-    "scaled_bt64_unroll8": design(8, 4, 1, 64, True) + pairs(4),
     "ns2": design(8, 4, 2, 32),
-    "ns4": design(8, 4, 4, 32),
     "r4c8": design(4, 8, 1, 32),
+    "r4c4": design(4, 4, 1, 32),
     "bt64": design(8, 4, 1, 64),
-    "unroll2": pairs(1),
-    "unroll8": pairs(4),
-    "bt64_unroll8": design(8, 4, 1, 64) + pairs(4),
-    "ns2_unroll8": design(8, 4, 2, 32) + pairs(4),
-    "ns2_bt64_unroll8": design(8, 4, 2, 64) + pairs(4),
+    "inner4": inner(4),
+    "inner16": inner(16),
+    "bt64_inner16": design(8, 4, 1, 64) + inner(16),
     # one chain of y FMAs over a lane's rows instead of two
     "one_chain": [("if (i % 2) acc2[j] =", "if (false) acc2[j] =")],
 }
@@ -63,11 +55,23 @@ ABLATIONS = {
                      "acc[j] += acc[j + hh];"),
                     ("acc[0] += __shfl_xor_sync(kFull, acc[0], CGW << kk);",
                      "acc[0] += 1.f;")],
-    "no_bonus": [("for (int tt = lane; tt < nt; tt += 32) {",
-                  "for (int tt = lane; tt < 0; tt += 32) {")],
-    "no_staging": [("if (t0 + BT < t) stage(", "if (false) stage(")],
+    "no_bonus": [("bonus(buf1, q + jj * NQ, nt1, bt1);", ";")],
+    "no_staging": [("    stage((buf + 2) % 3, t0 + 2 * BT,", "    if (0) stage((buf + 2) % 3, t0 + 2 * BT,")],
     "no_y_store": [("if (g < C) *yp =", "if (g < C && acc[0] == 1234.5f) *yp =")],
-    "no_barrier": [("    __syncthreads();       // tile", "    // tile")],
+    "no_barrier": [("    __syncthreads();       // tile n and its bonus", "    // tile n and its bonus")],
+    # a constant decay (no w loads), S = S + k v (no k.v multiply), both:
+    # what a form of the step without w or with one FMA an element would save
+    "no_w": [("lds<R>(o.w, ws + tt * HS + g * R);",
+              "for (int i = 0; i < R; ++i) o.w[i] = 0.875f;")],
+    "no_kv_mul": [("S[i][j] = fmaf(o.w[i], S[i][j], o.k[i] * o.v[j]);",
+                   "S[i][j] = fmaf(o.k[i], o.v[j], S[i][j]);")],
+    "no_w_no_kv_mul": [("lds<R>(o.w, ws + tt * HS + g * R);", ""),
+                       ("S[i][j] = fmaf(o.w[i], S[i][j], o.k[i] * o.v[j]);",
+                        "S[i][j] = fmaf(o.k[i], o.v[j], S[i][j]);")],
+    # every lane of a warp reads r, k, w of row group 0: what the shared
+    # loads' distinct addresses cost
+    "rkw_broadcast": [(f"lds<R>(o.{a}, {a}s + tt * HS + g * R);",
+                       f"lds<R>(o.{a}, {a}s + tt * HS);") for a in "rkw"],
 }
 src = open("src/repro_torch/csrc/wkv.cu").read()
 sources = {}
@@ -77,8 +81,8 @@ for name, edits in {**VARIANTS, **ABLATIONS}.items():
         assert o in s, (name, o)
         s = s.replace(o, n)
     sources[name] = s
-if len(sys.argv) > 1:
-    sources["parent"] = open(sys.argv[1]).read()
+for path in sys.argv[1:]:
+    sources[os.path.basename(path).rsplit(".", 1)[0]] = open(path).read()
 nvcc = _build.nvcc_path()
 procs = []
 for name, s in sources.items():
@@ -144,10 +148,17 @@ for dname, w in decays.items():
 print(json.dumps({"max_abs_err_y_state": errs}), flush=True)
 w = decays["model"]
 tab = {}
+# the SM clock and power while the variants run (sampled every 100 ms)
+smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                        "--format=csv,noheader", "-lms", "100"],
+                       stdout=subprocess.PIPE, text=True)
 for name in list(libs) + list(libs)[::-1]:
     lib = libs[name]
     calls = [lambda lib=lib: launch(lib, r, k, v, w, u)] * 24
     tab.setdefault(name, []).append(cs.graph_ms(torch, calls))
     tab[name].append(cs.bench_ms(torch, calls[0]))
+smi.terminate()
+samples = smi.communicate()[0].split("\n")
 print(json.dumps({"device_ms_24_launches_then_ms_per_call": tab}), flush=True)
+print(json.dumps({"clocks_sm_power_draw": sorted(set(x for x in samples if x))}), flush=True)
 print(cs.smi_line())
