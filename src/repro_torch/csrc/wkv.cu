@@ -23,29 +23,34 @@
 // operations on 5 hs floats moved (about 22 operations per byte at hs = 64,
 // near the float32 ridge of 20), and the recurrence is sequential in T, but
 // it carries only one FMA per element from step to step, so the chain of
-// steps is not what sets the pace: the issue of each step's instructions is.
+// steps is not what sets the pace: the instructions each step issues are.
 // rwkv6 has B*H = 128 heads for 132 SMs, so each SM runs one head and each
-// of its four schedulers one warp; a step costs every warp 3 FP
-// instructions per element of S it holds (k.v, the y FMA, the S FMA) plus
-// whatever else it issues: shared loads, the reduction of y over rows, the
-// staging of the inputs and barriers.  The design cuts everything but the
-// FP work:
+// of its four schedulers one warp, with no other warp to hide a stall
+// behind.  A step costs a warp 3 FP instructions per element of S it holds
+// (k.v, the y FMA, the S FMA) plus its shared loads, the reduction of y
+// over rows, the staging of the inputs and the barriers; the shared loads
+// and shuffles of all four warps go through the one shared-memory pipe of
+// the SM.  The design cuts everything but the FP work:
 //   - each thread holds an R x C register tile of S (rows contiguous), so a
 //     step loads r, k, w of its R rows as float4 (each value serving C
-//     FMAs) and v of its C columns; at hs = 64, R = 8 and C = 4: 10 shared
-//     loads for 96 FP instructions;
+//     FMAs) and v of its C columns; at hs = 64, R = 8 and C = 4: 11 shared
+//     loads for 96 FP instructions (against 49 for 64 before), loaded a
+//     step ahead of their use into registers;
 //   - the G = hs/R threads of a column group are lanes of one warp and
 //     reduce y's partial sums by shuffles with no block barrier, halving
 //     the values exchanged at each step (C - 1 + log2(G/C) shuffles a
 //     step).  A lane keeps its columns in the order i ^ sigma, sigma a
 //     function of its row group, so that every exchange uses the same
 //     register indices on every lane; only the addresses of v and of the
-//     final state's columns depend on sigma;
+//     final state's columns depend on sigma.  The partial sums run in two
+//     chains (even and odd rows), which halves their dependent FMAs;
 //   - the bonus term is taken out of the step: y_t = r_t . S_{t-1} + b_t v_t
 //     with b_t = sum_k r_t[k] u[k] k_t[k], which does not depend on S, is
-//     computed for all steps of a tile at once (lane t of each warp for step
-//     t) before the tile's sequential loop.  It rounds differently from the
-//     plain r . (S + u k v^T), within the 2e-4 the kernel is held to;
+//     computed for all steps of a tile before the tile runs, once a block,
+//     by the threads that staged each step's row, from their own copies
+//     (visible to them once landed, so with no barrier of its own).  It
+//     rounds differently from the plain r . (S + u k v^T), within the 2e-4
+//     the kernel is held to;
 //   - r, k, v, w of BT steps are staged in shared memory by cp.async, double
 //     buffered: tile n+1 is in flight while tile n runs, with one barrier a
 //     tile, and y is written by the lanes that hold it, once per step, with
@@ -53,7 +58,12 @@
 //   - a head's columns can be split over NS blocks (each loads r, k, w again
 //     from L2), which puts more blocks on the card when B*H is small.
 // The design per head size is the table Design<HS> below; the one kept for
-// hs = 64 is the fastest of the variants timed on the card (PERF.md).
+// hs = 64 is the fastest of the variants timed on the card
+// (tools/k8_variants/compare.py, PERF.md), which also shows what is left:
+// a step of a warp issues about 130 instructions in about 210 cycles, and
+// leaving out either the k.v products or two thirds of the shared loads
+// saves only 5-8%, so neither the FP pipe nor the shared-memory pipe alone
+// sets the pace.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -66,7 +76,7 @@ template <int HS>
 struct Design;
 template <>
 struct Design<64> {
-  static constexpr int R = 8, C = 4, NS = 1, BT = 32;
+  static constexpr int R = 8, C = 4, NS = 1, BT = 64;
 };
 template <>
 struct Design<32> {
@@ -89,12 +99,11 @@ struct Shape {
   static constexpr int W = HS / NS;    // columns of one block
   static constexpr int CG = W / C;     // column groups of one block
   static constexpr int NT = G * CG;    // threads of one block
-  static constexpr int NW = NT / 32;
   static constexpr int CGW = 32 / G;   // column groups of one warp
   static constexpr int LOG_C = C == 1 ? 0 : C == 2 ? 1 : C == 4 ? 2 : 3;
-  // floats of shared memory: r, k, w tiles and the v tile, three times;
-  // the bonus of each step, twice
-  static constexpr int SMEM = 3 * BT * (3 * HS + W) + 2 * BT;
+  // floats of shared memory: r, k, w tiles, the v tile and the bonus of
+  // each step, twice
+  static constexpr int SMEM = 2 * BT * (3 * HS + W + 1);
   static_assert(G <= 32 && 32 % G == 0, "a column's row groups in one warp");
   static_assert(NT % 32 == 0 && NT <= 1024, "whole warps");
   static_assert(C <= G && (C & (C - 1)) == 0 && C <= 8, "C halvings");
@@ -179,7 +188,7 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src,
 }
 
 template <int HS>
-__global__ void __launch_bounds__(Shape<HS>::NT)
+__global__ void __launch_bounds__(Shape<HS>::NT, 1)  // one block an SM
 wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ w,
            const float* __restrict__ u, float* __restrict__ y,
@@ -191,11 +200,11 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
                 W = S_::W, NT = S_::NT, CGW = S_::CGW, LOG_C = S_::LOG_C;
   constexpr unsigned kFull = 0xffffffffu;
   extern __shared__ float4 smem4[];
-  // [buffer][array r, k, w][BT][HS] and [buffer][BT][W] of v, three
-  // buffers; [2][BT] of the bonus
+  // [buffer][array r, k, w][BT][HS], [buffer][BT][W] of v, [buffer][BT]
+  // of the bonus
   float* const rkw = reinterpret_cast<float*>(smem4);
-  float* const vsm = rkw + 3 * 3 * BT * HS;
-  float* const bsm = vsm + 3 * BT * W;
+  float* const vsm = rkw + 2 * 3 * BT * HS;
+  float* const bsm = vsm + 2 * BT * W;
 
   const int split = blockIdx.x % NS, bh = blockIdx.x / NS;
   const int b = bh / nh, h = bh % nh;
@@ -204,18 +213,18 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int c0 = (warp * CGW + lane % CGW) * C;      // block column
   int sigma = 0;                                     // column order of a lane
 #pragma unroll
-  for (int kk = 0; kk < LOG_C; ++kk) sigma |= ((g >> kk) & 1) * (C >> (kk + 1));
+  for (int kk = 0; kk < LOG_C; ++kk)
+    sigma |= ((g >> kk) & 1) * (C >> (kk + 1));
   const long long in0 = b * sb + h * sh;
   const float* const src[4] = {r + in0, k + in0, w + in0, v + in0 + split * W};
   float* const yb = y + b * y_sb + h * y_sh + split * W + c0 + sigma;
-  // the bonus: this thread's granule of r and k in each row it stages
-  constexpr int QB = HS / 4, JB = BT * QB / NT, RB = NT / QB, NQ = BT / 8;
+  // the bonus: this thread's granule of u, r and k in each row it stages
+  constexpr int QB = HS / 4, JB = BT * QB / NT, RB = NT / QB;
   const int cb = (tid % QB) * 4;
   float ug[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) ug[e] = u[b * u_sb + h * u_sh + cb + e];
 
-  // stage tile [t0, t0 + nt) into buffer buf (an empty group when nt <= 0)
   auto stage = [&](int buf, int t0, int nt) {
     float* const base = rkw + buf * 3 * BT * HS;
     float* const vdst = vsm + buf * BT * W;
@@ -234,22 +243,6 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
     }
     cp_commit();
   };
-  // the bonus b_t of step j * RB + tid / QB of the tile in buffer buf (nt
-  // steps) into bdst: from this thread's own copies, which are visible to
-  // it once its copies have landed, summed over the QB neighbouring lanes
-  // that staged the step's row
-  auto bonus = [&](int buf, int j, int nt, float* bdst) {
-    const int row = tid / QB + j * RB;
-    const float* const rs = rkw + buf * 3 * BT * HS;
-    const float4 a = *reinterpret_cast<const float4*>(rs + row * HS + cb);
-    const float4 c =
-        *reinterpret_cast<const float4*>(rs + BT * HS + row * HS + cb);
-    float p = fmaf(a.x * ug[0], c.x, a.y * ug[1] * c.y) +
-              fmaf(a.z * ug[2], c.z, a.w * ug[3] * c.w);
-#pragma unroll
-    for (int m = 1; m < QB; m *= 2) p += __shfl_xor_sync(kFull, p, m);
-    if (tid % QB == 0 && row < nt) bdst[row] = p;
-  };
 
   float S[R][C];
 #pragma unroll
@@ -257,26 +250,40 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < C; ++j) S[i][j] = 0.f;
 
-  // tiles n + 1 and n + 2 are in flight while tile n runs, and the bonus of
-  // tile n + 1 is computed among tile n's steps
   stage(0, 0, min(BT, t));
-  stage(1, BT, min(BT, t - BT));
-  cp_wait_all();
-#pragma unroll
-  for (int j = 0; j < JB; ++j) bonus(0, j, min(BT, t), bsm);
-  for (int t0 = 0, n = 0, buf = 0; t0 < t; t0 += BT, ++n, buf = (buf + 1) % 3) {
-    const int nt = min(BT, t - t0), nt1 = min(BT, t - t0 - BT);
-    const int buf1 = (buf + 1) % 3;
+  for (int t0 = 0, buf = 0; t0 < t; t0 += BT, buf ^= 1) {
+    const int nt = min(BT, t - t0);
     const float* const rs = rkw + buf * 3 * BT * HS;
     const float* const ks = rs + BT * HS;
     const float* const ws = ks + BT * HS;
     const float* const vs = vsm + buf * BT * W + c0;
-    const float* const bt = bsm + (n & 1) * BT;
-    float* const bt1 = bsm + ((n + 1) & 1) * BT;
-    cp_wait_all();         // tile n + 1 landed (own copies)
-    __syncthreads();       // tile n and its bonus visible; every thread past
-                           // tile n - 1, whose buffers are free
-    stage((buf + 2) % 3, t0 + 2 * BT, min(BT, t - t0 - 2 * BT));
+    float* const bt = bsm + buf * BT;
+    cp_wait_all();
+    {
+      // the bonus b_t of the steps whose rows this thread staged, before
+      // the barrier: its own copies are visible to it once they have
+      // landed, and the QB threads that staged a row are neighbouring lanes
+      float p[JB];
+#pragma unroll
+      for (int j = 0; j < JB; ++j) {
+        const int e = (tid / QB + j * RB) * HS + cb;
+        const float4 a = *reinterpret_cast<const float4*>(rs + e);
+        const float4 c = *reinterpret_cast<const float4*>(ks + e);
+        p[j] = fmaf(a.x * ug[0], c.x, a.y * ug[1] * c.y) +
+               fmaf(a.z * ug[2], c.z, a.w * ug[3] * c.w);
+      }
+#pragma unroll
+      for (int m = 1; m < QB; m *= 2)
+#pragma unroll
+        for (int j = 0; j < JB; ++j) p[j] += __shfl_xor_sync(kFull, p[j], m);
+      if (tid % QB == 0)
+#pragma unroll
+        for (int j = 0; j < JB; ++j)
+          if (tid / QB + j * RB < nt) bt[tid / QB + j * RB] = p[j];
+    }
+    __syncthreads();       // tile `buf` and its bonus visible; every thread
+                           // past the last tile, whose buffer is free
+    if (t0 + BT < t) stage(buf ^ 1, t0 + BT, min(BT, t - t0 - BT));
     // a step's operands, loaded one step ahead of their use so that the
     // shared loads' latency hides behind the step before
     struct Ops {
@@ -325,19 +332,12 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
     Ops o[2];
     load(o[0], 0);
     if (nt == BT) {
-      for (int q = 0; q < NQ; ++q) {     // 8 steps and a share of the bonus
-#pragma unroll
-        for (int jj = 0; jj < (JB + NQ - 1) / NQ; ++jj)
-          if (JB % NQ == 0 || q + jj * NQ < JB)
-            bonus(buf1, q + jj * NQ, nt1, bt1);
-#pragma unroll
-        for (int i = 0; i < 8; i += 2) {
-          const int tt = q * 8 + i;
-          load(o[1], tt + 1);
-          step(o[0]);
-          load(o[0], min(tt + 2, BT - 1));  // (the last one unused)
-          step(o[1]);
-        }
+#pragma unroll 4
+      for (int tt = 0; tt < BT; tt += 2) {
+        load(o[1], tt + 1);
+        step(o[0]);
+        load(o[0], min(tt + 2, BT - 1));  // (the last one unused)
+        step(o[1]);
       }
     } else {                 // the last tile, stopped at nt (static indices
                              // keep o in registers)

@@ -1039,37 +1039,41 @@ def test_wkv_matches_plain(bh, t, hs, cuda):
 # one step, of one more than a tile of 32 or 64 steps, and ragged at 2,000;
 # decays from the model's range, from [1e-6, 0.05] and exactly 1.0; every
 # head size; u shared over the batch (stride 0) or one per request; more
-# blocks than SMs; a NaN in one head's v.  Each call's outputs are allocated
-# where a NaN-filled buffer was just freed, so a column that no block
-# writes shows as NaN.
+# blocks than SMs; a NaN in one head's v; r starting 4 bytes off a 16-byte
+# boundary (the kernel stages in 4-byte copies then).  Each call's outputs
+# are allocated where a NaN-filled buffer was just freed, so a column that
+# no block writes shows as NaN.  Fields: B, H, T, hs, decays, one u per
+# request, what else.
 WKV_DESIGN = {
-    "rwkv6_full": (4, 32, 2048, 64, "model", False, False),
-    "rwkv6_full_tiny_decay": (4, 32, 2048, 64, "tiny", False, False),
-    "rwkv6_full_unit_decay": (4, 32, 2048, 64, "one", False, False),
-    "t1": (2, 3, 1, 64, "model", False, False),
-    "t33": (2, 3, 33, 64, "model", False, False),
-    "t65": (2, 3, 65, 64, "model", False, False),
-    "t2000": (1, 4, 2000, 64, "model", False, False),
-    **{f"hs{hs}_{d}": (2, 5, 77, hs, d, False, False)
+    "rwkv6_full": (4, 32, 2048, 64, "model", False, None),
+    "rwkv6_full_tiny_decay": (4, 32, 2048, 64, "tiny", False, None),
+    "rwkv6_full_unit_decay": (4, 32, 2048, 64, "one", False, None),
+    "t1": (2, 3, 1, 64, "model", False, None),
+    "t33": (2, 3, 33, 64, "model", False, None),
+    "t65": (2, 3, 65, 64, "model", False, None),
+    "t2000": (1, 4, 2000, 64, "model", False, None),
+    **{f"hs{hs}_{d}": (2, 5, 77, hs, d, False, None)
        for hs in wkvops.HEAD_SIZES for d in ("model", "tiny", "one")},
-    **{f"hs{hs}_u_per_request": (3, 2, 40, hs, "model", True, False)
+    **{f"hs{hs}_u_per_request": (3, 2, 40, hs, "model", True, None)
        for hs in wkvops.HEAD_SIZES},
-    "more_blocks_than_sms": (10, 30, 70, 64, "model", False, False),
-    "nan_in_one_head": (2, 4, 90, 64, "model", False, True),
+    "more_blocks_than_sms": (10, 30, 70, 64, "model", False, None),
+    "nan_in_one_head": (2, 4, 90, 64, "model", False, "nan"),
+    **{f"hs{hs}_misaligned": (2, 3, 70, hs, "model", False, "misaligned")
+       for hs in (16, 64)},
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(WKV_DESIGN))
 def test_wkv_design_cases(case, cuda):
-    b, h, t, hs, decay, u_per_request, nan = WKV_DESIGN[case]
+    b, h, t, hs, decay, u_per_request, other = WKV_DESIGN[case]
     rng = np.random.default_rng(sum(map(ord, case)))
+    shape = (b, t, h, hs)
 
     def f(a):                  # (B, T, H, hs) storage, (B, H, T, hs) view
         return torch.tensor(a, dtype=torch.float32,
                             device=cuda).transpose(1, 2)
 
-    shape = (b, t, h, hs)
     r, v = (f(rng.normal(size=shape)) for _ in range(2))
     k = f(rng.normal(size=shape) * 0.3)
     w = {"model": lambda: f(np.exp(-np.exp(rng.normal(-2.0, 0.5, shape)))),
@@ -1077,8 +1081,12 @@ def test_wkv_design_cases(case, cuda):
          "one": lambda: torch.ones_like(r)}[decay]()
     u = torch.tensor(rng.normal(size=(b, h, hs) if u_per_request else (h, hs))
                      * 0.3, dtype=torch.float32, device=cuda)
-    if nan:
+    if other == "nan":
         v[1, 2, 40, 7] = float("nan")
+    if other == "misaligned":  # the same values and strides, one float on
+        buf = torch.empty(r.numel() + 1, device=cuda)
+        r = buf[1:].view(shape).copy_(r.transpose(1, 2)).transpose(1, 2)
+        assert r.data_ptr() % 16 == 4 and r.stride() == k.stride()
     junk = torch.full((2 * b * h * t * hs + b * h * hs * hs,), float("nan"),
                       device=cuda)
     del junk
@@ -1088,6 +1096,7 @@ def test_wkv_design_cases(case, cuda):
     assert kernels.launch_counts()["wkv"] == before + 1
     assert y.shape == (b, h, t, hs) and s.shape == (b, h, hs, hs)
     yr, sr = wkvops.wkv_plain(r, k, v, w, u)
+    nan = other == "nan"
     torch.testing.assert_close(y, yr, rtol=2e-4, atol=2e-4, equal_nan=nan)
     torch.testing.assert_close(s, sr, rtol=2e-4, atol=2e-4, equal_nan=nan)
     if nan:                     # only column 7 of head (1, 2), from step 40

@@ -1,17 +1,19 @@
 """K8 design variants at rwkv6-1.6b's WKV shape.
 
-    python3 tools/k8_variants/compare.py [OTHER.cu ...]   # checkout root, one card
+    python3 tools/k8_variants/compare.py [OTHER.cu ...]  # checkout root
 
-Builds each variant of ``src/repro_torch/csrc/wkv.cu`` (the package's source
-with the text edits below; also each file named as an argument, as it
-stands, e.g. an earlier commit's ``wkv.cu``, under its file name) into its own library under
-``artifacts/k8var/``, prints each build's ptxas registers and spills for
-hs = 64, holds every variant's y and final state to the plain version at
-2e-4 (the ablations below are timed only) on r, k, v, w of shape (4, 32, 2,048, 64) float32 in the model's
-(B, T, H, hs) storage (random, seed 0; decays from the model's range, from
-[1e-6, 0.05] and exactly 1.0), and prints each variant's device ms of 24
-launches (one prefill) by CUDA-graph replay, in two rounds (variants in
-order, then reversed), with the card's name and power limit."""
+Builds each variant of ``src/repro_torch/csrc/wkv.cu`` (the package's
+source with the text edits below; also each file named as an argument,
+as it stands, e.g. an earlier commit's ``wkv.cu``, under its file name)
+into its own library under ``artifacts/k8var/``, prints each build's
+ptxas registers and spills for hs = 64, holds every variant's y and
+final state to the plain version at 2e-4 (the ablations below are timed
+only) on r, k, v, w of shape (4, 32, 2,048, 64) float32 in the model's
+(B, T, H, hs) storage (random, seed 0; decays from the model's range,
+from [1e-6, 0.05] and exactly 1.0), and prints each variant's device ms
+of 24 launches (one prefill) by CUDA-graph replay and per call, in two
+rounds (variants in order, then reversed), the SM clock and power drawn
+meanwhile, and the card's name and power limit.  Needs one card."""
 import ctypes, json, os, subprocess, sys
 sys.path.insert(0, "src"); sys.path.insert(0, ".")
 import numpy as np
@@ -20,33 +22,35 @@ import chip_smoke as cs
 from repro_torch.kernels import _build
 from repro_torch.kernels.wkv import ops as wkvops
 
-DESIGN = "struct Design<64> {\n  static constexpr int R = 8, C = 4, NS = 1, BT = 32;"
+DESIGN = "struct Design<64> {\n  static constexpr int R = 8, C = 4, NS = 1, BT = 64;"
 
 
 def design(r, c, ns, bt):
-    return [(DESIGN, DESIGN.replace("R = 8, C = 4, NS = 1, BT = 32",
+    return [(DESIGN, DESIGN.replace("R = 8, C = 4, NS = 1, BT = 64",
                                     f"R = {r}, C = {c}, NS = {ns}, BT = {bt}"))]
 
 
-INNER = ("NQ = BT / 8;", "for (int i = 0; i < 8; i += 2) {\n          const int tt = q * 8 + i;")
+PAIRS = "#pragma unroll 4\n      for (int tt = 0; tt < BT; tt += 2) {"
 
 
-def inner(n):        # steps between two shares of the bonus (and unrolled)
-    return [(INNER[0], f"NQ = BT / {n};"),
-            (INNER[1], INNER[1].replace("8", str(n)))]
+def pairs(n):        # steps of a full tile unrolled: 2 n
+    return [(PAIRS, PAIRS.replace("unroll 4", f"unroll {n}"))]
 
 
 VARIANTS = {
     "base": [],
-    "ns2": design(8, 4, 2, 32),
-    "r4c8": design(4, 8, 1, 32),
-    "r4c4": design(4, 4, 1, 32),
-    "bt64": design(8, 4, 1, 64),
-    "inner4": inner(4),
-    "inner16": inner(16),
-    "bt64_inner16": design(8, 4, 1, 64) + inner(16),
+    "bt32": design(8, 4, 1, 32),
+    "ns2": design(8, 4, 2, 64),
+    "ns4": design(8, 4, 4, 64),
+    "r4c8": design(4, 8, 1, 64),
+    "r4c4": design(4, 4, 1, 64),
+    "unroll4": pairs(2),
+    "unroll16": pairs(8),
     # one chain of y FMAs over a lane's rows instead of two
     "one_chain": [("if (i % 2) acc2[j] =", "if (false) acc2[j] =")],
+    # no promise of one block an SM to ptxas
+    "no_min_blocks": [("__launch_bounds__(Shape<HS>::NT, 1)",
+                       "__launch_bounds__(Shape<HS>::NT)")],
 }
 # timed only, not held (each leaves out a part of the work, so their
 # results are wrong): where the time of a step goes
@@ -55,19 +59,18 @@ ABLATIONS = {
                      "acc[j] += acc[j + hh];"),
                     ("acc[0] += __shfl_xor_sync(kFull, acc[0], CGW << kk);",
                      "acc[0] += 1.f;")],
-    "no_bonus": [("bonus(buf1, q + jj * NQ, nt1, bt1);", ";")],
-    "no_staging": [("    stage((buf + 2) % 3, t0 + 2 * BT,", "    if (0) stage((buf + 2) % 3, t0 + 2 * BT,")],
     "no_y_store": [("if (g < C) *yp =", "if (g < C && acc[0] == 1234.5f) *yp =")],
-    "no_barrier": [("    __syncthreads();       // tile n and its bonus", "    // tile n and its bonus")],
-    # a constant decay (no w loads), S = S + k v (no k.v multiply), both:
-    # what a form of the step without w or with one FMA an element would save
-    "no_w": [("lds<R>(o.w, ws + tt * HS + g * R);",
-              "for (int i = 0; i < R; ++i) o.w[i] = 0.875f;")],
+    # S = S + k v: what a step with one FMA an element would save
     "no_kv_mul": [("S[i][j] = fmaf(o.w[i], S[i][j], o.k[i] * o.v[j]);",
                    "S[i][j] = fmaf(o.k[i], o.v[j], S[i][j]);")],
-    "no_w_no_kv_mul": [("lds<R>(o.w, ws + tt * HS + g * R);", ""),
-                       ("S[i][j] = fmaf(o.w[i], S[i][j], o.k[i] * o.v[j]);",
-                        "S[i][j] = fmaf(o.k[i], o.v[j], S[i][j]);")],
+    # k and w not loaded (r's values reused), v as one float4 in the
+    # unpermuted order: what the shared loads of a step cost
+    "rkw_once": [("lds<R>(o.k, ks + tt * HS + g * R);",
+                  "for (int i = 0; i < R; ++i) o.k[i] = o.r[i];"),
+                 ("lds<R>(o.w, ws + tt * HS + g * R);",
+                  "for (int i = 0; i < R; ++i) o.w[i] = o.r[i];")],
+    "v_vec": [("for (int j = 0; j < C; ++j) o.v[j] = vs[tt * W + (j ^ sigma)];",
+               "lds<C>(o.v, vs + tt * W);")],
     # every lane of a warp reads r, k, w of row group 0: what the shared
     # loads' distinct addresses cost
     "rkw_broadcast": [(f"lds<R>(o.{a}, {a}s + tt * HS + g * R);",
