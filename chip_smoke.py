@@ -1881,7 +1881,12 @@ def wkv_record(torch, L, T, cfg, params, prompt):
             rec["max_err_over_limit" + label + part] = ratio
         del got, ref
     del extreme, w_x
-    flops = 7.0 * hs * hs * tq * b * nh         # per step: k v^T, y, S update
+    # the least operations of the function, per step and head: k v^T, the
+    # S update and y's sum over rows (5 hs^2), the bonus sum_k r u k and its
+    # product with v (5 hs); the plain form r . (S + u k v^T) takes 7 hs^2
+    steps = tq * b * nh
+    flops = (5.0 * hs * hs + 5.0 * hs) * steps
+    flops_plain = 7.0 * hs * hs * steps
     nbytes = 4 * (5 * ops[0].numel() + u.numel() + b * nh * hs * hs)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
     rec.update({"tol": TOL_WKV, "ragged_t": RAGGED_T, "steps": tq,
@@ -1892,8 +1897,11 @@ def wkv_record(torch, L, T, cfg, params, prompt):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bound_bytes_ms": t_bytes * 1e3, "bound_ops_ms": t_ops * 1e3,
                 "bytes": nbytes, "operations": flops,
+                "operations_plain_form": flops_plain,
+                "bound_ops_ms_plain_form":
+                    flops_plain / PEAK_FLOPS["float32"] * 1e3,
                 "library_ms": None,
-                "prefill_launches": cfg.n_layers,
+                "graph_replay_calls": cfg.n_layers,
                 "prefill_device_ms": graph_ms(
                     torch, [lambda: wkvops.wkv(*ops, u)] * cfg.n_layers),
                 "ptxas": ptxas_of(_build.last_build["log"], "wkv_kernel")})

@@ -55,59 +55,57 @@
 //     buffered: tile n+1 is in flight while tile n runs, with one barrier a
 //     tile, and y is written by the lanes that hold it, once per step, with
 //     no barrier;
-//   - a head's columns can be split over NS blocks (each loads r, k, w again
-//     from L2), which puts more blocks on the card when B*H is small.
+//   - one block holds a whole head: splitting a head's columns over 2 or 4
+//     blocks (each loading r, k, w again) measured slower on the card.
 // The design per head size is the table Design<HS> below; the one kept for
-// hs = 64 is the fastest of the variants timed on the card
-// (tools/k8_variants/compare.py, PERF.md), which also shows what is left:
-// a step of a warp issues about 130 instructions in about 210 cycles, and
-// leaving out either the k.v products or two thirds of the shared loads
-// saves only 5-8%, so neither the FP pipe nor the shared-memory pipe alone
-// sets the pace.
+// hs = 64 is the fastest of the variants timed on the card (PERF.md), which
+// also shows what is left: a step of a warp issues 96 FP instructions, 8
+// adds, 11 shared loads and 4 shuffles in about 208 cycles, and leaving out
+// either the k.v products or two thirds of the shared loads saves only 9%
+// or 8%, so neither the FP pipe nor the shared-memory pipe alone sets the
+// pace.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-// R x C register tile per thread, NS blocks per head (column split), BT
-// steps per staged tile
+// R x C register tile per thread, BT steps per staged tile
 template <int HS>
 struct Design;
 template <>
 struct Design<64> {
-  static constexpr int R = 8, C = 4, NS = 1, BT = 64;
+  static constexpr int R = 8, C = 4, BT = 64;
 };
 template <>
 struct Design<32> {
-  static constexpr int R = 4, C = 4, NS = 1, BT = 32;
+  static constexpr int R = 4, C = 4, BT = 32;
 };
 template <>
 struct Design<16> {
-  static constexpr int R = 2, C = 4, NS = 1, BT = 32;
+  static constexpr int R = 2, C = 4, BT = 32;
 };
 template <>
 struct Design<8> {
-  static constexpr int R = 1, C = 2, NS = 1, BT = 32;
+  static constexpr int R = 1, C = 2, BT = 32;
 };
 
 template <int HS>
 struct Shape {
   using D = Design<HS>;
-  static constexpr int R = D::R, C = D::C, NS = D::NS, BT = D::BT;
+  static constexpr int R = D::R, C = D::C, BT = D::BT;
   static constexpr int G = HS / R;     // row groups: the lanes of one column
-  static constexpr int W = HS / NS;    // columns of one block
-  static constexpr int CG = W / C;     // column groups of one block
+  static constexpr int CG = HS / C;    // column groups of one block
   static constexpr int NT = G * CG;    // threads of one block
   static constexpr int CGW = 32 / G;   // column groups of one warp
   static constexpr int LOG_C = C == 1 ? 0 : C == 2 ? 1 : C == 4 ? 2 : 3;
-  // floats of shared memory: r, k, w tiles, the v tile and the bonus of
-  // each step, twice
-  static constexpr int SMEM = 2 * BT * (3 * HS + W + 1);
+  // floats of shared memory: r, k, w, v tiles and the bonus of each step,
+  // twice
+  static constexpr int SMEM = 2 * BT * (4 * HS + 1);
   static_assert(G <= 32 && 32 % G == 0, "a column's row groups in one warp");
   static_assert(NT % 32 == 0 && NT <= 1024, "whole warps");
   static_assert(C <= G && (C & (C - 1)) == 0 && C <= 8, "C halvings");
-  static_assert(W % 4 == 0 && BT % 32 == 0, "16-byte rows, whole tiles");
+  static_assert(HS % 4 == 0 && BT % 32 == 0, "16-byte rows, whole tiles");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -196,28 +194,25 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
            long long sh, long long st, long long u_sb, long long u_sh,
            long long y_sb, long long y_sh, long long y_st, bool vec) {
   using S_ = Shape<HS>;
-  constexpr int R = S_::R, C = S_::C, NS = S_::NS, BT = S_::BT, G = S_::G,
-                W = S_::W, NT = S_::NT, CGW = S_::CGW, LOG_C = S_::LOG_C;
+  constexpr int R = S_::R, C = S_::C, BT = S_::BT, G = S_::G, NT = S_::NT,
+                CGW = S_::CGW, LOG_C = S_::LOG_C;
   constexpr unsigned kFull = 0xffffffffu;
   extern __shared__ float4 smem4[];
-  // [buffer][array r, k, w][BT][HS], [buffer][BT][W] of v, [buffer][BT]
-  // of the bonus
-  float* const rkw = reinterpret_cast<float*>(smem4);
-  float* const vsm = rkw + 2 * 3 * BT * HS;
-  float* const bsm = vsm + 2 * BT * W;
+  // [buffer][array r, k, w, v][BT][HS], [buffer][BT] of the bonus
+  float* const rkwv = reinterpret_cast<float*>(smem4);
+  float* const bsm = rkwv + 2 * 4 * BT * HS;
 
-  const int split = blockIdx.x % NS, bh = blockIdx.x / NS;
-  const int b = bh / nh, h = bh % nh;
+  const int bh = blockIdx.x, b = bh / nh, h = bh % nh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane / CGW;                          // row group
-  const int c0 = (warp * CGW + lane % CGW) * C;      // block column
+  const int c0 = (warp * CGW + lane % CGW) * C;      // first column
   int sigma = 0;                                     // column order of a lane
 #pragma unroll
   for (int kk = 0; kk < LOG_C; ++kk)
     sigma |= ((g >> kk) & 1) * (C >> (kk + 1));
   const long long in0 = b * sb + h * sh;
-  const float* const src[4] = {r + in0, k + in0, w + in0, v + in0 + split * W};
-  float* const yb = y + b * y_sb + h * y_sh + split * W + c0 + sigma;
+  const float* const src[4] = {r + in0, k + in0, w + in0, v + in0};
+  float* const yb = y + b * y_sb + h * y_sh + c0 + sigma;
   // the bonus: this thread's granule of u, r and k in each row it stages
   constexpr int QB = HS / 4, JB = BT * QB / NT, RB = NT / QB;
   const int cb = (tid % QB) * 4;
@@ -226,20 +221,17 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
   for (int e = 0; e < 4; ++e) ug[e] = u[b * u_sb + h * u_sh + cb + e];
 
   auto stage = [&](int buf, int t0, int nt) {
-    float* const base = rkw + buf * 3 * BT * HS;
-    float* const vdst = vsm + buf * BT * W;
+    float* const base = rkwv + buf * 4 * BT * HS;
     if (vec) {
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
+      for (int a = 0; a < 4; ++a)
         stage_tile<BT, NT, HS, true>(base + a * BT * HS, src[a], st, t0, nt,
                                      tid);
-      stage_tile<BT, NT, W, true>(vdst, src[3], st, t0, nt, tid);
     } else {
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
+      for (int a = 0; a < 4; ++a)
         stage_tile<BT, NT, HS, false>(base + a * BT * HS, src[a], st, t0, nt,
                                       tid);
-      stage_tile<BT, NT, W, false>(vdst, src[3], st, t0, nt, tid);
     }
     cp_commit();
   };
@@ -253,10 +245,10 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
   stage(0, 0, min(BT, t));
   for (int t0 = 0, buf = 0; t0 < t; t0 += BT, buf ^= 1) {
     const int nt = min(BT, t - t0);
-    const float* const rs = rkw + buf * 3 * BT * HS;
+    const float* const rs = rkwv + buf * 4 * BT * HS;
     const float* const ks = rs + BT * HS;
     const float* const ws = ks + BT * HS;
-    const float* const vs = vsm + buf * BT * W + c0;
+    const float* const vs = ws + BT * HS + c0;
     float* const bt = bsm + buf * BT;
     cp_wait_all();
     {
@@ -294,7 +286,7 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
       lds<R>(o.k, ks + tt * HS + g * R);
       lds<R>(o.w, ws + tt * HS + g * R);
 #pragma unroll
-      for (int j = 0; j < C; ++j) o.v[j] = vs[tt * W + (j ^ sigma)];
+      for (int j = 0; j < C; ++j) o.v[j] = vs[tt * HS + (j ^ sigma)];
       o.b = bt[tt];
     };
     float* yp = yb + t0 * y_st;
@@ -351,7 +343,7 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
       }
     }
   }
-  float* const so = s_out + (long long)bh * HS * HS + split * W + c0;
+  float* const so = s_out + (long long)bh * HS * HS + c0;
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -364,21 +356,18 @@ int launch_hs(const void* r, const void* k, const void* v, const void* w,
               const long long* st, cudaStream_t stream) {
   using S_ = Shape<HS>;
   constexpr int bytes = S_::SMEM * 4;
-  static unsigned ready = 0;           // devices whose limit is raised
+  constexpr int kMaxDevices = 64;
+  static bool ready[kMaxDevices] = {};  // devices whose limit is raised
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  if (dev < 32 && !(ready & (1u << dev))) {
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
     e = cudaFuncSetAttribute(wkv_kernel<HS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
     if (e != cudaSuccess) return (int)e;
-    ready |= 1u << dev;
-  } else if (dev >= 32) {
-    e = cudaFuncSetAttribute(wkv_kernel<HS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-    if (e != cudaSuccess) return (int)e;
+    ready[dev] = true;
   }
   // 16-byte copies when every base and stride allows them
   const auto al = [](const void* p) {
@@ -386,7 +375,7 @@ int launch_hs(const void* r, const void* k, const void* v, const void* w,
   };
   const bool vec = al(r) && al(k) && al(v) && al(w) && st[0] % 4 == 0 &&
                    st[1] % 4 == 0 && st[2] % 4 == 0;
-  wkv_kernel<HS><<<b * nh * S_::NS, S_::NT, bytes, stream>>>(
+  wkv_kernel<HS><<<b * nh, S_::NT, bytes, stream>>>(
       static_cast<const float*>(r), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<float*>(y),
