@@ -18,9 +18,15 @@ Phases, each printing one JSON line:
             plain version's, a library call's where one computes the same
             function, and the card's lower bound; each panel LU also on its
             panels with the rows shuffled, where pivoting must move rows;
-            K5 (C - A.B) and K6 (sup-row TRSV + GEMV) are held the same
-            way at the largest sup-sup and sup-row edge of the unrolled
-            schedule, on the operands its program hands that edge; K1 and
+            K5's node step (``node_edges_inplace``: a node's whole edge
+            loop in one launch, in place) at the unrolled program's node
+            with the most edge work, the node with the most edges and the
+            width-1 node with the most edges, each from its input buffer,
+            beside the parent route (per edge a gather, K3 + the per-edge
+            K5 ``gemm_update``, a write-back); the per-edge K5 (C - A.B)
+            and K6 (sup-row TRSV + GEMV) are held the same way at the
+            largest sup-sup and sup-row edge of the unrolled schedule, on
+            the operands its program hands that edge; K1 and
             K2 also on panels with an exactly zero pivot under a zero
             threshold, where NaN and inf positions must match; K4 (and
             ``torch.bmm``) also per launch by CUDA-graph replay, on 2,048
@@ -33,7 +39,7 @@ Phases, each printing one JSON line:
             blocks of the node-block apply, each held to its plain version
             on every bucket and block; then panel_extra: a spy on the
             engine records what one unrolled refactor of one system hands
-            K2 (502 node panels) and K5, and what one bucketed refactor at
+            K2 (502 node panels), and what one bucketed refactor at
             K = 32 hands K2 (32 narrow-level launches) and K1 (97 buckets,
             in place), with each panel's layout (K2's are strided views of
             the value buffer); every K2 and K1 call, replayed at that
@@ -43,7 +49,11 @@ Phases, each printing one JSON line:
             by CUDA-graph replay are printed beside the summed bound, the
             sums of the design before (for K1 the engine's former gather,
             kernel and scatter) and, as a scale, library LU, triangular
-            solve and gather on the same panels; K1's bucket census;
+            solve and gather on the same panels; K1's bucket census; every
+            K5 node step of one unrolled refactor replayed in order, held
+            to its plain version in float64 and float32 and summed by
+            graph replay, beside the parent route's refactor (host
+            seconds, its K3 and per-edge K5 device sums);
 5. main     the batched repeated-solve path through its entry points at
             K = 32: ``solve_sequence`` for T = 3 float64 steps, then one
             ``factor_batched`` + ``solve_batched`` step in float64 and one
@@ -57,8 +67,11 @@ Phases, each printing one JSON line:
             values) -> ``solve`` on fem2d_10k under the bucketed and the
             unrolled schedule in float64, and bucketed with float32
             factors: residuals, ``spsolve``, unrolled against bucketed
-            (pivots, perturbation counts, factors) and the launches of one
-            unrolled refactor against the plan's counts;
+            (pivots, perturbation counts, factors), the launches of one
+            unrolled refactor against the plan's counts (one K5 node step
+            per node with edges or width 1, K2 per node with nr > 1, no
+            per-edge K3 or K5) and the device kernels of one refactor of
+            each schedule (torch.profiler);
 8. plain    one batched step at K = 32 with ``use_kernels=False`` (plain
             factor program, level-scheduled substitution): residuals, no
             kernel launched, and its times beside the kernel route's;
@@ -469,6 +482,67 @@ def unrolled_operands(torch, np, eng_u, a_dev, pred):
                             "max_m": max(v[2] for v in shapes.values())}
 
 
+def node_work(np, plan, t, elem):
+    """(operations, bytes) of node t's step on one system: per edge nr k^2
+    for the right solve and 2 nr k m for the product; the panel's touched
+    columns read and written once per row, each edge's source rows and
+    col_map read once, the descriptors and, for a width-1 node, its pivot
+    and threshold."""
+    nodes = plan.nodes
+    nd = nodes[t]
+    flops = float(sum(nd.nr * (nodes[e.src].nr ** 2 + 2 * nodes[e.src].nr
+                               * (len(e.col_map) - nodes[e.src].nr))
+                      for e in nd.edges))
+    touched = (np.unique(np.concatenate([e.col_map for e in nd.edges])).size
+               if nd.edges else int(nd.nr == 1))
+    nbytes = (2 * nd.nr * touched * elem
+              + sum(nodes[e.src].nr * len(e.col_map) * elem
+                    + 8 * (len(e.col_map) + 5) for e in nd.edges)
+              + (2 * elem + 4 if nd.nr == 1 else 0))
+    return flops, nbytes
+
+
+def node_bound_ms(np, plan, t, dname):
+    flops, nbytes = node_work(np, plan, t, 8 if dname == "float64" else 4)
+    return max(flops / PEAK_FLOPS[dname], nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def parent_node_step(torch, eng, t, vals, eps, nper, record=None):
+    """Node t's edge loop and width-1 perturbation as the engine ran them
+    before the node kernel (the parent route): per edge a gather through
+    col_map, a divide (k = 1), ``supsup_update`` (K3's right solve, then
+    ``gemm_update``: nr > 1, k > 1) or a triangular solve and a product
+    (nr = 1), and a write-back.  ``record(x, src, k)`` sees the operands
+    of every sup-sup edge."""
+    from repro_torch.kernels.supsup import ops as supsup_ops
+
+    _, step = eng._nodes[t]
+    K = vals.shape[0]
+    nr, w, lsize = step.nr, step.w, step.lsize
+    panel = vals[:, step.off:step.off + nr * w].view(K, nr, w)
+    for soff, k, sw, slsize, cm in eng._edges.edges[step.e0:step.e1]:
+        src = vals[:, soff:soff + k * sw].view(K, k, sw)[:, :, slsize:]
+        x = panel[:, :, cm]
+        if k == 1:
+            lts = x[:, :, :1] / src[:, :, :1]
+            xr = x[:, :, 1:] - lts * src[:, :, 1:]
+        elif nr > 1:
+            if record is not None:
+                record(x, src, k)
+            lts, xr = supsup_ops.supsup_update(x, src, k)
+        else:
+            lts = torch.linalg.solve_triangular(
+                src[:, :, :k], x[:, :, :k], upper=True, left=False)
+            xr = x[:, :, k:] - torch.matmul(lts, src[:, :, k:])
+        panel[:, :, cm] = torch.cat([lts, xr], dim=2)
+    if nr == 1:
+        d = panel[:, 0, lsize]
+        small = d.abs() < eps
+        panel[:, 0, lsize] = torch.where(
+            small, torch.where(d >= 0, eps, -eps), d)
+        nper += small.to(torch.int32)
+
+
 def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     """Phase 4: each kernel against its plain version on the card."""
     from repro_torch.kernels.panel import ops as panel_ops
@@ -534,6 +608,26 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
         torch, np, eng_u, a_dev[:1], lambda nr_, k_: nr_ == 1 and k_ > 1)
     X6 = X6[:, 0]
     nr5, m5, m6 = X5.shape[1], X5.shape[2] - k5, X6.shape[1] - k6
+    # K5's node step on system 0 of the unrolled program (which runs one
+    # system), in place, at the node with the most edge work (operations),
+    # the node with the most edges and the width-1 node with the most edges
+    # (at fem2d_10k the first two are one node); the record's own numbers
+    # are those of the first
+    plan_u = eng_u.plan
+    unodes = plan_u.nodes
+    node_ts = {
+        "most_work": max(range(len(unodes)),
+                         key=lambda t_: node_work(np, plan_u, t_, 8)[0]),
+        "most_edges": max(range(len(unodes)),
+                          key=lambda t_: len(unodes[t_].edges)),
+        "width1_most_edges": max(
+            (t_ for t_, nd_ in enumerate(unodes) if nd_.nr == 1),
+            key=lambda t_: len(unodes[t_].edges))}
+    node_base = {t_: eng_u.refactor_batched(a_dev[:1], stop=(t_, 0))
+                 for t_ in set(node_ts.values())}
+    t_n = node_ts["most_work"]
+    _, step_n = eng_u._nodes[t_n]
+    lo_n, hi_n = step_n.off, step_n.off + step_n.nr * step_n.w
     # The stencil's diagonal blocks may need no row swap at all, so each
     # panel LU is also held to its plain version on the same panels with
     # their rows shuffled: partial pivoting then has to move rows.
@@ -573,6 +667,21 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
                               c(S5[..., k5:]))
         x6, s6 = c(X6), c(S6)
         x6k = x6[:, None, :k6].contiguous()
+        vn, en = node_base[t_n]
+        base_n, eps_n = c(vn), en.to(dt)
+        pan_n = base_n[:, lo_n:hi_n].clone()
+        wk, wp = base_n.clone(), base_n.clone()
+        nk = torch.zeros(1, dtype=torch.int32, device=dev)
+        npl = torch.zeros_like(nk)
+
+        def node_run(fn, work, nper):         # from the node's input panel
+            def run():
+                work[:, lo_n:hi_n].copy_(pan_n)
+                nper.zero_()
+                fn(work, eng_u._edges, step_n, eps_n, nper)
+                return work[:, lo_n:hi_n], nper.to(dt)
+            return run
+        fn_, bn_ = node_work(np, plan_u, t_n, sz(dt))
         e1, e2 = eps1.to(dt), eps2.to(dt)
         s = sz(dt)
         lower = torch.tril(blk, -1) + torch.eye(nrb, dtype=dt, device=dev)
@@ -644,6 +753,14 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
              lambda: torch.baddbmm(x5c, x5a, s5b, alpha=-1),
              2.0 * nr5 * k5 * m5,
              (2 * nr5 * m5 + nr5 * k5 + k5 * m5) * s, TOL, None),
+            ("node_edges", "node_edges_inplace",
+             "src/repro/kernels/supsup/kernel.py:21",
+             "src/repro_torch/csrc/gemm_update.cu",
+             f"node {t_n} in place (1, {step_n.nr}, {step_n.w}), "
+             f"{step_n.e1 - step_n.e0} edges",
+             node_run(supsup_ops.node_edges_inplace, wk, nk),
+             node_run(supsup_ops.node_edges_plain, wp, npl), None, fn_, bn_,
+             TOL, None, lambda: (wk[:, lo_n:hi_n].copy_(pan_n), nk.zero_())),
             ("suprow_update", "suprow_update",
              "src/repro/kernels/suprow/kernel.py:21",
              "src/repro_torch/csrc/suprow.cu",
@@ -765,6 +882,8 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
                 "zero_pivot_max_abs_err" + sfx: err})
 
     records["gemm_update"]["edges"] = edges5
+    records["node_edges"].update(node_extra(torch, np, eng_u, node_ts,
+                                            node_base))
     records["suprow_update"]["edges"] = edges6
     records["bmm"].update(bmm_extra(torch, np, supsup_ops, sched, LTS, Us, K))
     for name, extra in trsm_extra(torch, trisolve_ops, eng, a_dev,
@@ -776,6 +895,90 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     emit({"phase": "kernels", "dtypes": ["float64", "float32"],
           "records": out, "seconds": time.perf_counter() - t})
     return out
+
+
+def node_extra(torch, np, eng_u, node_ts, node_base):
+    """K5's node step at each chosen node of the unrolled program (system
+    0, its buffer just before the node), in float64 and float32: the
+    kernel held to ``node_edges_plain`` (values within TOL, equal
+    perturbation counts, no slot outside the node's panel written), its
+    time per call (back-to-back calls through the wrapper, each from the
+    node's input panel, the restoring copy's time taken off) and by
+    CUDA-graph replay, beside the plain version's and the parent route's
+    (``parent_node_step``: per edge a gather, K3 + ``gemm_update`` or torch
+    ops, a write-back) and the bound of ``node_work``."""
+    from repro_torch.kernels.supsup import ops as supsup_ops
+
+    out = {}
+    for label, t in node_ts.items():
+        nd = eng_u.plan.nodes[t]
+        _, step = eng_u._nodes[t]
+        lo, hi = step.off, step.off + step.nr * step.w
+        rec = out[label] = {
+            "node": t, "nr": nd.nr, "w": nd.width, "edges": len(nd.edges),
+            "supsup_edges": sum(eng_u.plan.nodes[e.src].nr > 1
+                                for e in nd.edges),
+            "max_k": max((eng_u.plan.nodes[e.src].nr for e in nd.edges),
+                         default=0),
+            "max_cols": max((len(e.col_map) for e in nd.edges), default=0)}
+        for dt in (torch.float64, torch.float32):
+            dname = str(dt).replace("torch.", "")
+            sfx = "" if dt == torch.float64 else "_f32"
+            base = node_base[t][0].to(dt)
+            eps = node_base[t][1].to(dt)
+            pan = base[:, lo:hi].clone()
+            g, r = base.clone(), base.clone()
+            ng = torch.zeros(1, dtype=torch.int32, device=base.device)
+            nr_ = torch.zeros_like(ng)
+            supsup_ops.node_edges_inplace(g, eng_u._edges, step, eps, ng)
+            supsup_ops.node_edges_plain(r, eng_u._edges, step, eps, nr_)
+            torch.cuda.synchronize()
+            what = f"node_edges {label} {dname}"
+            check(torch.equal(ng, nr_), f"{what}: perturbation counts differ")
+            check(torch.equal(_bits(torch, g[:, :lo]), _bits(torch, base[:, :lo]))
+                  and torch.equal(_bits(torch, g[:, hi:]),
+                                  _bits(torch, base[:, hi:])),
+                  f"{what}: a slot outside the node's panel changed")
+            err = float((g[:, lo:hi] - r[:, lo:hi]).abs().max())
+            check(bool(torch.allclose(g[:, lo:hi], r[:, lo:hi],
+                                      rtol=TOL[dname], atol=TOL[dname])),
+                  f"{what}: max |kernel - plain| = {err}")
+            del r
+            nper = torch.zeros_like(ng)
+
+            def restore(g=g, pan=pan):
+                g[:, lo:hi].copy_(pan)
+
+            kern = lambda g=g, eps=eps: supsup_ops.node_edges_inplace(  # noqa: E731
+                g, eng_u._edges, step, eps, nper)
+            plain = lambda g=g, eps=eps: supsup_ops.node_edges_plain(  # noqa: E731
+                g, eng_u._edges, step, eps, nper)
+            parent = lambda g=g, eps=eps: parent_node_step(  # noqa: E731
+                torch, eng_u, t, g, eps, nper)
+            r_ms = bench_ms(torch, restore)
+            try:
+                parent_dev = fresh_graph_ms(torch, [parent], restore)
+            except RuntimeError:            # a call the graph cannot capture
+                torch.cuda.synchronize()
+                parent_dev = None
+            rec.update({
+                "max_abs_err" + sfx: err, "perturbed" + sfx: int(ng.sum()),
+                "bound_ms" + sfx: node_bound_ms(np, eng_u.plan, t, dname),
+                "restore_ms" + sfx: r_ms,
+                "ms" + sfx: bench_ms(torch, lambda: (restore(), kern()))
+                - r_ms,
+                "device_ms" + sfx: fresh_graph_ms(torch, [kern], restore),
+                "plain_ms" + sfx: bench_ms(torch, lambda: (restore(),
+                                                           plain())) - r_ms,
+                "parent_ms" + sfx: bench_ms(torch, lambda: (restore(),
+                                                            parent())) - r_ms,
+                "parent_device_ms" + sfx: parent_dev})
+            del g, base, pan
+    torch.cuda.empty_cache()
+    return {"nodes": out,
+            "parent_route": "per edge: gather through col_map, divide or "
+                            "K3 + gemm_update (sup-sup) or solve_triangular "
+                            "+ matmul (sup-row), write back"}
 
 
 def bmm_extra(torch, np, supsup_ops, sched, lts, us, K):
@@ -1028,11 +1231,159 @@ def ptxas_of(log, needle):
     return out
 
 
+def node_refactor_extra(torch, np, eng_u, a_dev):
+    """K5 over one unrolled refactor of system 0.  The node steps are
+    replayed in order on a buffer that starts from the scattered values:
+    node t's step reads its own panel (untouched before it) and finished
+    source panels, so after the step of a node with nr > 1 its panel is
+    set to the refactor's finished one (K2's work, not replayed).  Every
+    launch is held to ``node_edges_plain`` on a copy of its input (values
+    within TOL, equal perturbation counts, no other slot written), in
+    float64 and float32.  The summed device time of the launches is a
+    CUDA graph of the whole replay less a graph of its copies alone, both
+    from the restored start.  Beside it: the parent route over the same
+    refactor (``parent_node_step`` and K2 per node; host seconds, its
+    factors against the kernel route's) with its K3 and per-edge
+    ``gemm_update`` launches recorded on their operands and their device
+    times summed by graph replay, and the summed bounds."""
+    from repro_torch.kernels.supsup import ops as supsup_ops
+    from repro_torch.kernels.trisolve import ops as trisolve_ops
+
+    t0 = time.perf_counter()
+    plan = eng_u.plan
+    b = a_dev.to(eng_u.dtype)[:, eng_u._src] * eng_u._scl
+    v0 = torch.zeros((1, plan.total_slots), dtype=eng_u.dtype,
+                     device=a_dev.device)
+    v0[:, eng_u._a_scatter] = b
+    eps0 = eng_u.perturb_eps * b.abs().amax(dim=1)
+    fin = eng_u.refactor_batched(a_dev)
+    steps = [(t, step) for t, (_, step) in enumerate(eng_u._nodes)
+             if step.e1 > step.e0 or step.nr == 1]
+    wide = [(step.off, step.off + step.nr * step.w) for _, step in steps
+            if step.nr > 1]
+    out = {"launches": len(steps), "wide_nodes_restored": len(wide),
+           "edges": int(eng_u._edges.desc.shape[0])}
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        sfx = "" if dt == torch.float64 else "_f32"
+        start, done = v0.to(dt), fin.vals.to(dt)
+        eps = eps0.to(dt)
+        buf = start.clone()
+        nper = torch.zeros(1, dtype=torch.int32, device=buf.device)
+        err, bad, bound = 0.0, [], 0.0
+        for t, step in steps:
+            lo, hi = step.off, step.off + step.nr * step.w
+            ref, nk, npl = buf.clone(), nper.clone(), nper.clone()
+            supsup_ops.node_edges_inplace(buf, eng_u._edges, step, eps, nk)
+            supsup_ops.node_edges_plain(ref, eng_u._edges, step, eps, npl)
+            e_ = float((buf[:, lo:hi] - ref[:, lo:hi]).abs().max())
+            err = max(err, e_)
+            if not (torch.equal(nk, npl) and bool(torch.allclose(
+                    buf[:, lo:hi], ref[:, lo:hi], rtol=TOL[dname],
+                    atol=TOL[dname])) and torch.equal(
+                    _bits(torch, buf[:, :lo]), _bits(torch, ref[:, :lo]))
+                    and torch.equal(_bits(torch, buf[:, hi:]),
+                                    _bits(torch, ref[:, hi:]))):
+                bad.append(t)
+            if step.nr > 1:
+                buf[:, lo:hi] = done[:, lo:hi]
+            bound += node_bound_ms(np, plan, t, dname)
+        torch.cuda.synchronize()
+        check(not bad, f"node_edges refactor {dname}: nodes {bad[:10]} "
+                       "differ from the plain version")
+        del ref
+
+        def restore(buf=buf, start=start):
+            buf.copy_(start)
+
+        launch = [lambda s_=s_, buf=buf, eps=eps: supsup_ops.node_edges_inplace(
+            buf, eng_u._edges, s_, eps, nper) for _, s_ in steps]
+        copies = {}
+        for t, step in steps:
+            if step.nr > 1:
+                lo, hi = step.off, step.off + step.nr * step.w
+                copies[t] = (lambda lo=lo, hi=hi, buf=buf, done=done:
+                             buf[:, lo:hi].copy_(done[:, lo:hi]))
+        replay = []
+        for (t, _), fn in zip(steps, launch):
+            replay.append(fn)
+            if t in copies:
+                replay.append(copies[t])
+        all_ms = fresh_graph_ms(torch, replay, restore)
+        copy_ms = fresh_graph_ms(torch, list(copies.values()), restore)
+        r_ms = bench_ms(torch, restore)
+        out.update({
+            "max_abs_err" + sfx: err, "bound_ms" + sfx: bound,
+            "device_ms" + sfx: all_ms - copy_ms,
+            "replay_with_copies_device_ms" + sfx: all_ms,
+            "copies_device_ms" + sfx: copy_ms,
+            "loop_ms" + sfx: bench_ms(torch, lambda: (
+                restore(), [f() for f in replay]), min_ms=100.0) - r_ms})
+        del buf, start, done, launch, copies, replay
+        torch.cuda.empty_cache()
+    # the parent route over the same refactor (float64, the refactor's
+    # dtype), recording what it hands K3 and gemm_update
+    rec = []
+
+    def record(x, src, k):
+        rec.append((x.clone(), src.clone(), k))
+
+    vals = v0.clone()
+    nper = torch.zeros(1, dtype=torch.int32, device=vals.device)
+    torch.cuda.synchronize()
+    tp = time.perf_counter()
+    for t, (_, step) in enumerate(eng_u._nodes):
+        parent_node_step(torch, eng_u, t, vals, eps0, nper, record)
+        if step.nr > 1:
+            nr, w = step.nr, step.w
+            panel = vals[:, step.off:step.off + nr * w].view(1, nr, w)
+            P, _, npn = eng_u._panel_lu(panel, nr, step.lsize, eps0)
+            nper += npn
+            panel.copy_(P)
+    torch.cuda.synchronize()
+    parent_s = time.perf_counter() - tp
+    perr = float((vals - fin.vals).abs().max())
+    check(perr <= 1e-10 and torch.equal(nper, fin.n_perturb),
+          f"parent route vs node kernel route over the unrolled refactor: "
+          f"{perr}, perturbations {nper.tolist()} vs "
+          f"{fin.n_perturb.tolist()}")
+    k3, k5, b3, b5 = [], [], 0.0, 0.0
+    for x, src, k in rec:
+        xk = x[..., :k].contiguous()
+        lts = trisolve_ops.trsm_batched(src[..., :k], xk)
+        xc, sb = x[..., k:].contiguous(), src[..., k:].contiguous()
+        k3.append(lambda s_=src, xk=xk, k=k: trisolve_ops.trsm_batched(
+            s_[..., :k], xk))
+        k5.append(lambda xc=xc, lts=lts, sb=sb: supsup_ops.gemm_update(
+            xc, lts, sb))
+        nr, m = x.shape[1], x.shape[2] - k
+        b3 += max(nr * k * k / PEAK_FLOPS["float64"],
+                  8 * (k * (k + 1) // 2 + 2 * nr * k) / HBM_BYTES_PER_S)
+        b5 += max(2.0 * nr * k * m / PEAK_FLOPS["float64"],
+                  8 * (2 * nr * m + nr * k + k * m) / HBM_BYTES_PER_S)
+    k3_ms, k5_ms = graph_ms(torch, k3), graph_ms(torch, k5)
+    out.update({"parent_refactor_s": parent_s,
+                "parent_vs_kernel_max_abs": perr,
+                "parent_k3_calls": len(k3), "parent_k3_device_ms": k3_ms,
+                "parent_k5_device_ms": k5_ms,
+                "parent_k3_k5_device_ms": k3_ms + k5_ms,
+                "parent_k3_k5_bound_ms": (b3 + b5) * 1e3,
+                "seconds": time.perf_counter() - t0})
+    k5_rec = {"calls": len(k5), "bound_ms": b5 * 1e3, "device_ms": k5_ms,
+              "loop_ms": bench_ms(torch, lambda: [f() for f in k5],
+                                  min_ms=100.0),
+              "note": "the parent route's per-edge launches; no engine path "
+                      "runs them since the node kernel"}
+    del rec, k3, k5
+    torch.cuda.empty_cache()
+    return out, k5_rec
+
+
 def panel_extra(torch, np, eng, eng_u, a_dev):
     """K2, K1 and K5 over whole refactors of fem2d_10k.  A spy on the
     engine's wrappers records the operands one unrolled refactor of system
-    0 hands K2 (one launch per node with nr > 1, B = 1) and K5 (one per
-    sup-sup edge), and those one bucketed refactor at K systems hands K2
+    0 hands K2 (one launch per node with nr > 1, B = 1), and those one
+    bucketed refactor at K systems hands K2
     (one launch per narrow-level node, B = K) and K1 (one per panel
     bucket).  The spy keeps each K2 panel's values and its layout (storage
     offset and strides: K2's panels are strided views of the value buffer),
@@ -1057,10 +1408,10 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
     are replayed on copies that ``fresh_graph_ms`` restores before each
     replay, outside the timed events.  Also K2's device time per launch at
     the largest narrow node (the kernel table's shape), K1's bucket census
-    and ptxas's registers and spills of the window kernel."""
+    and ptxas's registers and spills of the window kernel.  K5: every node
+    step of one unrolled refactor (``node_refactor_extra``)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.panel import ops as panel_ops
-    from repro_torch.kernels.supsup import ops as supsup_ops
 
     t = time.perf_counter()
 
@@ -1072,21 +1423,6 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
     k2_unrolled = _record_calls(
         eng_u, "_panel_lu", lambda: eng_u.refactor_batched(a_dev[:1]),
         keep_panel)
-    orig_supsup = supsup_ops.supsup_update
-    k5_calls = []
-
-    def keep_k5(args, res):
-        x, src, k = args
-        k5_calls.append((x[..., k:].contiguous().clone(), res[0].clone(),
-                         src[..., k:].contiguous().clone()))
-        return None
-
-    supsup_ops.supsup_update = lambda *a: (lambda r: keep_k5(a, r) or r)(
-        orig_supsup(*a))
-    try:
-        eng_u.refactor_batched(a_dev[:1])
-    finally:
-        supsup_ops.supsup_update = orig_supsup
     k1_calls, untouched = [], []
     orig_k1 = eng._panel_lu_bucket
 
@@ -1294,7 +1630,8 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
         torch.cuda.empty_cache()
         return out
 
-    res = {"panel_lu": {}, "panel_lu_bucketed": {}, "gemm_update": {}}
+    res = {"panel_lu": {}, "panel_lu_bucketed": {}, "gemm_update": {},
+           "node_edges": {}}
     for dt in (torch.float64, torch.float32):
         sfx = "" if dt == torch.float64 else "_f32"
         res["panel_lu"]["refactor_unrolled" + sfx] = sums(
@@ -1313,19 +1650,11 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
             torch, [lambda: panel_ops._launch(Pc, lsize, Pc.shape[2], e)]
             * 20) / 20
         del P, Pc
-    # K5 (float64, the refactor's dtype): device time summed over the
-    # unrolled refactor's launches, beside its summed bound
-    k5 = [lambda c=c: supsup_ops.gemm_update(*c) for c in k5_calls]
-    b5 = sum(max(2.0 * a.shape[1] * a.shape[2] * b.shape[2]
-                 / PEAK_FLOPS["float64"],
-                 8 * (2 * c.numel() + a.numel() + b.numel())
-                 / HBM_BYTES_PER_S) for c, a, b in k5_calls) * 1e3
-    res["gemm_update"].update({
-        "refactor_unrolled": {"calls": len(k5_calls), "bound_ms": b5,
-                              "device_ms": graph_ms(torch, k5),
-                              "loop_ms": bench_ms(
-                                  torch, lambda: [f() for f in k5],
-                                  min_ms=100.0)}})
+    # K5: every node step of one unrolled refactor, and the parent route's
+    # K3 + per-edge gemm_update over the same refactor
+    (res["node_edges"]["refactor_unrolled"],
+     res["gemm_update"]["refactor_unrolled"]) = node_refactor_extra(
+        torch, np, eng_u, a_dev[:1])
     # the window kernel's instantiations: <type, pivot warps, window in
     # shared memory, bucket members in place>
     res["panel_lu"]["ptxas"] = ptxas_of(_build.last_build["log"],
@@ -1350,7 +1679,7 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
     res["panel_lu_bucketed"]["census"] = census
     res["panel_lu_bucketed"]["census_keys"] = [
         "nrp", "wu", "wt", "B", "padded_row_share", "padded_entry_share"]
-    del k2_unrolled, k2_bucketed, k1_calls, k5_calls, k5
+    del k2_unrolled, k2_bucketed, k1_calls
     torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     emit({"phase": "panel_extra", "matrix": "fem2d_10k", "k": K,
@@ -1591,10 +1920,18 @@ def scalar_phase(torch, np, kernels, A, an64, an_u, an32):
     unrolled_vs_bucketed = float((fu.vals - fb.vals).abs().max())
     same_pivots = bool(torch.equal(fu.inode_perm, fb.inode_perm))
     u_counts = res["unrolled"]["launches_per_refactor"]
+    n_steps = sum(1 for nd in an_u.plan.nodes if nd.edges or nd.nr == 1)
+    # everything the device runs in one refactor of one system
+    dk = {}
+    for label, an in (("unrolled", an_u), ("bucketed", an64)):
+        eng_ = torch_repeated_engine(an)
+        a2 = torch.from_numpy(v2).to(eng_.device)
+        dk[label] = device_kernels(torch, lambda: eng_.refactor(a2))
     emit({"phase": "scalar", "matrix": "fem2d_10k", "runs": res,
           "unrolled_vs_bucketed_max_abs": unrolled_vs_bucketed,
           "same_inode_perm": same_pivots,
           "plan_supsup_edges": n_supsup, "plan_wide_nodes": n_wide,
+          "plan_node_steps": n_steps, "device_kernels_per_refactor": dk,
           "seconds": time.perf_counter() - t_all})
     for label, r in res.items():
         check(r["residual"] <= 1e-10, f"scalar {label}: residual "
@@ -1607,10 +1944,11 @@ def scalar_phase(torch, np, kernels, A, an64, an_u, an32):
           "unrolled and bucketed perturbation counts differ")
     check(unrolled_vs_bucketed <= 1e-10,
           f"unrolled vs bucketed factors {unrolled_vs_bucketed} > 1e-10")
-    check(u_counts.get("gemm_update", 0) == n_supsup > 0,
-          f"K5 launches per unrolled refactor {u_counts} != {n_supsup}")
-    check(u_counts.get("trsm_batched", 0) == n_supsup,
-          f"K3 launches per unrolled refactor {u_counts} != {n_supsup}")
+    check(u_counts.get("node_edges_inplace", 0) == n_steps > 0,
+          f"K5 node steps per unrolled refactor {u_counts} != {n_steps}")
+    check(n_supsup > 0 and "gemm_update" not in u_counts
+          and "trsm_batched" not in u_counts,
+          f"the unrolled refactor launched per-edge K3 or K5: {u_counts}")
     check(u_counts.get("panel_lu", 0) == n_wide > 0,
           f"K2 launches per unrolled refactor {u_counts} != {n_wide}")
     b_counts = res["bucketed"]["launches_per_refactor"]

@@ -23,9 +23,10 @@ the JAX package.  What differs:
   chunk's levels.
 * The Pallas kernels become the hand-written CUDA kernels of
   :mod:`repro_torch.kernels` — the panel LUs (bucketed and per node), the
-  TRSM (edge buckets, the unrolled sup-sup edges and both block
-  substitution sweeps), the batched GEMM and the unrolled schedule's
-  C − A·B.  On the CPU the same wrappers run their plain PyTorch versions.
+  TRSM (edge buckets and both block substitution sweeps), the batched
+  GEMM and the unrolled schedule's node step (a node's whole edge loop,
+  its C − A·B updates among them, in one launch, in place).  On the CPU
+  the same wrappers run their plain PyTorch versions.
   The bucketed panel LU reads each bucket's members from the value buffer
   and writes them back in place (no gather, scatter or per-panel
   threshold copy on the kernel route); its plain version runs the JAX
@@ -233,21 +234,20 @@ class RepeatedSolveEngine:
         return diag, panels, seq, edges
 
     def _upload_unrolled(self):
-        """The unrolled program's per-node and per-edge constants; every
-        edge's ``col_map`` is a view of one device tensor."""
+        """The unrolled program's per-node and per-edge constants: one
+        edge table (every ``col_map`` a view of one device tensor) and per
+        node its :class:`~repro_torch.kernels.supsup.ops.NodeStep`."""
         nodes, offs = self.plan.nodes, self.plan.panel_offset
-        cms = _index_views([e.col_map for nd in nodes for e in nd.edges],
-                           self.device)
-        self._nodes, i = [], 0
+        self._edges = supsup_ops.edge_table(
+            [(int(offs[e.src]), nodes[e.src].nr, nodes[e.src].width,
+              nodes[e.src].lsize, e.col_map) for nd in nodes
+             for e in nd.edges], self.device)
+        self._nodes, e0 = [], 0
         for nd in nodes:
-            edges = []
-            for e in nd.edges:
-                snd = nodes[e.src]
-                edges.append((int(offs[snd.nid]), snd.nr, snd.width,
-                              snd.lsize, cms[i]))
-                i += 1
-            self._nodes.append((nd.nr, nd.width, nd.lsize,
-                                int(offs[nd.nid]), nd.r0, edges))
+            e1 = e0 + len(nd.edges)
+            self._nodes.append((nd.r0, supsup_ops.node_step(
+                int(offs[nd.nid]), nd.nr, nd.width, nd.lsize, e0, e1)))
+            e0 = e1
 
     def _upload_blocks(self, blocks):
         """The node-block schedule: per node (r0, nr, pre_cols, pre_slots,
@@ -407,17 +407,12 @@ class RepeatedSolveEngine:
         a left-looking loop over the node's edges, then the node's own LU
         (``_node_step_unrolled`` :132–161, ``_node_lu_writeback`` :113–129).
         The value buffer is ``total_slots`` long, with no sentinel slots.
-        Per edge, the target panel's columns are gathered through
-        ``col_map`` (which holds no duplicates) and written back:
-
-        * k == 1: a divide and a rank-1 update;
-        * k > 1 and nr > 1: ``supsup_update`` (K3, then K5) with kernels,
-          else a triangular solve and a product;
-        * k > 1 and nr == 1: a triangular solve and a product, as the JAX
-          package does there with or without Pallas.
-
-        A node with nr > 1 is then factored by K2 (or its plain version);
-        a width-1 node only perturbs its pivot."""
+        The edge loop and, for a width-1 node, the pivot perturbation are
+        one node step: with kernels one ``node_edges_inplace`` launch per
+        node (K5, in place), else ``node_edges_plain`` (per edge, the
+        target panel's columns gathered through ``col_map`` and written
+        back).  A node with nr > 1 is then factored by K2 (or its plain
+        version)."""
         dt, dev = self.dtype, self.device
         K = b.shape[0]
         eps = self.perturb_eps * b.abs().amax(dim=1)
@@ -425,31 +420,24 @@ class RepeatedSolveEngine:
         vals[:, self._a_scatter] = b
         inode = torch.arange(self.n, device=dev).repeat(K, 1)
         nper = torch.zeros(K, dtype=torch.int32, device=dev)
-        for t, (nr, w, lsize, off, r0, edges) in enumerate(self._nodes):
-            panel = vals[:, off:off + nr * w].view(K, nr, w)   # a view
-            for j, (soff, k, sw, slsize, cm) in enumerate(edges):
-                if stop == (t, j):
-                    return vals, eps
-                src = vals[:, soff:soff + k * sw].view(K, k, sw)[:, :, slsize:]
-                x = panel[:, :, cm]                        # (K, nr, k+m)
-                if k == 1:                                 # row-row/sup-row
-                    lts = x[:, :, :1] / src[:, :, :1]
-                    xr = x[:, :, 1:] - lts * src[:, :, 1:]
-                elif self.use_kernels and nr > 1:          # sup-sup: K3, K5
-                    lts, xr = supsup_ops.supsup_update(x, src, k)
-                else:
-                    lts = torch.linalg.solve_triangular(
-                        src[:, :, :k], x[:, :, :k], upper=True, left=False)
-                    xr = x[:, :, k:] - torch.matmul(lts, src[:, :, k:])
-                panel[:, :, cm] = torch.cat([lts, xr], dim=2)
-            if nr == 1:                                    # perturb only
-                d = panel[:, 0, lsize]
-                small = d.abs() < eps
-                panel[:, 0, lsize] = torch.where(
-                    small, torch.where(d >= 0, eps, -eps), d)
-                nper += small.to(torch.int32)
+        for t, (r0, step) in enumerate(self._nodes):
+            n_edges = None                     # stop = (t, j): j edges only
+            if stop is not None and stop[0] == t \
+                    and 0 <= stop[1] < step.e1 - step.e0:
+                n_edges = stop[1]
+            if self.use_kernels:
+                supsup_ops.node_edges_inplace(vals, self._edges, step, eps,
+                                              nper, n_edges)
+            else:
+                supsup_ops.node_edges_plain(vals, self._edges, step, eps,
+                                            nper, n_edges, use_kernels=False)
+            if n_edges is not None:
+                return vals, eps
+            nr, w, off = step.nr, step.w, step.off
+            if nr == 1:                                # perturbed only
                 continue
-            P, lperm, npn = self._panel_lu(panel, nr, lsize, eps)
+            panel = vals[:, off:off + nr * w].view(K, nr, w)   # a view
+            P, lperm, npn = self._panel_lu(panel, nr, step.lsize, eps)
             nper += npn
             inode[:, r0:r0 + nr] = torch.gather(inode[:, r0:r0 + nr], 1,
                                                 lperm.long())

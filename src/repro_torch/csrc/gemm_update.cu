@@ -1,28 +1,64 @@
-// Batched trailing update OUT[e] = C[e] - A[e] @ B[e]: the Hopper counterpart
-// of the Pallas
+// K5, the sup-sup update C - A.B of the unrolled factor schedule: the Hopper
+// counterparts of the Pallas
 //
 //   src/repro/kernels/supsup/kernel.py:21  _gemm_update_kernel
 //       (gemm_update :77, pallas_call :85), reached through supsup/ops.py:50
-//       gemm and :15 supsup_update — the per-edge sup-sup update of the
+//       gemm and :15 supsup_update -- the per-edge sup-sup update of the
 //       unrolled factor schedule (src/repro/core/jax_engine.py:152-158).
 //
-// C and OUT are (batch, nr, m), A (batch, nr, k), B (batch, k, m), all
-// row-major and contiguous; batch runs over the K systems of one edge.  It
-// sums A @ B with fused multiply-adds in the input type and then subtracts
-// it from C, as the Pallas kernel does for its one k-tile (k <= 128): float32
-// in float32, float64 in float64, no TF32.  The JAX wrapper pads nr, k and m
-// to multiples of 8 or 128 with exact zeros; this kernel masks the ragged
-// tile edges instead, so it takes the exact shapes.
+// Two kernels.
 //
-// What bounds it on the card: one edge is at most nr = k = 128, m ~ 100 (at
-// fem2d_10k), 2*nr*k*m operations on (2*nr*m + nr*k + k*m) elements, about
-// 13 operations per f64 byte at 128^3, below the f64 ridge (67 TFLOP/s over
-// 3.35 TB/s, 20 per byte): bound by bytes, and at one system per launch by
-// launch latency.  The design is a plain shared-memory tiled GEMM: a 64x64
-// tile of OUT per block, 16x16 threads with a 4x4 register tile each,
-// 16-deep slabs of A and B staged through shared memory.  wgmma, TMA and
-// fp64 tensor-core MMA are left for a later change.
+// hylu_node_edges_* (the engine's): one node step of the unrolled schedule,
+// the whole left-looking edge loop of one node (jax_engine.py:132-161) in
+// one launch, reading and writing the value buffer in place.  Each edge
+// updates the node's panel through its col_map cm (no duplicates) from the
+// finished rows src (k, k + m) of an earlier node:
+//
+//     x = panel[:, cm];  lts = x[:, :k] U^-1  (U = triu(src[:, :k]));
+//     panel[:, cm] = [lts, x[:, k:] - lts src[:, k:]],
+//
+// for k = 1 a true division by src[0, 0] (jax_engine.py:150); then a
+// width-1 node perturbs its pivot against eps (|d| < eps -> +-eps by d's
+// sign, NaN left, counted in nper; jax_engine.py:103-108).  Row r of the
+// panel is updated from row r and from finished rows only, so the edge loop
+// of one row needs no other row: a warp owns one row of one system (grid:
+// the node's rows x the K systems) and runs every edge of the node in
+// order, with no block barrier.  The row lives in shared memory for the
+// whole loop when it fits (w * sizeof(T) <= kRowSmemBytes), else it is read
+// and written in device memory.  Per edge, lane l holds the columns
+// c = l + 32 s (s < 4, c < len(cm)) in registers and the edge runs
+// right-looking in the column form of K6 (csrc/suprow.cu): step j < k
+// broadcasts x_j and U's diagonal by shuffles, divides, and every lane
+// applies x_c -= lts_j src[j, c] to its columns c > j with fused
+// multiply-adds in the input type (no TF32): the triangular solve and the
+// product in one sweep.  Columns past 128 (len(cm) > 128) take a second
+// sweep over the stored lts.  Each division is K3's (csrc/trsm.cu): a
+// product by the reciprocal corrected to a true division's bits, by true
+// division where that cannot vouch for the quotient.
+//
+// What bounds it on the card: per edge 2 nr k (k + m) operations on the
+// panel's touched columns and the source rows, so bytes; but the edges of
+// one node form a dependent chain (up to 1,085 at fem2d_10k), so per edge
+// it is latency: the next edge's descriptor, col_map slice, diagonal and
+// first source row are loaded one edge ahead, U's next row one step ahead,
+// and the row's values are read from shared memory.  At fem2d_10k most
+// edges have k = 1 and the launches (one per node) set the pace.
+//
+// hylu_gemm_update_* (the parent design, kept as chip_smoke.py's yardstick
+// for the node kernel; no engine path calls it): OUT[e] = C[e] - A[e] @ B[e]
+// over a batch, C and OUT (batch, nr, m), A (batch, nr, k), B (batch, k, m),
+// all row-major and contiguous.  It sums A @ B with fused multiply-adds in
+// the input type and then subtracts it from C, as the Pallas kernel does
+// for its one k-tile (k <= 128).  The JAX wrapper pads nr, k and m to
+// multiples of 8 or 128 with exact zeros; this kernel masks the ragged tile
+// edges instead.  One edge is at most nr = k = 128, m ~ 100 (at fem2d_10k):
+// bound by bytes, and at one system per launch by launch latency.  A plain
+// shared-memory tiled GEMM: a 64x64 tile of OUT per block, 16x16 threads
+// with a 4x4 register tile each, 16-deep slabs of A and B staged through
+// shared memory.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -109,6 +145,250 @@ int launch_gemm_update(const void* C, const void* A, const void* B, void* OUT,
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------ node step
+constexpr int kMaxK = 128;             // supernode cap: k <= 128
+constexpr int kSlots = kMaxK / 32;     // register columns per lane
+constexpr int kDescFields = 5;         // src offset, cm offset, k, sw, len
+constexpr int kRowSmemBytes = 32768;   // a row up to this stays in shared
+constexpr unsigned kFull = 0xffffffffu;
+
+// a / b, correctly rounded, from the reciprocal rb = 1 / b: K3's division
+// (csrc/trsm.cu, div_fast: Markstein's theorem), with ok false where it
+// cannot vouch for the quotient; float32 runs the steps in float64.
+__device__ __forceinline__ double recip(double b) {
+  const double ab = fabs(b);
+  return (ab >= 0x1p-400) & (ab <= 0x1p400)
+             ? 1.0 / b : __longlong_as_double(0x7ff8000000000000LL);
+}
+
+__device__ __forceinline__ double div_fast(double a, double b, double rb,
+                                           bool& ok) {
+  const double q = a * rb;
+  const double q1 = fma(fma(-q, b, a), rb, q);
+  const double aq = fabs(q);
+  ok &= (rb == rb) & ((a == 0.0) | ((aq >= 0x1p-500) & (aq <= 0x1p500)));
+  return a == 0.0 ? q : q1;
+}
+
+__device__ __forceinline__ float div_fast(float a, float b, double rb,
+                                          bool& ok) {
+  const double ad = a;
+  const double q = ad * rb;
+  const double q1 = fma(fma(-q, (double)b, ad), rb, q);
+  ok &= rb == rb;
+  // a zero or non-finite dividend: q is the quotient (inf / b keeps its
+  // sign, where the correction step would turn it into NaN)
+  return (float)((a == 0.f) | !(fabsf(a) <= 3.402823466e38f) ? q : q1);
+}
+
+template <typename T>
+__device__ __noinline__ T true_div(T a, T b) {
+  return a / b;
+}
+
+// What one edge needs before its first step, loaded an edge ahead: the
+// source rows, the col_map slice and, for lane l's columns c = l + 32 s,
+// their col_map entries, the source's row 0 and U's diagonal there.
+template <typename T>
+struct Stage {
+  const T* src;                 // source row 0 (row j at src + j * sw)
+  const long long* cm;
+  int k, sw, len;
+  int col[kSlots];              // cm[c], c < len
+  T u0[kSlots];                 // src[0, c], c < len
+  T dg[kSlots];                 // src[c, c], c < k (else 1)
+};
+
+struct Desc {
+  long long v[kDescFields];
+};
+
+__device__ __forceinline__ Desc load_desc(const long long* desc, int e) {
+  Desc d;
+#pragma unroll
+  for (int f = 0; f < kDescFields; ++f)
+    d.v[f] = __ldg(desc + (long long)kDescFields * e + f);
+  return d;
+}
+
+template <typename T>
+__device__ __forceinline__ Stage<T> load_stage(const T* vs,
+                                               const long long* cm,
+                                               const Desc& d, int lane) {
+  Stage<T> st;
+  st.src = vs + d.v[0];
+  st.cm = cm + d.v[1];
+  st.k = (int)d.v[2];
+  st.sw = (int)d.v[3];
+  st.len = (int)d.v[4];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int c = lane + 32 * s;
+    const bool in = c < st.len;
+    st.col[s] = in ? (int)__ldg(st.cm + c) : 0;
+    st.u0[s] = in ? __ldg(st.src + c) : T(0);
+    st.dg[s] = c < st.k ? __ldg(st.src + (long long)c * st.sw + c) : T(1);
+  }
+  return st;
+}
+
+// One edge on one row (in shared or device memory): the column-form sweep
+// over j < k on the lane's registers, then the columns past 128, if any,
+// from the lts published in shared memory.
+template <typename T>
+__device__ __forceinline__ void edge_step(T* row, const Stage<T>& st,
+                                          T* lts_s, int lane) {
+  const int k = st.k, len = st.len;
+  T x[kSlots], u[kSlots];
+  double rd[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int c = lane + 32 * s;
+    x[s] = c < len ? row[st.col[s]] : T(0);
+    u[s] = st.u0[s];
+    rd[s] = recip(st.dg[s]);
+  }
+  for (int j = 0; j < k; ++j) {
+    T un[kSlots];                         // U's row j + 1, a step ahead
+    const T* next = st.src + (long long)(j + 1) * st.sw;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = lane + 32 * s;
+      un[s] = (j + 1 < k && c > j + 1 && c < len) ? __ldg(next + c) : T(0);
+    }
+    const int js = j >> 5, jl = j & 31;
+    T xo = x[0], dd = st.dg[0];
+    double rr = rd[0];
+#pragma unroll
+    for (int s = 1; s < kSlots; ++s)
+      if (js == s) {
+        xo = x[s];
+        dd = st.dg[s];
+        rr = rd[s];
+      }
+    const T xj = __shfl_sync(kFull, xo, jl);
+    const T dj = __shfl_sync(kFull, dd, jl);
+    const double rj = __shfl_sync(kFull, rr, jl);
+    bool ok = true;
+    T l = div_fast(xj, dj, rj, ok);
+    if (!ok) l = true_div(xj, dj);
+    if (len > kMaxK && lane == 0) lts_s[j] = l;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = lane + 32 * s;
+      if (c == j)
+        x[s] = l;
+      else if (c > j && c < len)
+        x[s] = fma(-l, u[s], x[s]);
+      u[s] = un[s];
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s)
+    if (lane + 32 * s < len) row[st.col[s]] = x[s];
+  if (len > kMaxK) {                      // the columns past 128
+    __syncwarp();
+    for (int c0 = kMaxK; c0 < len; c0 += kMaxK) {
+      int col[kSlots];
+      T y[kSlots];
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int c = c0 + lane + 32 * s;
+        col[s] = c < len ? (int)__ldg(st.cm + c) : 0;
+        y[s] = c < len ? row[col[s]] : T(0);
+      }
+#pragma unroll 4
+      for (int j = 0; j < k; ++j) {
+        const T l = lts_s[j];
+        const T* uj = st.src + (long long)j * st.sw;
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          const int c = c0 + lane + 32 * s;
+          if (c < len) y[s] = fma(-l, __ldg(uj + c), y[s]);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+        if (c0 + lane + 32 * s < len) row[col[s]] = y[s];
+    }
+  }
+  __syncwarp();               // the next edge reads what other lanes wrote
+}
+
+// grid (nr, K), one warp a block: row blockIdx.x of the node's panel of
+// system blockIdx.y.  Edges [e0, e1) of the descriptor table, two stages
+// alternating so that the next edge's loads fly while this one runs.
+template <typename T, bool SMEM>
+__global__ void __launch_bounds__(32)
+node_edges_kernel(T* vals, long long ldv, long long off, int w, int lsize,
+                  const long long* __restrict__ desc,
+                  const long long* __restrict__ cm, int e0, int e1,
+                  const T* __restrict__ eps, int* __restrict__ nper,
+                  int perturb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T lts_s[kMaxK];
+  const int lane = threadIdx.x;
+  const long long sys = blockIdx.y;
+  const T* vs = vals + sys * ldv;
+  T* grow = vals + sys * ldv + off + (long long)blockIdx.x * w;
+  T* row = SMEM ? reinterpret_cast<T*>(smem_raw) : grow;
+  if (SMEM) {
+    for (int c = lane; c < w; c += 32) row[c] = grow[c];
+    __syncwarp();
+  }
+  if (e0 < e1) {
+    Stage<T> a = load_stage<T>(vs, cm, load_desc(desc, e0), lane), b;
+    Desc dn;
+    if (e0 + 1 < e1) dn = load_desc(desc, e0 + 1);
+    for (int e = e0; e < e1; e += 2) {
+      if (e + 1 < e1) b = load_stage<T>(vs, cm, dn, lane);
+      if (e + 2 < e1) dn = load_desc(desc, e + 2);
+      edge_step<T>(row, a, lts_s, lane);
+      if (e + 1 >= e1) break;
+      if (e + 2 < e1) a = load_stage<T>(vs, cm, dn, lane);
+      if (e + 3 < e1) dn = load_desc(desc, e + 3);
+      edge_step<T>(row, b, lts_s, lane);
+    }
+  }
+  if (perturb && lane == 0) {            // width 1: the pivot, row 0
+    const T d = row[lsize], ep = eps[sys];
+    if (fabs(d) < ep) {
+      row[lsize] = d >= T(0) ? ep : -ep;
+      atomicAdd(nper + sys, 1);
+    }
+  }
+  if (SMEM) {
+    __syncwarp();
+    for (int c = lane; c < w; c += 32) grow[c] = row[c];
+  }
+}
+
+template <typename T>
+int launch_node_edges(void* vals, long long ldv, long long off, int nr,
+                      int w, int lsize, const void* desc, const void* cm,
+                      int e0, int e1, const void* eps, void* nper,
+                      int perturb, int nsys, void* stream) {
+  if (nr < 1 || w < 1 || nsys < 1 || nsys > 65535 || e0 < 0 || e1 < e0 ||
+      (perturb && (nr != 1 || lsize < 0 || lsize >= w)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(nr, nsys);
+  const long long row_bytes = (long long)w * sizeof(T);
+  T* v = static_cast<T*>(vals);
+  const long long* d = static_cast<const long long*>(desc);
+  const long long* c = static_cast<const long long*>(cm);
+  const T* ep = static_cast<const T*>(eps);
+  int* np = static_cast<int*>(nper);
+  if (row_bytes <= kRowSmemBytes)
+    node_edges_kernel<T, true><<<grid, 32, row_bytes,
+                                 (cudaStream_t)stream>>>(
+        v, ldv, off, w, lsize, d, c, e0, e1, ep, np, perturb);
+  else
+    node_edges_kernel<T, false><<<grid, 32, 0, (cudaStream_t)stream>>>(
+        v, ldv, off, w, lsize, d, c, e0, e1, ep, np, perturb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int hylu_gemm_update_f64(const void* C, const void* A,
@@ -121,4 +401,27 @@ extern "C" int hylu_gemm_update_f32(const void* C, const void* A,
                                     const void* B, void* OUT, int batch,
                                     int nr, int k, int m, void* stream) {
   return launch_gemm_update<float>(C, A, B, OUT, batch, nr, k, m, stream);
+}
+
+// One node step of the unrolled schedule in place: vals (K, ldv), the
+// node's panel at `off` (nr rows of w), edges [e0, e1) of desc (E, 5) int64
+// (source row offset soff + slsize, col_map offset, k, source width sw,
+// len(col_map)) and cm (int64, every edge's col_map concatenated); eps and
+// nper (K,); perturb (nr == 1 only): perturb the pivot at column lsize.
+extern "C" int hylu_node_edges_f64(void* vals, long long ldv, long long off,
+                                   int nr, int w, int lsize, const void* desc,
+                                   const void* cm, int e0, int e1,
+                                   const void* eps, void* nper, int perturb,
+                                   int nsys, void* stream) {
+  return launch_node_edges<double>(vals, ldv, off, nr, w, lsize, desc, cm,
+                                   e0, e1, eps, nper, perturb, nsys, stream);
+}
+
+extern "C" int hylu_node_edges_f32(void* vals, long long ldv, long long off,
+                                   int nr, int w, int lsize, const void* desc,
+                                   const void* cm, int e0, int e1,
+                                   const void* eps, void* nper, int perturb,
+                                   int nsys, void* stream) {
+  return launch_node_edges<float>(vals, ldv, off, nr, w, lsize, desc, cm,
+                                  e0, e1, eps, nper, perturb, nsys, stream);
 }

@@ -130,7 +130,8 @@ __device__ __forceinline__ void dmma(double* d, double a, double b) {
 // a - q b is exact under fma and q + rem rb rounds to the correctly rounded
 // quotient (Markstein's theorem) -- the same bits as a / b, at a product and
 // two fma on the chain instead of a full division, and with no branch.  A
-// zero dividend gives q, exact.  float32 operands run the same steps in
+// zero dividend gives q, exact, and so does a non-finite float32 one (an
+// infinite dividend keeps its sign).  float32 operands run the same steps in
 // float64 and round the float64 quotient to float32, which is the
 // correctly rounded float32 quotient (53 >= 2 * 24 + 2 bits: the double
 // rounding is innocuous), so no float32 operand ever leaves the fast path
@@ -161,7 +162,9 @@ __device__ __forceinline__ float div_fast(float a, float b, double rb,
   const double q = ad * rb;
   const double q1 = fma(fma(-q, (double)b, ad), rb, q);
   ok &= rb == rb;
-  return (float)(a == 0.f ? q : q1);
+  // a zero or non-finite dividend: q is the quotient (inf / b keeps its
+  // sign, where the correction step would turn it into NaN)
+  return (float)((a == 0.f) | !(fabsf(a) <= 3.402823466e38f) ? q : q1);
 }
 
 // the true division, a call on the rare path

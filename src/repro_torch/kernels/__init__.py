@@ -14,9 +14,11 @@ from .trisolve import ops as trisolve_ops
 from .wkv import ops as wkv_ops
 
 #: wrapper name → wrapper, for every kernel entry point (``suprow_update``
-#: has no caller on an engine path, as in the JAX package, and
+#: has no caller on an engine path, as in the JAX package;
 #: ``panel_lu_batched`` none in the engine, which runs K1 in place;
-#: ``flash_attention`` and ``wkv`` run in the models' prefill)
+#: ``gemm_update`` none since the unrolled schedule runs K5 as one
+#: ``node_edges_inplace`` launch per node; ``flash_attention`` and ``wkv``
+#: run in the models' prefill)
 WRAPPERS = {
     "panel_lu_bucket_inplace": panel_ops.panel_lu_bucket_inplace,
     "panel_lu_batched": panel_ops.panel_lu_batched,
@@ -26,6 +28,7 @@ WRAPPERS = {
     "trsm_left_upper_batched": trisolve_ops.trsm_left_upper_batched,
     "gemm_batched": supsup_ops.gemm_batched,
     "gemm_update": supsup_ops.gemm_update,
+    "node_edges_inplace": supsup_ops.node_edges_inplace,
     "suprow_update": suprow_ops.suprow_update,
     "flash_attention": flashattn_ops.flash_attention,
     "wkv": wkv_ops.wkv,

@@ -44,6 +44,7 @@ _RIGHT = [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P]
 _LEFT = [_P, _P, _P, _I, _I, _I, _P]
 _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
 _GEMM_UPDATE = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_NODE_EDGES = [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
 _SUPROW = [_P, _P, _P, _P, _I, _I, _I, _P]
 _FLASH = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, *[_L] * 9, _P]
 _WKV = [_P] * 7 + [_I] * 4 + [_L] * 8 + [_P]
@@ -57,6 +58,7 @@ SIGNATURES = {
     **{f"hylu_trsm_left_upper_{s}": _LEFT for s in ("f64", "f32")},
     **{f"hylu_bmm_{s}": _BMM for s in ("f64", "f32")},
     **{f"hylu_gemm_update_{s}": _GEMM_UPDATE for s in ("f64", "f32")},
+    **{f"hylu_node_edges_{s}": _NODE_EDGES for s in ("f64", "f32")},
     **{f"hylu_suprow_{s}": _SUPROW for s in ("f64", "f32")},
     **{f"hylu_flash_attn_{s}": _FLASH for s in ("f32", "bf16")},
     "hylu_wkv_f32": _WKV,

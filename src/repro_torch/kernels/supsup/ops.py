@@ -1,7 +1,10 @@
 """Sup-sup wrappers: K4 ``gemm_batched`` (``csrc/bmm.cu``), the trailing
-update of a sup-sup edge bucket, and K5 ``gemm_update``
-(``csrc/gemm_update.cu``), C − A·B, under ``supsup_update`` — the per-edge
-sup-sup update of the unrolled factor schedule (K3's right solve, then K5).
+update of a sup-sup edge bucket, and K5 (``csrc/gemm_update.cu``):
+``node_edges_inplace``, the unrolled schedule's node step (a node's whole
+edge loop, the sup-sup updates C − A·B among them, in one launch, in
+place), and the parent design ``gemm_update``, C − A·B per edge, under
+``supsup_update`` (K3's right solve, then ``gemm_update``), which no engine
+path calls any more.
 
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version of :mod:`.ref`.  Every launch adds one to
@@ -11,14 +14,135 @@ wrappers, nothing is padded: the kernels take the exact shapes.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from .. import _build
 from ..trisolve import ops as trisolve_ops
-from .ref import gemm_batched_plain, gemm_update_plain, supsup_update_plain
+from .ref import (gemm_batched_plain, gemm_update_plain, node_edges_plain,
+                  supsup_update_plain)
 
-__all__ = ["gemm_batched", "gemm_update", "supsup_update",
-           "gemm_batched_plain", "gemm_update_plain", "supsup_update_plain"]
+__all__ = ["EdgeTable", "NodeStep", "edge_table", "node_step",
+           "node_edges_inplace", "node_edges_plain", "gemm_batched",
+           "gemm_update", "supsup_update", "gemm_batched_plain",
+           "gemm_update_plain", "supsup_update_plain"]
+
+MAX_K = 128                 # the node kernel holds k <= 128 in registers
+_NODE_EDGES = {torch.float64: "hylu_node_edges_f64",
+               torch.float32: "hylu_node_edges_f32"}
+
+
+class EdgeTable(NamedTuple):
+    """Every edge of an unrolled plan, in node order, on one device."""
+    desc: torch.Tensor     # (E, 5) int64: soff + slsize, col_map offset,
+    #                        k, sw, len(col_map)
+    col_map: torch.Tensor  # every edge's col_map, concatenated, int64
+    edges: list            # per edge (soff, k, sw, slsize, cm): the plain
+    #                        version's, cm a view of col_map
+
+
+class NodeStep(NamedTuple):
+    """One node of the unrolled program: its panel (nr rows of w at slot
+    offset ``off``, pivot block at column ``lsize``) and its edges
+    [e0, e1) of the :class:`EdgeTable`; ``args`` are the launch's constant
+    ctypes arguments, made once."""
+    off: int
+    nr: int
+    w: int
+    lsize: int
+    e0: int
+    e1: int
+    args: tuple
+
+
+def edge_table(edges, device) -> EdgeTable:
+    """An :class:`EdgeTable` on ``device`` from host edges ``(soff, k, sw,
+    slsize, col_map)``: one host→device copy for all col_maps and one for
+    the descriptors.  Raises for k > 128 or a col_map shorter than k."""
+    cms = [np.asarray(e[4], np.int64) for e in edges]
+    lens = np.array([len(c) for c in cms], np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    desc = np.array([(soff + slsize, o, k, sw, n) for (soff, k, sw, slsize,
+                                                       _), o, n
+                     in zip(edges, starts, lens)], np.int64).reshape(-1, 5)
+    if ((desc[:, 2] < 1) | (desc[:, 2] > MAX_K) | (desc[:, 4] < desc[:, 2])
+            ).any():
+        raise ValueError(f"edge descriptors need 1 <= k <= {MAX_K} and "
+                         "len(col_map) >= k")
+    dev = torch.device(device)
+    flat = torch.from_numpy(np.concatenate(cms) if cms
+                            else np.zeros(0, np.int64)).to(dev)
+    views = [flat[o:o + n] for o, n in zip(starts.tolist(), lens.tolist())]
+    return EdgeTable(desc=torch.from_numpy(desc).to(dev), col_map=flat,
+                     edges=[(int(soff), int(k), int(sw), int(slsize), cm)
+                            for (soff, k, sw, slsize, _), cm
+                            in zip(edges, views)])
+
+
+def node_step(off: int, nr: int, w: int, lsize: int, e0: int,
+              e1: int) -> NodeStep:
+    """A :class:`NodeStep`, its launch arguments made once."""
+    if not (1 <= nr and 0 <= lsize and lsize + nr <= w and 0 <= e0 <= e1):
+        raise ValueError(f"node (off={off}, nr={nr}, w={w}, lsize={lsize}, "
+                         f"edges [{e0}, {e1})) is not a panel")
+    return NodeStep(off, nr, w, lsize, e0, e1,
+                    (ctypes.c_longlong(off), ctypes.c_int(nr),
+                     ctypes.c_int(w), ctypes.c_int(lsize)))
+
+
+def node_edges_inplace(vals: torch.Tensor, table: EdgeTable, step: NodeStep,
+                       eps: torch.Tensor, nper: torch.Tensor,
+                       n_edges=None) -> None:
+    """K5 — one node step of the unrolled schedule in place on the value
+    buffer ``vals`` (K, slots): the node's edges ``[step.e0, step.e1)`` in
+    order (for each, the right solve lts = x[:, :k] U⁻¹ and x[:, k:] −
+    lts · src[:, k:] on the panel's columns of the edge's col_map), then,
+    for a width-1 node, the pivot perturbation against ``eps`` (K,), the
+    vals dtype, counted into ``nper`` (K,) int32 — as :func:`.ref.
+    node_edges_plain`.  ``n_edges`` runs only the first ``n_edges`` edges
+    and no perturbation.  Nothing is launched when there is nothing to
+    do.  Replaces the engine's per-edge gather, ``supsup_update`` (K3 +
+    ``gemm_update``) and write-back, and ``repro.kernels.supsup.ops.
+    supsup_update`` under ``_node_step_unrolled``."""
+    if vals.device.type == "cpu":
+        return node_edges_plain(vals, table, step, eps, nper, n_edges)
+    e1 = step.e1 if n_edges is None else step.e0 + n_edges
+    perturb = n_edges is None and step.nr == 1
+    if e1 == step.e0 and not perturb:
+        return None
+    name = _NODE_EDGES.get(vals.dtype)
+    if name is None:
+        raise TypeError(f"the CUDA kernels take float64 or float32, got "
+                        f"{vals.dtype}")
+    if (vals.ndim != 2 or not vals.is_contiguous() or not eps.is_contiguous()
+            or not nper.is_contiguous() or eps.shape != vals.shape[:1]
+            or nper.shape != vals.shape[:1]):
+        raise ValueError(f"node_edges_inplace: need contiguous vals (K, "
+                         f"slots), eps (K,) and nper (K,), got "
+                         f"{tuple(vals.shape)}, {tuple(eps.shape)} and "
+                         f"{tuple(nper.shape)}")
+    if eps.dtype != vals.dtype or nper.dtype != torch.int32:
+        raise TypeError(f"node_edges_inplace: eps must be {vals.dtype} and "
+                        f"nper int32, got {eps.dtype} and {nper.dtype}")
+    dev = vals.device
+    if not (vals.is_cuda and eps.device == nper.device == table.desc.device
+            == dev and e1 <= table.desc.shape[0]):
+        raise ValueError(f"node_edges_inplace: vals, eps, nper and the edge "
+                         f"table must lie on one CUDA device and hold edges "
+                         f"[{step.e0}, {e1})")
+    if step.off + step.nr * step.w > vals.shape[1]:
+        raise ValueError(f"node_edges_inplace: panel past the value buffer "
+                         f"of {vals.shape[1]} slots")
+    with _build.on_device(vals):
+        _build.launch(name, vals.data_ptr(), vals.shape[1], *step.args,
+                      table.desc.data_ptr(), table.col_map.data_ptr(),
+                      step.e0, e1, eps.data_ptr(), nper.data_ptr(),
+                      int(perturb), vals.shape[0], _build.stream_of(vals))
+    node_edges_inplace.launches += 1
+    return None
 
 
 # K4's entry points by dtype: the wrapper runs 516 times per bucketed
@@ -96,3 +220,4 @@ def supsup_update(x: torch.Tensor, src: torch.Tensor, k: int):
 
 gemm_batched.launches = 0
 gemm_update.launches = 0
+node_edges_inplace.launches = 0

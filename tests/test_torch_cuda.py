@@ -2,7 +2,9 @@
 
 Each kernel against its plain PyTorch version on the same device tensors
 (K1 and K2 also on panels with a zero pivot under a zero threshold or a
-non-finite entry; K4 over ragged shapes at one product and 2,048; K7 and
+non-finite entry; K4 over ragged shapes at one product and 2,048; K5's
+node step on synthetic nodes, a NaN source and zero pivots, every node of
+one unrolled refactor of fem2d(12, 12) and fem2d_10k's largest node; K7 and
 K8 on the strided layouts the models hand them, K7 at every head width,
 ragged, with GQA and with S != T, K8 at every head width, ragged, at
 rwkv6's full shape and at extreme decays),
@@ -22,6 +24,8 @@ duplicate-index scatter-adds (``index_add_``) sum in an order that changes
 from run to run on the card, so the engine is held to 1e-10 there too,
 not to bit-identity.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -29,7 +33,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import (HyluOptions, analyze, factor,  # noqa: E402
-                              factor_batched, refactor, solve, solve_batched)
+                              factor_batched, refactor, solve, solve_batched,
+                              torch_repeated_engine)
 from repro_torch.kernels.flashattn import ops as flash  # noqa: E402
 from repro_torch.kernels.panel import ops as panel  # noqa: E402
 from repro_torch.kernels.suprow import ops as suprow  # noqa: E402
@@ -59,6 +64,36 @@ def cuda():
 
 def _tri(rng, b, k):
     return np.triu(rng.normal(size=(b, k, k))) + 3 * np.eye(k)
+
+
+def _node_buffer(rng, K, nr, w, lsize, sources, tdt, dev):
+    """A value buffer (K, slots) of finished source panels and one target
+    node of nr rows of w (pivot block at column ``lsize``), three random
+    slots between panels; ``sources`` lists (k, m) per edge, in order: a
+    source of k rows, an L prefix of 2, a dominant U block (strict upper
+    part scaled by 1/sqrt(k); random below it, which nothing may read) and
+    an m-column suffix, mapped into k + m distinct random target columns.
+    Returns (vals, edge table, node step)."""
+    parts, edges, pos = [], [], 3
+    for k, m in sources:
+        p = rng.normal(size=(K, k, 2 + k + m))
+        p[:, :, 2:2 + k] = (np.triu(rng.normal(size=(K, k, k)), 1)
+                            / np.sqrt(k) + 3 * np.eye(k)
+                            + np.tril(rng.normal(size=(K, k, k)), -1))
+        parts.append((pos, p))
+        edges.append((pos, k, 2 + k + m, 2,
+                      np.sort(rng.choice(w, size=k + m, replace=False))))
+        pos += p[0].size + 3
+    p = rng.normal(size=(K, nr, w))
+    p[:, :, lsize:lsize + nr] += 3 * np.eye(nr)
+    parts.append((pos, p))
+    off = pos
+    vals = rng.normal(size=(K, pos + p[0].size + 3))
+    for o, p in parts:
+        vals[:, o:o + p[0].size] = p.reshape(K, -1)
+    table = supsup.edge_table(edges, dev)
+    step = supsup.node_step(off, nr, w, lsize, 0, len(edges))
+    return torch.tensor(vals, dtype=tdt, device=dev), table, step
 
 
 def _cases(rng, tdt, dev):
@@ -109,6 +144,18 @@ def _cases(rng, tdt, dev):
         v = vb.clone()
         return (v[:, :-1],) + tuple(fn(v, lay, eps(4)))
 
+    # K5's node step in place: 3 systems, a node of 17 rows fed by sup-sup
+    # and row-row edges
+    vn, tab, stp = _node_buffer(rng, 3, 17, 60, 20,
+                                [(1, 9), (5, 20), (1, 3), (40, 19)], tdt,
+                                dev)
+
+    def node_step(fn):
+        v = vn.clone()
+        nper = torch.zeros(3, dtype=torch.int32, device=dev)
+        fn(v, tab, stp, eps(3), nper)
+        return v, nper
+
     return {
         "panel_lu_bucket_inplace": (
             lambda: in_place(panel.panel_lu_bucket_inplace),
@@ -139,6 +186,8 @@ def _cases(rng, tdt, dev):
                           lambda: supsup.supsup_update_plain(x5, s5, 128)),
         "suprow_update": (lambda: suprow.suprow_update(x6, s6, 96),
                           lambda: suprow.suprow_update_plain(x6, s6, 96)),
+        "node_edges_inplace": (lambda: node_step(supsup.node_edges_inplace),
+                               lambda: node_step(supsup.node_edges_plain)),
     }
 
 
@@ -296,6 +345,34 @@ def test_trsm_quotients_are_true_divisions(dt, cuda):
     assert torch.equal(tri.trsm_batched(U, X), X / U)
     b = X[:, :1].contiguous()
     assert torch.equal(tri.trsm_left_upper_batched(U, b), b / U)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+def test_trsm_infinite_operand(dt, cuda):
+    """An infinite entry of X (right solve) or of b (left upper solve): the
+    quotients are true divisions, so the kernel's NaN and inf positions,
+    its infinities and its finite values are the plain version's (float32
+    once turned inf / d into NaN)."""
+    tdt, tol, ltol = TOLS[dt]
+    rng = np.random.default_rng(17)
+    u = torch.tensor(_tri(rng, 2, 40), dtype=tdt, device=cuda)
+    x = torch.tensor(rng.normal(size=(2, 33, 40)), dtype=tdt, device=cuda)
+    x[0, 3, 5], x[1, 7, 0] = float("inf"), -float("inf")
+    blk = torch.tensor(_tri(rng, 2, 40), dtype=tdt, device=cuda)
+    b = torch.tensor(rng.normal(size=(2, 40, 3)), dtype=tdt, device=cuda)
+    b[0, 30, 1], b[1, 39, 0] = float("inf"), -float("inf")
+    for (got, ref), t_ in (((tri.trsm_batched(u, x), tri.trsm_plain(u, x)),
+                            tol),
+                           ((tri.trsm_left_upper_batched(blk, b),
+                             tri.trsm_left_upper_plain(blk, b)), ltol)):
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        assert torch.equal(torch.isinf(got), torch.isinf(ref))
+        assert torch.isinf(ref).any()
+        assert torch.equal(got[torch.isinf(got)], ref[torch.isinf(ref)])
+        fin = torch.isfinite(ref)
+        torch.testing.assert_close(got[fin], ref[fin], rtol=t_, atol=t_)
 
 
 @pytest.mark.cuda
@@ -812,7 +889,8 @@ def test_plain_route_on_card_matches_cpu(dtype, cuda):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_unrolled_lifecycle_matches_bucketed(dtype, cuda):
     """factor → refactor → solve of one system on the card under the
-    unrolled schedule (K2 per node, K3 + K5 per sup-sup edge) against the
+    unrolled schedule (K5's node step once per node with edges or width 1,
+    K2 per node with nr > 1; neither the per-edge K5 nor K3) against the
     bucketed one: equal pivots and perturbation counts, factors within
     1e-10 in float64, residuals within 1e-10 after refinement."""
     a = fem2d(12, 12, seed=1)
@@ -835,7 +913,10 @@ def test_unrolled_lifecycle_matches_bucketed(dtype, cuda):
     nodes = base.plan.nodes
     n_supsup = sum(1 for nd in nodes for e in nd.edges
                    if nd.nr > 1 and nodes[e.src].nr > 1)
-    assert counts["gemm_update"] == counts["trsm_batched"] == n_supsup > 0
+    assert n_supsup > 0
+    assert counts["node_edges_inplace"] == sum(
+        1 for nd in nodes if nd.edges or nd.nr == 1)
+    assert counts["gemm_update"] == counts["trsm_batched"] == 0
     assert counts["panel_lu"] == sum(nd.nr > 1 for nd in nodes)
     (fb, xb, ib), (fu, xu, iu) = out["bucketed"], out["unrolled"]
     assert torch.equal(fb.inode_perm, fu.inode_perm)
@@ -844,6 +925,186 @@ def test_unrolled_lifecycle_matches_bucketed(dtype, cuda):
         torch.testing.assert_close(fu.vals, fb.vals, rtol=1e-10, atol=1e-10)
     assert max(ib["residual"], iu["residual"]) < 1e-10
     assert np.abs(xu - xb).max() / np.abs(xb).max() < 1e-10
+
+
+# K5's node step (``node_edges_inplace``) against ``node_edges_plain``: on
+# synthetic nodes (row-row and sup-row edges into a width-1 node, sup-sup
+# edges with k up to 128, col_maps longer than 128, a row too wide for
+# shared memory, 301 edges, no edge), on every node of one unrolled refactor
+# of fem2d(12, 12) and at fem2d_10k's node with the most edge work.
+NODES = {
+    "row_row": (1, 30, 4, [(1, int(m)) for m in
+                           np.random.default_rng(0).integers(0, 20, 40)]),
+    "sup_row": (1, 150, 10, [(5, 30), (1, 8), (50, 60), (1, 0), (128, 21)]),
+    "sup_sup": (17, 200, 40, [(1, 30), (2, 7), (5, 90), (64, 36), (128, 20),
+                              (1, 1)]),
+    "long_col_map": (33, 400, 100, [(100, 100), (3, 150), (2, 300)]),
+    "wide_row": (5, 9000, 8000, [(1, 40), (7, 300), (128, 100)]),
+    "many_edges": (128, 600, 300, [(1 + i % 3, 7 + i % 11)
+                                   for i in range(301)]),
+    "no_edges": (1, 12, 5, []),
+}
+
+
+def _node_held(v0, table, step, eps, tol, nonfinite=False):
+    """Kernel and plain version on copies of v0: launches, nper, the
+    node's panel (NaN and inf positions too) and every other slot's
+    bits."""
+    K = v0.shape[0]
+    g, r = v0.clone(), v0.clone()
+    ng = torch.zeros(K, dtype=torch.int32, device=v0.device)
+    nr_ = torch.zeros_like(ng)
+    before = supsup.node_edges_inplace.launches
+    supsup.node_edges_inplace(g, table, step, eps, ng)
+    supsup.node_edges_plain(r, table, step, eps, nr_)
+    torch.cuda.synchronize()
+    assert supsup.node_edges_inplace.launches == before + 1
+    assert torch.equal(ng, nr_)
+    lo, hi = step.off, step.off + step.nr * step.w
+    for a, b in ((g[:, :lo], v0[:, :lo]), (g[:, hi:], v0[:, hi:])):
+        assert torch.equal(_bits(a), _bits(b))
+    gp, rp = g[:, lo:hi], r[:, lo:hi]
+    if nonfinite:
+        assert torch.equal(torch.isnan(gp), torch.isnan(rp))
+        assert torch.equal(torch.isinf(gp), torch.isinf(rp))
+        assert torch.equal(gp[torch.isinf(gp)], rp[torch.isinf(rp)])
+        fin = torch.isfinite(rp)
+        gp, rp = gp[fin], rp[fin]
+    else:
+        assert torch.isfinite(gp).all()
+    torch.testing.assert_close(gp, rp, rtol=tol, atol=tol)
+    return g, ng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("case", sorted(NODES))
+def test_node_edges_shapes(case, K, dt, cuda):
+    tdt, tol, _ = TOLS[dt]
+    nr, w, lsize, sources = NODES[case]
+    rng = np.random.default_rng(len(case) * 31 + K)
+    v0, table, step = _node_buffer(rng, K, nr, w, lsize, sources, tdt, cuda)
+    # a width-1 node perturbs its pivot in the last system only
+    eps = torch.full((K,), 1e-8, dtype=tdt, device=cuda)
+    eps[-1] = 1e6 if nr == 1 else 1e-8
+    g, ng = _node_held(v0, table, step, eps, tol)
+    if nr == 1:
+        assert ng.tolist() == [0] * (K - 1) + [1]
+    # stopped after half the edges: no perturbation
+    half = len(sources) // 2
+    if half:
+        before = supsup.node_edges_inplace.launches
+        g, r = v0.clone(), v0.clone()
+        for fn, v in ((supsup.node_edges_inplace, g),
+                      (supsup.node_edges_plain, r)):
+            fn(v, table, step, eps, torch.zeros(K, dtype=torch.int32,
+                                                device=cuda), half)
+        torch.cuda.synchronize()
+        assert supsup.node_edges_inplace.launches == before + 1
+        torch.testing.assert_close(g, r, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("nr", [1, 17])
+@pytest.mark.parametrize("case", ["nan_in_source", "zero_pivot"])
+def test_node_edges_nonfinite(case, nr, dt, cuda):
+    """A NaN in a source's U block or suffix, or an exact zero as a k = 1
+    divisor (and, for nr > 1, on a source's U diagonal) with the target's
+    pivot zero under eps = 0: the kernel gives the plain version's NaN and
+    inf positions, its infinities and its finite values.  The plain
+    version's sup-sup solve is K3's column sweep, the kernel's order of
+    terms; the zero divisor feeds no sup-row edge (nr = 1), whose plain
+    version, ``torch.linalg.solve_triangular``, combines infinities in an
+    order of its own."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(nr + len(case))
+    sources = [(6, 12), (1, 4), (30, 9), (1, 10)]
+    v0, table, step = _node_buffer(rng, 2, nr, 70, 25, sources, tdt, cuda)
+    e6, e1 = table.edges[0], table.edges[-1]
+    if case == "nan_in_source":
+        v0[0, e6[0] + 2 * e6[2] + e6[3] + 4] = float("nan")     # U, row 2
+        v0[1, e1[0] + e1[3] + 5] = float("nan")                 # suffix
+    else:
+        v0[:, e1[0] + e1[3]] = 0.0                       # k = 1 divisor
+        if nr > 1:
+            v0[1, e6[0] + 3 * e6[2] + e6[3] + 3] = 0.0   # U[3, 3]
+        v0[:, step.off + step.lsize] = 0.0               # target pivot
+    eps = torch.zeros(2, dtype=tdt, device=cuda)
+    g, ng = _node_held(v0, table, step, eps, tol, nonfinite=True)
+    assert not torch.isfinite(g[:, step.off:step.off + step.nr * step.w]
+                              ).all()
+    assert ng.tolist() == [0, 0]
+
+
+def _spy_node_steps(monkeypatch, tol):
+    """Hold every node step the engine launches to the plain version on a
+    copy of its input; returns the list of checked (nr, edges)."""
+    seen, orig = [], supsup.node_edges_inplace
+
+    def spy(vals, table, step, eps, nper, n_edges=None):
+        v0, n0 = vals.clone(), nper.clone()
+        orig(vals, table, step, eps, nper, n_edges)
+        supsup.node_edges_plain(v0, table, step, eps, n0, n_edges)
+        torch.cuda.synchronize()
+        assert torch.equal(nper, n0)
+        torch.testing.assert_close(vals, v0, rtol=tol, atol=tol)
+        seen.append((step.nr, step.e1 - step.e0))
+
+    spy.launches = 0
+    monkeypatch.setattr(supsup, "node_edges_inplace", spy)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("K", [1, 3])
+def test_node_edges_every_node_of_fem2d_12(K, dt, cuda, monkeypatch):
+    """Every node step of one unrolled refactor of fem2d(12, 12)'s
+    supernodal plan (K systems), each held to the plain version on the
+    same input."""
+    tdt, tol, _ = TOLS[dt]
+    A = to_csr(fem2d(12, 12, seed=1))
+    an = analyze(A, HyluOptions(force_mode="supernodal", max_super=4,
+                                bulk_min_width=2, factor_dtype=dt,
+                                factor_schedule="unrolled"))
+    eng = torch_repeated_engine(an)
+    vals = A.data[None] * np.random.default_rng(K).uniform(0.8, 1.2,
+                                                            (K, A.nnz))
+    seen = _spy_node_steps(monkeypatch, tol)
+    f = eng.refactor_batched(torch.from_numpy(vals).to(cuda))
+    nodes = an.plan.nodes
+    assert len(seen) == sum(1 for nd in nodes if nd.edges or nd.nr == 1)
+    assert any(nr > 1 and n > 0 for nr, n in seen)
+    assert torch.isfinite(f.vals).all()
+
+
+@functools.lru_cache(maxsize=1)
+def _fem2d_10k():
+    """fem2d_10k's unrolled engine on the card (analysed once)."""
+    A = to_csr(fem2d(100, 100, seed=930))
+    an = analyze(A, HyluOptions(factor_schedule="unrolled"))
+    return A, torch_repeated_engine(an)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("K", [1, 3])
+def test_node_edges_at_fem2d_10k_largest_node(K, dt, cuda):
+    """fem2d_10k's node with the most edge work (nr = 128, 1,085 edges) on
+    the buffer the unrolled program hands it, in float64 and float32."""
+    tdt, tol, _ = TOLS[dt]
+    A, eng = _fem2d_10k()
+    plan = eng.plan
+    work = [sum(nd.nr * plan.nodes[e.src].nr * len(e.col_map)
+                for e in nd.edges) for nd in plan.nodes]
+    t = int(np.argmax(work))
+    vals = A.data[None] * np.random.default_rng(K).uniform(0.8, 1.2,
+                                                            (K, A.nnz))
+    v0, eps = eng.refactor_batched(torch.from_numpy(vals).to(cuda),
+                                   stop=(t, 0))
+    _node_held(v0.to(tdt), eng._edges, eng._nodes[t][1], eps.to(tdt), tol)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,267 @@
+"""The unrolled schedule's node step (K5's ``node_edges_inplace``) against
+the JAX package's.
+
+On the CPU the wrapper runs its plain version, ``node_edges_plain``, in
+place on the value buffer.  Each case builds one target node fed by
+finished source panels, with values from a numpy seed, and runs the node
+step on both sides: here ``node_edges_inplace`` and then, for nr > 1, the
+port's K2 (its plain version); on the JAX side
+``repro.core.jax_engine._node_step_unrolled`` with ``use_pallas=True`` in
+interpret mode, one system at a time.  Tolerances are those of
+``tests/test_kernels.py``: 1e-10 in float64 (the two sides sum in another
+order), 1e-4 in float32.  Pivot permutations and perturbation counts must
+match exactly, and every slot outside the node's panel must keep its bits.
+
+The CUDA kernel itself is held against ``node_edges_plain`` on the card by
+``tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import jax_engine  # noqa: E402
+from repro.core.plan import Edge, NodePlan  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.core import (HyluOptions, analyze,  # noqa: E402
+                              torch_repeated_engine)
+from repro_torch.kernels.panel import ops as tpanel  # noqa: E402
+from repro_torch.kernels.supsup import ops as supsup  # noqa: E402
+from repro_torch.matrices import fem2d, to_csr  # noqa: E402
+
+DTYPES = {"float64": (jnp.float64, torch.float64, 1e-10),
+          "float32": (jnp.float32, torch.float32, 1e-4)}
+K_SYS = 2                 # systems in the port's value buffer
+GAP = 3                   # slots between panels, outside every panel
+
+
+def _node_case(rng, nr, ks, lsize=12, usize=5):
+    """Source panels of ks[i] rows (each feeding one edge, in order) and a
+    target node of nr rows at the end, in one value buffer of K_SYS
+    systems with GAP random slots between panels.  Sources: an L prefix
+    of 2, then [U block | suffix], the block's strict upper part scaled by
+    1/sqrt(k) over 3 I on the diagonal (garbage below it, which nobody may
+    read).  Returns (vals (K_SYS, slots) numpy, nodes, offs, target)."""
+    w = lsize + nr + usize
+    nodes, offs, pos, parts = [], [], GAP, []
+    for i, k in enumerate(ks):
+        m = int(rng.integers(0, min(w - k, 8) + 1))
+        sw = 2 + k + m
+        p = rng.normal(size=(K_SYS, k, sw))
+        p[:, :, 2:2 + k] = (np.triu(rng.normal(size=(K_SYS, k, k)), 1)
+                            / np.sqrt(k) + 3 * np.eye(k)
+                            + np.tril(rng.normal(size=(K_SYS, k, k)), -1))
+        nodes.append(NodePlan(nid=i, r0=0, r1=k, pattern=np.arange(sw),
+                              lsize=2, usize=m, edges=[]))
+        offs.append(pos)
+        parts.append((pos, p))
+        pos += k * sw + GAP
+    tgt = len(ks)
+    edges = []
+    for i, nd in enumerate(nodes):
+        k, m = nd.nr, nd.usize
+        edges.append(Edge(src=i, col_map=np.sort(
+            rng.choice(w, size=k + m, replace=False))))
+    p = rng.normal(size=(K_SYS, nr, w))
+    p[:, :, lsize:lsize + nr] += 3 * np.eye(nr)
+    nodes.append(NodePlan(nid=tgt, r0=3, r1=3 + nr, pattern=np.arange(w),
+                          lsize=lsize, usize=usize, edges=edges))
+    offs.append(pos)
+    parts.append((pos, p))
+    pos += nr * w + GAP
+    vals = rng.normal(size=(K_SYS, pos))
+    for o, p in parts:
+        vals[:, o:o + p[0].size] = p.reshape(K_SYS, -1)
+    offs = np.asarray(offs + [pos], np.int64)
+    return vals, nodes, offs, nodes[tgt]
+
+
+def _port_table(nodes, offs, nd):
+    table = supsup.edge_table(
+        [(int(offs[e.src]), nodes[e.src].nr, nodes[e.src].width,
+          nodes[e.src].lsize, e.col_map) for e in nd.edges], "cpu")
+    step = supsup.node_step(int(offs[nd.nid]), nd.nr, nd.width, nd.lsize,
+                            0, len(nd.edges))
+    return table, step
+
+
+def _port_node(vals, nodes, offs, nd, eps, tdt):
+    """The port's node step on a (K_SYS, slots) buffer: the wrapper (its
+    plain version on the CPU), then K2 for nr > 1.  Returns (vals, local
+    perm (K_SYS, nr), nper (K_SYS,))."""
+    v = torch.tensor(vals, dtype=tdt)
+    e = torch.tensor(eps, dtype=tdt)
+    nper = torch.zeros(K_SYS, dtype=torch.int32)
+    table, step = _port_table(nodes, offs, nd)
+    kernels.reset_launch_counts()
+    supsup.node_edges_inplace(v, table, step, e, nper)
+    assert kernels.launch_counts()["node_edges_inplace"] == 0   # the CPU
+    perm = torch.arange(nd.nr, dtype=torch.int32).repeat(K_SYS, 1)
+    if nd.nr > 1:
+        off, nr, w = step.off, nd.nr, nd.width
+        panel = v[:, off:off + nr * w].view(K_SYS, nr, w)
+        P, perm, npn = tpanel.panel_lu(panel, nr, nd.lsize, e)
+        panel.copy_(P)
+        nper += npn
+    return v, perm, nper
+
+
+def _jax_node(vals, nodes, offs, nd, eps, jdt):
+    """``_node_step_unrolled`` (Pallas, interpret mode) per system."""
+    out = []
+    for s in range(K_SYS):
+        n = nd.r0 + nd.nr
+        v, inode, nper = jax_engine._node_step_unrolled(
+            jnp.asarray(vals[s], jdt), jnp.arange(n, dtype=jnp.int32),
+            jnp.int32(0), nd, nodes, offs, jnp.asarray(eps[s], jdt), True,
+            True)
+        out.append((np.asarray(v), np.asarray(inode)[nd.r0:] - nd.r0,
+                    int(nper)))
+    return out
+
+
+def _held(port, ref, vals, offs, nd, tdt, tol):
+    v, perm, nper = port
+    off = int(offs[nd.nid])
+    inside = np.zeros(vals.shape[1], bool)
+    inside[off:off + nd.nr * nd.width] = True
+    before = torch.tensor(vals, dtype=tdt)
+    assert torch.equal(v[:, ~inside].view(torch.int64 if tdt == torch.float64
+                                          else torch.int32),
+                       before[:, ~inside].view(
+                           torch.int64 if tdt == torch.float64
+                           else torch.int32))
+    for s, (jv, jperm, jnper) in enumerate(ref):
+        assert np.array_equal(perm[s].numpy(), jperm)
+        assert int(nper[s]) == jnper
+        torch.testing.assert_close(v[s, inside],
+                                   torch.from_numpy(jv[inside]).to(tdt),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("nr", [1, 3, 17])
+@pytest.mark.parametrize("k", [1, 2, 5])
+def test_node_step_matches_jax(k, nr, dt):
+    """A node fed by sources of k, 1 and k rows (for nr = 1 and k > 1 the
+    sup-row edges), in place, against the JAX node step.  A width-1 node
+    perturbs its pivot in the second system (eps 1e6) and not the first."""
+    jdt, tdt, tol = DTYPES[dt]
+    rng = np.random.default_rng(100 * k + nr)
+    vals, nodes, offs, nd = _node_case(rng, nr, (k, 1, k))
+    eps = np.array([1e-8, 1e6 if nr == 1 else 1e-6])
+    port = _port_node(vals, nodes, offs, nd, eps, tdt)
+    ref = _jax_node(vals, nodes, offs, nd, eps, jdt)
+    _held(port, ref, vals, offs, nd, tdt, tol)
+    if nr == 1:
+        assert port[2].tolist() == [0, 1]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_width1_node_without_edges(dt):
+    """A width-1 node with no edge only perturbs its pivot: a positive and
+    a negative pivot below eps, and a NaN, which stays and is not
+    counted."""
+    jdt, tdt, tol = DTYPES[dt]
+    rng = np.random.default_rng(5)
+    vals, nodes, offs, nd = _node_case(rng, 1, ())
+    piv = int(offs[nd.nid]) + nd.lsize
+    vals[:, piv] = [-1e-3, 2e-3]
+    eps = np.array([1e-2, 1e-2])
+    port = _port_node(vals, nodes, offs, nd, eps, tdt)
+    _held(port, _jax_node(vals, nodes, offs, nd, eps, jdt), vals, offs, nd,
+          tdt, tol)
+    assert port[0][:, piv].tolist() == pytest.approx([-1e-2, 1e-2])
+    vals[0, piv] = np.nan
+    port = _port_node(vals, nodes, offs, nd, eps, tdt)
+    assert torch.isnan(port[0][0, piv]) and port[2].tolist() == [0, 1]
+
+
+def _engine():
+    a = to_csr(fem2d(10, 10, seed=2))
+    an = analyze(a, HyluOptions(device="cpu", force_mode="supernodal",
+                                max_super=4, bulk_min_width=2,
+                                factor_schedule="unrolled"))
+    vals = a.data[None] * np.random.default_rng(4).uniform(0.8, 1.2,
+                                                            (K_SYS, a.nnz))
+    return torch_repeated_engine(an), torch.from_numpy(vals)
+
+
+def _edge_loop(vals, plan, t, j):
+    """The unrolled schedule's per-edge loop over the first j edges of
+    node t, written out edge by edge as the engine ran it before the node
+    step (gather through col_map, divide or triangular solve, product,
+    write back)."""
+    K = vals.shape[0]
+    nodes, offs = plan.nodes, plan.panel_offset
+    nd = nodes[t]
+    off = int(offs[nd.nid])
+    panel = vals[:, off:off + nd.nr * nd.width].view(K, nd.nr, nd.width)
+    for e in nd.edges[:j]:
+        snd = nodes[e.src]
+        k, soff = snd.nr, int(offs[snd.nid])
+        src = vals[:, soff:soff + k * snd.width].view(
+            K, k, snd.width)[:, :, snd.lsize:]
+        cm = torch.from_numpy(np.asarray(e.col_map, np.int64))
+        x = panel[:, :, cm]
+        if k == 1:
+            lts = x[:, :, :1] / src[:, :, :1]
+            xr = x[:, :, 1:] - lts * src[:, :, 1:]
+        elif nd.nr > 1:
+            lts, xr = supsup.supsup_update_plain(x, src, k)
+        else:
+            lts = torch.linalg.solve_triangular(
+                src[:, :, :k], x[:, :, :k], upper=True, left=False)
+            xr = x[:, :, k:] - torch.matmul(lts, src[:, :, k:])
+        panel[:, :, cm] = torch.cat([lts, xr], dim=2)
+    return vals
+
+
+def test_stop_inside_a_node_matches_the_edge_loop():
+    """``refactor_batched(stop=(t, j))`` returns the buffer just before
+    edge j of node t: the node run over its first j edges, as the
+    per-edge loop leaves it, bit for bit on the CPU, for a sup-sup node
+    and a width-1 node."""
+    eng, a = _engine()
+    nodes = eng.plan.nodes
+    sup = max((t for t, nd in enumerate(nodes) if nd.nr > 1),
+              key=lambda t: len(nodes[t].edges))
+    row = max((t for t, nd in enumerate(nodes) if nd.nr == 1),
+              key=lambda t: len(nodes[t].edges))
+    for t in (sup, row):
+        n_e = len(nodes[t].edges)
+        assert n_e >= 3
+        v0, eps0 = eng.refactor_batched(a, stop=(t, 0))
+        j = n_e // 2
+        vj, epsj = eng.refactor_batched(a, stop=(t, j))
+        assert torch.equal(eps0, epsj)
+        assert torch.equal(vj, _edge_loop(v0.clone(), eng.plan, t, j))
+
+
+def test_unrolled_routes_agree_on_the_cpu():
+    """The node step on both routes of the unrolled schedule: the kernel
+    route (the wrapper's plain version) and ``use_kernels=False`` give the
+    same pivots and perturbation counts and factors within 1e-10."""
+    eng, a = _engine()
+    a_csr = to_csr(fem2d(10, 10, seed=2))
+    an = analyze(a_csr, HyluOptions(device="cpu", force_mode="supernodal",
+                                    max_super=4, bulk_min_width=2,
+                                    factor_schedule="unrolled",
+                                    use_kernels=False))
+    eng_plain = torch_repeated_engine(an)
+    fk, fp = eng.refactor_batched(a), eng_plain.refactor_batched(a)
+    assert torch.equal(fk.inode_perm, fp.inode_perm)
+    assert torch.equal(fk.n_perturb, fp.n_perturb)
+    torch.testing.assert_close(fk.vals, fp.vals, rtol=1e-10, atol=1e-10)
+
+
+def test_edge_table_refuses_what_the_kernel_does_not_take():
+    cm = np.arange(130)
+    with pytest.raises(ValueError, match="k <= 128"):
+        supsup.edge_table([(0, 129, 130, 0, cm)], "cpu")
+    with pytest.raises(ValueError, match="len"):
+        supsup.edge_table([(0, 3, 4, 2, np.arange(2))], "cpu")
+    with pytest.raises(ValueError, match="not a panel"):
+        supsup.node_step(0, 4, 5, 2, 0, 1)
