@@ -39,10 +39,14 @@
 // What bounds it on the card: per edge 2 nr k (k + m) operations on the
 // panel's touched columns and the source rows, so bytes; but the edges of
 // one node form a dependent chain (up to 1,085 at fem2d_10k), so per edge
-// it is latency: the next edge's descriptor, col_map slice, diagonal and
-// first source row are loaded one edge ahead, U's next row one step ahead,
-// and the row's values are read from shared memory.  At fem2d_10k most
-// edges have k = 1 and the launches (one per node) set the pace.
+// it is latency.  So the node's descriptors are copied to shared memory in
+// windows of kWindow edges, and each edge is staged kRing - 1 edges ahead
+// by cp.async into a ring of kRing slots (per lane, its columns' col_map
+// entries, source row 0 and U's diagonal), U's next row is loaded a step
+// ahead, and the row's values are read from shared memory.  At fem2d_10k
+// most edges have k = 1 and the launches (one per node) set the pace: a
+// ring of 2, 3, 4 or 6 slots measured the same, and registers staged one
+// edge ahead (the first design) 13% slower over a refactor.
 //
 // hylu_gemm_update_* (the parent design, kept as chip_smoke.py's yardstick
 // for the node kernel; no engine path calls it): OUT[e] = C[e] - A[e] @ B[e]
@@ -150,7 +154,11 @@ int launch_gemm_update(const void* C, const void* A, const void* B, void* OUT,
 constexpr int kMaxK = 128;             // supernode cap: k <= 128
 constexpr int kSlots = kMaxK / 32;     // register columns per lane
 constexpr int kDescFields = 5;         // src offset, cm offset, k, sw, len
-constexpr int kRowSmemBytes = 32768;   // a row up to this stays in shared
+constexpr int kRing = 4;               // edges staged ahead, ring slots
+constexpr int kWindow = 256;           // descriptors in shared at a time
+// a row up to this stays in shared memory: with the static buffers
+// (desc_s 10 KB, the ring 4 / 8 KB, lts_s 0.5 / 1 KB) under 48 KB
+constexpr int kRowSmemBytes = 24576;
 constexpr unsigned kFull = 0xffffffffu;
 
 // a / b, correctly rounded, from the reciprocal rb = 1 / b: K3's division
@@ -187,84 +195,102 @@ __device__ __noinline__ T true_div(T a, T b) {
   return a / b;
 }
 
-// What one edge needs before its first step, loaded an edge ahead: the
-// source rows, the col_map slice and, for lane l's columns c = l + 32 s,
-// their col_map entries, the source's row 0 and U's diagonal there.
-template <typename T>
-struct Stage {
-  const T* src;                 // source row 0 (row j at src + j * sw)
-  const long long* cm;
-  int k, sw, len;
-  int col[kSlots];              // cm[c], c < len
-  T u0[kSlots];                 // src[0, c], c < len
-  T dg[kSlots];                 // src[c, c], c < k (else 1)
-};
-
-struct Desc {
-  long long v[kDescFields];
-};
-
-__device__ __forceinline__ Desc load_desc(const long long* desc, int e) {
-  Desc d;
-#pragma unroll
-  for (int f = 0; f < kDescFields; ++f)
-    d.v[f] = __ldg(desc + (long long)kDescFields * e + f);
-  return d;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// cp.async of `size` bytes (4 or 8), of which the first src_bytes are read
+// and the rest zero-filled.
+template <int size>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(size), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int n>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// One edge's descriptor in shared memory: source row offset, col_map
+// offset, k, source width, len(col_map).
+struct EdgeDesc {
+  long long src, cm;
+  int k, sw, len;
+};
+
+__device__ __forceinline__ EdgeDesc read_desc(const long long* d) {
+  return {d[0], d[1], (int)d[2], (int)d[3], (int)d[4]};
+}
+
+// Stage one edge into a ring slot by cp.async: for lane l's columns
+// c = l + 32 s, c < 128, the col_map entry, source row 0 and U's diagonal
+// (zero past len and past k); each lane copies and later reads its own.
 template <typename T>
-__device__ __forceinline__ Stage<T> load_stage(const T* vs,
-                                               const long long* cm,
-                                               const Desc& d, int lane) {
-  Stage<T> st;
-  st.src = vs + d.v[0];
-  st.cm = cm + d.v[1];
-  st.k = (int)d.v[2];
-  st.sw = (int)d.v[3];
-  st.len = (int)d.v[4];
+__device__ __forceinline__ void stage_edge(const T* vs, const long long* cm,
+                                           const EdgeDesc& d, long long* col,
+                                           T* u0, T* dg, int lane) {
+  const T* src = vs + d.src;
+  const long long* cme = cm + d.cm;
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int c = lane + 32 * s;
-    const bool in = c < st.len;
-    st.col[s] = in ? (int)__ldg(st.cm + c) : 0;
-    st.u0[s] = in ? __ldg(st.src + c) : T(0);
-    st.dg[s] = c < st.k ? __ldg(st.src + (long long)c * st.sw + c) : T(1);
+    const bool in = c < d.len, diag = c < d.k;
+    cp_async<8>(col + c, in ? cme + c : cm, in ? 8 : 0);
+    cp_async<(int)sizeof(T)>(u0 + c, in ? src + c : vs,
+                             in ? (int)sizeof(T) : 0);
+    cp_async<(int)sizeof(T)>(dg + c, diag ? src + (long long)c * d.sw + c : vs,
+                             diag ? (int)sizeof(T) : 0);
   }
-  return st;
 }
 
 // One edge on one row (in shared or device memory): the column-form sweep
 // over j < k on the lane's registers, then the columns past 128, if any,
 // from the lts published in shared memory.
 template <typename T>
-__device__ __forceinline__ void edge_step(T* row, const Stage<T>& st,
+__device__ __forceinline__ void edge_step(T* row, const T* vs,
+                                          const long long* cm,
+                                          const EdgeDesc& d,
+                                          const long long* col_s,
+                                          const T* u0_s, const T* dg_s,
                                           T* lts_s, int lane) {
-  const int k = st.k, len = st.len;
-  T x[kSlots], u[kSlots];
+  const int k = d.k, len = d.len;
+  const T* src = vs + d.src;
+  int col[kSlots];
+  T x[kSlots], u[kSlots], dg[kSlots];
   double rd[kSlots];
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int c = lane + 32 * s;
-    x[s] = c < len ? row[st.col[s]] : T(0);
-    u[s] = st.u0[s];
-    rd[s] = recip(st.dg[s]);
+    col[s] = (int)col_s[c];
+    x[s] = c < len ? row[col[s]] : T(0);
+    u[s] = u0_s[c];
+    dg[s] = dg_s[c];
+    rd[s] = 32 * s < k ? recip(dg[s]) : 1.0;
   }
   for (int j = 0; j < k; ++j) {
     T un[kSlots];                         // U's row j + 1, a step ahead
-    const T* next = st.src + (long long)(j + 1) * st.sw;
+    const T* next = src + (long long)(j + 1) * d.sw;
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
       const int c = lane + 32 * s;
       un[s] = (j + 1 < k && c > j + 1 && c < len) ? __ldg(next + c) : T(0);
     }
     const int js = j >> 5, jl = j & 31;
-    T xo = x[0], dd = st.dg[0];
+    T xo = x[0], dd = dg[0];
     double rr = rd[0];
 #pragma unroll
     for (int s = 1; s < kSlots; ++s)
       if (js == s) {
         xo = x[s];
-        dd = st.dg[s];
+        dd = dg[s];
         rr = rd[s];
       }
     const T xj = __shfl_sync(kFull, xo, jl);
@@ -286,22 +312,23 @@ __device__ __forceinline__ void edge_step(T* row, const Stage<T>& st,
   }
 #pragma unroll
   for (int s = 0; s < kSlots; ++s)
-    if (lane + 32 * s < len) row[st.col[s]] = x[s];
+    if (lane + 32 * s < len) row[col[s]] = x[s];
   if (len > kMaxK) {                      // the columns past 128
     __syncwarp();
+    const long long* cme = cm + d.cm;
     for (int c0 = kMaxK; c0 < len; c0 += kMaxK) {
-      int col[kSlots];
+      int cc[kSlots];
       T y[kSlots];
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
         const int c = c0 + lane + 32 * s;
-        col[s] = c < len ? (int)__ldg(st.cm + c) : 0;
-        y[s] = c < len ? row[col[s]] : T(0);
+        cc[s] = c < len ? (int)__ldg(cme + c) : 0;
+        y[s] = c < len ? row[cc[s]] : T(0);
       }
 #pragma unroll 4
       for (int j = 0; j < k; ++j) {
         const T l = lts_s[j];
-        const T* uj = st.src + (long long)j * st.sw;
+        const T* uj = src + (long long)j * d.sw;
 #pragma unroll
         for (int s = 0; s < kSlots; ++s) {
           const int c = c0 + lane + 32 * s;
@@ -310,15 +337,17 @@ __device__ __forceinline__ void edge_step(T* row, const Stage<T>& st,
       }
 #pragma unroll
       for (int s = 0; s < kSlots; ++s)
-        if (c0 + lane + 32 * s < len) row[col[s]] = y[s];
+        if (c0 + lane + 32 * s < len) row[cc[s]] = y[s];
     }
   }
   __syncwarp();               // the next edge reads what other lanes wrote
 }
 
 // grid (nr, K), one warp a block: row blockIdx.x of the node's panel of
-// system blockIdx.y.  Edges [e0, e1) of the descriptor table, two stages
-// alternating so that the next edge's loads fly while this one runs.
+// system blockIdx.y.  The edges [e0, e1) of the descriptor table go in
+// windows of kWindow: a window's descriptors are copied to shared memory,
+// then each edge is staged kRing - 1 edges ahead into a ring of kRing
+// slots by cp.async, so its loads fly while the edges before it run.
 template <typename T, bool SMEM>
 __global__ void __launch_bounds__(32)
 node_edges_kernel(T* vals, long long ldv, long long off, int w, int lsize,
@@ -328,29 +357,43 @@ node_edges_kernel(T* vals, long long ldv, long long off, int w, int lsize,
                   int perturb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T lts_s[kMaxK];
+  __shared__ long long desc_s[kWindow * kDescFields];
+  __shared__ long long col_s[kRing][kMaxK];
+  __shared__ T u0_s[kRing][kMaxK], dg_s[kRing][kMaxK];
   const int lane = threadIdx.x;
   const long long sys = blockIdx.y;
   const T* vs = vals + sys * ldv;
   T* grow = vals + sys * ldv + off + (long long)blockIdx.x * w;
   T* row = SMEM ? reinterpret_cast<T*>(smem_raw) : grow;
-  if (SMEM) {
+  if (SMEM)
     for (int c = lane; c < w; c += 32) row[c] = grow[c];
-    __syncwarp();
-  }
-  if (e0 < e1) {
-    Stage<T> a = load_stage<T>(vs, cm, load_desc(desc, e0), lane), b;
-    Desc dn;
-    if (e0 + 1 < e1) dn = load_desc(desc, e0 + 1);
-    for (int e = e0; e < e1; e += 2) {
-      if (e + 1 < e1) b = load_stage<T>(vs, cm, dn, lane);
-      if (e + 2 < e1) dn = load_desc(desc, e + 2);
-      edge_step<T>(row, a, lts_s, lane);
-      if (e + 1 >= e1) break;
-      if (e + 2 < e1) a = load_stage<T>(vs, cm, dn, lane);
-      if (e + 3 < e1) dn = load_desc(desc, e + 3);
-      edge_step<T>(row, b, lts_s, lane);
+  for (int wb = e0; wb < e1; wb += kWindow) {
+    const int n = min(e1 - wb, kWindow);
+    for (int i = lane; i < n * kDescFields; i += 32)
+      cp_async<8>(desc_s + i, desc + (long long)wb * kDescFields + i, 8);
+    cp_commit();
+    cp_wait<0>();
+    __syncwarp();               // the window (and the row) for every lane
+#pragma unroll
+    for (int x = 0; x < kRing - 1; ++x) {
+      if (x < n)
+        stage_edge<T>(vs, cm, read_desc(desc_s + x * kDescFields), col_s[x],
+                      u0_s[x], dg_s[x], lane);
+      cp_commit();
+    }
+    for (int i = 0; i < n; ++i) {
+      const int x = i + kRing - 1, slot = x % kRing;
+      if (x < n)                // into the slot edge i - 1 has finished with
+        stage_edge<T>(vs, cm, read_desc(desc_s + x * kDescFields),
+                      col_s[slot], u0_s[slot], dg_s[slot], lane);
+      cp_commit();
+      cp_wait<kRing - 1>();     // edge i's stage has landed
+      const int si = i % kRing;
+      edge_step<T>(row, vs, cm, read_desc(desc_s + i * kDescFields),
+                   col_s[si], u0_s[si], dg_s[si], lts_s, lane);
     }
   }
+  __syncwarp();
   if (perturb && lane == 0) {            // width 1: the pivot, row 0
     const T d = row[lsize], ep = eps[sys];
     if (fabs(d) < ep) {

@@ -946,7 +946,7 @@ NODES = {
 }
 
 
-def _node_held(v0, table, step, eps, tol, nonfinite=False):
+def _node_step_held(v0, table, step, eps, tol, nonfinite=False):
     """Kernel and plain version on copies of v0: launches, nper, the
     node's panel (NaN and inf positions too) and every other slot's
     bits."""
@@ -988,7 +988,7 @@ def test_node_edges_shapes(case, K, dt, cuda):
     # a width-1 node perturbs its pivot in the last system only
     eps = torch.full((K,), 1e-8, dtype=tdt, device=cuda)
     eps[-1] = 1e6 if nr == 1 else 1e-8
-    g, ng = _node_held(v0, table, step, eps, tol)
+    g, ng = _node_step_held(v0, table, step, eps, tol)
     if nr == 1:
         assert ng.tolist() == [0] * (K - 1) + [1]
     # stopped after half the edges: no perturbation
@@ -1032,7 +1032,7 @@ def test_node_edges_nonfinite(case, nr, dt, cuda):
             v0[1, e6[0] + 3 * e6[2] + e6[3] + 3] = 0.0   # U[3, 3]
         v0[:, step.off + step.lsize] = 0.0               # target pivot
     eps = torch.zeros(2, dtype=tdt, device=cuda)
-    g, ng = _node_held(v0, table, step, eps, tol, nonfinite=True)
+    g, ng = _node_step_held(v0, table, step, eps, tol, nonfinite=True)
     assert not torch.isfinite(g[:, step.off:step.off + step.nr * step.w]
                               ).all()
     assert ng.tolist() == [0, 0]
@@ -1104,7 +1104,8 @@ def test_node_edges_at_fem2d_10k_largest_node(K, dt, cuda):
                                                             (K, A.nnz))
     v0, eps = eng.refactor_batched(torch.from_numpy(vals).to(cuda),
                                    stop=(t, 0))
-    _node_held(v0.to(tdt), eng._edges, eng._nodes[t][1], eps.to(tdt), tol)
+    _node_step_held(v0.to(tdt), eng._edges, eng._nodes[t][1], eps.to(tdt),
+                    tol)
 
 
 @pytest.mark.cuda
