@@ -485,9 +485,10 @@ def unrolled_operands(torch, np, eng_u, a_dev, pred):
 def node_work(np, plan, t, elem):
     """(operations, bytes) of node t's step on one system: per edge nr k^2
     for the right solve and 2 nr k m for the product; the panel's touched
-    columns read and written once per row, each edge's source rows and
-    col_map read once, the descriptors and, for a width-1 node, its pivot
-    and threshold."""
+    columns read and written once per row, of each edge's source rows the
+    part the function reads once (U's upper triangle, k (k + 1) / 2, and
+    the k x m rows past it), its col_map, the descriptors and, for a
+    width-1 node, its pivot and threshold."""
     nodes = plan.nodes
     nd = nodes[t]
     flops = float(sum(nd.nr * (nodes[e.src].nr ** 2 + 2 * nodes[e.src].nr
@@ -495,9 +496,11 @@ def node_work(np, plan, t, elem):
                       for e in nd.edges))
     touched = (np.unique(np.concatenate([e.col_map for e in nd.edges])).size
                if nd.edges else int(nd.nr == 1))
-    nbytes = (2 * nd.nr * touched * elem
-              + sum(nodes[e.src].nr * len(e.col_map) * elem
-                    + 8 * (len(e.col_map) + 5) for e in nd.edges)
+    src_elems = sum(
+        k * (k + 1) // 2 + k * (len(e.col_map) - k)
+        for e in nd.edges for k in (nodes[e.src].nr,))
+    nbytes = (2 * nd.nr * touched * elem + src_elems * elem
+              + sum(8 * (len(e.col_map) + 5) for e in nd.edges)
               + (2 * elem + 4 if nd.nr == 1 else 0))
     return flops, nbytes
 
@@ -509,38 +512,26 @@ def node_bound_ms(np, plan, t, dname):
 
 def parent_node_step(torch, eng, t, vals, eps, nper, record=None):
     """Node t's edge loop and width-1 perturbation as the engine ran them
-    before the node kernel (the parent route): per edge a gather through
-    col_map, a divide (k = 1), ``supsup_update`` (K3's right solve, then
-    ``gemm_update``: nr > 1, k > 1) or a triangular solve and a product
-    (nr = 1), and a write-back.  ``record(x, src, k)`` sees the operands
-    of every sup-sup edge."""
+    before the node kernel (the parent route): ``node_edges_plain`` with
+    its sup-sup update (nr > 1, k > 1) bound to the wrapper
+    ``supsup_update``, K3's right solve then ``gemm_update``; the other
+    edges run as the plain version runs them.  ``record(x, src, k)`` sees
+    the operands of every sup-sup edge."""
     from repro_torch.kernels.supsup import ops as supsup_ops
+    from repro_torch.kernels.supsup import ref as supsup_ref
 
-    _, step = eng._nodes[t]
-    K = vals.shape[0]
-    nr, w, lsize = step.nr, step.w, step.lsize
-    panel = vals[:, step.off:step.off + nr * w].view(K, nr, w)
-    for soff, k, sw, slsize, cm in eng._edges.edges[step.e0:step.e1]:
-        src = vals[:, soff:soff + k * sw].view(K, k, sw)[:, :, slsize:]
-        x = panel[:, :, cm]
-        if k == 1:
-            lts = x[:, :, :1] / src[:, :, :1]
-            xr = x[:, :, 1:] - lts * src[:, :, 1:]
-        elif nr > 1:
-            if record is not None:
-                record(x, src, k)
-            lts, xr = supsup_ops.supsup_update(x, src, k)
-        else:
-            lts = torch.linalg.solve_triangular(
-                src[:, :, :k], x[:, :, :k], upper=True, left=False)
-            xr = x[:, :, k:] - torch.matmul(lts, src[:, :, k:])
-        panel[:, :, cm] = torch.cat([lts, xr], dim=2)
-    if nr == 1:
-        d = panel[:, 0, lsize]
-        small = d.abs() < eps
-        panel[:, 0, lsize] = torch.where(
-            small, torch.where(d >= 0, eps, -eps), d)
-        nper += small.to(torch.int32)
+    def kernel_update(x, src, k):
+        if record is not None:
+            record(x, src, k)
+        return supsup_ops.supsup_update(x, src, k)
+
+    plain_update = supsup_ref.supsup_update_plain
+    supsup_ref.supsup_update_plain = kernel_update
+    try:
+        supsup_ref.node_edges_plain(vals, eng._edges, eng._nodes[t][1], eps,
+                                    nper)
+    finally:
+        supsup_ref.supsup_update_plain = plain_update
 
 
 def kernel_phase(torch, np, kernels, eng, vals0, eng_u):

@@ -32,7 +32,7 @@
 // applies x_c -= lts_j src[j, c] to its columns c > j with fused
 // multiply-adds in the input type (no TF32): the triangular solve and the
 // product in one sweep.  Columns past 128 (len(cm) > 128) take a second
-// sweep over the stored lts.  Each division is K3's (csrc/trsm.cu): a
+// sweep over the stored lts.  Each division is K3's (csrc/div_fast.cuh): a
 // product by the reciprocal corrected to a true division's bits, by true
 // division where that cannot vouch for the quotient.
 //
@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "div_fast.cuh"
 
 namespace {
 
@@ -160,40 +162,6 @@ constexpr int kWindow = 256;           // descriptors in shared at a time
 // (desc_s 10 KB, the ring 4 / 8 KB, lts_s 0.5 / 1 KB) under 48 KB
 constexpr int kRowSmemBytes = 24576;
 constexpr unsigned kFull = 0xffffffffu;
-
-// a / b, correctly rounded, from the reciprocal rb = 1 / b: K3's division
-// (csrc/trsm.cu, div_fast: Markstein's theorem), with ok false where it
-// cannot vouch for the quotient; float32 runs the steps in float64.
-__device__ __forceinline__ double recip(double b) {
-  const double ab = fabs(b);
-  return (ab >= 0x1p-400) & (ab <= 0x1p400)
-             ? 1.0 / b : __longlong_as_double(0x7ff8000000000000LL);
-}
-
-__device__ __forceinline__ double div_fast(double a, double b, double rb,
-                                           bool& ok) {
-  const double q = a * rb;
-  const double q1 = fma(fma(-q, b, a), rb, q);
-  const double aq = fabs(q);
-  ok &= (rb == rb) & ((a == 0.0) | ((aq >= 0x1p-500) & (aq <= 0x1p500)));
-  return a == 0.0 ? q : q1;
-}
-
-__device__ __forceinline__ float div_fast(float a, float b, double rb,
-                                          bool& ok) {
-  const double ad = a;
-  const double q = ad * rb;
-  const double q1 = fma(fma(-q, (double)b, ad), rb, q);
-  ok &= rb == rb;
-  // a zero or non-finite dividend: q is the quotient (inf / b keeps its
-  // sign, where the correction step would turn it into NaN)
-  return (float)((a == 0.f) | !(fabsf(a) <= 3.402823466e38f) ? q : q1);
-}
-
-template <typename T>
-__device__ __noinline__ T true_div(T a, T b) {
-  return a / b;
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -22,8 +22,9 @@
 // recurrence: each step needs the one before it.  So the recurrence is
 // blocked, and only the small diagonal solves stay sequential; each of
 // their divisions is a product by the diagonal's reciprocal corrected to
-// the true quotient's bits (div_fast below: two fma on the chain, no
-// branch, and no slow path for a zero dividend, as a true division has).
+// the true quotient's bits (div_fast, csrc/div_fast.cuh: two fma on the
+// chain, no branch, and no slow path for a zero dividend, as a true
+// division has).
 //
 // Right solve.  One block of 128 threads per (batch member, tile of 32
 // rows of X).  cp.async stages the X tile and only U's upper triangle
@@ -52,6 +53,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "div_fast.cuh"
 
 namespace {
 
@@ -122,55 +125,6 @@ __device__ __forceinline__ void dmma(double* d, double a, double b) {
       "{%0, %1};\n"
       : "+d"(d[0]), "+d"(d[1])
       : "d"(a), "d"(b));
-}
-
-// a / b, correctly rounded, from the reciprocal rb = 1 / b (itself a true
-// division in float64, made once per diagonal entry off the dependent
-// chain): the product q = a rb is within one ulp of a / b, so the remainder
-// a - q b is exact under fma and q + rem rb rounds to the correctly rounded
-// quotient (Markstein's theorem) -- the same bits as a / b, at a product and
-// two fma on the chain instead of a full division, and with no branch.  A
-// zero dividend gives q, exact, and so does a non-finite float32 one (an
-// infinite dividend keeps its sign).  float32 operands run the same steps in
-// float64 and round the float64 quotient to float32, which is the
-// correctly rounded float32 quotient (53 >= 2 * 24 + 2 bits: the double
-// rounding is innocuous), so no float32 operand ever leaves the fast path
-// (a float32 fill entry below 2^-102 would, in float32 arithmetic).  The
-// theorem needs no overflow or underflow: recip() gives NaN for a divisor
-// outside [2^-400, 2^400], and ok turns false there and, in float64, where
-// the quotient lies outside [2^-500, 2^500]; the caller then solves the
-// block again by true division.  (Short-circuit && and || here would
-// compile to branches on the chain.)
-__device__ __forceinline__ double recip(double b) {
-  const double ab = fabs(b);
-  return (ab >= 0x1p-400) & (ab <= 0x1p400)
-             ? 1.0 / b : __longlong_as_double(0x7ff8000000000000LL);
-}
-
-__device__ __forceinline__ double div_fast(double a, double b, double rb,
-                                           bool& ok) {
-  const double q = a * rb;
-  const double q1 = fma(fma(-q, b, a), rb, q);
-  const double aq = fabs(q);
-  ok &= (rb == rb) & ((a == 0.0) | ((aq >= 0x1p-500) & (aq <= 0x1p500)));
-  return a == 0.0 ? q : q1;
-}
-
-__device__ __forceinline__ float div_fast(float a, float b, double rb,
-                                          bool& ok) {
-  const double ad = a;
-  const double q = ad * rb;
-  const double q1 = fma(fma(-q, (double)b, ad), rb, q);
-  ok &= rb == rb;
-  // a zero or non-finite dividend: q is the quotient (inf / b keeps its
-  // sign, where the correction step would turn it into NaN)
-  return (float)((a == 0.f) | !(fabsf(a) <= 3.402823466e38f) ? q : q1);
-}
-
-// the true division, a call on the rare path
-template <typename T>
-__device__ __noinline__ T true_div(T a, T b) {
-  return a / b;
 }
 
 // ------------------------------------------------------------ right solve

@@ -11,10 +11,11 @@ kernel and return ``cudaGetLastError()``.  They are compiled for Hopper
 
 (one ``nvcc -c`` per source, started together, then one link).  The
 library lands in ``<repo>/build/repro_torch/`` (``$REPRO_TORCH_BUILD_DIR``
-overrides it) beside a stamp holding the sources' hash; it is rebuilt when
-the hash changes.  Nothing here runs at import time: this module is
-imported on machines without nvcc or a card, where only the plain PyTorch
-versions of the kernels run.
+overrides it) beside a stamp holding the hash of the sources and of the
+headers they include (``csrc/*.cuh``); it is rebuilt when the hash
+changes.  Nothing here runs at import time: this module is imported on
+machines without nvcc or a card, where only the plain PyTorch versions of
+the kernels run.
 """
 from __future__ import annotations
 
@@ -84,9 +85,14 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list:
+    """The headers the sources include (each compiled only through them)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

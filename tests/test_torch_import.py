@@ -126,6 +126,45 @@ def test_build_is_lazy_and_hashes_the_sources():
             _build.nvcc_path()
 
 
+def test_shared_division_header_is_in_the_build_key(tmp_path, monkeypatch):
+    """K3 and K5's node kernel take their pivot divisions from one header,
+    which neither source copies, and an edit to it changes the build key."""
+    import shutil
+
+    assert [p.name for p in _build.headers()] == ["div_fast.cuh"]
+    for name in ("trsm.cu", "gemm_update.cu"):
+        text = (_build.CSRC / name).read_text()
+        assert '#include "div_fast.cuh"' in text
+        assert "div_fast(double a" not in text and "true_div(T a" not in text
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.source_hash()
+    with open(csrc / "div_fast.cuh", "a") as f:
+        f.write("\n")
+    assert _build.source_hash() != before
+
+
+def test_port_test_modules_define_each_top_level_name_once():
+    """A second top-level ``def`` of a name in one test module silently
+    replaces the first for every test above it (a K5 card-test helper
+    once took the name of K2's and failed K2's 174 card tests)."""
+    tests_dir = os.path.dirname(os.path.abspath(__file__))
+    twice = []
+    for name in sorted(os.listdir(tests_dir)):
+        if not (name.startswith("test_torch_") and name.endswith(".py")):
+            continue
+        with open(os.path.join(tests_dir, name)) as f:
+            tree = ast.parse(f.read())
+        seen = set()
+        for node in tree.body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                if node.name in seen:
+                    twice.append(f"{name}: {node.name}")
+                seen.add(node.name)
+    assert not twice, twice
+
+
 @pytest.mark.parametrize("sub", ["configs", "models", "serve",
                                  "kernels.flashattn", "kernels.wkv"])
 def test_serving_subpackages_import_without_jax(sub):
