@@ -26,7 +26,15 @@ Phases, each printing one JSON line:
             K5 ``gemm_update``, a write-back); the per-edge K5 (C - A.B)
             and K6 (sup-row TRSV + GEMV) are held the same way at the
             largest sup-sup and sup-row edge of the unrolled schedule, on
-            the operands its program hands that edge; K1 and
+            the operands its program hands that edge; K6 also over every
+            sup-row edge at K = 32 (340 edges in 31 (k, m) groups, the
+            operands the unrolled program hands each), in one grouped
+            launch (``suprow_update_grouped``) and in one launch per
+            group, held to the plain version and timed by CUDA-graph
+            replay beside the library route (``solve_triangular`` +
+            ``baddbmm`` per group), the plain route and the summed bound,
+            and with zero divisors and NaNs in U and past it, where NaN
+            and inf positions must match; K6 at k = 128, m = 300; K1 and
             K2 also on panels with an exactly zero pivot under a zero
             threshold, where NaN and inf positions must match; K4 (and
             ``torch.bmm``) also per launch by CUDA-graph replay, on 2,048
@@ -121,7 +129,9 @@ PEAK_FLOPS = {"float64": 67e12,    # fp64 (tensor core) peak, data sheet
 TOL = {"float64": 1e-10, "float32": 1e-4}
 # K5 and K6 are also held to 1e-12 relative to the plain version's largest
 # magnitude in float64
-REL_TOL_F64 = {"gemm_update": 1e-12, "suprow_update": 1e-12}
+REL_TOL_F64 = {"gemm_update": 1e-12, "suprow_update": 1e-12,
+               "suprow_update_grouped": 1e-12}
+SUPROW_LARGE = (128, 300)           # K6's large shape (k, m), K rows
 TOL_LEFT = {"float64": 1e-10, "float32": 1e-3}
 # the serving phases: two models at full width and depth, 4 requests of
 # 2,048 prompt tokens and 16 new tokens each, weights and prompts from SEED
@@ -482,6 +492,235 @@ def unrolled_operands(torch, np, eng_u, a_dev, pred):
                             "max_m": max(v[2] for v in shapes.values())}
 
 
+def suprow_operands(torch, eng_u, a_dev):
+    """The operands the unrolled program hands every sup-row edge (a target
+    of one row, a source of k > 1 rows) at K systems, ``{(k, m): (x (n K,
+    k+m), src (n K, k, k+m))}``, the rows edge by edge, K systems each.
+    One refactor of ``a_dev`` (K, nnz) runs with a spy on the node step:
+    before the step of a node with sup-row edges, for each such edge j it
+    runs the node's first j edges (``n_edges=j``, as ``refactor_batched(
+    stop=(t, j))`` does), gathers the edge's columns of the panel and its
+    source rows (as ``unrolled_operands``) and puts the panel back."""
+    from repro_torch.kernels.supsup import ops as supsup_ops
+
+    nodes = eng_u.plan.nodes
+    want = {}
+    for t, nd in enumerate(nodes):
+        js = [j for j, e in enumerate(nd.edges)
+              if nd.nr == 1 and nodes[e.src].nr > 1]
+        if js:
+            want[eng_u._nodes[t][1].off] = js
+    found, orig = {}, supsup_ops.node_edges_inplace
+
+    def spy(vals, table, step, eps, nper, n_edges=None):
+        if n_edges is None and step.off in want:
+            lo, hi = step.off, step.off + step.w
+            panel, scratch = vals[:, lo:hi].clone(), torch.zeros_like(nper)
+            for j in want[step.off]:
+                orig(vals, table, step, eps, scratch, j)
+                soff, k, sw, slsize, cm = table.edges[step.e0 + j]
+                src = vals[:, soff:soff + k * sw].view(-1, k, sw)
+                found.setdefault((k, len(cm) - k), []).append(
+                    (vals[:, lo + cm], src[:, :, slsize:].clone()))
+                vals[:, lo:hi] = panel
+        return orig(vals, table, step, eps, nper, n_edges)
+
+    spy.launches = 0        # the wrapper counts through the module's name
+    supsup_ops.node_edges_inplace = spy
+    try:
+        eng_u.refactor_batched(a_dev)
+    finally:
+        supsup_ops.node_edges_inplace = orig
+    check(sum(map(len, found.values())) == sum(map(len, want.values())),
+          "suprow_operands: a sup-row edge was not gathered")
+    return {km: (torch.cat([x for x, _ in v]), torch.cat([s for _, s in v]))
+            for km, v in sorted(found.items())}
+
+
+def suprow_work(groups, elem):
+    """(operations, bytes) of K6 on every row of ``groups``: per row k^2 +
+    2 k m operations; x (k + m), U's upper triangle k (k + 1) / 2 and the
+    k x m rows past it read once, y (k) and xr (m) written once."""
+    flops = nbytes = 0.0
+    for (k, m), (x, _) in groups.items():
+        flops += x.shape[0] * float(k * k + 2 * k * m)
+        nbytes += x.shape[0] * elem * float(2 * (k + m) + k * (k + 1) // 2
+                                            + k * m)
+    return flops, nbytes
+
+
+def suprow_library(torch, x, src, k):
+    """K6's function in two library calls: ``solve_triangular`` and
+    ``baddbmm`` (the chip run's yardstick; the port never calls them)."""
+    y = torch.linalg.solve_triangular(src[:, :, :k], x[:, None, :k],
+                                      upper=True, left=False)
+    return y[:, 0], torch.baddbmm(x[:, None, k:], y, src[:, :, k:],
+                                  alpha=-1)[:, 0]
+
+
+def _flat(pairs):
+    return tuple(t for p in pairs for t in p)
+
+
+def _held_nonfinite(torch, got, ref, tol, what):
+    """NaN and inf positions equal, infinities of one sign, finite values
+    within tol; returns (NaN, inf, finite) counts of ref and the error."""
+    nan = inf = fin = 0
+    err = 0.0
+    for g, r in zip(got, ref):
+        check(torch.equal(torch.isnan(g), torch.isnan(r))
+              and torch.equal(torch.isinf(g), torch.isinf(r))
+              and torch.equal(g[torch.isinf(g)], r[torch.isinf(r)]),
+              f"{what}: NaN or inf positions differ")
+        f = torch.isfinite(r)
+        if f.any():
+            err = max(err, float((g[f] - r[f]).abs().max()))
+            check(bool(torch.allclose(g[f], r[f], rtol=tol, atol=tol)),
+                  f"{what}: finite values differ by {err}")
+        nan += int(torch.isnan(r).sum())
+        inf += int(torch.isinf(r).sum())
+        fin += int(f.sum())
+    return nan, inf, fin, err
+
+
+def suprow_extra(torch, suprow_ops, groups, K):
+    """K6 over every sup-row edge of the unrolled program at K systems
+    (``suprow_operands``), in float64 and float32: the per-group launches
+    held to the plain version as the grouped one is in the kernels loop;
+    device times of one pass by CUDA-graph replay (20 passes a graph) of
+    the grouped launch, the per-group launches, the library route
+    (``suprow_library`` per group) and the plain route, beside the summed
+    bound; then the non-finite case: exact zeros on U's diagonal (one
+    meeting a zero dividend, one whose infinite quotient meets a zero of
+    U), a NaN in U's upper triangle and one in the rows past it, each in
+    its own row, held to the plain version's NaN and inf positions, its
+    infinities and its finite values, through both entry points."""
+    rows = sum(x.shape[0] for x, _ in groups.values())
+    out = {"edges_systems": K, "edges_groups": len(groups),
+           "edges_rows": rows, "edges_edges": rows // K,
+           "edges_per_group": {f"{k},{m}": x.shape[0] // K
+                               for (k, m), (x, _) in groups.items()}}
+    reps = 20
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        sfx = "" if dt == torch.float64 else "_f32"
+        tol = TOL[dname]
+        gs = [(x.to(dt).contiguous(), s.to(dt).contiguous(), k)
+              for (k, _), (x, s) in groups.items()]
+        ref = _flat(suprow_ops.suprow_update_grouped_plain(gs))
+        one = _flat([suprow_ops.suprow_update(*g) for g in gs])
+        torch.cuda.synchronize()
+        err = max(float((g - r).abs().max()) for g, r in zip(one, ref))
+        check(all(bool(torch.allclose(g, r, rtol=tol, atol=tol))
+                  for g, r in zip(one, ref)),
+              f"suprow_update per group {dname}: max |kernel - plain| = "
+              f"{err}")
+        if dname == "float64":
+            rel = err / max(float(r.abs().max()) for r in ref)
+            check(rel <= REL_TOL_F64["suprow_update"],
+                  f"suprow_update per group: relative error {rel}")
+            out["groups_max_rel_err"] = rel
+        tab = suprow_ops.suprow_groups(gs)
+        grouped = [lambda: suprow_ops.suprow_update_grouped(tab)]
+        per = [lambda g=g: suprow_ops.suprow_update(*g) for g in gs]
+        lib = [lambda g=g: suprow_library(torch, *g) for g in gs]
+        plain = [lambda: suprow_ops.suprow_update_grouped_plain(gs)]
+        lib_ms, plain_ms = (lib_graph_ms(torch, fns * reps)
+                            for fns in (lib, plain))
+        bound = sum(max(fl / PEAK_FLOPS[dname], nb / HBM_BYTES_PER_S)
+                    for fl, nb in (suprow_work({km: v}, dt.itemsize)
+                                   for km, v in groups.items())) * 1e3
+        out.update({
+            "groups_max_abs_err" + sfx: err,
+            "edges_bound_ms" + sfx: bound,
+            "edges_grouped_device_ms" + sfx: graph_ms(torch,
+                                                      grouped * reps) / reps,
+            "edges_groups_device_ms" + sfx: graph_ms(torch, per * reps) / reps,
+            "edges_library_device_ms" + sfx: (
+                None if lib_ms is None else lib_ms / reps),
+            "edges_plain_device_ms" + sfx: (
+                None if plain_ms is None else plain_ms / reps),
+            "edges_groups_loop_ms" + sfx: bench_ms(
+                torch, lambda: [f() for f in per]),
+            "edges_library_loop_ms" + sfx: bench_ms(
+                torch, lambda: [f() for f in lib])})
+        # the non-finite case, on copies of three groups
+        z = [(x.clone(), s.clone(), k) for x, s, k in gs]
+        a = max(range(len(z)), key=lambda i: z[i][2])           # largest k
+        b = max(range(len(z)), key=lambda i: z[i][0].shape[0])  # most rows
+        (xa, sa, ka), (xb, sb, kb) = z[a], z[b]
+        j = ka // 2
+        sa[0, j, j] = 0.0                          # x_j / 0 = +-inf ...
+        sa[0, j, j + 1] = 0.0                      # ... meets a zero of U
+        xa[1, 0] = 0.0
+        sa[1, 0, 0] = 0.0                          # 0 / 0
+        sb[2, 0, 1] = float("nan")                 # U's upper triangle
+        sb[3, 1, kb + 4] = float("nan")            # the rows past it
+        zr = _flat(suprow_ops.suprow_update_grouped_plain(z))
+        for label, got in (
+                ("grouped", _flat(suprow_ops.suprow_update_grouped(z))),
+                ("per group", _flat([suprow_ops.suprow_update(*g)
+                                     for g in z]))):
+            torch.cuda.synchronize()
+            nan, inf, fin, e_ = _held_nonfinite(
+                torch, got, zr, tol, f"suprow {label} {dname} (zero "
+                                     "divisors, NaN in U and past it)")
+        check(nan > 0 and inf > 0, f"suprow {dname}: the non-finite case "
+                                   f"gave {nan} NaN and {inf} inf")
+        out.update({"nonfinite_nan" + sfx: nan, "nonfinite_inf" + sfx: inf,
+                    "nonfinite_finite" + sfx: fin,
+                    "nonfinite_max_abs_err" + sfx: e_})
+        del gs, ref, one, tab, grouped, per, lib, plain, z, zr
+        torch.cuda.empty_cache()
+    torch._C._cuda_clearCublasWorkspaces()
+    return out
+
+
+def suprow_large(torch, suprow_ops, dev):
+    """K6 at one large shape, ``SUPROW_LARGE`` (k, m) with K_MAIN rows of
+    random operands (U dominant: its strict upper part scaled by 1/sqrt(k)
+    over 3 I), per call in float64 and float32: held to the plain version,
+    the time per call through the wrapper and by CUDA-graph replay of 20
+    calls, the plain version's and the library route's, and the bound."""
+    k, m = SUPROW_LARGE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    x = torch.randn(K_MAIN, k + m, generator=gen, dtype=torch.float64,
+                    device=dev)
+    src = torch.randn(K_MAIN, k, k + m, generator=gen, dtype=torch.float64,
+                      device=dev)
+    src[:, :, :k] = (torch.triu(src[:, :, :k], 1) / k ** 0.5
+                     + 3 * torch.eye(k, dtype=torch.float64, device=dev))
+    out = {"large_shape": f"x ({K_MAIN}, {k} + {m}) src ({K_MAIN}, {k}, "
+                          f"{k} + {m})"}
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        sfx = "" if dt == torch.float64 else "_f32"
+        xd, sd = x.to(dt), src.to(dt)
+        got = suprow_ops.suprow_update(xd, sd, k)
+        ref = suprow_ops.suprow_update_plain(xd, sd, k)
+        torch.cuda.synchronize()
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        check(all(bool(torch.allclose(g, r, rtol=TOL[dname],
+                                      atol=TOL[dname]))
+                  for g, r in zip(got, ref)),
+              f"suprow_update large {dname}: max |kernel - plain| = {err}")
+        flops, nbytes = suprow_work({(k, m): (xd, sd)}, dt.itemsize)
+        run = [lambda: suprow_ops.suprow_update(xd, sd, k)] * 20
+        out.update({
+            "large_max_abs_err" + sfx: err,
+            "large_ms" + sfx: bench_ms(torch, run[0]),
+            "large_device_ms" + sfx: graph_ms(torch, run) / len(run),
+            "large_plain_ms" + sfx: bench_ms(
+                torch, lambda: suprow_ops.suprow_update_plain(xd, sd, k)),
+            "large_library_ms" + sfx: bench_ms(
+                torch, lambda: suprow_library(torch, xd, sd, k)),
+            "large_bound_ms" + sfx: max(flops / PEAK_FLOPS[dname],
+                                        nbytes / HBM_BYTES_PER_S) * 1e3})
+    torch._C._cuda_clearCublasWorkspaces()
+    return out
+
+
 def node_work(np, plan, t, elem):
     """(operations, bytes) of node t's step on one system: per edge nr k^2
     for the right solve and 2 nr k m for the product; the panel's touched
@@ -599,6 +838,10 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
         torch, np, eng_u, a_dev[:1], lambda nr_, k_: nr_ == 1 and k_ > 1)
     X6 = X6[:, 0]
     nr5, m5, m6 = X5.shape[1], X5.shape[2] - k5, X6.shape[1] - k6
+    # K6 over every sup-row edge of the unrolled program at K systems, one
+    # group per (k, m)
+    G6 = suprow_operands(torch, eng_u, a_dev)
+    n6 = sum(x_.shape[0] for x_, _ in G6.values()) // K
     # K5's node step on system 0 of the unrolled program (which runs one
     # system), in place, at the node with the most edge work (operations),
     # the node with the most edges and the width-1 node with the most edges
@@ -658,6 +901,9 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
                               c(S5[..., k5:]))
         x6, s6 = c(X6), c(S6)
         x6k = x6[:, None, :k6].contiguous()
+        g6 = [(c(x_), c(s_), k_) for (k_, _), (x_, s_) in G6.items()]
+        t6 = suprow_ops.suprow_groups(g6)
+        f6, b6 = suprow_work(G6, sz(dt))
         vn, en = node_base[t_n]
         base_n, eps_n = c(vn), en.to(dt)
         pan_n = base_n[:, lo_n:hi_n].clone()
@@ -763,6 +1009,15 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
                      s6[:, :, :k6], x6k, upper=True, left=False)),
              float(k6 * k6 + 2 * k6 * m6),
              (2 * (k6 + m6) + k6 * (k6 + 1) // 2 + k6 * m6) * s, TOL, None),
+            ("suprow_update_grouped", "suprow_update_grouped",
+             "src/repro/kernels/suprow/kernel.py:21",
+             "src/repro_torch/csrc/suprow.cu",
+             f"{n6} sup-row edges x {K} systems, {len(G6)} (k, m) groups "
+             f"in one launch",
+             lambda: _flat(suprow_ops.suprow_update_grouped(t6)),
+             lambda: _flat(suprow_ops.suprow_update_grouped_plain(g6)),
+             lambda: _flat([suprow_library(torch, *g_) for g_ in g6]),
+             f6, b6, TOL, None),
         ]
 
     def held(name, dname, tol, got, ref, what=""):
@@ -876,6 +1131,9 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     records["node_edges"].update(node_extra(torch, np, eng_u, node_ts,
                                             node_base))
     records["suprow_update"]["edges"] = edges6
+    records["suprow_update"].update(suprow_large(torch, suprow_ops, dev))
+    records["suprow_update_grouped"].update(suprow_extra(torch, suprow_ops,
+                                                         G6, K))
     records["bmm"].update(bmm_extra(torch, np, supsup_ops, sched, LTS, Us, K))
     for name, extra in trsm_extra(torch, trisolve_ops, eng, a_dev,
                                   (U, X, BLK, RHS)).items():

@@ -1,8 +1,9 @@
-// The correctly rounded division shared by K3 (csrc/trsm.cu) and K5's node
-// kernel (csrc/gemm_update.cu).  Both decide pivots from these quotients, so
-// their bits must be a true division's, as the plain versions' are: one copy
-// keeps the two kernels alike.  Included by both sources; the build hashes
-// this header with them (kernels/_build.py).
+// The correctly rounded division shared by K3 (csrc/trsm.cu), K5's node
+// kernel (csrc/gemm_update.cu) and K6 (csrc/suprow.cu).  They decide pivots
+// or solve from these quotients, so their bits must be a true division's,
+// as the plain versions' are: one copy keeps the kernels alike.  Included
+// by those sources; the build hashes this header with them
+// (kernels/_build.py).
 //
 // a / b, correctly rounded, from the reciprocal rb = 1 / b (itself a true
 // division in float64, made once per divisor off the dependent chain): the

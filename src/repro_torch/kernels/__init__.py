@@ -14,7 +14,8 @@ from .trisolve import ops as trisolve_ops
 from .wkv import ops as wkv_ops
 
 #: wrapper name → wrapper, for every kernel entry point (``suprow_update``
-#: has no caller on an engine path, as in the JAX package;
+#: and ``suprow_update_grouped`` have no caller on an engine path, as in
+#: the JAX package;
 #: ``panel_lu_batched`` none in the engine, which runs K1 in place;
 #: ``gemm_update`` none since the unrolled schedule runs K5 as one
 #: ``node_edges_inplace`` launch per node; ``flash_attention`` and ``wkv``
@@ -30,6 +31,7 @@ WRAPPERS = {
     "gemm_update": supsup_ops.gemm_update,
     "node_edges_inplace": supsup_ops.node_edges_inplace,
     "suprow_update": suprow_ops.suprow_update,
+    "suprow_update_grouped": suprow_ops.suprow_update_grouped,
     "flash_attention": flashattn_ops.flash_attention,
     "wkv": wkv_ops.wkv,
 }

@@ -47,6 +47,7 @@ _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
 _GEMM_UPDATE = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
 _NODE_EDGES = [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
 _SUPROW = [_P, _P, _P, _P, _I, _I, _I, _P]
+_SUPROW_GROUPED = [_P, _I, _I, _I, _I, _P]
 _FLASH = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, *[_L] * 9, _P]
 _WKV = [_P] * 7 + [_I] * 4 + [_L] * 8 + [_P]
 SIGNATURES = {
@@ -61,6 +62,7 @@ SIGNATURES = {
     **{f"hylu_gemm_update_{s}": _GEMM_UPDATE for s in ("f64", "f32")},
     **{f"hylu_node_edges_{s}": _NODE_EDGES for s in ("f64", "f32")},
     **{f"hylu_suprow_{s}": _SUPROW for s in ("f64", "f32")},
+    **{f"hylu_suprow_grouped_{s}": _SUPROW_GROUPED for s in ("f64", "f32")},
     **{f"hylu_flash_attn_{s}": _FLASH for s in ("f32", "bf16")},
     "hylu_wkv_f32": _WKV,
 }
@@ -165,6 +167,8 @@ def library():
                 fn.restype = ctypes.c_int
             lib.hylu_panel_lu_scratch.argtypes = [_I] * 5
             lib.hylu_panel_lu_scratch.restype = ctypes.c_longlong
+            lib.hylu_suprow_warps.argtypes = [_I, _I]
+            lib.hylu_suprow_warps.restype = ctypes.c_int
             lib.hylu_error_string.argtypes = [ctypes.c_int]
             lib.hylu_error_string.restype = ctypes.c_char_p
             _lib = lib

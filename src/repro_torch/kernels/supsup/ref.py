@@ -46,8 +46,11 @@ def node_edges_plain(vals: torch.Tensor, table, step, eps: torch.Tensor,
     * k == 1: a divide and a rank-1 update;
     * k > 1 and nr > 1: ``supsup_update_plain`` (the plain versions of K3
       and K5) when ``use_kernels``, else a triangular solve and a product;
-    * k > 1 and nr == 1: a triangular solve and a product, as the JAX
-      package does there with or without Pallas."""
+    * k > 1 and nr == 1: ``trsm_plain`` and a product, as the JAX package
+      does there with or without Pallas (``_trsm_upper_jax``,
+      ``jax_engine.py:53``): per column a dot over U[:j, j], then a
+      division, so a zero divisor gives the reference's NaN and inf
+      positions whatever order a library's triangular solve keeps."""
     k_sys = vals.shape[0]
     nr, w, lsize = step.nr, step.w, step.lsize
     panel = vals[:, step.off:step.off + nr * w].view(k_sys, nr, w)  # a view
@@ -58,7 +61,10 @@ def node_edges_plain(vals: torch.Tensor, table, step, eps: torch.Tensor,
         if k == 1:                                     # row-row/sup-row
             lts = x[:, :, :1] / src[:, :, :1]
             xr = x[:, :, 1:] - lts * src[:, :, 1:]
-        elif use_kernels and nr > 1:                   # sup-sup
+        elif nr == 1:                                  # sup-row
+            lts = trsm_plain(src[:, :, :k], x[:, :, :k])
+            xr = x[:, :, k:] - torch.matmul(lts, src[:, :, k:])
+        elif use_kernels:                              # sup-sup
             lts, xr = supsup_update_plain(x, src, k)
         else:
             lts = torch.linalg.solve_triangular(

@@ -156,6 +156,17 @@ def _cases(rng, tdt, dev):
         fn(v, tab, stp, eps(3), nper)
         return v, nper
 
+    # K6 grouped: groups of fem2d_10k's sup-row shapes (k <= 8, registers),
+    # and groups up to k = 128 with k = 1, m = 0 and E = 0 among them
+    # (shared memory)
+    g6 = [_suprow_group(rng, e, k, m, tdt, dev) for k, m, e in
+          ((2, 18, 53), (2, 19, 35), (6, 25, 30), (3, 28, 10), (4, 27, 2))]
+    g6l = [_suprow_group(rng, e, k, m, tdt, dev) for k, m, e in
+           ((1, 0, 3), (128, 40, 5), (2, 5, 0), (33, 300, 4), (6, 25, 9))]
+
+    def grouped(fn, groups):
+        return tuple(t for pair in fn(groups) for t in pair)
+
     return {
         "panel_lu_bucket_inplace": (
             lambda: in_place(panel.panel_lu_bucket_inplace),
@@ -188,13 +199,20 @@ def _cases(rng, tdt, dev):
                           lambda: suprow.suprow_update_plain(x6, s6, 96)),
         "node_edges_inplace": (lambda: node_step(supsup.node_edges_inplace),
                                lambda: node_step(supsup.node_edges_plain)),
+        "suprow_update_grouped": (
+            lambda: grouped(suprow.suprow_update_grouped, g6),
+            lambda: grouped(suprow.suprow_update_grouped_plain, g6)),
+        "suprow_update_grouped_large_k": (
+            lambda: grouped(suprow.suprow_update_grouped, g6l),
+            lambda: grouped(suprow.suprow_update_grouped_plain, g6l)),
     }
 
 
 # the wrapper whose count a case adds one to (supsup_update: K3 then K5)
 COUNTED = {"panel_lu_global": ("panel_lu",),
            "gemm_update_ragged": ("gemm_update",),
-           "supsup_update": ("trsm_batched", "gemm_update")}
+           "supsup_update": ("trsm_batched", "gemm_update"),
+           "suprow_update_grouped_large_k": ("suprow_update_grouped",)}
 # the solver's wrappers; K7 and K8 have their own tests below
 MODEL_WRAPPERS = ("flash_attention", "wkv")
 CASES = sorted(set(kernels.WRAPPERS) - set(MODEL_WRAPPERS)) + sorted(COUNTED)
@@ -219,6 +237,93 @@ def test_kernel_matches_plain(name, dt, cuda):
     for g, r in zip(*((got, ref) if isinstance(got, tuple)
                       else ((got,), (ref,)))):
         torch.testing.assert_close(g, r, rtol=tol, atol=tol)
+
+
+# fem2d_10k's sup-row edges (target nr = 1, source k > 1) of its unrolled
+# plan, fem2d(100, 100, seed=930): 340 edges in these 31 (k, m) groups
+SUPROW_FEM2D = [(2, 11), (2, 12), (2, 13), (2, 14), (2, 15), (2, 16),
+                (2, 17), (2, 18), (2, 19), (2, 20), (2, 21), (2, 22),
+                (2, 23), (2, 24), (2, 25), (2, 26), (2, 27), (2, 28),
+                (2, 32), (2, 35), (3, 14), (3, 17), (3, 19), (3, 21),
+                (3, 23), (3, 28), (4, 27), (6, 16), (6, 17), (6, 25),
+                (6, 26)]
+SUPROW_SHAPES = SUPROW_FEM2D + [(k, m) for k in (32, 33, 96, 128)
+                                for m in (0, 1, 31, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("k,m", SUPROW_SHAPES)
+def test_suprow_update_shapes(k, m, K, dt, cuda):
+    """K6 at each (k, m) of fem2d_10k's sup-row edges and at large k, K
+    rows: the per-group launch and the grouped launch of this group beside
+    a k = 1 group, each one launch, held to the plain version."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(1000 * k + m + K)
+    g = _suprow_group(rng, K, k, m, tdt, cuda)
+    g1 = _suprow_group(rng, 2, 1, 3, tdt, cuda)
+    ref = suprow.suprow_update_plain(*g)
+    before = kernels.launch_counts()
+    got = suprow.suprow_update(*g)
+    both = suprow.suprow_update_grouped([g, g1])
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["suprow_update"] == before["suprow_update"] + 1
+    assert (after["suprow_update_grouped"]
+            == before["suprow_update_grouped"] + 1)
+    for out in (got, both[0]):
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+    for a, b in zip(both[1], suprow.suprow_update_plain(*g1)):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("k", [2, 6, 33, 128])
+@pytest.mark.parametrize("case", ["zero_diagonal", "zero_over_zero",
+                                  "nan_in_u", "nan_in_b"])
+def test_suprow_update_nonfinite_matches_plain(case, k, dt, cuda):
+    """K6 on rows with an exact zero on U's diagonal (its infinite quotient
+    also meeting a zero of U), 0 / 0, or a NaN in U's upper triangle or in
+    the rows past it, through both entry points: the plain version's NaN
+    and inf positions, its infinities and its finite values."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(k + len(case))
+    x, src, _ = _suprow_group(rng, 3, k, 9, tdt, cuda)
+    j = k // 2
+    if case == "zero_diagonal":
+        src[0, j, j] = src[0, j, j + 1] = 0.0
+    elif case == "zero_over_zero":
+        x[1, 0] = src[1, 0, 0] = 0.0
+    elif case == "nan_in_u":
+        src[0, 0, j] = float("nan")
+    else:
+        src[2, j, k + 4] = float("nan")
+    ref = suprow.suprow_update_plain(x, src, k)
+    for got in (suprow.suprow_update(x, src, k),
+                suprow.suprow_update_grouped([(x, src, k)])[0]):
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert torch.equal(g.isnan(), r.isnan())
+            assert torch.equal(g.isinf(), r.isinf())
+            assert torch.equal(g[g.isinf()], r[r.isinf()])
+            fin = r.isfinite()
+            torch.testing.assert_close(g[fin], r[fin], rtol=tol, atol=tol)
+    assert not all(bool(r.isfinite().all()) for r in ref)
+
+
+def _suprow_group(rng, e, k, m, tdt, dev):
+    """One K6 group (x (e, k+m), src (e, k, k+m), k): U dominant, its strict
+    upper part scaled by 1/sqrt(k), random below it (nothing may read
+    it)."""
+    src = rng.normal(size=(e, k, k + m))
+    src[:, :, :k] = (np.triu(rng.normal(size=(e, k, k)), 1) / np.sqrt(k)
+                     + 3 * np.eye(k) + np.tril(rng.normal(size=(e, k, k)),
+                                               -1))
+    return (torch.tensor(rng.normal(size=(e, k + m)), dtype=tdt, device=dev),
+            torch.tensor(src, dtype=tdt, device=dev), k)
 
 
 def _src_rows(rng, b, k, m, tdt, dev):
@@ -1008,29 +1113,37 @@ def test_node_edges_shapes(case, K, dt, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", sorted(TOLS))
 @pytest.mark.parametrize("nr", [1, 17])
-@pytest.mark.parametrize("case", ["nan_in_source", "zero_pivot"])
+@pytest.mark.parametrize("case", ["nan_in_source", "zero_pivot",
+                                  "zero_source_diagonal"])
 def test_node_edges_nonfinite(case, nr, dt, cuda):
     """A NaN in a source's U block or suffix, or an exact zero as a k = 1
     divisor (and, for nr > 1, on a source's U diagonal) with the target's
-    pivot zero under eps = 0: the kernel gives the plain version's NaN and
-    inf positions, its infinities and its finite values.  The plain
-    version's sup-sup solve is K3's column sweep, the kernel's order of
-    terms; the zero divisor feeds no sup-row edge (nr = 1), whose plain
-    version, ``torch.linalg.solve_triangular``, combines infinities in an
-    order of its own."""
+    pivot zero under eps = 0, or exact zeros on the U diagonals of the
+    k > 1 sources (for nr = 1 sup-row edges: a quotient by zero meeting a
+    zero of U, and a zero diagonal under a zeroed x_0): the kernel gives
+    the plain version's NaN and inf positions, its infinities and its
+    finite values.  The plain version's
+    sup-sup solve is K3's column sweep and its sup-row solve
+    ``trsm_plain`` (``_trsm_upper_jax``'s order): the same terms as the
+    kernel's column sweep, in another order."""
     tdt, tol, _ = TOLS[dt]
     rng = np.random.default_rng(nr + len(case))
     sources = [(6, 12), (1, 4), (30, 9), (1, 10)]
     v0, table, step = _node_buffer(rng, 2, nr, 70, 25, sources, tdt, cuda)
-    e6, e1 = table.edges[0], table.edges[-1]
+    e6, e1, e30 = table.edges[0], table.edges[-1], table.edges[2]
     if case == "nan_in_source":
         v0[0, e6[0] + 2 * e6[2] + e6[3] + 4] = float("nan")     # U, row 2
         v0[1, e1[0] + e1[3] + 5] = float("nan")                 # suffix
-    else:
+    elif case == "zero_pivot":
         v0[:, e1[0] + e1[3]] = 0.0                       # k = 1 divisor
         if nr > 1:
             v0[1, e6[0] + 3 * e6[2] + e6[3] + 3] = 0.0   # U[3, 3]
         v0[:, step.off + step.lsize] = 0.0               # target pivot
+    else:
+        u33 = e6[0] + 3 * e6[2] + e6[3] + 3
+        v0[1, u33] = v0[1, u33 + 1] = 0.0                # U[3, 3], U[3, 4]
+        v0[0, e30[0] + e30[3]] = 0.0                     # U[0, 0] ...
+        v0[0, step.off + int(e30[4][0])] = 0.0           # ... of x_0 = 0
     eps = torch.zeros(2, dtype=tdt, device=cuda)
     g, ng = _node_step_held(v0, table, step, eps, tol, nonfinite=True)
     assert not torch.isfinite(g[:, step.off:step.off + step.nr * step.w]

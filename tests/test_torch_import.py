@@ -127,12 +127,12 @@ def test_build_is_lazy_and_hashes_the_sources():
 
 
 def test_shared_division_header_is_in_the_build_key(tmp_path, monkeypatch):
-    """K3 and K5's node kernel take their pivot divisions from one header,
-    which neither source copies, and an edit to it changes the build key."""
+    """K3, K5's node kernel and K6 take their divisions from one header,
+    which no source copies, and an edit to it changes the build key."""
     import shutil
 
     assert [p.name for p in _build.headers()] == ["div_fast.cuh"]
-    for name in ("trsm.cu", "gemm_update.cu"):
+    for name in ("trsm.cu", "gemm_update.cu", "suprow.cu"):
         text = (_build.CSRC / name).read_text()
         assert '#include "div_fast.cuh"' in text
         assert "div_fast(double a" not in text and "true_div(T a" not in text

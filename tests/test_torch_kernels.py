@@ -338,6 +338,89 @@ def test_suprow_update(k, m, dt):
         _close(xr[e], jx, tol)
 
 
+# (k, m, E) per group of one grouped call: k = 1, m = 0, E = 0, both of
+# K6's register and shared-memory paths (k <= 8 and k > 8), m past 128
+SUPROW_GROUPS = [(1, 0, 2), (3, 7, 3), (9, 130, 2), (2, 5, 0), (17, 1, 1),
+                 (8, 13, 2), (6, 25, 4)]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_suprow_update_grouped(dt):
+    """``suprow_update_grouped`` on groups of mixed (k, m), E = 0 among
+    them: the per-group plain version's output, which row by row is
+    ``repro.kernels.suprow.ops.suprow_update``'s.  On the CPU nothing is
+    launched."""
+    jdt, tdt, tol, _ = DTYPES[dt]
+    rng = np.random.default_rng(21)
+    groups = []
+    for k, m, e in SUPROW_GROUPS:
+        src = rng.normal(size=(e, k, k + m))
+        src[:, :, :k] = _src_block(rng, e, k)
+        groups.append((rng.normal(size=(e, k + m)), src, k))
+    tgroups = [(torch.tensor(x, dtype=tdt), torch.tensor(s, dtype=tdt), k)
+               for x, s, k in groups]
+    kernels.reset_launch_counts()
+    out = suprow.suprow_update_grouped(tgroups)
+    assert kernels.launch_counts()["suprow_update_grouped"] == 0
+    tab = suprow.suprow_groups(tgroups)
+    assert tab.table is None and tab.k_max == 17
+    again = suprow.suprow_update_grouped(tab)
+    assert len(out) == len(again) == len(groups)
+    for (x, src, k), (y, xr), (y2, xr2), (ty, txr) in zip(
+            groups, out, again,
+            suprow.suprow_update_grouped_plain(tgroups)):
+        assert y.shape == (x.shape[0], k) and xr.shape == (x.shape[0],
+                                                         x.shape[1] - k)
+        for a, b in ((y, ty), (xr, txr), (y2, ty), (xr2, txr)):
+            assert torch.equal(a, b)
+        for e in range(x.shape[0]):
+            jy, jx = jsuprow.suprow_update(jnp.asarray(x[e], jdt),
+                                           jnp.asarray(src[e], jdt), k)
+            _close(y[e], jy, tol)
+            _close(xr[e], jx, tol)
+
+
+@pytest.mark.parametrize("case", ["zero_diagonal", "zero_over_zero",
+                                  "nan_in_u", "nan_in_b"])
+@pytest.mark.parametrize("k", [8, 16])
+def test_suprow_update_nonfinite(case, k):
+    """K6's plain version on a row with an exact zero on U's diagonal (its
+    infinite quotient also meeting a zero of U), 0 / 0, or a NaN in U's
+    upper triangle or in the rows past it, against the JAX wrapper in
+    float64: the same NaN and inf positions, infinities and finite values.
+    k is a multiple of 8, since the JAX wrapper pads k with unit diagonal
+    entries and zeros above them, where an infinite y meets 0 and turns the
+    padded y, and with it every xr, to NaN; m = 13 is padded to 16, and
+    only the unpadded columns are compared."""
+    m = 13
+    rng = np.random.default_rng(k + len(case))
+    x = rng.normal(size=(2, k + m))
+    src = rng.normal(size=(2, k, k + m))
+    src[:, :, :k] = _src_block(rng, 2, k)
+    j = k // 2
+    if case == "zero_diagonal":
+        src[0, j, j] = src[0, j, j + 1] = 0.0
+    elif case == "zero_over_zero":
+        x[0, 0] = src[0, 0, 0] = 0.0
+    elif case == "nan_in_u":
+        src[0, 1, j] = np.nan
+    else:
+        src[0, j, k + 4] = np.nan
+    y, xr = suprow.suprow_update(torch.tensor(x), torch.tensor(src), k)
+    assert not (torch.isfinite(y[0]).all() and torch.isfinite(xr[0]).all())
+    for e in range(2):
+        jy, jx = jsuprow.suprow_update(jnp.asarray(x[e]),
+                                       jnp.asarray(src[e]), k)
+        for got, ref in ((y[e].numpy(), np.asarray(jy)),
+                         (xr[e].numpy(), np.asarray(jx))):
+            assert np.array_equal(np.isnan(got), np.isnan(ref))
+            assert np.array_equal(np.isinf(got), np.isinf(ref))
+            assert np.array_equal(got[np.isinf(got)], ref[np.isinf(ref)])
+            fin = np.isfinite(ref)
+            np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-10,
+                                       atol=1e-10)
+
+
 def _degenerate_panel(case):
     """A (5, 12) node panel, block at column 3, and its threshold: an exact
     zero pivot under eps = 0, or a non-finite entry in the U suffix, the L

@@ -29,6 +29,7 @@ from repro_torch.core import (HyluOptions, analyze,  # noqa: E402
                               torch_repeated_engine)
 from repro_torch.kernels.panel import ops as tpanel  # noqa: E402
 from repro_torch.kernels.supsup import ops as supsup  # noqa: E402
+from repro_torch.kernels.trisolve.ref import trsm_plain  # noqa: E402
 from repro_torch.matrices import fem2d, to_csr  # noqa: E402
 
 DTYPES = {"float64": (jnp.float64, torch.float64, 1e-10),
@@ -179,6 +180,49 @@ def test_width1_node_without_edges(dt):
     assert torch.isnan(port[0][0, piv]) and port[2].tolist() == [0, 1]
 
 
+def _held_nonfinite(port, ref, offs, nd, tdt, tol):
+    """The node's panel in each system: NaN and inf positions and the
+    infinities equal, the finite values within tol; returns the count of
+    non-finite entries."""
+    off = int(offs[nd.nid])
+    bad = 0
+    for s, (jv, _, jnper) in enumerate(ref):
+        got = port[0][s, off:off + nd.nr * nd.width]
+        want = torch.tensor(jv[off:off + nd.nr * nd.width], dtype=tdt)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.isinf(), want.isinf())
+        assert torch.equal(got[got.isinf()], want[want.isinf()])
+        fin = want.isfinite()
+        torch.testing.assert_close(got[fin], want[fin], rtol=tol, atol=tol)
+        assert int(port[2][s]) == jnper
+        bad += int((~fin).sum())
+    return bad
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("k", [2, 3, 6])
+def test_suprow_edge_zero_divisor_matches_jax(k, dt):
+    """A width-1 node fed by sup-row edges (sources of k > 1 rows) whose
+    source U has an exact zero on its diagonal, under eps = 0, against the
+    JAX node step, which solves such an edge by ``_trsm_upper_jax``
+    (``src/repro/core/jax_engine.py:53``): the same NaN and inf positions,
+    infinities and finite values.  System 0: U[j, j] = 0 at the first
+    source's last-but-one row, with a zero right of it that meets the
+    infinite quotient; system 1: 0 / 0 at the last source's first step."""
+    jdt, tdt, tol = DTYPES[dt]
+    rng = np.random.default_rng(11 * k)
+    vals, nodes, offs, nd = _node_case(rng, 1, (k, 1, k))
+    j = k - 2
+    for i, s, r, c in ((0, 0, j, j), (0, 0, j, j + 1), (2, 1, 0, 0)):
+        vals[s, offs[i] + r * nodes[i].width + nodes[i].lsize + c] = 0.0
+    cm = nd.edges[2].col_map
+    vals[1, int(offs[nd.nid]) + int(cm[0])] = 0.0      # the 0 of 0 / 0
+    eps = np.zeros(K_SYS)
+    port = _port_node(vals, nodes, offs, nd, eps, tdt)
+    ref = _jax_node(vals, nodes, offs, nd, eps, jdt)
+    assert _held_nonfinite(port, ref, offs, nd, tdt, tol) > 0
+
+
 def _engine():
     a = to_csr(fem2d(10, 10, seed=2))
     an = analyze(a, HyluOptions(device="cpu", force_mode="supernodal",
@@ -191,9 +235,9 @@ def _engine():
 
 def _edge_loop(vals, plan, t, j):
     """The unrolled schedule's per-edge loop over the first j edges of
-    node t, written out edge by edge as the engine ran it before the node
-    step (gather through col_map, divide or triangular solve, product,
-    write back)."""
+    node t, written out edge by edge as the plain node step runs it
+    (gather through col_map, divide or triangular solve, product, write
+    back; a sup-row edge's solve in ``_trsm_upper_jax``'s order)."""
     K = vals.shape[0]
     nodes, offs = plan.nodes, plan.panel_offset
     nd = nodes[t]
@@ -212,8 +256,7 @@ def _edge_loop(vals, plan, t, j):
         elif nd.nr > 1:
             lts, xr = supsup.supsup_update_plain(x, src, k)
         else:
-            lts = torch.linalg.solve_triangular(
-                src[:, :, :k], x[:, :, :k], upper=True, left=False)
+            lts = trsm_plain(src[:, :, :k], x[:, :, :k])
             xr = x[:, :, k:] - torch.matmul(lts, src[:, :, k:])
         panel[:, :, cm] = torch.cat([lts, xr], dim=2)
     return vals
