@@ -639,11 +639,7 @@ def suprow_extra(torch, suprow_ops, groups, K):
             "edges_library_device_ms" + sfx: (
                 None if lib_ms is None else lib_ms / reps),
             "edges_plain_device_ms" + sfx: (
-                None if plain_ms is None else plain_ms / reps),
-            "edges_groups_loop_ms" + sfx: bench_ms(
-                torch, lambda: [f() for f in per]),
-            "edges_library_loop_ms" + sfx: bench_ms(
-                torch, lambda: [f() for f in lib])})
+                None if plain_ms is None else plain_ms / reps)})
         # the non-finite case, on copies of three groups
         z = [(x.clone(), s.clone(), k) for x, s, k in gs]
         a = max(range(len(z)), key=lambda i: z[i][2])           # largest k
