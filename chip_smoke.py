@@ -83,7 +83,23 @@ Phases, each printing one JSON line:
 8. plain    one batched step at K = 32 with ``use_kernels=False`` (plain
             factor program, level-scheduled substitution): residuals, no
             kernel launched, and its times beside the kernel route's;
-9. model_kernels  per serving model, K7 (flash attention) on the q/k/v of
+9. serving_solver  solver serving at the same sizes: the analyses of
+            fem2d_10k and the circuit are put into a ``PlanCache`` on a
+            temporary directory, and a fresh ``SolverService`` on it
+            (batch 8, one retry) serves a mixed, fault-laced stream of 56
+            requests (32 healthy fem2d_10k, four of them with two
+            right-hand sides; 16 healthy circuit; NaN / inf values, NaN
+            and wrong-shape right-hand sides and a singular system on
+            fem2d_10k; a singular, an ill-conditioned and a tiny-deadline
+            system on the circuit) twice: by ``solve_batch`` and through
+            an ``AsyncSolverServer`` (``faultinject.run_stream``).  No
+            request lost, every status inside its kind's expectation,
+            healthy solutions within 1e-10 of scipy's ``spsolve``, both
+            plans loaded from disk and only the ladder's retries
+            analyzed, K1-K4 launched; requests/s, p50 / p99 latency, the
+            dispatches' factor and solve ms, the retries' analysis
+            seconds and the peak memory printed;
+10. model_kernels  per serving model, K7 (flash attention) on the q/k/v of
             phi3-medium-14b's first and last attention layers and K8 (WKV)
             on the r/k/v/w of rwkv6-1.6b's first and last time-mix layers
             (timed on the first; K8 also with layer 0's decays replaced by
@@ -95,7 +111,7 @@ Phases, each printing one JSON line:
             plain version's, the library call's (K7) and the bound; K7 in
             bfloat16 also at gemma-7b's attention shape (D = 256), random
             q/k/v, beside SDPA;
-10. transformer  the serving path of each model at full width and depth
+11. transformer  the serving path of each model at full width and depth
             in bfloat16 through its entry points (``init_params`` on the
             card, ``greedy_generate``): 4 requests of 2,048 random prompt
             tokens, 16 new tokens each; prefill and decode times, peak
@@ -107,7 +123,9 @@ Phases, each printing one JSON line:
             rwkv6 the two routes also in float32 at full depth (2e-3).
             The peak memory is that of the serving calls alone.
 
-Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and, last,
+Then one ``{"kernels": [...]}`` line (each record's ``launches_by_path``
+counts the batched, scalar and solver-serving phases, or the models'
+serving calls), the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero; it also exits non-zero, printing no result, without a CUDA
 device or outside a checkout of the repository.
@@ -145,6 +163,14 @@ RAGGED_T = 2000                     # a multiple of none of K7's row tiles
 TOL_MODEL = {"bfloat16": (1e-2, 2e-3), "float32": (2e-5, 2e-5)}
 TOL_WKV, TOL_DECODE = 2e-4, 2e-3    # K8 (y and state); decode ≡ forward
 WKV_TINY_DECAY = (1e-6, 0.05)       # K8 also held at decays drawn from here
+# the serving_solver phase: healthy requests on (fem2d_10k, circuit) and
+# the faults injected on each pattern (ill_conditioned stays off fem2d_10k:
+# every retry is a new fingerprint and so a full host analysis)
+SERVING_HEALTHY = (32, 16)
+SERVING_FAULTS = {"fem": ("nan_values", "inf_values", "nan_rhs",
+                          "wrong_shape_rhs", "singular_values"),
+                  "cir": ("singular_values", "ill_conditioned",
+                          "tiny_deadline")}
 
 
 def emit(obj):
@@ -446,16 +472,20 @@ def main() -> int:
     scalar_counts = scalar_phase(torch, np, kernels, A, an64, an_u, an32)
     plain_phase(torch, np, kernels, A, an64, bst, values[0], b, t_factor,
                 t_solve)
+    serving_counts = serving_solver_phase(torch, np, kernels, A, an64, C, anc)
 
     for rec in records:
         w = rec.pop("wrapper")
         rec["launches_by_path"] = {"batched": counts[w],
-                                   "scalar": scalar_counts[w]}
-        rec["launches"] = counts[w] + scalar_counts[w]
+                                   "scalar": scalar_counts[w],
+                                   "serving": serving_counts[w]}
+        rec["launches"] = counts[w] + scalar_counts[w] + serving_counts[w]
     from repro_torch.configs import registry
 
     for name in SERVING_MODELS:
-        records.append(serving_phase(torch, np, kernels, registry.get(name)))
+        rec = serving_phase(torch, np, kernels, registry.get(name))
+        rec["launches_by_path"]["serving"] = serving_counts[rec["name"]]
+        records.append(rec)
     emit({"kernels": records})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2246,6 +2276,192 @@ def plain_phase(torch, np, kernels, A, an64, bst, values0, b, t_factor,
     check(not moved, f"use_kernels=False launched kernels: {moved}")
     check(np.isfinite(x_p).all() and info_p["residual"].max() <= 1e-10,
           f"use_kernels=False residual {info_p['residual'].max()}")
+
+
+def spsolve_oracle(a, b):
+    """float64 reference solution by scipy's sparse LU: independent of the
+    solver stack, and affordable at n = 10,000 where a dense solve is not."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    m = sp.csr_matrix((a.data, a.indices, a.indptr), shape=(a.n, a.n))
+    return np.asarray(spla.spsolve(m.tocsc(), np.asarray(b, np.float64)))
+
+
+def solver_stream(np, A, C):
+    """The serving_solver phase's requests, in a seeded order: healthy
+    fem2d_10k traffic (values A.data x U(0.8, 1.2), four of them with an
+    (n, 2) right-hand side), healthy circuit traffic, and the faults on
+    each pattern (``SERVING_FAULTS``), each with the statuses it may end
+    in and, where it must be solved, its spsolve solution."""
+    from repro_torch.core import CSR
+    from repro_torch.serve import faultinject as fi
+
+    rng = np.random.default_rng(22)
+    items = []
+    for pat, n_healthy, n_wide, name in ((A, SERVING_HEALTHY[0], 4, "fem"),
+                                         (C, SERVING_HEALTHY[1], 0, "cir")):
+        for i in range(n_healthy):
+            a = CSR(pat.n, pat.indptr, pat.indices,
+                    pat.data * rng.uniform(0.8, 1.2, pat.nnz))
+            b = rng.normal(size=(pat.n, 2) if i < n_wide else pat.n)
+            items.append(fi.Injected(a, b, oracle_x=spsolve_oracle(a, b),
+                                     tag=(name, "healthy", i)))
+        for j, kind in enumerate(SERVING_FAULTS[name]):
+            items.append(fi.inject(kind, pat, seed=100 + j,
+                                   tag=(name, kind), oracle=spsolve_oracle))
+    return [items[i] for i in rng.permutation(len(items))]
+
+
+def serving_solver_phase(torch, np, kernels, A, an64, C, anc):
+    """Phase 9: solver serving at the corpus's FEM size.  The analyses of
+    fem2d_10k and circuit_like(2000, seed 3) are put into a PlanCache on a
+    temporary directory; a fresh SolverService on that directory serves a
+    mixed, fault-laced stream (``solver_stream``) twice, once by
+    ``solve_batch`` and once through an AsyncSolverServer by
+    ``faultinject.run_stream``.  Its healthy traffic must load both plans
+    from disk and analyze nothing; only the retries of the ladder analyze
+    (a boosted perturb_eps is a new fingerprint).  Returns the launches of
+    the two runs by wrapper."""
+    import asyncio
+    import dataclasses
+    import tempfile
+
+    import repro_torch.serve.solver_service as ss
+    from repro_torch.core import HyluOptions, PlanCache
+    from repro_torch.core.options import (plan_fingerprint,
+                                          resolve_retry_perturb)
+    from repro_torch.serve import faultinject as fi
+    from repro_torch.serve.async_server import AsyncSolverServer
+
+    t_all = time.perf_counter()
+    stream = solver_stream(np, A, C)
+    t_stream = time.perf_counter() - t_all
+    dispatches = []                      # (n, k, factor ms, solve ms)
+    real_factor, real_solve = ss.factor_batched, ss.solve_batched
+
+    def factor_spy(an, pattern, vb):
+        t0 = time.perf_counter()
+        out = real_factor(an, pattern, vb)
+        dispatches.append([an.n, len(vb), (time.perf_counter() - t0) * 1e3])
+        return out
+
+    def solve_spy(bst, bb):
+        t0 = time.perf_counter()
+        out = real_solve(bst, bb)
+        dispatches[-1].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="hylu_plan_cache_") as tmp:
+        t0 = time.perf_counter()
+        fps = [PlanCache(directory=tmp).put(an) for an in (an64, anc)]
+        put_s = time.perf_counter() - t0
+        svc = ss.SolverService(cache_dir=tmp, batch_size=8,
+                               opts=HyluOptions(retry_max=1))
+        ss.factor_batched, ss.solve_batched = factor_spy, solve_spy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()   # earlier phases' tensors
+        kernels.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            results = svc.solve_batch([ss.SolveRequest(a=it.a, b=it.b,
+                                                       tag=it.tag)
+                                       for it in stream])
+            sync_s = time.perf_counter() - t0
+            sync_cache = dict(svc.cache.stats)
+            sync_stats = dict(svc.stats)
+            n_sync = len(dispatches)
+
+            async def drive():
+                async with AsyncSolverServer(svc, max_queue_per_group=64,
+                                             max_pending=256,
+                                             max_linger_ms=50.0) as server:
+                    t = time.perf_counter()
+                    rep = await fi.run_stream(server, stream, warmup=False)
+                    rep["wall_s"] = time.perf_counter() - t
+                    return rep
+
+            report = asyncio.run(drive())
+        finally:
+            ss.factor_batched, ss.solve_batched = real_factor, real_solve
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        cached = set(svc.cache.fingerprints())
+
+    sync = fi.score_outcomes(stream, [
+        (it, r.status, r.error and r.error.code, r)
+        for it, r in zip(stream, results)])
+    retry_opts = dataclasses.replace(
+        svc.opts, perturb_eps=resolve_retry_perturb(svc.opts, 1))
+    retry_fps = {plan_fingerprint(it.a, retry_opts)
+                 for it, r in zip(stream, results) if r.n_retries}
+    lat_sync = sync_s * 1e3          # every request returns with the call
+    srv = report["server_stats"]
+
+    def per_pattern(rows):
+        out = {}
+        for n, k, f_ms, s_ms in rows:
+            d = out.setdefault(str(n), {"dispatches": 0, "systems": 0,
+                                        "factor_ms": [], "solve_ms": []})
+            d["dispatches"] += 1
+            d["systems"] += k
+            d["factor_ms"].append(f_ms)
+            d["solve_ms"].append(s_ms)
+        return out
+
+    wrappers = ("panel_lu_bucket_inplace", "panel_lu", "trsm_batched",
+                "trsm_left_unit_lower_batched", "trsm_left_upper_batched",
+                "gemm_batched")
+    rec = {"phase": "serving_solver",
+           "patterns": {"fem2d_10k": A.n, "circuit_like(2000, seed=3)": C.n},
+           "requests": len(stream), "batch_size": 8, "retry_max": 1,
+           "solve_batch": {"wall_s": sync_s,
+                           "requests_per_s": len(stream) / sync_s,
+                           "p50_ms": lat_sync, "p99_ms": lat_sync,
+                           "by_status": sync["by_status"],
+                           "lost": sync["lost"],
+                           "violations": fi.check_report(sync)[:10],
+                           "worst_healthy_err": sync["worst_healthy_err"],
+                           "dispatches": per_pattern(dispatches[:n_sync]),
+                           "service": sync_stats, "cache": sync_cache},
+           "async": {"wall_s": report["wall_s"],
+                     "requests_per_s": len(stream) / report["wall_s"],
+                     "p50_ms": srv["p50_ms"], "p99_ms": srv["p99_ms"],
+                     "by_status": report["by_status"],
+                     "lost": report["lost"],
+                     "violations": fi.check_report(report)[:10],
+                     "worst_healthy_err": report["worst_healthy_err"],
+                     "n_healthy_checked": report["n_healthy_checked"],
+                     "dispatch_batches": srv["dispatch_batches"],
+                     "deadline_misses": srv["deadline_misses"],
+                     "dispatches": per_pattern(dispatches[n_sync:])},
+           "cache": {"put_s": put_s, **svc.cache.stats,
+                     "retry_fingerprints": len(retry_fps)},
+           "service": dict(svc.stats),
+           "launches": {w: counts[w] for w in wrappers},
+           "max_memory_allocated": peak,
+           "memory_allocated_before": held_before,
+           "peak_over_before": peak - held_before,
+           "stream_build_s": t_stream,
+           "seconds": time.perf_counter() - t_all}
+    emit(rec)
+    for name, run in (("solve_batch", rec["solve_batch"]),
+                      ("async", rec["async"])):
+        check(run["lost"] == 0 and not run["violations"],
+              f"serving {name}: {run['lost']} lost, violations "
+              f"{run['violations']}")
+    check(sync_cache["disk_hits"] == 2 and svc.cache.stats["disk_hits"] == 2,
+          f"plans not loaded from disk: {svc.cache.stats}")
+    check(svc.cache.stats["analyze_calls"] == len(retry_fps)
+          and cached == set(fps) | retry_fps,
+          f"healthy traffic analyzed: {svc.cache.stats}, "
+          f"{len(retry_fps)} retry plans")
+    for w in wrappers:
+        check(counts[w] > 0, f"kernel {w} was not launched by serving")
+    return counts
 
 
 def layer_input(T, L, cfg, params, prompt, layer):

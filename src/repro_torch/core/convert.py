@@ -1,17 +1,19 @@
-"""Carry an analysis artifact written by the JAX package across.
+"""The one decoder of a saved analysis artifact.
 
 The numeric inputs of the system are values and right-hand sides; its
 "weights" are the analysis artifact.  ``analysis_from_arrays`` rebuilds the
 port's :class:`~repro_torch.core.analysis.Analysis` from the arrays and the
-meta record that ``repro.core.plan_cache.save_analysis`` writes (format
-version 1: arrays ``plan_cache.py:154–181``, meta ``:133–151``) without
-re-running matching or ordering, so both packages can run the very same
-plan.  ``np.load`` of a JAX-written ``.npz`` is enough input::
+meta record that ``save_analysis`` writes (format version 1; this
+package's :mod:`~repro_torch.core.plan_cache` and the JAX package's
+``repro.core.plan_cache`` write the same ``.npz``) without re-running
+matching or ordering, so both packages can run the very same plan.
+``np.load`` of an artifact is enough input::
 
     with np.load(path) as z:
         an = analysis_from_arrays(z, z["meta"], HyluOptions(...))
 
-The decoding is this module's own copy of ``plan_cache.load_analysis``.
+:func:`~repro_torch.core.plan_cache.load_analysis` decodes through this
+function too.
 """
 from __future__ import annotations
 
@@ -28,6 +30,11 @@ from .symbolic import Symbolic
 
 FORMAT_VERSION = 1
 
+
+class PlanCacheFormatError(ValueError):
+    """A saved analysis artifact that cannot be trusted: unknown format
+    version, fingerprint or plan-option mismatch, or a malformed file."""
+
 REQUIRED_ARRAYS = (
     "match_col_of_row", "match_row_scale", "match_col_scale", "q", "p",
     "src_map", "scale_map", "m_indptr", "m_indices", "sym_parent",
@@ -39,31 +46,41 @@ REQUIRED_ARRAYS = (
     "edge_ptr", "edge_src", "edge_cm_ptr", "edge_cm")
 
 
-def analysis_from_arrays(arrays, meta, opts: HyluOptions | None = None
+def analysis_from_arrays(arrays, meta, opts: HyluOptions | None = None,
+                         expected_fingerprint: str | None = None
                          ) -> Analysis:
     """Build an Analysis from a saved artifact.
 
     ``arrays`` maps the artifact's array names to numpy arrays (a dict, or
     the ``NpzFile`` of ``np.load``); ``meta`` is its meta record, as a dict
-    or as the JSON string (or 0-d array) stored under ``"meta"``.  ``opts`` must agree with
-    the artifact on every plan-affecting option (``use_kernels=True`` stands
-    for the JAX package's ``use_pallas=True``); a mismatch, an unknown
-    format version or a missing array raises ``ValueError``."""
+    or as the JSON string (or 0-d array) stored under ``"meta"``.  ``opts``
+    must agree with the artifact on every plan-affecting option
+    (``use_kernels=True`` stands for the JAX package's
+    ``use_pallas=True``); ``expected_fingerprint`` also pins its content
+    address.  A mismatch, an unknown format version or a missing array
+    raises :class:`PlanCacheFormatError` (a ``ValueError``)."""
     opts = opts or HyluOptions()
     if not isinstance(meta, dict):
         meta = json.loads(str(np.asarray(meta)[()]))
     if meta.get("format_version") != FORMAT_VERSION:
-        raise ValueError(f"analysis format version "
-                         f"{meta.get('format_version')!r} != supported "
-                         f"{FORMAT_VERSION}")
+        raise PlanCacheFormatError(
+            f"format version {meta.get('format_version')!r} != supported "
+            f"{FORMAT_VERSION}")
+    if (expected_fingerprint is not None
+            and meta.get("fingerprint") != expected_fingerprint):
+        raise PlanCacheFormatError(
+            f"stored fingerprint {meta.get('fingerprint')!r} does not "
+            f"match expected {expected_fingerprint!r}")
     if meta.get("options_key") != repr(plan_options_key(opts)):
-        raise ValueError(f"artifact was analyzed under plan options "
-                         f"{meta.get('options_key')} but is being loaded "
-                         f"with {plan_options_key(opts)!r}")
+        raise PlanCacheFormatError(
+            f"artifact was analyzed under plan options "
+            f"{meta.get('options_key')} but is being loaded with "
+            f"{plan_options_key(opts)!r}")
     names = set(arrays.files if hasattr(arrays, "files") else arrays)
     missing = set(REQUIRED_ARRAYS) - names
     if missing:
-        raise ValueError(f"artifact is missing arrays {sorted(missing)}")
+        raise PlanCacheFormatError(
+            f"artifact is missing arrays {sorted(missing)}")
     z = {name: np.asarray(arrays[name]) for name in REQUIRED_ARRAYS}
 
     n = int(meta["n"])

@@ -30,9 +30,9 @@ class HyluOptions:
     """Solver options — every knob of the analyze/factor/solve pipeline.
     Field meanings are those of the JAX package (docs/API.md), apart from
     ``device``/``use_kernels``/``engine`` (module docstring).  The serving
-    and plan-cache knobs of the JAX package (``deadline_ms``,
-    ``retry_max``, ``retry_perturb_boost``, ``cache_root``) arrive with
-    those layers."""
+    and plan-cache knobs (``deadline_ms``, ``retry_max``,
+    ``retry_perturb_boost``, ``cache_root``) are runtime-only, as in the
+    JAX package: they never enter a fingerprint."""
     force_mode: str | None = None          # rowrow | hybrid | supernodal
     orderings: tuple = ("min_degree", "nested_dissection", "natural")
     relax: int = 8
@@ -46,6 +46,13 @@ class HyluOptions:
     factor_dtype: str = "float64"          # float64 | float32
     refine_dtype: str = "auto"             # auto → float64
     fp64_fallback: bool = True
+    deadline_ms: float | None = None       # async server: default
+                                           # per-request latency budget
+    retry_max: int = 1                     # serving ladder: perturbed
+                                           # re-factor retries before
+                                           # quarantine
+    retry_perturb_boost: float = 1e4       # perturb_eps multiplier per
+                                           # retry attempt
     bulk_min_width: int = 8
     engine: str = "torch"
     use_kernels: bool = True               # hand-written CUDA kernels on the
@@ -53,6 +60,9 @@ class HyluOptions:
     factor_schedule: str = "bucketed"
     device: str = "cuda"                   # "cuda" | "cuda:N" | "cpu"
     donate: bool = False
+    cache_root: str | None = None          # plan-cache root; None →
+                                           # $HYLU_CACHE_ROOT or
+                                           # <repo>/checkpoints
 
 
 # Options that change the analysis artifact or the engine built from it —
@@ -102,6 +112,20 @@ def resolve_refine_tol(opts: HyluOptions | None, dtype=None) -> float:
         return float(opts.refine_tol)
     name = dtype_name(opts.factor_dtype if dtype is None else dtype)
     return 1e-12 * (_DTYPE_EPS[name] / _DTYPE_EPS["float64"])
+
+
+def resolve_retry_perturb(opts: HyluOptions | None, attempt: int,
+                          dtype=None) -> float:
+    """The pivot-perturbation threshold of retry ``attempt`` (1-based) of
+    the serving ladder: :func:`resolve_perturb_eps` times
+    ``retry_perturb_boost ** attempt``.  As an explicit ``perturb_eps`` it
+    lands in a fingerprint of its own, so retries never touch the healthy
+    traffic's plans and engines."""
+    opts = opts or HyluOptions()
+    if attempt < 1:
+        raise ValueError(f"retry attempt is 1-based, got {attempt}")
+    return (resolve_perturb_eps(opts, dtype)
+            * float(opts.retry_perturb_boost) ** attempt)
 
 
 def resolve_dtype_names(opts: HyluOptions | None) -> tuple:

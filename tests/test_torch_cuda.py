@@ -1523,3 +1523,74 @@ def test_serving_on_card_matches_cpu(name, wrapper, cuda):
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
                                atol=1e-4)
     assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+@pytest.mark.cuda
+def test_async_fault_storm_on_card(cuda):
+    """A mixed-pattern stream laced with every fault kind through the async
+    server on the card: one terminal result each, every status inside its
+    kind's expectation, healthy requests within 1e-10 of the dense fp64
+    oracle, and the kernels its plans reach launched (at n = 32 with
+    supernodes of at most 4 columns: K2 on narrow nodes, K3 and K4 on
+    sup-sup edges, both left solves; no level is wide enough for K1's
+    buckets, which the round trip below reaches)."""
+    import asyncio
+
+    from repro_torch.serve.async_server import AsyncSolverServer
+    from repro_torch.serve.faultinject import (check_report, make_stream,
+                                               run_stream)
+    from repro_torch.serve.solver_service import SolverService
+
+    service = SolverService(opts=HyluOptions(force_mode="supernodal",
+                                             bulk_min_width=2, max_super=4),
+                            cache_dir=None, batch_size=4)
+    assert service.device.type == "cuda"
+    stream = make_stream(40, fault_rate=0.35, seed=5, n=32)
+
+    async def main():
+        async with AsyncSolverServer(service, max_linger_ms=20.0) as server:
+            return await run_stream(server, stream)
+
+    kernels.reset_launch_counts()
+    report = asyncio.run(main())
+    counts = kernels.launch_counts()
+    violations = check_report(report)
+    assert not violations, "\n".join(violations)
+    assert report["lost"] == 0 and report["n_healthy_checked"] > 0
+    assert report["by_status"]["solved"] > 0
+    assert report["by_status"]["rejected"] > 0
+    assert report["by_status"]["quarantined"] > 0
+    for w in ("panel_lu", "trsm_batched", "gemm_batched",
+              "trsm_left_unit_lower_batched", "trsm_left_upper_batched"):
+        assert counts[w] > 0, (w, counts)
+
+
+@pytest.mark.cuda
+def test_plan_cache_round_trip_on_card(cuda, tmp_path):
+    """A plan saved from the card's service and loaded by a fresh cache
+    solves on the card as the original did.  ``index_add_`` is atomic on
+    CUDA, so its sums change order from run to run: the reloaded plan is
+    held to 1e-10 with equal pivots and perturbation counts, not to
+    bit-identity as on the CPU."""
+    from repro_torch.core import PlanCache
+
+    A = to_csr(fem2d(12, 12, seed=1))
+    opts = HyluOptions(force_mode="supernodal", bulk_min_width=2)
+    rng = np.random.default_rng(4)
+    vb = A.data[None] * rng.uniform(0.8, 1.2, (4, A.nnz))
+    bb = rng.normal(size=(4, A.n))
+    cache = PlanCache(directory=str(tmp_path))
+    an = cache.get_or_analyze(A, opts)
+    kernels.reset_launch_counts()
+    bst0 = factor_batched(an, A, vb)
+    x0, info0 = solve_batched(bst0, bb)
+    assert all(kernels.launch_counts()[w] > 0 for w in BATCHED_PATH)
+    fresh = PlanCache(directory=str(tmp_path))
+    an2 = fresh.get_or_analyze(A, opts)
+    assert fresh.stats["disk_hits"] == 1 and fresh.stats["analyze_calls"] == 0
+    bst1 = factor_batched(an2, A, vb)
+    x1, info1 = solve_batched(bst1, bb)
+    assert torch.equal(bst0.inode_perm, bst1.inode_perm)
+    assert np.array_equal(bst0.n_perturb, bst1.n_perturb)
+    assert max(info0["residual"].max(), info1["residual"].max()) < 1e-10
+    assert np.abs(x1 - x0).max() / np.abs(x0).max() < 1e-10

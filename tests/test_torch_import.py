@@ -77,12 +77,24 @@ def _tiny():
 
 def test_default_device_raises_without_cuda():
     """Asking for the card on a machine without one raises: the port never
-    quietly runs on the CPU."""
+    quietly runs on the CPU.  The solver services resolve their device when
+    they are built, so a missing card is not hidden behind typed per-request
+    failures."""
+    from repro_torch.serve.async_server import AsyncSolverServer
+    from repro_torch.serve.solver_service import SolverService
+
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     an = analyze(_tiny())                        # host analysis needs no card
     with pytest.raises(RuntimeError, match="cuda"):
         torch_repeated_engine(an)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SolverService()
+    with pytest.raises(RuntimeError, match="cuda"):
+        AsyncSolverServer()
+    cpu = HyluOptions(device="cpu")
+    assert SolverService(opts=cpu, cache_dir=None).device.type == "cpu"
+    assert AsyncSolverServer(SolverService(opts=cpu, cache_dir=None))
 
 
 @pytest.mark.parametrize("kw", [dict(donate=True)])
@@ -166,7 +178,8 @@ def test_port_test_modules_define_each_top_level_name_once():
 
 
 @pytest.mark.parametrize("sub", ["configs", "models", "serve",
-                                 "kernels.flashattn", "kernels.wkv"])
+                                 "kernels.flashattn", "kernels.wkv", "core",
+                                 "launch"])
 def test_serving_subpackages_import_without_jax(sub):
     """The serving slice's subpackages, imported alone in a fresh
     interpreter, pull in neither jax nor repro."""
