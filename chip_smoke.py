@@ -71,7 +71,22 @@ Phases, each printing one JSON line:
             one bucketed refactor counted with and without the in-place
             K1 (torch.profiler);
 6. width1   circuit_like(2000, seed 3), K = 8: the scanned width-1 tail;
-7. scalar   the one-system lifecycle ``factor`` -> ``refactor`` (new
+7. baselines  the paper's §4 comparison at fem2d_10k, K = 32, the main
+            phase's values and right-hand sides: the ``hylu`` (the main
+            phase's analysis), ``pardiso_like`` (supernodal only, relax
+            32, supernodes up to 256 rows: its 150-row root runs K2's
+            wide path, its 150-row node block K3's blocked left solves)
+            and ``klu_like`` (row-row only) presets through
+            ``factor_batched`` + ``solve_batched``: plan census, ms,
+            systems/s, residuals, ``spsolve`` on systems 0 and 31 and the
+            launches per wrapper; the host-loop solve
+            (``_solve_batched_hostloop``) on hylu's factors beside the
+            fused one (x within 1e-10, equal refinement counts); and the
+            wide paths' kernel records, float64: K2 on the root's 32
+            panels and at 256 and 300 rows, K3's blocked left solves at
+            k = 150, each held to its plain version beside the library's
+            ``solve_triangular`` (K3) and the bound;
+8. scalar   the one-system lifecycle ``factor`` -> ``refactor`` (new
             values) -> ``solve`` on fem2d_10k under the bucketed and the
             unrolled schedule in float64, and bucketed with float32
             factors: residuals, ``spsolve``, unrolled against bucketed
@@ -80,10 +95,10 @@ Phases, each printing one JSON line:
             per node with edges or width 1, K2 per node with nr > 1, no
             per-edge K3 or K5) and the device kernels of one refactor of
             each schedule (torch.profiler);
-8. plain    one batched step at K = 32 with ``use_kernels=False`` (plain
+9. plain    one batched step at K = 32 with ``use_kernels=False`` (plain
             factor program, level-scheduled substitution): residuals, no
             kernel launched, and its times beside the kernel route's;
-9. serving_solver  solver serving at the same sizes: the analyses of
+10. serving_solver  solver serving at the same sizes: the analyses of
             fem2d_10k and the circuit are put into a ``PlanCache`` on a
             temporary directory, and a fresh ``SolverService`` on it
             (batch 8, one retry) serves a mixed, fault-laced stream of 56
@@ -99,7 +114,7 @@ Phases, each printing one JSON line:
             analyzed, K1-K4 launched; requests/s, p50 / p99 latency, the
             dispatches' factor and solve ms, the retries' analysis
             seconds and the peak memory printed;
-10. model_kernels  per serving model, K7 (flash attention) on the q/k/v of
+11. model_kernels  per serving model, K7 (flash attention) on the q/k/v of
             phi3-medium-14b's first and last attention layers and K8 (WKV)
             on the r/k/v/w of rwkv6-1.6b's first and last time-mix layers
             (timed on the first; K8 also with layer 0's decays replaced by
@@ -111,7 +126,7 @@ Phases, each printing one JSON line:
             plain version's, the library call's (K7) and the bound; K7 in
             bfloat16 also at gemma-7b's attention shape (D = 256), random
             q/k/v, beside SDPA;
-11. transformer  the serving path of each model at full width and depth
+12. transformer  the serving path of each model at full width and depth
             in bfloat16 through its entry points (``init_params`` on the
             card, ``greedy_generate``): 4 requests of 2,048 random prompt
             tokens, 16 new tokens each; prefill and decode times, peak
@@ -124,8 +139,8 @@ Phases, each printing one JSON line:
             The peak memory is that of the serving calls alone.
 
 Then one ``{"kernels": [...]}`` line (each record's ``launches_by_path``
-counts the batched, scalar and solver-serving phases, or the models'
-serving calls), the nvidia-smi line, and, last,
+counts the batched, baselines, scalar and solver-serving phases, or the
+models' serving calls), the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero; it also exits non-zero, printing no result, without a CUDA
 device or outside a checkout of the repository.
@@ -469,6 +484,9 @@ def main() -> int:
     check(np.isfinite(xc).all() and infoc["residual"].max() <= 1e-10,
           f"width-1 residual {infoc['residual'].max()}")
 
+    baseline_counts, wide = baselines_phase(torch, np, kernels, A, an64,
+                                            values[0], b)
+    records.extend(wide)
     scalar_counts = scalar_phase(torch, np, kernels, A, an64, an_u, an32)
     plain_phase(torch, np, kernels, A, an64, bst, values[0], b, t_factor,
                 t_solve)
@@ -477,14 +495,16 @@ def main() -> int:
     for rec in records:
         w = rec.pop("wrapper")
         rec["launches_by_path"] = {"batched": counts[w],
+                                   "baselines": baseline_counts[w],
                                    "scalar": scalar_counts[w],
                                    "serving": serving_counts[w]}
-        rec["launches"] = counts[w] + scalar_counts[w] + serving_counts[w]
+        rec["launches"] = sum(rec["launches_by_path"].values())
     from repro_torch.configs import registry
 
     for name in SERVING_MODELS:
         rec = serving_phase(torch, np, kernels, registry.get(name))
         rec["launches_by_path"]["serving"] = serving_counts[rec["name"]]
+        rec["launches_by_path"]["baselines"] = baseline_counts[rec["name"]]
         records.append(rec)
     emit({"kernels": records})
     print(smi, flush=True)
@@ -2138,7 +2158,7 @@ def device_kernels(torch, fn):
 
 
 def scalar_phase(torch, np, kernels, A, an64, an_u, an32):
-    """Phase 7: factor -> refactor -> solve of one system at fem2d_10k under
+    """Phase 8: factor -> refactor -> solve of one system at fem2d_10k under
     both schedules (float64) and with float32 factors; returns the launches
     of the whole phase by wrapper."""
     import scipy.sparse as sp
@@ -2236,7 +2256,7 @@ def scalar_phase(torch, np, kernels, A, an64, an_u, an32):
 
 def plain_phase(torch, np, kernels, A, an64, bst, values0, b, t_factor,
                 t_solve):
-    """Phase 8: one batched step with use_kernels=False (plain factor
+    """Phase 9: one batched step with use_kernels=False (plain factor
     program, level-scheduled substitution) beside the kernel route."""
     from repro_torch.core import (HyluOptions, analyze, factor_batched,
                                   solve_batched, torch_repeated_engine)
@@ -2278,6 +2298,214 @@ def plain_phase(torch, np, kernels, A, an64, bst, values0, b, t_factor,
           f"use_kernels=False residual {info_p['residual'].max()}")
 
 
+def baselines_phase(torch, np, kernels, A, an64, values0, b):
+    """Phase 7: the paper's §4 comparison on fem2d_10k at K = 32 — the
+    ``hylu``, ``pardiso_like`` and ``klu_like`` presets
+    (``repro_torch.core.baselines``), each analyzed by ``reuse=`` of the
+    main phase's analysis (hylu is that analysis), factored by
+    ``factor_batched`` and solved by ``solve_batched`` on the main phase's
+    values and right-hand sides; then the host-loop solve
+    (``_solve_batched_hostloop``) on hylu's factors beside the fused one,
+    and the wide paths' kernel records on the operands pardiso_like's plan
+    hands them (its 150-row root).  Returns (launch counts of the phase,
+    the new kernel records)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from repro_torch.core import (analyze, baselines, factor_batched,
+                                  solve_batched, torch_repeated_engine)
+    from repro_torch.core.api import _solve_batched_hostloop
+
+    t_all = time.perf_counter()
+    ref = {}
+    for k in (0, K_MAIN - 1):
+        ak = sp.csr_matrix((values0[k], A.indices, A.indptr),
+                           shape=(A.n, A.n)).tocsc()
+        ref[k] = spla.spsolve(ak, b[k])
+    total = {w: 0 for w in kernels.WRAPPERS}
+    presets, states = {}, {}
+    for name in ("hylu", "pardiso_like", "klu_like"):
+        t0 = time.perf_counter()
+        an = (an64 if name == "hylu" else
+              analyze(A, baselines.BASELINES[name](), reuse=an64))
+        analyze_s = time.perf_counter() - t0
+        eng = torch_repeated_engine(an)          # built outside the timing
+        nodes = an.plan.nodes
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = factor_batched(an, A, values0)
+        t_factor = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x, info = solve_batched(bst, b)
+        t_solve = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for w, c in counts.items():
+            total[w] += c
+        err = [float(np.abs(x[k] - ref[k]).max() / np.abs(ref[k]).max())
+               for k in ref]
+        states[name] = (an, eng, bst, x, info, t_solve)
+        presets[name] = {
+            "mode": an.choice.mode, "ordering": an.ordering_name,
+            "nodes": len(nodes), "max_nr": max(nd.nr for nd in nodes),
+            "nodes_over_128": sum(nd.nr > 128 for nd in nodes),
+            "total_slots": int(an.plan.total_slots),
+            "block_nodes": len(eng._blocks), "analyze_reuse_s": analyze_s,
+            "factor_batched_ms": t_factor * 1e3,
+            "solve_batched_ms": t_solve * 1e3,
+            "systems_per_s": K_MAIN / (t_factor + t_solve),
+            "max_residual": float(info["residual"].max()),
+            "refine_iters": info["n_refine"],
+            "n_perturb": int(info["n_perturb"].sum()),
+            "scipy_rel_err": err,
+            "launches": {w: c for w, c in counts.items() if c}}
+        check(np.isfinite(x).all() and x.shape == (K_MAIN, A.n),
+              f"{name}: solutions are finite and (K, n)")
+        check(presets[name]["max_residual"] <= 1e-10,
+              f"{name}: residual {presets[name]['max_residual']} > 1e-10")
+        check(max(err) <= 1e-10, f"{name}: spsolve disagreement {err}")
+    for w in ("panel_lu_wide", "trsm_left_unit_lower_blocked",
+              "trsm_left_upper_blocked"):
+        check(presets["pardiso_like"]["launches"].get(w, 0) >= 1,
+              f"pardiso_like: the wide path {w} was not launched")
+    # the host-loop solve on hylu's factors, beside the fused one
+    an, eng, bst, x_f, info_f, t_fused = states["hylu"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    x_h, info_h = _solve_batched_hostloop(bst, b)
+    t_host = time.perf_counter() - t0
+    for w, c in kernels.launch_counts().items():
+        total[w] += c
+    host_err = float(np.abs(x_h - x_f).max() / np.abs(x_f).max())
+    hostloop = {"hostloop_solve_ms": t_host * 1e3,
+                "fused_solve_ms": t_fused * 1e3,
+                "hostloop_over_fused": t_host / t_fused,
+                "x_rel_err": host_err,
+                "n_refine": [info_h["n_refine"], info_f["n_refine"]],
+                "max_residual": float(info_h["residual"].max())}
+    check(host_err <= 1e-10, f"host loop vs fused solve: {host_err}")
+    check(info_h["n_refine"] == info_f["n_refine"],
+          f"host loop refinements {info_h['n_refine']} != fused "
+          f"{info_f['n_refine']}")
+    records = wide_records(torch, np, states["pardiso_like"][1], values0)
+    emit({"phase": "baselines", "matrix": "fem2d_10k", "k": K_MAIN,
+          "presets": presets, "hostloop": hostloop,
+          "wide_records": records, "seconds": time.perf_counter() - t_all})
+    return total, records
+
+
+def wide_records(torch, np, eng, values0):
+    """Kernel records of the wide paths on the card, float64: K2's
+    (``panel_lu_wide``) on the 32 panels of pardiso_like's 150-row root
+    as its factor program hands them (strided views of the value buffer),
+    and at 256 and 300 rows (the window kernel in device memory, then
+    ``panel_lu_kernel``) on dominant random panels; K3's blocked left
+    solves at k = 150 on the root's diagonal block of the finished
+    factors, m = 1 — each held to its plain version, with its time, the
+    plain version's, the library's and the bound."""
+    from repro_torch.kernels.panel import ops as panel_ops
+    from repro_torch.kernels.trisolve import ops as trisolve_ops
+
+    dev, plan, sched = eng.device, eng.plan, eng.sched
+    nodes = plan.nodes
+    K = values0.shape[0]
+    a_dev = torch.from_numpy(values0).to(dev)
+    st, t_root = max(((i, int(t_)) for i, s_ in enumerate(sched.steps)
+                      for t_ in s_.seq), key=lambda it: nodes[it[1]].nr)
+    nd = nodes[t_root]
+    vals, eps = eng.refactor_batched(a_dev, stop=(st, "seq"))
+    off = int(plan.panel_offset[t_root])
+    root = vals[:, off:off + nd.nr * nd.width].view(K, nd.nr, nd.width)
+    rng = np.random.default_rng(23)
+
+    def dominant(nr, ls, us):
+        p = rng.normal(size=(K, nr, ls + nr + us))
+        p[:, :, ls:ls + nr] += 16 * np.eye(nr)
+        rows = np.argsort(rng.random((K, nr)), axis=1)
+        return torch.from_numpy(np.take_along_axis(
+            p, rows[:, :, None], axis=1)).to(dev)
+
+    e = eps.to(torch.float64)
+    shapes = {"": (root, nd.nr, nd.lsize),
+              "_nr256": (dominant(256, 40, 8), 256, 40),
+              "_nr300": (dominant(300, 40, 8), 300, 40)}
+    k2 = {"name": "panel_lu_wide", "route": "cuda",
+          "source": "src/repro_torch/csrc/panel_lu.cu",
+          "replaces": "src/repro/kernels/panel/kernel.py:23",
+          "wrapper": "panel_lu_wide"}
+    for sfx, (P, nr, ls) in shapes.items():
+        w = P.shape[2]
+        got = panel_ops.panel_lu(P, nr, ls, e)
+        want = panel_ops.panel_lu_plain(P, ls, w, e)
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+              f"panel_lu_wide{sfx}: pivots or perturbation counts differ")
+        err = float((got[0] - want[0]).abs().max())
+        check(bool(torch.allclose(got[0], want[0], rtol=TOL["float64"],
+                                  atol=TOL["float64"])),
+              f"panel_lu_wide{sfx}: max |kernel - plain| = {err}")
+        t_bytes = ((2 * P.numel() + K) * 8 + K * (nr + 1) * 4) \
+            / HBM_BYTES_PER_S
+        t_ops = lu_flops(np, K, nr, ls, w) / PEAK_FLOPS["float64"]
+        k2.update({
+            "shape" + sfx: f"({K}, {nr}, {w}) lsize={ls}",
+            "max_abs_err" + sfx: err, "tol" + sfx: TOL["float64"],
+            "rows_moved" + sfx: int((got[1] != torch.arange(
+                nr, device=dev)).sum()),
+            "ms" + sfx: bench_ms(torch, lambda: panel_ops.panel_lu(
+                P, nr, ls, e)),
+            "plain_ms" + sfx: bench_ms(torch, lambda: panel_ops.panel_lu_plain(
+                P, ls, w, e)),
+            "bound_ms" + sfx: max(t_bytes, t_ops) * 1e3,
+            "bound_by" + sfx: "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms" + sfx: None})
+    k2["library_none_because"] = ("no single PyTorch call computes a "
+                                  "threshold-pivoted LU restricted to the "
+                                  "block, with perturbation")
+    # K3's blocked left solves on the root's diagonal block
+    f = eng.refactor_batched(a_dev)
+    blk_slots = next(b_[-1] for b_ in eng._blocks if b_[1] == nd.nr)
+    blk = f.vals[:, blk_slots].contiguous()
+    k = nd.nr
+    rhs = torch.from_numpy(rng.normal(size=(K, k, 1))).to(dev)
+    lower = torch.tril(blk, -1) + torch.eye(k, dtype=blk.dtype, device=dev)
+    out = [k2]
+    for name, fn, plain, lib, flops, tri in (
+            ("trsm_left_unit_lower_blocked",
+             trisolve_ops.trsm_left_unit_lower_batched,
+             trisolve_ops.trsm_left_unit_lower_plain,
+             lambda: torch.linalg.solve_triangular(
+                 lower, rhs, upper=False, unitriangular=True),
+             float(K * k * (k - 1)), K * k * (k - 1) // 2),
+            ("trsm_left_upper_blocked", trisolve_ops.trsm_left_upper_batched,
+             trisolve_ops.trsm_left_upper_plain,
+             lambda: torch.linalg.solve_triangular(blk, rhs, upper=True),
+             float(K * k * k), K * k * (k + 1) // 2)):
+        got, want = fn(blk, rhs), plain(blk, rhs)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, rtol=TOL_LEFT["float64"],
+                                  atol=TOL_LEFT["float64"])),
+              f"{name}: max |kernel - plain| = {err}")
+        t_bytes = (tri + 2 * rhs.numel()) * 8 / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS["float64"]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/trsm.cu",
+            "replaces": "src/repro/kernels/trisolve/kernel.py:21",
+            "wrapper": name,
+            "shape": f"blk ({K}, {k}, {k}) b ({K}, {k}, 1), blocks of "
+                     f"{trisolve_ops.BLOCK_K}",
+            "max_abs_err": err, "tol": TOL_LEFT["float64"],
+            "ms": bench_ms(torch, lambda: fn(blk, rhs)),
+            "plain_ms": bench_ms(torch, lambda: plain(blk, rhs)),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": bench_ms(torch, lib)})
+    del vals, f
+    return out
+
+
 def spsolve_oracle(a, b):
     """float64 reference solution by scipy's sparse LU: independent of the
     solver stack, and affordable at n = 10,000 where a dense solve is not."""
@@ -2315,7 +2543,7 @@ def solver_stream(np, A, C):
 
 
 def serving_solver_phase(torch, np, kernels, A, an64, C, anc):
-    """Phase 9: solver serving at the corpus's FEM size.  The analyses of
+    """Phase 10: solver serving at the corpus's FEM size.  The analyses of
     fem2d_10k and circuit_like(2000, seed 3) are put into a PlanCache on a
     temporary directory; a fresh SolverService on that directory serves a
     mixed, fault-laced stream (``solver_stream``) twice, once by
@@ -2488,7 +2716,7 @@ def torch_arange_like(prompt):
 
 
 def flash_record(torch, L, T, cfg, params, prompt):
-    """Phase 9 for phi3-medium: K7 on the q/k/v its first and last
+    """Phase 11 for phi3-medium: K7 on the q/k/v its first and last
     attention layers make (the (B, H, T, D) views of the (B, T, H, D)
     projections that ``attention_seq`` hands the kernel), bfloat16 as
     served and float32, held to its plain version on both layers and timed
@@ -2618,7 +2846,7 @@ def wkv_err(torch, got, ref):
 
 
 def wkv_record(torch, L, T, cfg, params, prompt):
-    """Phase 9 for rwkv6: K8 on the r/k/v/w its first and last time-mix
+    """Phase 11 for rwkv6: K8 on the r/k/v/w its first and last time-mix
     layers make (the (B, H, T, hs) views ``rwkv_time_mix_seq`` hands the
     kernel), held on both and timed on the first; also on layer 0's r, k,
     v, u with decays drawn from [1e-6, 0.05] and with decays of exactly

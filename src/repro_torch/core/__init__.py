@@ -14,6 +14,8 @@
     PlanCache / save_analysis / load_analysis
                                the content-addressed plan cache and its
                                artifacts (the JAX package's format)
+    baselines                  the paper's §4 presets: hylu, pardiso_like,
+                               klu_like (``baselines.BASELINES``)
 """
 from .matrix import CSR
 from .api import (HyluOptions, Analysis, BatchedFactorState, FactorState,
@@ -22,10 +24,11 @@ from .api import (HyluOptions, Analysis, BatchedFactorState, FactorState,
                   torch_repeated_engine, analysis_from_arrays,
                   pattern_key, plan_fingerprint, PlanCache, save_analysis,
                   load_analysis)
+from . import baseline as baselines
 
 __all__ = ["CSR", "HyluOptions", "Analysis", "BatchedFactorState",
            "FactorState", "analyze", "factor", "refactor", "solve",
            "solve_system", "factor_batched", "solve_batched",
            "solve_sequence", "torch_repeated_engine", "analysis_from_arrays",
            "pattern_key", "plan_fingerprint", "PlanCache", "save_analysis",
-           "load_analysis"]
+           "load_analysis", "baselines"]

@@ -3,7 +3,10 @@
 (the batched repeated-solve path) and the plan cache that persists
 analyses across processes.
 
-Mirrors ``src/repro/core/api.py`` for the names the port has; solver
+Mirrors ``src/repro/core/api.py`` for the names the port has, the
+host-side oracles ``_batched_matvec`` and ``_solve_batched_hostloop``
+included (the JAX tests and benchmark import them from ``api``); the
+paper's baseline presets are ``repro_torch.core.baselines``; solver
 serving lives in ``repro_torch.serve``, and the differentiable solve is
 still to be ported (ROADMAP.md)."""
 from __future__ import annotations
@@ -16,7 +19,8 @@ from .options import (HyluOptions, PLAN_OPTION_FIELDS, plan_options_key,
 from .analysis import (Analysis, FactorState, analyze, factor, refactor,
                        solve, solve_system, torch_repeated_engine)
 from .batched import (BatchedFactorState, factor_batched, solve_batched,
-                      solve_sequence)
+                      solve_sequence, _batched_matvec,
+                      _solve_batched_hostloop)
 from .convert import analysis_from_arrays
 from .plan_cache import (PlanCache, PlanCacheFormatError, load_analysis,
                          save_analysis)
@@ -29,6 +33,7 @@ __all__ = [
     "Analysis", "FactorState", "analyze", "factor", "refactor", "solve",
     "solve_system", "torch_repeated_engine",
     "BatchedFactorState", "factor_batched", "solve_batched",
-    "solve_sequence", "analysis_from_arrays", "PlanCache",
+    "solve_sequence", "_batched_matvec", "_solve_batched_hostloop",
+    "analysis_from_arrays", "PlanCache",
     "PlanCacheFormatError", "save_analysis", "load_analysis",
 ]

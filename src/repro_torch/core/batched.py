@@ -2,8 +2,11 @@
 
 Adapted from ``src/repro/core/batched.py``: ``factor_batched``,
 ``solve_batched`` (with the non-finite guard ``_nonfinite_failed`` and the
-per-system fp64 escape hatch ``_fp64_redo``) and ``solve_sequence`` (one
-step, or a T-step sequence).  Inputs may be host arrays or torch tensors;
+per-system fp64 escape hatch ``_fp64_redo``), ``solve_sequence`` (one
+step, or a T-step sequence), and the host-side oracles the JAX benchmark
+holds the fused solve against: ``_batched_matvec`` (numpy residuals) and
+``_solve_batched_hostloop`` (device substitution, numpy residuals, a
+Python refinement loop).  Inputs may be host arrays or torch tensors;
 results come back as numpy arrays, as the JAX package returns them.
 
 Not in this slice (``NotImplementedError``, see ROADMAP.md): buffer
@@ -50,6 +53,34 @@ def _pattern_of(a_pattern) -> tuple:
         return (a_pattern.indptr, a_pattern.indices)
     indptr, indices = a_pattern
     return (np.asarray(indptr), np.asarray(indices))
+
+
+def _batched_matvec(pattern: tuple, values_batch: np.ndarray,
+                    x_batch: np.ndarray) -> np.ndarray:
+    """(A_k x_k) for K CSR matrices sharing one pattern, on the host: one
+    gather and a row-segment reduction for the whole batch (the JAX
+    package's ``_batched_matvec``, ``src/repro/core/batched.py:68``).  The
+    fused solve computes residuals on the device
+    (``torch_engine.make_csr_matvec_batched``); this stays as the oracle of
+    tests and of the host-loop solve.  x_batch is (K, n) or (K, n, m)."""
+    indptr, indices = pattern
+    if x_batch.ndim == 3:
+        prod = values_batch[:, :, None] * x_batch[:, indices]
+    else:
+        prod = values_batch * x_batch[:, indices]
+    counts = np.diff(indptr)
+    if len(counts) == 0:
+        return np.zeros_like(x_batch)
+    if counts.min() > 0:
+        return np.add.reduceat(prod, indptr[:-1], axis=1)
+    # reduceat mishandles empty rows: a per-system scatter-add instead
+    # (np.add.at keeps the batch dtype, where bincount would promote)
+    seg = np.repeat(np.arange(len(counts)), counts)
+    out = np.zeros((x_batch.shape[0], len(counts)) + x_batch.shape[2:],
+                   dtype=prod.dtype)
+    for k in range(out.shape[0]):
+        np.add.at(out[k], seg, prod[k])
+    return out
 
 
 def _np_dtype(tdtype):
@@ -193,6 +224,67 @@ def _fp64_redo(bst: BatchedFactorState, b_dev: torch.Tensor, x: np.ndarray,
     info["n_fp64_fallback"] = int(len(idx))
     info["fallback_time"] = time.perf_counter() - t0
     return x
+
+
+def _solve_batched_hostloop(bst: BatchedFactorState, b_batch,
+                            refine: bool | None = None) -> tuple:
+    """The host-loop form of :func:`solve_batched` (the JAX package's
+    ``_solve_batched_hostloop``, ``src/repro/core/batched.py:357``): the
+    substitution on the device (``eng.apply_batched``), but numpy
+    residuals (:func:`_batched_matvec`) and a Python refinement loop, one
+    host round trip per iteration.  The baseline the fused solve is timed
+    against, and a parity oracle: the same per-system improved / converged
+    masking and the same multi-RHS shapes.  Returns (x, info) with
+    ``residual``, ``n_refine``, ``n_perturb``, ``refine_failed``,
+    ``refine_stalled`` and ``solve_time``."""
+    an = bst.analysis
+    opts = an.opts
+    eng = torch_repeated_engine(an)
+    t0 = time.perf_counter()
+    # staged and accumulated in the engine's refine dtype, as the fused
+    # path (the substitution runs in the factor dtype inside apply_batched)
+    rdt = _np_dtype(eng.refine_dtype)
+    tol = resolve_refine_tol(opts, eng.refine_dtype)
+    if isinstance(b_batch, torch.Tensor):
+        b_batch = b_batch.detach().cpu().numpy()
+    b_batch = np.asarray(b_batch, dtype=rdt)
+    if b_batch.ndim == 1:
+        b_batch = np.broadcast_to(b_batch, (bst.k, b_batch.shape[0]))
+
+    def apply(r):
+        rhs = torch.from_numpy(np.ascontiguousarray(r)).to(eng.device)
+        return eng.apply_batched(bst.vals, bst.inode_perm,
+                                 rhs).cpu().numpy().astype(rdt)
+
+    def residuals(x):
+        r = b_batch - _batched_matvec(bst.a_pattern, bst.values_batch, x)
+        return r, np.abs(r).sum(axis=1) / bnorm
+
+    bnorm = np.abs(b_batch).sum(axis=1)          # (K,) or (K, m)
+    bnorm = np.where(bnorm == 0.0, 1.0, bnorm)
+    x = apply(b_batch)
+    r, resid = residuals(x)
+    n_ref = 0
+    alive = np.ones(resid.shape, bool)
+    max_iter = 0 if refine is False else opts.refine_max_iter
+    for _ in range(max_iter):
+        need = alive & (resid > tol)
+        if not need.any():
+            break
+        x2 = x + apply(r)
+        r2, resid2 = residuals(x2)
+        n_ref += 1
+        improved = resid2 < resid
+        upd = need & improved                     # the fused masking
+        x = np.where(upd[:, None], x2, x)
+        r = np.where(upd[:, None], r2, r)
+        resid = np.where(upd, resid2, resid)
+        alive = alive & (improved | ~need)
+    failed = (resid > tol) & (max_iter > 0)
+    info = dict(residual=resid, n_refine=n_ref, n_perturb=bst.n_perturb,
+                refine_failed=failed, refine_stalled=failed & ~alive,
+                solve_time=time.perf_counter() - t0)
+    return x, info
 
 
 def _seed_values(values_batch) -> np.ndarray:

@@ -51,6 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .options import check_plan_supported
 from .plan import FactorPlan
 from .structure import get_bucket_schedule, segment_levels
 from ..kernels.panel import ops as panel_ops
@@ -175,6 +176,7 @@ class RepeatedSolveEngine:
             raise ValueError(f"unknown factor schedule {schedule!r}: "
                              "expected 'bucketed' or 'unrolled'")
         dev = torch.device(device)
+        check_plan_supported(plan, schedule, use_kernels, dev)
         self.device = dev
         self.n = plan.n
         self.plan = plan
@@ -241,7 +243,8 @@ class RepeatedSolveEngine:
         self._edges = supsup_ops.edge_table(
             [(int(offs[e.src]), nodes[e.src].nr, nodes[e.src].width,
               nodes[e.src].lsize, e.col_map) for nd in nodes
-             for e in nd.edges], self.device)
+             for e in nd.edges], self.device,
+            max_k=supsup_ops.MAX_K if self.device.type == "cuda" else None)
         self._nodes, e0 = [], 0
         for nd in nodes:
             e1 = e0 + len(nd.edges)

@@ -11,19 +11,26 @@
 //       (panel_lu_p :133, pallas_call :137)            -> K2:
 //       hylu_node_panel_lu_* (node panels [L | block | U]).
 //
-// All three run one kernel template, panel_lu_window_kernel below.  The
-// first kernel of this file, panel_lu_kernel (hylu_panel_lu_*), is the
-// design K1 and K2 ran before it.  No path of the package calls it any
-// more: chip_smoke.py keeps it only as the parent design that both are
-// timed against, and ROADMAP.md lists its removal.
+// Panels of up to 256 rows run one kernel template, panel_lu_window_kernel
+// below.  The Pallas kernels pad any nr; a supernode has up to max_super
+// rows, which the options do not bound, so panels of more than 256 rows
+// run the first kernel of this file, panel_lu_kernel (hylu_panel_lu_*):
+// the design K1 and K2 ran before the window kernel, one block per panel
+// on the whole panel in device memory (L2-resident at these sizes).  The
+// wrappers choose it by shape (kernels/panel/ops.py); chip_smoke.py also
+// times it at small nr as the parent design of the window kernel.
 //
-// The parent design.  Per pivot step j the block (1) reduces the argmax of
+// panel_lu_kernel.  Per pivot step j the block (1) reduces the argmax of
 // |P[i, c0+j]| over i >= j (the first maximum wins and NaN counts as the
 // maximum, exactly as jnp.argmax), (2) swaps rows j and p across all
 // columns and in perm, (3) replaces a pivot with |p| < eps by +-eps and
 // counts it, (4) applies the rank-1 update to rows > j, columns (c0+j,
 // wlim), and (5) stores the multipliers in column c0+j.  Columns outside
-// [c0, wlim) are only swapped.
+// [c0, wlim) are only swapped.  Each multiplier is a true quotient's bits
+// (div_fast, csrc/div_fast.cuh).  The multipliers and the row map of a
+// panel are nr values each in shared memory (nr <= 16,384), so any nr
+// the options can produce is taken; the time is nr dependent steps of a
+// block-wide sweep each.
 //
 // Non-finite steps.  The Pallas kernels subtract the masked rank-1 product
 // l urow from the WHOLE panel, with l = q * [i > j] (q = P[:, c0+j] / piv)
@@ -45,10 +52,14 @@
 #include <algorithm>
 #include <mutex>
 
+#include "div_fast.cuh"
+
 
 namespace {
 
-constexpr int kMaxRows = 128;
+constexpr int kMaxRows = 256;        // the window kernel: a lane per row
+constexpr int kMaxRowsWide = 16384;  // panel_lu_kernel: 12 bytes a row in
+                                     // shared memory (f64)
 constexpr int kThreads = 256;
 constexpr size_t kMaxDynSmem = 220 * 1024;
 
@@ -89,15 +100,22 @@ __device__ void masked_update(T* P, const T* lcol, int nr, int wt, int j,
     rj[c] -= T(0) * rj[c];
 }
 
+// Bytes of shared memory a launch of panel_lu_kernel takes: the panel
+// (use_smem) and, per row, its multiplier and its entry of perm.
+template <typename T>
+size_t parent_smem(int nr, int wt, bool use_smem) {
+  const size_t panel = use_smem ? ((size_t)nr * wt * sizeof(T) + 15) & ~15
+                                : 0;
+  return panel + (size_t)nr * (sizeof(T) + sizeof(int));
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-panel_lu_kernel(const T* __restrict__ in, T* __restrict__ out,
+panel_lu_kernel(const T* __restrict__ in, long long sb, T* __restrict__ out,
                 int* __restrict__ perm_out, int* __restrict__ nper_out,
                 const T* __restrict__ eps, int nr, int wt, int c0, int wlim,
                 int use_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T lcol[kMaxRows];
-  __shared__ int perm[kMaxRows];
   __shared__ int piv_row;
   __shared__ T piv_val;
 
@@ -106,9 +124,12 @@ panel_lu_kernel(const T* __restrict__ in, T* __restrict__ out,
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const long long size = (long long)nr * wt;
-  const T* src = in + blockIdx.x * size;
+  const T* src = in + blockIdx.x * sb;         // rows dense, wt apart
   T* dst = out + blockIdx.x * size;
   T* P = use_smem ? reinterpret_cast<T*>(smem_raw) : dst;
+  T* lcol = reinterpret_cast<T*>(
+      smem_raw + (use_smem ? ((size_t)size * sizeof(T) + 15) & ~15 : 0));
+  int* perm = reinterpret_cast<int*>(lcol + nr);
 
   for (long long i = tid; i < size; i += blockDim.x) P[i] = src[i];
   for (int i = tid; i < nr; i += blockDim.x) perm[i] = i;
@@ -166,10 +187,14 @@ panel_lu_kernel(const T* __restrict__ in, T* __restrict__ out,
     }
     __syncthreads();
     const T piv = piv_val;
+    const double rpiv = recip((double)piv);
     T* rj = P + (long long)j * wt;
     int bad = 0;
     for (int i = j + 1 + tid; i < nr; i += blockDim.x) {
-      const T q = P[(long long)i * wt + pc] / piv;
+      const T a = P[(long long)i * wt + pc];
+      bool ok = true;
+      T q = div_fast(a, piv, rpiv, ok);
+      if (!ok) q = true_div(a, piv);
       lcol[i] = q;
       bad |= !isfinite(q);
     }
@@ -199,15 +224,15 @@ panel_lu_kernel(const T* __restrict__ in, T* __restrict__ out,
 }
 
 template <typename T>
-int launch_panel_lu(const void* in, void* out, void* perm, void* nper,
-                    const void* eps, int npanels, int nr, int wt, int c0,
-                    int wlim, void* stream) {
-  if (nr < 1 || nr > kMaxRows || wt < 1 || npanels < 1 || c0 < 0 ||
-      c0 + nr > wt || wlim < c0 + nr || wlim > wt)
+int launch_panel_lu(const void* in, long long sb, void* out, void* perm,
+                    void* nper, const void* eps, int npanels, int nr, int wt,
+                    int c0, int wlim, void* stream) {
+  if (nr < 1 || nr > kMaxRowsWide || wt < 1 || npanels < 1 || c0 < 0 ||
+      c0 + nr > wt || wlim < c0 + nr || wlim > wt || sb < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = (size_t)nr * wt * sizeof(T);
-  const int use_smem = bytes <= kMaxDynSmem;
-  const size_t smem = use_smem ? bytes : 0;
+  const int use_smem = parent_smem<T>(nr, wt, true) <= kMaxDynSmem;
+  const size_t smem = parent_smem<T>(nr, wt, use_smem != 0);
+  if (smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         panel_lu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -215,7 +240,7 @@ int launch_panel_lu(const void* in, void* out, void* perm, void* nper,
     if (err != cudaSuccess) return (int)err;
   }
   panel_lu_kernel<T><<<npanels, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out),
+      static_cast<const T*>(in), sb, static_cast<T*>(out),
       static_cast<int*>(perm), static_cast<int*>(nper),
       static_cast<const T*>(eps), nr, wt, c0, wlim, use_smem);
   return (int)cudaGetLastError();
@@ -226,8 +251,9 @@ int launch_panel_lu(const void* in, void* out, void* perm, void* nper,
 // ---------------------------------------------------------------------------
 // K1 and K2 designed for Hopper: panel_lu_window_kernel
 //
-// A panel has nr <= 128 rows.  Its window -- the diagonal block and the U
-// suffix -- is eliminated: the LU pivots inside the block (the first
+// A panel has nr <= 256 rows: eight warps of the pivot loop own one row a
+// lane.  Its window -- the diagonal block and the U suffix -- is
+// eliminated: the LU pivots inside the block (the first
 // maximum of |.| wins, NaN counts as the largest, as jnp.argmax), perturbs
 // a pivot with |p| < eps to +-eps and counts it, stores the multipliers in
 // the pivot column and applies the rank-1 update to the window columns
@@ -298,7 +324,7 @@ int launch_panel_lu(const void* in, void* out, void* perm, void* nper,
 //   rows to a spare row.
 // * The block is sized to the panel: for nr <= 8 one warp runs the pivot
 //   loop while three more stage the prefix; four warps for nr <= 64, eight
-//   above.  Rows are dealt to warps round-robin, so the active rows stay
+//   up to 256.  Rows are dealt to warps round-robin, so the active rows stay
 //   spread over the warps whatever the pivots are.  (A lone warp up to
 //   nr = 16 or 32, with or without the copying warps and with several
 //   panels a block, measured slower at every size of fem2d_10k's node
@@ -1070,20 +1096,24 @@ int launch_bucket(void* vals, long long ldv, const void* desc, void* perm,
 }  // namespace node
 }  // namespace
 
-extern "C" int hylu_panel_lu_f64(const void* in, void* out, void* perm,
-                                 void* nper, const void* eps, int npanels,
-                                 int nr, int wt, int c0, int wlim,
-                                 void* stream) {
-  return launch_panel_lu<double>(in, out, perm, nper, eps, npanels, nr, wt,
-                                 c0, wlim, stream);
+// panel_lu_kernel.  in: npanels panels of nr x wt (rows dense, panel b at
+// in + b * sb); out: (npanels, nr, wt) dense; perm (npanels, nr) and nper
+// (npanels,) int32; eps (npanels,); eliminated over [c0, wlim), pivots in
+// the block at column c0; nr <= 16,384.
+extern "C" int hylu_panel_lu_f64(const void* in, long long sb, void* out,
+                                 void* perm, void* nper, const void* eps,
+                                 int npanels, int nr, int wt, int c0,
+                                 int wlim, void* stream) {
+  return launch_panel_lu<double>(in, sb, out, perm, nper, eps, npanels, nr,
+                                 wt, c0, wlim, stream);
 }
 
-extern "C" int hylu_panel_lu_f32(const void* in, void* out, void* perm,
-                                 void* nper, const void* eps, int npanels,
-                                 int nr, int wt, int c0, int wlim,
-                                 void* stream) {
-  return launch_panel_lu<float>(in, out, perm, nper, eps, npanels, nr, wt,
-                                c0, wlim, stream);
+extern "C" int hylu_panel_lu_f32(const void* in, long long sb, void* out,
+                                 void* perm, void* nper, const void* eps,
+                                 int npanels, int nr, int wt, int c0,
+                                 int wlim, void* stream) {
+  return launch_panel_lu<float>(in, sb, out, perm, nper, eps, npanels, nr,
+                                wt, c0, wlim, stream);
 }
 
 extern "C" const char* hylu_error_string(int code) {

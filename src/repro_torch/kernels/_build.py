@@ -37,12 +37,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L, _F = ctypes.c_longlong, ctypes.c_float
-_PANEL = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_PANEL = [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _NODE_PANEL = [_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _BATCHED_PANEL = [_P] * 6 + [_I] * 4 + [_P]
 _BUCKET_PANEL = [_P, _L] + [_P] * 5 + [_I] * 7 + [_P]
 _RIGHT = [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P]
 _LEFT = [_P, _P, _P, _I, _I, _I, _P]
+_TRSM_UPDATE = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _I, _I, _I, _I, _P]
 _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
 _GEMM_UPDATE = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
 _NODE_EDGES = [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
@@ -58,6 +59,7 @@ SIGNATURES = {
     **{f"hylu_trsm_right_{s}": _RIGHT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_unit_lower_{s}": _LEFT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_upper_{s}": _LEFT for s in ("f64", "f32")},
+    **{f"hylu_trsm_update_{s}": _TRSM_UPDATE for s in ("f64", "f32")},
     **{f"hylu_bmm_{s}": _BMM for s in ("f64", "f32")},
     **{f"hylu_gemm_update_{s}": _GEMM_UPDATE for s in ("f64", "f32")},
     **{f"hylu_node_edges_{s}": _NODE_EDGES for s in ("f64", "f32")},

@@ -1,9 +1,18 @@
 """Panel LU wrappers: K1 (bucketed) and K2 (one node panel per system).
 
 On a CUDA tensor each wrapper launches its hand-written kernel (all in
-``csrc/panel_lu.cu``, one kernel template behind their entry points) or
-raises; on a CPU tensor it runs the plain PyTorch version of :mod:`.ref`.
-Every launch adds one to the wrapper's ``launches`` count.
+``csrc/panel_lu.cu``) or raises; on a CPU tensor it runs the plain PyTorch
+version of :mod:`.ref`.  Every launch adds one to the wrapper's
+``launches`` count.
+
+Panels of up to ``WINDOW_ROWS`` (256) rows run the window kernel
+(``panel_lu_window_kernel``); taller ones, which any ``max_super`` above
+256 can produce, run ``panel_lu_kernel``, one block per panel in device
+memory, up to ``MAX_ROWS`` rows.  Panels of more than ``WIDE_ROWS`` (128,
+the default supernode cap) rows are K1's and K2's wide path: the engine
+calls ``panel_lu_bucket_inplace`` and ``panel_lu`` for every panel, and
+they hand such panels to ``panel_lu_bucket_wide`` and ``panel_lu_wide``,
+which count those launches.
 
 K1 has two wrappers: ``panel_lu_bucket_inplace``, which the engine calls,
 factors the members of one panel bucket where they lie in the value buffer
@@ -28,10 +37,13 @@ from .. import _build
 from .ref import panel_lu_bucket_plain, panel_lu_plain
 
 __all__ = ["BucketLayout", "bucket_layout", "bucket_maps", "panel_lu",
-           "panel_lu_batched", "panel_lu_bucket_inplace",
-           "panel_lu_bucket_plain", "panel_lu_plain"]
+           "panel_lu_wide", "panel_lu_batched", "panel_lu_bucket_inplace",
+           "panel_lu_bucket_wide", "panel_lu_bucket_plain", "panel_lu_plain"]
 
-MAX_ROWS = 128
+WIDE_ROWS = 128        # panels above this count as the wide path
+WINDOW_ROWS = 256      # the window kernel: a lane per row, eight warps
+MAX_ROWS = 16384       # panel_lu_kernel: per row a multiplier and a perm
+#                        entry in shared memory
 DESC_FIELDS = ("offset", "nr", "w", "lsize", "usize")
 
 
@@ -120,27 +132,47 @@ def _eps_in(eps_p, n: int, like: torch.Tensor) -> torch.Tensor:
     return eps.expand(n).contiguous()
 
 
-def _check_rows(nr):
-    if nr > MAX_ROWS:
-        raise ValueError(f"the panel LU kernel takes nr <= {MAX_ROWS}, "
+def _check_rows(nr, limit=WINDOW_ROWS):
+    if nr > limit:
+        raise ValueError(f"the panel LU kernel takes nr <= {limit}, "
                          f"got {nr}")
 
 
+def _check_node_panels(p3, eps):
+    """(B, nr, w) panels on eps's CUDA device and dtype whose rows are
+    dense; returns their batch stride."""
+    b, nr, w = p3.shape
+    _build.check_cuda("panel_lu", eps)
+    if not p3.is_cuda or p3.get_device() != eps.get_device():
+        raise ValueError(f"panel_lu: every operand must lie on one CUDA "
+                         f"device, got {p3.device} and {eps.device}")
+    if p3.dtype != eps.dtype:
+        raise TypeError(f"panel_lu: mixed dtypes {p3.dtype} and {eps.dtype}")
+    # the strides of a dimension of size 1 are arbitrary
+    if (w > 1 and p3.stride(2) != 1) or (nr > 1 and p3.stride(1) != w):
+        raise ValueError(f"panel_lu: a panel's rows must be dense, got "
+                         f"strides {tuple(p3.stride())} for shape "
+                         f"{tuple(p3.shape)}")
+    return p3.stride(0) if b > 1 else nr * w
+
+
 def _launch(panels, c0, wlim, eps):
-    """One launch of the parent design (``hylu_panel_lu_*``, the kernel K1
-    and K2 ran before ``panel_lu_window_kernel``): no wrapper calls it;
-    ``chip_smoke.py`` times it beside the kernels that replaced it."""
+    """One launch of ``panel_lu_kernel`` (``hylu_panel_lu_*``) on (B, nr,
+    wt) panels whose rows are dense (a strided view of the value buffer is
+    read through its batch stride), eliminated over [c0, wlim): the route
+    of panels taller than the window kernel takes, and the parent design
+    ``chip_smoke.py`` times beside the window kernel."""
     b, nr, wt = panels.shape
-    _check_rows(nr)
-    _build.check_cuda("panel_lu", panels, eps)
-    out = torch.empty_like(panels)
+    _check_rows(nr, MAX_ROWS)
+    sb = _check_node_panels(panels, eps)
+    out = torch.empty((b, nr, wt), dtype=panels.dtype, device=panels.device)
     perm = torch.empty((b, nr), dtype=torch.int32, device=panels.device)
     nper = torch.empty((b,), dtype=torch.int32, device=panels.device)
     with _build.on_device(panels):
         _build.launch(f"hylu_panel_lu_{_build.suffix(panels)}",
-                      _build.ptr(panels), _build.ptr(out), _build.ptr(perm),
-                      _build.ptr(nper), _build.ptr(eps), b, nr, wt, c0, wlim,
-                      _build.stream_of(panels))
+                      _build.ptr(panels), sb, _build.ptr(out),
+                      _build.ptr(perm), _build.ptr(nper), _build.ptr(eps), b,
+                      nr, wt, c0, wlim, _build.stream_of(panels))
     return out, perm, nper
 
 
@@ -170,18 +202,7 @@ def _launch_node(p3, lsize, eps):
     stride."""
     b, nr, w = p3.shape
     _check_rows(nr)
-    _build.check_cuda("panel_lu", eps)
-    if not p3.is_cuda or p3.get_device() != eps.get_device():
-        raise ValueError(f"panel_lu: every operand must lie on one CUDA "
-                         f"device, got {p3.device} and {eps.device}")
-    if p3.dtype != eps.dtype:
-        raise TypeError(f"panel_lu: mixed dtypes {p3.dtype} and {eps.dtype}")
-    # the strides of a dimension of size 1 are arbitrary
-    if (w > 1 and p3.stride(2) != 1) or (nr > 1 and p3.stride(1) != w):
-        raise ValueError(f"panel_lu: a panel's rows must be dense, got "
-                         f"strides {tuple(p3.stride())} for shape "
-                         f"{tuple(p3.shape)}")
-    sb = p3.stride(0) if b > 1 else nr * w
+    sb = _check_node_panels(p3, eps)
     out = torch.empty((b, nr, w), dtype=p3.dtype, device=p3.device)
     perm = torch.empty((b, nr), dtype=torch.int32, device=p3.device)
     nper = torch.empty((b,), dtype=torch.int32, device=p3.device)
@@ -246,6 +267,21 @@ def _launch_bucket(vals, lay, eps):
     return perm, nper
 
 
+def _bucket_parent(vals, lay, eps):
+    """K1 on a bucket taller than the window kernel takes: the padded
+    panels gathered through ``lay.gather``, factored by
+    ``panel_lu_kernel`` over [0, wu) with system k's threshold, and the
+    positions that read a real slot written back to it (no other slot is
+    written, as in place)."""
+    k = vals.shape[0]
+    b = lay.desc.shape[0]
+    P = vals[:, lay.gather].view(k * b, lay.nr, lay.wt)
+    out, perm, nper = _launch(P, 0, lay.wu, eps.repeat_interleave(b))
+    real = (lay.gather != lay.zero_slot) & (lay.gather != lay.one_slot)
+    vals[:, lay.gather[real]] = out.view(k, -1)[:, real]
+    return perm, nper
+
+
 def panel_lu_bucket_inplace(vals: torch.Tensor, layout: BucketLayout,
                             eps_p):
     """K1 — the LU of one panel bucket's members, read from and written
@@ -255,16 +291,36 @@ def panel_lu_bucket_inplace(vals: torch.Tensor, layout: BucketLayout,
     member's nr go back to its real slots, and no other slot is written.
     ``eps_p`` is one threshold per system (or a scalar).  Returns (perms
     (K * B, nrp) int32, n_perturb (K * B,) int32), panel k * B + i for
-    member i of system k.  Replaces the engine's gather +
+    member i of system k.  A bucket of more than 128 padded rows goes to
+    :func:`panel_lu_bucket_wide`.  Replaces the engine's gather +
     ``repro.kernels.panel.ops.panel_lu_batched`` + scatter
     (``src/repro/core/jax_engine.py:215–219``)."""
     if vals.ndim != 2:
         raise ValueError(f"vals must be (K, slots), got {tuple(vals.shape)}")
+    if layout.nr > WIDE_ROWS:
+        return panel_lu_bucket_wide(vals, layout, eps_p)
     eps = _eps_in(eps_p, vals.shape[0], vals)
     if vals.device.type == "cpu":
         return panel_lu_bucket_plain(vals, layout, eps)
     out = _launch_bucket(vals, layout, eps)
     panel_lu_bucket_inplace.launches += 1
+    return out
+
+
+def panel_lu_bucket_wide(vals: torch.Tensor, layout: BucketLayout, eps_p):
+    """K1's wide path: :func:`panel_lu_bucket_inplace` for a bucket padded
+    to more than 128 rows.  Up to 256 rows the window kernel runs in place
+    (its window in shared memory where it fits, else in a device-memory
+    scratch buffer); taller buckets are gathered, factored by
+    ``panel_lu_kernel`` and scattered back.  Same arguments and results."""
+    if vals.ndim != 2:
+        raise ValueError(f"vals must be (K, slots), got {tuple(vals.shape)}")
+    eps = _eps_in(eps_p, vals.shape[0], vals)
+    if vals.device.type == "cpu":
+        return panel_lu_bucket_plain(vals, layout, eps)
+    out = (_launch_bucket(vals, layout, eps) if layout.nr <= WINDOW_ROWS
+           else _bucket_parent(vals, layout, eps))
+    panel_lu_bucket_wide.launches += 1
     return out
 
 
@@ -281,9 +337,23 @@ def panel_lu_batched(panels: torch.Tensor, wu: int, eps_p):
     eps = _eps_in(eps_p, b, panels)
     if panels.device.type == "cpu":
         return panel_lu_plain(panels, 0, wu, eps)
-    out = _launch_batched(panels, wu, eps)
+    out = (_launch_batched(panels, wu, eps) if nr <= WINDOW_ROWS
+           else _launch(panels, 0, wu, eps))
     panel_lu_batched.launches += 1
     return out
+
+
+def _node_args(panel, nr, lsize, eps_p):
+    single = panel.ndim == 2
+    p3 = panel[None] if single else panel
+    if p3.ndim != 3 or p3.shape[1] != nr or lsize + nr > p3.shape[2]:
+        raise ValueError(f"panel shape {tuple(panel.shape)} does not hold "
+                         f"nr={nr} rows with the block at column {lsize}")
+    return single, p3, _eps_in(eps_p, p3.shape[0], p3)
+
+
+def _node_result(single, out):
+    return tuple(t[0] for t in out) if single else out
 
 
 def panel_lu(panel: torch.Tensor, nr: int, lsize: int, eps_p):
@@ -292,25 +362,37 @@ def panel_lu(panel: torch.Tensor, nr: int, lsize: int, eps_p):
     batch member.  The panels may be a strided view whose rows are dense
     (a slice of each system's value buffer): the kernel reads them through
     their batch stride.  Returns a new (panel, perm, n_perturb) with perm
-    (nr,) / (B, nr) int32 and n_perturb a () / (B,) int32 tensor.  Replaces
+    (nr,) / (B, nr) int32 and n_perturb a () / (B,) int32 tensor.  Panels
+    of more than 128 rows go to :func:`panel_lu_wide`.  Replaces
     ``repro.kernels.panel.ops.panel_lu``."""
-    single = panel.ndim == 2
-    p3 = panel[None] if single else panel
-    if p3.ndim != 3 or p3.shape[1] != nr or lsize + nr > p3.shape[2]:
-        raise ValueError(f"panel shape {tuple(panel.shape)} does not hold "
-                         f"nr={nr} rows with the block at column {lsize}")
-    b, _, w = p3.shape
-    eps = _eps_in(eps_p, b, p3)
+    if nr > WIDE_ROWS:
+        return panel_lu_wide(panel, nr, lsize, eps_p)
+    single, p3, eps = _node_args(panel, nr, lsize, eps_p)
     if p3.device.type == "cpu":
-        out, perm, nper = panel_lu_plain(p3, lsize, w, eps)
-    else:
-        out, perm, nper = _launch_node(p3, lsize, eps)
-        panel_lu.launches += 1
-    if single:
-        return out[0], perm[0], nper[0]
-    return out, perm, nper
+        return _node_result(single, panel_lu_plain(p3, lsize, p3.shape[2],
+                                                   eps))
+    out = _launch_node(p3, lsize, eps)
+    panel_lu.launches += 1
+    return _node_result(single, out)
+
+
+def panel_lu_wide(panel: torch.Tensor, nr: int, lsize: int, eps_p):
+    """K2's wide path: :func:`panel_lu` for panels of more than 128 rows.
+    Up to 256 rows the window kernel runs (its window in shared memory
+    where it fits, else in a device-memory scratch buffer); taller panels
+    run ``panel_lu_kernel``.  Same arguments and results."""
+    single, p3, eps = _node_args(panel, nr, lsize, eps_p)
+    if p3.device.type == "cpu":
+        return _node_result(single, panel_lu_plain(p3, lsize, p3.shape[2],
+                                                   eps))
+    out = (_launch_node(p3, lsize, eps) if nr <= WINDOW_ROWS
+           else _launch(p3, lsize, p3.shape[2], eps))
+    panel_lu_wide.launches += 1
+    return _node_result(single, out)
 
 
 panel_lu_bucket_inplace.launches = 0
+panel_lu_bucket_wide.launches = 0
 panel_lu_batched.launches = 0
 panel_lu.launches = 0
+panel_lu_wide.launches = 0

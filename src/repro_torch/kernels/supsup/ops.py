@@ -58,19 +58,22 @@ class NodeStep(NamedTuple):
     args: tuple
 
 
-def edge_table(edges, device) -> EdgeTable:
+def edge_table(edges, device, max_k=MAX_K) -> EdgeTable:
     """An :class:`EdgeTable` on ``device`` from host edges ``(soff, k, sw,
     slsize, col_map)``: one host→device copy for all col_maps and one for
-    the descriptors.  Raises for k > 128 or a col_map shorter than k."""
+    the descriptors.  Raises for k > ``max_k`` (the node kernel's 128; None
+    for a table only the plain node step reads) or a col_map shorter than
+    k."""
     cms = [np.asarray(e[4], np.int64) for e in edges]
     lens = np.array([len(c) for c in cms], np.int64)
     starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
     desc = np.array([(soff + slsize, o, k, sw, n) for (soff, k, sw, slsize,
                                                        _), o, n
                      in zip(edges, starts, lens)], np.int64).reshape(-1, 5)
-    if ((desc[:, 2] < 1) | (desc[:, 2] > MAX_K) | (desc[:, 4] < desc[:, 2])
+    kmax = np.inf if max_k is None else max_k
+    if ((desc[:, 2] < 1) | (desc[:, 2] > kmax) | (desc[:, 4] < desc[:, 2])
             ).any():
-        raise ValueError(f"edge descriptors need 1 <= k <= {MAX_K} and "
+        raise ValueError(f"edge descriptors need 1 <= k <= {kmax} and "
                          "len(col_map) >= k")
     dev = torch.device(device)
     flat = torch.from_numpy(np.concatenate(cms) if cms

@@ -7,7 +7,15 @@ place on the dense diagonal block read from the panel buffer (no
 transposed or flipped copies, no padding of k).  On a CUDA tensor each
 wrapper launches its kernel (or raises); on a CPU tensor it runs the plain
 version of :mod:`.ref`.  Every launch adds one to the wrapper's
-``launches`` count.  The kernels take k <= 128 (the supernode cap).
+``launches`` count.
+
+A solve kernel takes k <= ``BLOCK_K`` (128, the default supernode cap).
+A supernode may have up to ``max_super`` rows, so a larger k goes to the
+blocked path (``trsm_right_blocked``, ``trsm_left_unit_lower_blocked``,
+``trsm_left_upper_blocked``, each counting its calls): the solve kernel on
+each diagonal block of at most 128, and between blocks K3's trailing
+update (``hylu_trsm_update_*``), C −= A·B on the columns (right solve) or
+rows (left solves) still to be solved.
 """
 from __future__ import annotations
 
@@ -18,32 +26,36 @@ from .ref import (trsm_plain, trsm_left_unit_lower_plain,
                   trsm_left_upper_plain)
 
 __all__ = ["trsm_batched", "trsm_left_unit_lower_batched",
-           "trsm_left_upper_batched", "trsm_plain",
-           "trsm_left_unit_lower_plain", "trsm_left_upper_plain"]
+           "trsm_left_upper_batched", "trsm_right_blocked",
+           "trsm_left_unit_lower_blocked", "trsm_left_upper_blocked",
+           "trsm_plain", "trsm_left_unit_lower_plain",
+           "trsm_left_upper_plain"]
 
-MAX_K = 128
-
-
-def _check_k(k):
-    if k > MAX_K:
-        raise ValueError(f"the TRSM kernels take k <= {MAX_K}, got {k}")
+BLOCK_K = 128
 
 
-def trsm_batched(u: torch.Tensor, x: torch.Tensor,
-                 unit_diag: bool = False) -> torch.Tensor:
-    """Solve Y[i] @ U[i] = X[i]: u (B, k, k) (upper triangle read), x
-    (B, nr, k) contiguous.  u may be a strided view whose rows are
-    contiguous, such as the first k columns of the gathered source rows
-    (B, k, k + m): the kernel takes its batch and row strides, so no copy
-    of U is made.  Replaces ``repro.kernels.trisolve.ops.trsm_batched``."""
+def _blocks(k):
+    return [(s, min(s + BLOCK_K, k)) for s in range(0, k, BLOCK_K)]
+
+
+def _check_right(u, x):
     if u.ndim != 3 or x.ndim != 3 or u.shape[0] != x.shape[0] \
             or u.shape[1] != u.shape[2] or x.shape[2] != u.shape[2]:
         raise ValueError(f"need u (B, k, k) and x (B, nr, k), got "
                          f"{tuple(u.shape)} and {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return trsm_plain(u, x, unit_diag=unit_diag)
+
+
+def _check_left(blk, b):
+    if blk.ndim != 3 or b.ndim != 3 or blk.shape[0] != b.shape[0] \
+            or blk.shape[1] != blk.shape[2] or b.shape[1] != blk.shape[1]:
+        raise ValueError(f"need blk (B, k, k) and b (B, k, m), got "
+                         f"{tuple(blk.shape)} and {tuple(b.shape)}")
+
+
+def _right(u, x, unit_diag):
+    """One launch of the right solve on k <= 128; u's rows contiguous,
+    x contiguous.  Returns y (nothing launched for an empty batch)."""
     b, nr, k = x.shape
-    _check_k(k)
     _build.check_cuda("trsm_batched", x)
     if u.get_device() != x.get_device():
         raise ValueError(f"trsm_batched: every operand must lie on one CUDA "
@@ -63,19 +75,82 @@ def trsm_batched(u: torch.Tensor, x: torch.Tensor,
             _build.launch(f"hylu_trsm_right_{_build.suffix(x)}",
                           _build.ptr(u), _build.ptr(x), _build.ptr(y), b, nr,
                           k, int(unit_diag), su_b, su_r, _build.stream_of(x))
+    return y
+
+
+def _rows_dense(name, t):
+    """(batch stride, row stride) of a (B, R, C) view whose rows are dense
+    (the strides of a dimension of size 1 are arbitrary)."""
+    nb, r, c = t.shape
+    if c > 1 and t.stride(2) != 1:
+        raise ValueError(f"{name}: rows must be dense, got strides "
+                         f"{tuple(t.stride())}")
+    return (t.stride(0) if nb > 1 else 0), (t.stride(1) if r > 1 else c)
+
+
+def _update(c, a, b):
+    """c −= a @ b in place (``hylu_trsm_update_*``): c (B, R, N), a (B, R,
+    Kd), b (B, Kd, N), views of one dtype on one device whose rows are
+    dense."""
+    nb, rows, cols = c.shape
+    kd = a.shape[2]
+    if not (nb and rows and cols and kd):
+        return
+    strides = [s for t in (c, a, b) for s in _rows_dense("trsm update", t)]
+    with _build.on_device(c):
+        _build.launch(f"hylu_trsm_update_{_build.suffix(c)}", _build.ptr(c),
+                      strides[0], strides[1], _build.ptr(a), strides[2],
+                      strides[3], _build.ptr(b), strides[4], strides[5], nb,
+                      rows, cols, kd, _build.stream_of(c))
+
+
+def trsm_batched(u: torch.Tensor, x: torch.Tensor,
+                 unit_diag: bool = False) -> torch.Tensor:
+    """Solve Y[i] @ U[i] = X[i]: u (B, k, k) (upper triangle read), x
+    (B, nr, k) contiguous.  u may be a strided view whose rows are
+    contiguous, such as the first k columns of the gathered source rows
+    (B, k, k + m): the kernel takes its batch and row strides, so no copy
+    of U is made.  k > 128 goes to :func:`trsm_right_blocked`.  Replaces
+    ``repro.kernels.trisolve.ops.trsm_batched``."""
+    _check_right(u, x)
+    if x.device.type == "cpu":
+        return trsm_plain(u, x, unit_diag=unit_diag)
+    b, nr, k = x.shape
+    if k > BLOCK_K:
+        return trsm_right_blocked(u, x, unit_diag)
+    y = _right(u, x, unit_diag)
+    if b and nr:
         trsm_batched.launches += 1
     return y
 
 
-def _left(name, plain, wrapper, blk, b):
-    if blk.ndim != 3 or b.ndim != 3 or blk.shape[0] != b.shape[0] \
-            or blk.shape[1] != blk.shape[2] or b.shape[1] != blk.shape[1]:
-        raise ValueError(f"need blk (B, k, k) and b (B, k, m), got "
-                         f"{tuple(blk.shape)} and {tuple(b.shape)}")
-    if b.device.type == "cpu":
-        return plain(blk, b)
+def trsm_right_blocked(u: torch.Tensor, x: torch.Tensor,
+                       unit_diag: bool = False) -> torch.Tensor:
+    """K3's right solve blocked over k (the wide path of
+    :func:`trsm_batched`; same arguments and result, any k): per column
+    block J of at most 128, Y_J = X_J U_JJ⁻¹ by the solve kernel, then
+    X[:, later] −= Y_J U[J, later] by K3's update."""
+    _check_right(u, x)
+    if x.device.type == "cpu":
+        return trsm_plain(u, x, unit_diag=unit_diag)
+    b, nr, k = x.shape
+    _build.check_cuda("trsm_batched", x)
+    y = torch.empty_like(x)
+    if not (b and nr):
+        return y
+    xw = x.clone()
+    for s, e in _blocks(k):
+        yb = _right(u[:, s:e, s:e], xw[:, :, s:e].contiguous(), unit_diag)
+        y[:, :, s:e] = yb
+        if e < k:
+            _update(xw[:, :, e:], yb, u[:, s:e, e:])
+    trsm_right_blocked.launches += 1
+    return y
+
+
+def _left(name, blk, b):
+    """One launch of a left solve on k <= 128; blk and b contiguous."""
     nb, k, m = b.shape
-    _check_k(k)
     _build.check_cuda(name, blk, b)
     w = torch.empty_like(b)
     if nb and m:
@@ -83,26 +158,90 @@ def _left(name, plain, wrapper, blk, b):
             _build.launch(f"hylu_{name}_{_build.suffix(b)}", _build.ptr(blk),
                           _build.ptr(b), _build.ptr(w), nb, k, m,
                           _build.stream_of(b))
-        wrapper.launches += 1
+    return w
+
+
+def _left_blocked(name, blk, b, upper):
+    """A left solve blocked over k: each diagonal block of at most 128 by
+    the solve kernel, in sweep order (backward for U), then the rows still
+    to be solved take its product by K3's update."""
+    nb, k, m = b.shape
+    _build.check_cuda(name, blk, b)
+    w = b.clone()
+    if not (nb and m):
+        return w
+    for s, e in (reversed(_blocks(k)) if upper else _blocks(k)):
+        wb = _left(name, blk[:, s:e, s:e].contiguous(),
+                   w[:, s:e].contiguous())
+        w[:, s:e] = wb
+        if upper and s > 0:
+            _update(w[:, :s], blk[:, :s, s:e], wb)
+        elif not upper and e < k:
+            _update(w[:, e:], blk[:, e:, s:e], wb)
     return w
 
 
 def trsm_left_unit_lower_batched(blk: torch.Tensor,
                                  b: torch.Tensor) -> torch.Tensor:
     """Solve L[i] @ w[i] = b[i], L = tril(blk[i], -1) + I; blk (B, k, k)
-    dense diagonal blocks (upper part ignored), b (B, k, m)."""
-    return _left("trsm_left_unit_lower", trsm_left_unit_lower_plain,
-                 trsm_left_unit_lower_batched, blk, b)
+    dense diagonal blocks (upper part ignored), b (B, k, m).  k > 128 goes
+    to :func:`trsm_left_unit_lower_blocked`."""
+    _check_left(blk, b)
+    if b.device.type == "cpu":
+        return trsm_left_unit_lower_plain(blk, b)
+    if b.shape[1] > BLOCK_K:
+        return trsm_left_unit_lower_blocked(blk, b)
+    w = _left("trsm_left_unit_lower", blk, b)
+    if b.shape[0] and b.shape[2]:
+        trsm_left_unit_lower_batched.launches += 1
+    return w
+
+
+def trsm_left_unit_lower_blocked(blk: torch.Tensor,
+                                 b: torch.Tensor) -> torch.Tensor:
+    """The wide path of :func:`trsm_left_unit_lower_batched` (same
+    arguments and result, any k), blocked over k."""
+    _check_left(blk, b)
+    if b.device.type == "cpu":
+        return trsm_left_unit_lower_plain(blk, b)
+    w = _left_blocked("trsm_left_unit_lower", blk, b, upper=False)
+    if b.shape[0] and b.shape[2]:
+        trsm_left_unit_lower_blocked.launches += 1
+    return w
 
 
 def trsm_left_upper_batched(blk: torch.Tensor,
                             b: torch.Tensor) -> torch.Tensor:
     """Solve U[i] @ w[i] = b[i], U = triu(blk[i]); blk (B, k, k) dense
-    diagonal blocks (strict lower part ignored), b (B, k, m)."""
-    return _left("trsm_left_upper", trsm_left_upper_plain,
-                 trsm_left_upper_batched, blk, b)
+    diagonal blocks (strict lower part ignored), b (B, k, m).  k > 128
+    goes to :func:`trsm_left_upper_blocked`."""
+    _check_left(blk, b)
+    if b.device.type == "cpu":
+        return trsm_left_upper_plain(blk, b)
+    if b.shape[1] > BLOCK_K:
+        return trsm_left_upper_blocked(blk, b)
+    w = _left("trsm_left_upper", blk, b)
+    if b.shape[0] and b.shape[2]:
+        trsm_left_upper_batched.launches += 1
+    return w
+
+
+def trsm_left_upper_blocked(blk: torch.Tensor,
+                            b: torch.Tensor) -> torch.Tensor:
+    """The wide path of :func:`trsm_left_upper_batched` (same arguments
+    and result, any k), blocked over k from the last block up."""
+    _check_left(blk, b)
+    if b.device.type == "cpu":
+        return trsm_left_upper_plain(blk, b)
+    w = _left_blocked("trsm_left_upper", blk, b, upper=True)
+    if b.shape[0] and b.shape[2]:
+        trsm_left_upper_blocked.launches += 1
+    return w
 
 
 trsm_batched.launches = 0
+trsm_right_blocked.launches = 0
 trsm_left_unit_lower_batched.launches = 0
+trsm_left_unit_lower_blocked.launches = 0
 trsm_left_upper_batched.launches = 0
+trsm_left_upper_blocked.launches = 0

@@ -66,6 +66,16 @@ def _tri(rng, b, k):
     return np.triu(rng.normal(size=(b, k, k))) + 3 * np.eye(k)
 
 
+def _wide_block(rng, b, k):
+    """(b, k, k) dense diagonal blocks whose unit-lower and upper triangles
+    both stay well conditioned at k > 128 (strict upper part scaled by
+    1/sqrt(k), strict lower part by 1/k, diagonal 3 plus noise), so that
+    float32 holds its tolerance through the blocked solves."""
+    return (np.triu(rng.normal(size=(b, k, k)), 1) / np.sqrt(k)
+            + np.tril(rng.normal(size=(b, k, k)), -1) / k
+            + (3 + 0.1 * rng.random((b, k, 1))) * np.eye(k))
+
+
 def _node_buffer(rng, K, nr, w, lsize, sources, tdt, dev):
     """A value buffer (K, slots) of finished source panels and one target
     node of nr rows of w (pivot block at column ``lsize``), three random
@@ -167,6 +177,23 @@ def _cases(rng, tdt, dev):
     def grouped(fn, groups):
         return tuple(t for pair in fn(groups) for t in pair)
 
+    # the wide paths: K2 at 150 rows (window kernel), K1 padded to 256 rows
+    # (window in device memory), K3 at k = 150 (blocked)
+    pw = rng.normal(size=(2, 150, 200))
+    pw[:, :, 40:190] += 16 * np.eye(150)
+    pw = t(pw)
+    dw, partsw, nw = _place(rng, 2, [(140, 20, 30), (150, 24, 0)], 3, 1)
+    vw, layw = _bucket_vals(2, nw, partsw, tdt, dev), _layout(dw, 256, 24,
+                                                              32, nw, dev)
+
+    def in_place_wide(fn):
+        v = vw.clone()
+        return (v[:, :-1],) + tuple(fn(v, layw, eps(2)))
+
+    uw = t(_wide_block(rng, 3, 150))
+    xw = t(rng.normal(size=(3, 40, 150)))
+    bw = t(rng.normal(size=(2, 150, 3)))
+
     return {
         "panel_lu_bucket_inplace": (
             lambda: in_place(panel.panel_lu_bucket_inplace),
@@ -178,8 +205,21 @@ def _cases(rng, tdt, dev):
         "panel_lu_global": (lambda: panel.panel_lu(p3, 128, 100, eps(2)),
                             lambda: panel.panel_lu_plain(p3, 100, 300,
                                                          eps(2))),
+        "panel_lu_wide": (lambda: panel.panel_lu(pw, 150, 40, eps(2)),
+                          lambda: panel.panel_lu_plain(pw, 40, 200, eps(2))),
+        "panel_lu_bucket_wide": (
+            lambda: in_place_wide(panel.panel_lu_bucket_inplace),
+            lambda: in_place_wide(panel.panel_lu_bucket_plain)),
         "trsm_batched": (lambda: tri.trsm_batched(u, x),
                          lambda: tri.trsm_plain(u, x)),
+        "trsm_right_blocked": (lambda: tri.trsm_batched(uw, xw),
+                               lambda: tri.trsm_plain(uw, xw)),
+        "trsm_left_unit_lower_blocked": (
+            lambda: tri.trsm_left_unit_lower_batched(uw[:2], bw),
+            lambda: tri.trsm_left_unit_lower_plain(uw[:2], bw)),
+        "trsm_left_upper_blocked": (
+            lambda: tri.trsm_left_upper_batched(uw[:2], bw),
+            lambda: tri.trsm_left_upper_plain(uw[:2], bw)),
         "trsm_left_unit_lower_batched": (
             lambda: tri.trsm_left_unit_lower_batched(blk, b),
             lambda: tri.trsm_left_unit_lower_plain(blk, b)),
@@ -756,19 +796,20 @@ def _bits(t):
                                else torch.int32)
 
 
-def _bucket_held(vals, lay, eps, tol):
+def _bucket_held(vals, lay, eps, tol, counter=None):
     """K1 in place on a copy of vals against its plain version on another:
-    one launch, equal pivots and perturbation counts, the real slots'
-    NaN and inf positions equal and finite values within tol, and every
-    slot outside the bucket's real slots bit-identical to before (the
-    plain version's scratch slot aside).  Returns the kernel's (perm,
-    nper, vals)."""
-    before = panel.panel_lu_bucket_inplace.launches
+    one launch (counted by ``counter``, the in-place wrapper unless given),
+    equal pivots and perturbation counts, the real slots' NaN and inf
+    positions equal and finite values within tol, and every slot outside
+    the bucket's real slots bit-identical to before (the plain version's
+    scratch slot aside).  Returns the kernel's (perm, nper, vals)."""
+    counter = counter or panel.panel_lu_bucket_inplace
+    before = counter.launches
     got, ref = vals.clone(), vals.clone()
     gp, gn = panel.panel_lu_bucket_inplace(got, lay, eps)
     rp, rn = panel.panel_lu_bucket_plain(ref, lay, eps)
     torch.cuda.synchronize()
-    assert panel.panel_lu_bucket_inplace.launches == before + 1
+    assert counter.launches == before + 1
     assert torch.equal(gp, rp) and torch.equal(gn, rn)
     real = torch.zeros(vals.shape[1], dtype=torch.bool, device=vals.device)
     for off, nr, w, _, _ in lay.desc.tolist():
@@ -1223,9 +1264,12 @@ def test_node_edges_at_fem2d_10k_largest_node(K, dt, cuda):
 
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    with pytest.raises(ValueError, match="nr <= 128"):
-        panel.panel_lu(torch.zeros(1, 129, 140, device=cuda,
-                                   dtype=torch.float64), 129, 0, 1e-8)
+    # K2 takes any nr since the wide path; its kernels read rows densely
+    for nr in (129, 300):
+        with pytest.raises(ValueError, match="rows must be dense"):
+            panel.panel_lu(torch.zeros(1, nr, 2 * nr + 4, device=cuda,
+                                       dtype=torch.float64)[:, :, ::2],
+                           nr, 0, 1e-8)
     with pytest.raises(TypeError, match="float64 or float32"):
         supsup.gemm_batched(torch.zeros(2, 3, 4, device=cuda,
                                         dtype=torch.float16),
@@ -1594,3 +1638,243 @@ def test_plan_cache_round_trip_on_card(cuda, tmp_path):
     assert np.array_equal(bst0.n_perturb, bst1.n_perturb)
     assert max(info0["residual"].max(), info1["residual"].max()) < 1e-10
     assert np.abs(x1 - x0).max() / np.abs(x0).max() < 1e-10
+
+
+# ------------------------------------------ supernodes over 128 rows
+# K2 and K1 at nr > 128: the window kernel up to 256 rows (its window in
+# shared memory where it fits, else in device memory), panel_lu_kernel
+# beyond; K3 blocked over k > 128; K4 on 256-row edge buckets.
+WIDE_NODE = [(129, 0, 0), (150, 2370, 0), (150, 40, 30), (256, 10, 4),
+             (300, 20, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("nr,lsize,us", WIDE_NODE)
+def test_wide_node_panel_lu(nr, lsize, us, dt, cuda):
+    """K2's wide path at one panel and at 32 (a narrow level at K = 32),
+    rows shuffled: one ``panel_lu_wide`` launch and none of ``panel_lu``,
+    the plain version's pivots, perturbation counts and values; the
+    150-row panel with a 2,370-column prefix is fem2d_10k's root under
+    ``pardiso_like``."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(nr * 31 + lsize + us)
+    for b in (1, 32) if nr <= 150 else (2,):
+        p = _node_panels(rng, b, nr, lsize, us, dominant=True)
+        P = torch.tensor(p, dtype=tdt, device=cuda)
+        eps = _eps_per_system(b, tdt, cuda)
+        before = kernels.launch_counts()
+        got = panel.panel_lu(P, nr, lsize, eps)
+        ref = panel.panel_lu_plain(P, lsize, P.shape[2], eps)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert after["panel_lu_wide"] == before["panel_lu_wide"] + 1
+        assert after["panel_lu"] == before["panel_lu"]
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+        assert (got[1] != torch.arange(nr, device=cuda)).any()
+        torch.testing.assert_close(got[0], ref[0], rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nr", [150, 300])
+@pytest.mark.parametrize("case", ["zero_pivot", "nan_in_u", "inf_in_l"])
+def test_wide_node_panel_lu_nonfinite(case, nr, cuda):
+    """K2's wide path on degenerate panels (an exact zero pivot column
+    under eps = 0, a NaN in the U suffix, an infinity in the L prefix):
+    the plain version's NaN and inf positions, pivots and finite values,
+    through the window kernel (150 rows) and panel_lu_kernel (300)."""
+    rng = np.random.default_rng(nr)
+    lsize, us = 12, 20
+    p = _node_panels(rng, 2, nr, lsize, us, dominant=True)
+    eps = 1e-8
+    if case == "zero_pivot":
+        p[:, :, lsize] = 0.0
+        eps = 0.0
+    elif case == "nan_in_u":
+        p[:, 3, lsize + nr + 5] = np.nan
+    else:
+        p[:, 7, 2] = np.inf
+    P = torch.tensor(p, dtype=torch.float64, device=cuda)
+    e = torch.full((2,), eps, dtype=torch.float64, device=cuda)
+    got = panel.panel_lu(P, nr, lsize, e)
+    ref = panel.panel_lu_plain(P, lsize, P.shape[2], e)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    g, r = got[0], ref[0]
+    assert not torch.isfinite(r).all() and torch.isfinite(r).any()
+    assert torch.equal(torch.isnan(g), torch.isnan(r))
+    assert torch.equal(torch.isinf(g), torch.isinf(r))
+    fin = torch.isfinite(r)
+    torch.testing.assert_close(g[fin], r[fin], rtol=1e-10, atol=1e-10)
+
+
+# K1 wide: (nrp, usp, lsp, members (nr, usize, lsize)): the window kernel
+# in place at 256 padded rows, panel_lu_kernel on the gathered panels at
+# 512
+WIDE_BUCKETS = [(256, 24, 32, [(129, 20, 30), (150, 24, 0), (256, 3, 32)]),
+                (512, 16, 40, [(300, 16, 40), (257, 0, 7)])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("bucket", range(len(WIDE_BUCKETS)))
+def test_wide_bucket_panel_lu(bucket, k, dt, cuda):
+    """K1's wide path on buckets padded to 256 and 512 rows, rows not
+    16-byte aligned, a threshold per system: one ``panel_lu_bucket_wide``
+    launch, the plain version's pivots, counts and values, and no slot
+    outside the members' written."""
+    tdt, tol, _ = TOLS[dt]
+    nrp, usp, lsp, members = WIDE_BUCKETS[bucket]
+    rng = np.random.default_rng(nrp + k)
+    desc, parts, n = _place(rng, k, members, 5, 1)
+    vals = _bucket_vals(k, n, parts, tdt, cuda)
+    before = panel.panel_lu_bucket_inplace.launches
+    perm, _, _ = _bucket_held(vals, _layout(desc, nrp, usp, lsp, n, cuda),
+                              _eps_per_system(k, tdt, cuda), tol,
+                              counter=panel.panel_lu_bucket_wide)
+    assert panel.panel_lu_bucket_inplace.launches == before
+    assert (perm != torch.arange(nrp, device=cuda)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("k", [129, 150, 256])
+def test_trsm_blocked(k, dt, cuda):
+    """K3's three entries at k > 128, blocked over k: the right solve on a
+    strided view of source rows with NaN below U's diagonal (nr 40 and
+    300, unit diagonal too), the left solves on blocks with NaN in the
+    triangle they do not read, m = 1 and 3; each one count of its
+    ``*_blocked`` wrapper and none of the k <= 128 one; values within the
+    plain versions' tolerance."""
+    tdt, tol, ltol = TOLS[dt]
+    rng = np.random.default_rng(k)
+    for nr in (40, 300):
+        src = _src_rows(rng, 3, k, 7, tdt, cuda)
+        x = torch.tensor(rng.normal(size=(3, nr, k)), dtype=tdt,
+                         device=cuda)
+        for unit in (False, True):
+            before = kernels.launch_counts()
+            got = tri.trsm_batched(src[..., :k], x, unit_diag=unit)
+            ref = tri.trsm_plain(src[..., :k], x, unit_diag=unit)
+            after = kernels.launch_counts()
+            assert after["trsm_right_blocked"] == (
+                before["trsm_right_blocked"] + 1)
+            assert after["trsm_batched"] == before["trsm_batched"]
+            torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+    blk = _wide_block(rng, 2, k)
+    for m in (1, 3):
+        b = torch.tensor(rng.normal(size=(2, k, m)), dtype=tdt, device=cuda)
+        for name, fn, plain, other in (
+                ("trsm_left_unit_lower", tri.trsm_left_unit_lower_batched,
+                 tri.trsm_left_unit_lower_plain,
+                 np.triu_indices(k, 0)),       # the unit diagonal too
+                ("trsm_left_upper", tri.trsm_left_upper_batched,
+                 tri.trsm_left_upper_plain, np.tril_indices(k, -1))):
+            ref = plain(torch.tensor(blk, dtype=tdt, device=cuda), b)
+            poisoned = blk.copy()
+            poisoned[:, other[0], other[1]] = np.nan
+            before = kernels.launch_counts()
+            got = fn(torch.tensor(poisoned, dtype=tdt, device=cuda), b)
+            after = kernels.launch_counts()
+            assert after[name + "_blocked"] == before[name + "_blocked"] + 1
+            assert after[name + "_batched"] == before[name + "_batched"]
+            torch.testing.assert_close(got, ref, rtol=ltol, atol=ltol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("k,m", [(1, 8), (64, 104), (256, 40)])
+def test_bmm_on_256_row_buckets(k, m, dt, cuda):
+    """K4 on edge buckets of target nr = 256, as ``pardiso_like`` makes
+    them at fem2d_10k (k up to 64, m up to 104), and at k = 256 (a source
+    of more than 128 rows): one launch, the plain version's values."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(k + m)
+    a = torch.tensor(rng.normal(size=(5, 256, k)), dtype=tdt, device=cuda)
+    b = torch.tensor(rng.normal(size=(5, k, m)), dtype=tdt, device=cuda)
+    before = supsup.gemm_batched.launches
+    got = supsup.gemm_batched(a, b)
+    torch.cuda.synchronize()
+    assert supsup.gemm_batched.launches == before + 1
+    torch.testing.assert_close(got, supsup.gemm_batched_plain(a, b),
+                               rtol=tol, atol=tol)
+
+
+def _card_wide_source(n=200, blk=140, cpl=20, seed=6):
+    """tests/test_torch_baselines.py's ``_wide_source_system``: under
+    natural ordering a 140-row supernode that is a panel bucket of its own
+    (padded to 256 rows) and the source of sup-sup edges (k 140)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    r = n - blk
+    a = sp.lil_matrix((n, n))
+    a[blk:, blk:] = sp.random(r, r, density=0.05,
+                              random_state=np.random.RandomState(seed))
+    a[:blk, :blk] = rng.normal(size=(blk, blk))
+    a[blk:blk + cpl, :blk] = rng.normal(size=(cpl, blk))
+    a[:blk, blk:blk + cpl] = rng.normal(size=(blk, cpl))
+    diag = rng.uniform(1.0, 2.0, n) * rng.choice([-1, 1], n) * 30
+    return (a.tocsr() + sp.diags(diag)).tocsr()
+
+
+def _card_wide_root(n=200, blk=160, seed=5):
+    """tests/test_torch_baselines.py's ``_wide_root_system``: a 160-row
+    root supernode, factored per node at a narrow level."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    a = sp.random(n, n, density=0.02,
+                  random_state=np.random.RandomState(seed), format="lil")
+    a[20:20 + blk, 20:20 + blk] = rng.normal(size=(blk, blk))
+    diag = rng.uniform(1.0, 2.0, n) * rng.choice([-1, 1], n) * 4
+    return (a.tocsr() + sp.diags(diag)).tocsr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["wide_source", "wide_root"])
+def test_pardiso_like_on_card_matches_cpu(name, cuda):
+    """A whole ``pardiso_like`` batched factor and solve of a plan with a
+    node of more than 128 rows on the card (the wide paths) against the
+    CPU's plain versions: equal pivots and perturbation counts, factors
+    and solutions within 1e-10 (``index_add_`` sums in another order on
+    the card), the wide paths launched; the unrolled schedule refuses a
+    140-row edge source on the card at engine build."""
+    from repro_torch.core import baselines
+
+    if name == "wide_source":
+        a, kw = _card_wide_source(), dict(orderings=("natural",),
+                                          bulk_min_width=2)
+        wide = ("panel_lu_bucket_wide", "trsm_right_blocked",
+                "trsm_left_unit_lower_blocked", "trsm_left_upper_blocked")
+    else:
+        a, kw = _card_wide_root(), {}
+        wide = ("panel_lu_wide", "trsm_left_unit_lower_blocked",
+                "trsm_left_upper_blocked")
+    A = to_csr(a)
+    rng = np.random.default_rng(3)
+    vb = A.data[None] * rng.uniform(0.8, 1.2, (4, A.nnz))
+    bb = rng.normal(size=(4, A.n))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        an = analyze(A, baselines.pardiso_like_options(device=dev, **kw))
+        kernels.reset_launch_counts()
+        bst = factor_batched(an, A, vb)
+        out[dev] = (bst,) + solve_batched(bst, bb) + (
+            kernels.launch_counts(),)
+    (bc, xc, ic, _), (bg, xg, ig, counts) = out["cpu"], out["cuda"]
+    assert all(counts[w] > 0 for w in wide), counts
+    assert torch.equal(bg.inode_perm.cpu(), bc.inode_perm)
+    assert np.array_equal(bg.n_perturb, bc.n_perturb)
+    torch.testing.assert_close(bg.vals.cpu(), bc.vals, rtol=1e-10,
+                               atol=1e-10)
+    assert max(ig["residual"].max(), ic["residual"].max()) < 1e-10
+    assert np.abs(xg - xc).max() / np.abs(xc).max() < 1e-10
+    if name == "wide_source":
+        an_u = analyze(A, baselines.pardiso_like_options(
+            factor_schedule="unrolled", **kw))
+        before = kernels.launch_counts()
+        with pytest.raises(NotImplementedError, match="Queue C"):
+            torch_repeated_engine(an_u)
+        assert kernels.launch_counts() == before
