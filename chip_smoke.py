@@ -77,15 +77,21 @@ Phases, each printing one JSON line:
             32, supernodes up to 256 rows: its 150-row root runs K2's
             wide path, its 150-row node block K3's blocked left solves)
             and ``klu_like`` (row-row only) presets through
-            ``factor_batched`` + ``solve_batched``: plan census, ms,
-            systems/s, residuals, ``spsolve`` on systems 0 and 31 and the
-            launches per wrapper; the host-loop solve
-            (``_solve_batched_hostloop``) on hylu's factors beside the
-            fused one (x within 1e-10, equal refinement counts); and the
-            wide paths' kernel records, float64: K2 on the root's 32
-            panels and at 256 and 300 rows, K3's blocked left solves at
-            k = 150, each held to its plain version beside the library's
-            ``solve_triangular`` (K3) and the bound;
+            ``factor_batched`` + ``solve_batched``, once (launches per
+            wrapper counted) and three more times (median and range of
+            the ms and systems/s): plan census, residuals, ``spsolve`` on
+            systems 0 and 31; the host-loop solve
+            (``_solve_batched_hostloop``) on hylu's and klu_like's factors
+            (one refinement) beside the fused one (x within 1e-10, equal
+            refinement counts and failure masks); ``pardiso_like`` on a
+            200-row system with a 140-row supernode, the wide paths
+            fem2d_10k does not reach (K1's, K3's blocked right solve);
+            and the wide paths' kernel records, float64: K2 on the root's
+            32 panels and at 256 and 300 rows, K1 on buckets padded to 256
+            and 512 rows, K3's blocked right solve at k = 140 and 256 and
+            its blocked left solves at k = 150, each held to its plain
+            version beside the library's ``solve_triangular`` (K3) and
+            the bound;
 8. scalar   the one-system lifecycle ``factor`` -> ``refactor`` (new
             values) -> ``solve`` on fem2d_10k under the bucketed and the
             unrolled schedule in float64, and bucketed with float32
@@ -155,6 +161,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K_MAIN, T_STEPS, K_WIDTH1 = 32, 3, 8
+PRESET_REPEATS = 3                  # timed passes of each §4 preset
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float64": 67e12,    # fp64 (tensor core) peak, data sheet
               "float32": 67e12,    # fp32 outside the tensor cores
@@ -2304,11 +2311,13 @@ def baselines_phase(torch, np, kernels, A, an64, values0, b):
     (``repro_torch.core.baselines``), each analyzed by ``reuse=`` of the
     main phase's analysis (hylu is that analysis), factored by
     ``factor_batched`` and solved by ``solve_batched`` on the main phase's
-    values and right-hand sides; then the host-loop solve
-    (``_solve_batched_hostloop``) on hylu's factors beside the fused one,
-    and the wide paths' kernel records on the operands pardiso_like's plan
-    hands them (its 150-row root).  Returns (launch counts of the phase,
-    the new kernel records)."""
+    values and right-hand sides, once (its launches counted) and then
+    ``PRESET_REPEATS`` times (the median and range timed); then the
+    host-loop solve (``_solve_batched_hostloop``) on hylu's and klu_like's
+    factors beside the fused one, pardiso_like on a small plan with a
+    140-row panel bucket and edge source (``wide_plan_run``), and the wide
+    paths' kernel records (``wide_records``).  Returns (launch counts of
+    the phase, the new kernel records)."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
@@ -2345,15 +2354,33 @@ def baselines_phase(torch, np, kernels, A, an64, values0, b):
         err = [float(np.abs(x[k] - ref[k]).max() / np.abs(ref[k]).max())
                for k in ref]
         states[name] = (an, eng, bst, x, info, t_solve)
+        reps = []                        # after the first (warm-up) pass
+        for _ in range(PRESET_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst_r = factor_batched(an, A, values0)
+            t1 = time.perf_counter()
+            solve_batched(bst_r, b)
+            reps.append((t1 - t0, time.perf_counter() - t1))
+            del bst_r
+        f_s, s_s = (sorted(v) for v in zip(*reps))
+        states[name] = states[name][:5] + (_median(s_s),)
+        sps = sorted(K_MAIN / (f + s_) for f, s_ in reps)
         presets[name] = {
             "mode": an.choice.mode, "ordering": an.ordering_name,
             "nodes": len(nodes), "max_nr": max(nd.nr for nd in nodes),
             "nodes_over_128": sum(nd.nr > 128 for nd in nodes),
             "total_slots": int(an.plan.total_slots),
             "block_nodes": len(eng._blocks), "analyze_reuse_s": analyze_s,
-            "factor_batched_ms": t_factor * 1e3,
-            "solve_batched_ms": t_solve * 1e3,
-            "systems_per_s": K_MAIN / (t_factor + t_solve),
+            "first_factor_batched_ms": t_factor * 1e3,
+            "first_solve_batched_ms": t_solve * 1e3,
+            "repeats": PRESET_REPEATS,
+            "factor_batched_ms": _median(f_s) * 1e3,
+            "factor_batched_ms_range": [f_s[0] * 1e3, f_s[-1] * 1e3],
+            "solve_batched_ms": _median(s_s) * 1e3,
+            "solve_batched_ms_range": [s_s[0] * 1e3, s_s[-1] * 1e3],
+            "systems_per_s": _median(sps),
+            "systems_per_s_range": [sps[0], sps[-1]],
             "max_residual": float(info["residual"].max()),
             "refine_iters": info["n_refine"],
             "n_perturb": int(info["n_perturb"].sum()),
@@ -2368,30 +2395,169 @@ def baselines_phase(torch, np, kernels, A, an64, values0, b):
               "trsm_left_upper_blocked"):
         check(presets["pardiso_like"]["launches"].get(w, 0) >= 1,
               f"pardiso_like: the wide path {w} was not launched")
-    # the host-loop solve on hylu's factors, beside the fused one
-    an, eng, bst, x_f, info_f, t_fused = states["hylu"]
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    x_h, info_h = _solve_batched_hostloop(bst, b)
-    t_host = time.perf_counter() - t0
-    for w, c in kernels.launch_counts().items():
+    # the host-loop solve (warm) beside the fused one's median over the
+    # repeats: on hylu's factors (no refinement) and on klu_like's (one
+    # refinement, so the loop's improved / converged masking runs)
+    hostloop = {}
+    for name in ("hylu", "klu_like"):
+        an, eng, bst, x_f, info_f, t_fused = states[name]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        x_h, info_h = _solve_batched_hostloop(bst, b)
+        t_host = time.perf_counter() - t0
+        for w, c in kernels.launch_counts().items():
+            total[w] += c
+        host_err = float(np.abs(x_h - x_f).max() / np.abs(x_f).max())
+        masks = {m: bool(np.array_equal(info_h[m], info_f[m]))
+                 for m in ("refine_failed", "refine_stalled")}
+        hostloop[name] = {
+            "hostloop_solve_ms": t_host * 1e3,
+            "fused_solve_ms_median": t_fused * 1e3,
+            "hostloop_over_fused": t_host / t_fused,
+            "x_rel_err": host_err,
+            "n_refine": [info_h["n_refine"], info_f["n_refine"]],
+            "masks_equal": masks,
+            "max_residual": float(info_h["residual"].max())}
+        check(host_err <= 1e-10,
+              f"{name}: host loop vs fused solve: {host_err}")
+        check(info_h["n_refine"] == info_f["n_refine"],
+              f"{name}: host loop refinements {info_h['n_refine']} != "
+              f"fused {info_f['n_refine']}")
+        check(all(masks.values()), f"{name}: host loop masks {masks}")
+    check(hostloop["klu_like"]["n_refine"][0] >= 1,
+          "klu_like: the host loop ran no refinement")
+    # pardiso_like on a plan with a 140-row panel bucket and edge source
+    # (fem2d_10k has neither), through the same entry points
+    wide_plan = wide_plan_run(torch, np, kernels, analyze, baselines,
+                              factor_batched, solve_batched)
+    for w, c in wide_plan.pop("counts").items():
         total[w] += c
-    host_err = float(np.abs(x_h - x_f).max() / np.abs(x_f).max())
-    hostloop = {"hostloop_solve_ms": t_host * 1e3,
-                "fused_solve_ms": t_fused * 1e3,
-                "hostloop_over_fused": t_host / t_fused,
-                "x_rel_err": host_err,
-                "n_refine": [info_h["n_refine"], info_f["n_refine"]],
-                "max_residual": float(info_h["residual"].max())}
-    check(host_err <= 1e-10, f"host loop vs fused solve: {host_err}")
-    check(info_h["n_refine"] == info_f["n_refine"],
-          f"host loop refinements {info_h['n_refine']} != fused "
-          f"{info_f['n_refine']}")
     records = wide_records(torch, np, states["pardiso_like"][1], values0)
     emit({"phase": "baselines", "matrix": "fem2d_10k", "k": K_MAIN,
-          "presets": presets, "hostloop": hostloop,
+          "presets": presets, "hostloop": hostloop, "wide_plan": wide_plan,
           "wide_records": records, "seconds": time.perf_counter() - t_all})
     return total, records
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+
+
+def wide_source_matrix(n=200, blk=140, cpl=20, seed=6):
+    """A dense 140-row diagonal block coupled to a sparse rest by ``cpl``
+    rows and columns: under natural ordering, ``pardiso_like`` makes the
+    block one supernode, a panel bucket of its own (padded to 256 rows)
+    and the source of sup-sup edges with k = 140."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    r = n - blk
+    a = sp.lil_matrix((n, n))
+    a[blk:, blk:] = sp.random(r, r, density=0.05,
+                              random_state=np.random.RandomState(seed))
+    a[:blk, :blk] = rng.normal(size=(blk, blk))
+    a[blk:blk + cpl, :blk] = rng.normal(size=(cpl, blk))
+    a[:blk, blk:blk + cpl] = rng.normal(size=(blk, cpl))
+    diag = rng.uniform(1.0, 2.0, n) * rng.choice([-1, 1], n) * 30
+    return (a.tocsr() + sp.diags(diag)).tocsr()
+
+
+def wide_plan_run(torch, np, kernels, analyze, baselines, factor_batched,
+                  solve_batched):
+    """``pardiso_like`` (natural ordering, bulk_min_width 2) on
+    ``wide_source_matrix`` at K = 8 through ``analyze``,
+    ``factor_batched`` and ``solve_batched``: the wide paths fem2d_10k
+    does not reach, K1's (``panel_lu_bucket_wide``) and K3's blocked right
+    solve (``trsm_right_blocked``), run in the engine and are checked
+    against ``spsolve``.  Returns the record, its launch counts under
+    ``counts``."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from repro_torch.matrices import to_csr
+
+    t = time.perf_counter()
+    a = wide_source_matrix()
+    A = to_csr(a)
+    rng = np.random.default_rng(7)
+    vb = A.data[None] * rng.uniform(0.8, 1.2, (8, A.nnz))
+    bb = rng.normal(size=(8, A.n))
+    an = analyze(A, baselines.pardiso_like_options(
+        orderings=("natural",), bulk_min_width=2))
+    kernels.reset_launch_counts()
+    x, info = solve_batched(factor_batched(an, A, vb), bb)
+    counts = kernels.launch_counts()
+    err = 0.0
+    for k in range(vb.shape[0]):
+        ref = spla.spsolve(sp.csr_matrix((vb[k], A.indices, A.indptr),
+                                         shape=(A.n, A.n)).tocsc(), bb[k])
+        err = max(err, float(np.abs(x[k] - ref).max() / np.abs(ref).max()))
+    rec = {"matrix": "wide_source_matrix(200, 140, 20, seed=6)", "k": 8,
+           "max_nr": max(nd.nr for nd in an.plan.nodes),
+           "max_residual": float(info["residual"].max()),
+           "scipy_rel_err": err,
+           "launches": {w: c for w, c in counts.items() if c},
+           "seconds": time.perf_counter() - t, "counts": counts}
+    check(np.isfinite(x).all() and rec["max_residual"] <= 1e-10,
+          f"wide plan: residual {rec['max_residual']}")
+    check(err <= 1e-10, f"wide plan: spsolve disagreement {err}")
+    for w in ("panel_lu_bucket_wide", "trsm_right_blocked"):
+        check(counts[w] >= 1, f"wide plan: the wide path {w} was not "
+                              "launched")
+    return rec
+
+
+def inplace_ms(torch, fn, restore, reps=5):
+    """Median time of one call of ``fn`` that works in place, by CUDA
+    events around the call; ``restore()`` copies the recorded values back
+    before each call, outside the timed events (a data-dependent index
+    keeps such a call out of a CUDA graph)."""
+    restore()
+    fn()
+    times = []
+    for _ in range(reps):
+        restore()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return _median(times)
+
+
+def wide_bucket(torch, np, panel_ops, rng, K, members, nrp, dev):
+    """A value buffer (K, slots) holding one panel bucket of ``members``
+    (nr, lsize, usize), dominant random panels with shuffled rows, padded
+    to ``nrp`` rows, and its :class:`BucketLayout`: slots past the members
+    are the zero, one and scratch slots.  Returns (vals, layout, real
+    slots)."""
+    desc, off = [], 0
+    for nr, ls, us in members:
+        desc.append((off, nr, ls + nr + us, ls, us))
+        off += nr * (ls + nr + us)
+    zero, one, scratch = off, off + 1, off + 2
+    usp = max(us for _, _, us in members)
+    lsp = max(ls for _, ls, _ in members)
+    wu, wt = nrp + usp, nrp + usp + lsp
+    gather, scat = panel_ops.bucket_maps(desc, nrp, wu, wt, zero, one,
+                                         scratch)
+    lay = panel_ops.bucket_layout(desc, nrp, wu, wt, zero, one, gather,
+                                  scat, dev)
+    vals = np.zeros((K, off + 3))
+    vals[:, one] = 1.0
+    for (o, nr, w, ls, _) in desc:
+        p = rng.normal(size=(K, nr, w))
+        p[:, :, ls:ls + nr] += 16 * np.eye(nr)
+        rows = np.argsort(rng.random((K, nr)), axis=1)
+        vals[:, o:o + nr * w] = np.take_along_axis(
+            p, rows[:, :, None], axis=1).reshape(K, -1)
+    return torch.from_numpy(vals).to(dev), lay, off
 
 
 def wide_records(torch, np, eng, values0):
@@ -2399,10 +2565,13 @@ def wide_records(torch, np, eng, values0):
     (``panel_lu_wide``) on the 32 panels of pardiso_like's 150-row root
     as its factor program hands them (strided views of the value buffer),
     and at 256 and 300 rows (the window kernel in device memory, then
-    ``panel_lu_kernel``) on dominant random panels; K3's blocked left
-    solves at k = 150 on the root's diagonal block of the finished
-    factors, m = 1 — each held to its plain version, with its time, the
-    plain version's, the library's and the bound."""
+    ``panel_lu_kernel``) on dominant random panels; K1's
+    (``panel_lu_bucket_wide``) on buckets of two members padded to 256
+    and 512 rows (in place; gather, ``panel_lu_kernel``, write-back);
+    K3's blocked right solve at k = 140 and 256 on 256 rows of X, and its
+    blocked left solves at k = 150 on the root's diagonal block of the
+    finished factors, m = 1 — each held to its plain version, with its
+    time, the plain version's, the library's and the bound."""
     from repro_torch.kernels.panel import ops as panel_ops
     from repro_torch.kernels.trisolve import ops as trisolve_ops
 
@@ -2462,6 +2631,82 @@ def wide_records(torch, np, eng, values0):
     k2["library_none_because"] = ("no single PyTorch call computes a "
                                   "threshold-pivoted LU restricted to the "
                                   "block, with perturbation")
+    # K1's wide path on buckets padded to 256 (in place, the window kernel
+    # with its window in device memory) and 512 rows (gather,
+    # panel_lu_kernel, write-back)
+    k1 = {"name": "panel_lu_bucket_wide", "route": "cuda",
+          "source": "src/repro_torch/csrc/panel_lu.cu",
+          "replaces": "src/repro/kernels/panel/kernel.py:59",
+          "wrapper": "panel_lu_bucket_wide"}
+    for sfx, members, nrp in (("", ((140, 40, 8), (136, 32, 6)), 256),
+                              ("_nrp512", ((300, 40, 8), (280, 32, 6)),
+                               512)):
+        v0, lay, n_real = wide_bucket(torch, np, panel_ops, rng, K, members,
+                                      nrp, dev)
+        v_k, v_p = v0.clone(), v0.clone()
+        got = panel_ops.panel_lu_bucket_wide(v_k, lay, e)
+        want = panel_ops.panel_lu_bucket_plain(v_p, lay, e)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"panel_lu_bucket_wide{sfx}: pivots or perturbation counts "
+              "differ")
+        check(torch.equal(v_k[:, n_real:], v0[:, n_real:]),
+              f"panel_lu_bucket_wide{sfx}: wrote a slot outside the members")
+        err = float((v_k[:, :n_real] - v_p[:, :n_real]).abs().max())
+        check(bool(torch.allclose(v_k[:, :n_real], v_p[:, :n_real],
+                                  rtol=TOL["float64"], atol=TOL["float64"])),
+              f"panel_lu_bucket_wide{sfx}: max |kernel - plain| = {err}")
+        flops, nbytes = bucket_work(np, lay, K, 8)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[
+            "float64"]
+        k1.update({
+            "shape" + sfx: f"K {K} x members (nr, lsize, usize) "
+                           f"{list(members)}, padded ({lay.nr}, {lay.wt})",
+            "max_abs_err" + sfx: err, "tol" + sfx: TOL["float64"],
+            "ms" + sfx: inplace_ms(
+                torch, lambda: panel_ops.panel_lu_bucket_wide(v_k, lay, e),
+                lambda: v_k.copy_(v0)),
+            "plain_ms" + sfx: inplace_ms(
+                torch, lambda: panel_ops.panel_lu_bucket_plain(v_p, lay, e),
+                lambda: v_p.copy_(v0)),
+            "bound_ms" + sfx: max(t_bytes, t_ops) * 1e3,
+            "bound_by" + sfx: "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms" + sfx: None})
+        del v0, v_k, v_p
+    k1["library_none_because"] = k2["library_none_because"]
+    # K3's blocked right solve at k = 140 and 256, 256 rows of X
+    k3r = {"name": "trsm_right_blocked", "route": "cuda",
+           "source": "src/repro_torch/csrc/trsm.cu",
+           "replaces": "src/repro/kernels/trisolve/kernel.py:21",
+           "wrapper": "trsm_right_blocked"}
+    nrx = 256
+    for sfx, k in (("", 140), ("_k256", 256)):
+        u = torch.from_numpy(rng.normal(size=(K, k, k))
+                             + 16 * np.eye(k)).to(dev)
+        x = torch.from_numpy(rng.normal(size=(K, nrx, k))).to(dev)
+        got = trisolve_ops.trsm_batched(u, x)
+        want = trisolve_ops.trsm_plain(u, x)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, rtol=TOL["float64"],
+                                  atol=TOL["float64"])),
+              f"trsm_right_blocked{sfx}: max |kernel - plain| = {err}")
+        t_bytes = (K * k * (k + 1) // 2 + 2 * x.numel()) * 8 \
+            / HBM_BYTES_PER_S
+        t_ops = float(K * nrx * k * k) / PEAK_FLOPS["float64"]
+        k3r.update({
+            "shape" + sfx: f"u ({K}, {k}, {k}) x ({K}, {nrx}, {k}), blocks "
+                           f"of {trisolve_ops.BLOCK_K}",
+            "max_abs_err" + sfx: err, "tol" + sfx: TOL["float64"],
+            "ms" + sfx: bench_ms(torch, lambda: trisolve_ops.trsm_batched(
+                u, x)),
+            "plain_ms" + sfx: bench_ms(torch, lambda: trisolve_ops.trsm_plain(
+                u, x)),
+            "bound_ms" + sfx: max(t_bytes, t_ops) * 1e3,
+            "bound_by" + sfx: "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms" + sfx: bench_ms(
+                torch, lambda: torch.linalg.solve_triangular(
+                    u, x, upper=True, left=False))})
     # K3's blocked left solves on the root's diagonal block
     f = eng.refactor_batched(a_dev)
     blk_slots = next(b_[-1] for b_ in eng._blocks if b_[1] == nd.nr)
@@ -2469,7 +2714,7 @@ def wide_records(torch, np, eng, values0):
     k = nd.nr
     rhs = torch.from_numpy(rng.normal(size=(K, k, 1))).to(dev)
     lower = torch.tril(blk, -1) + torch.eye(k, dtype=blk.dtype, device=dev)
-    out = [k2]
+    out = [k2, k1, k3r]
     for name, fn, plain, lib, flops, tri in (
             ("trsm_left_unit_lower_blocked",
              trisolve_ops.trsm_left_unit_lower_batched,

@@ -15,9 +15,7 @@ fingerprints are the same as the JAX package's, with three changes:
   ``refine_dtype="auto"`` always means float64 (PyTorch has no x64 switch).
 
 Options this slice of the port does not run raise ``NotImplementedError``
-(:func:`check_supported`), and so do plans whose shapes a kernel of the
-engine's route does not take yet (:func:`check_plan_supported`);
-ROADMAP.md lists them.
+(:func:`check_supported`); ROADMAP.md lists them.
 """
 from __future__ import annotations
 
@@ -171,28 +169,6 @@ def check_supported(opts: HyluOptions, device) -> None:
     if dtype_name(opts.factor_dtype) == "bfloat16" and \
             getattr(device, "type", str(device)) == "cuda":
         missing("factor_dtype='bfloat16' on CUDA")
-
-
-def check_plan_supported(plan, schedule: str, use_kernels: bool,
-                         device) -> None:
-    """Raise ``NotImplementedError`` when building the engine for a plan
-    that a kernel of its route does not take, before anything launches:
-    the unrolled schedule on CUDA with kernels runs K5's node step, which
-    takes edge sources of at most 128 rows (ROADMAP.md, Queue C).  The
-    bucketed schedule and the plain route take any plan."""
-    from ..kernels.supsup.ops import MAX_K
-
-    if schedule != "unrolled" or not use_kernels \
-            or getattr(device, "type", str(device)) != "cuda":
-        return
-    nodes = plan.nodes
-    k = max((nodes[e.src].nr for nd in nodes for e in nd.edges), default=0)
-    if k > MAX_K:
-        raise NotImplementedError(
-            f"the unrolled schedule on CUDA runs K5's node step, which takes "
-            f"edge sources of at most {MAX_K} rows; this plan has one of "
-            f"{k}: not ported yet, see ROADMAP.md, Queue C; the bucketed "
-            "schedule takes it")
 
 
 def plan_options_key(opts: HyluOptions | None) -> tuple:

@@ -51,7 +51,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .options import check_plan_supported
 from .plan import FactorPlan
 from .structure import get_bucket_schedule, segment_levels
 from ..kernels.panel import ops as panel_ops
@@ -59,6 +58,33 @@ from ..kernels.supsup import ops as supsup_ops
 from ..kernels.trisolve import ops as trisolve_ops
 
 IDENTITY_PIVOT = 1e30     # padded block diagonals (jax_engine.py:197–201)
+
+
+def node_step_max_k(schedule: str, use_kernels: bool, device):
+    """The widest edge source the engine's node step takes: 128 on the
+    unrolled schedule's kernel route on CUDA (K5's node step holds k in
+    registers), else None (any: the bucketed schedule and the plain
+    node step)."""
+    if schedule == "unrolled" and use_kernels \
+            and torch.device(device).type == "cuda":
+        return supsup_ops.MAX_K
+    return None
+
+
+def _check_edge_sources(plan, max_k) -> None:
+    """Raise ``NotImplementedError`` (ROADMAP.md, Queue C) for a plan with
+    an edge source of more than ``max_k`` rows, before anything reaches
+    the device."""
+    if max_k is None:
+        return
+    nodes = plan.nodes
+    k = max((nodes[e.src].nr for nd in nodes for e in nd.edges), default=0)
+    if k > max_k:
+        raise NotImplementedError(
+            f"the unrolled schedule on CUDA runs K5's node step, which takes "
+            f"edge sources of at most {max_k} rows; this plan has one of "
+            f"{k}: not ported yet, see ROADMAP.md, Queue C; the bucketed "
+            "schedule and use_kernels=False take it")
 
 
 class TorchFactors(NamedTuple):
@@ -176,7 +202,8 @@ class RepeatedSolveEngine:
             raise ValueError(f"unknown factor schedule {schedule!r}: "
                              "expected 'bucketed' or 'unrolled'")
         dev = torch.device(device)
-        check_plan_supported(plan, schedule, use_kernels, dev)
+        self._max_k = node_step_max_k(schedule, use_kernels, dev)
+        _check_edge_sources(plan, self._max_k)
         self.device = dev
         self.n = plan.n
         self.plan = plan
@@ -243,8 +270,7 @@ class RepeatedSolveEngine:
         self._edges = supsup_ops.edge_table(
             [(int(offs[e.src]), nodes[e.src].nr, nodes[e.src].width,
               nodes[e.src].lsize, e.col_map) for nd in nodes
-             for e in nd.edges], self.device,
-            max_k=supsup_ops.MAX_K if self.device.type == "cuda" else None)
+             for e in nd.edges], self.device, max_k=self._max_k)
         self._nodes, e0 = [], 0
         for nd in nodes:
             e1 = e0 + len(nd.edges)

@@ -48,18 +48,21 @@
 // ring of 2, 3, 4 or 6 slots measured the same, and registers staged one
 // edge ahead (the first design) 13% slower over a refactor.
 //
-// hylu_gemm_update_* (the parent design, kept as chip_smoke.py's yardstick
-// for the node kernel; no engine path calls it): OUT[e] = C[e] - A[e] @ B[e]
-// over a batch, C and OUT (batch, nr, m), A (batch, nr, k), B (batch, k, m),
-// all row-major and contiguous.  It sums A @ B with fused multiply-adds in
-// the input type and then subtracts it from C, as the Pallas kernel does
-// for its one k-tile (k <= 128).  The JAX wrapper pads nr, k and m to
-// multiples of 8 or 128 with exact zeros; this kernel masks the ragged tile
-// edges instead.  One edge is at most nr = k = 128, m ~ 100 (at fem2d_10k):
-// bound by bytes, and at one system per launch by launch latency.  A plain
-// shared-memory tiled GEMM: a 64x64 tile of OUT per block, 16x16 threads
-// with a 4x4 register tile each, 16-deep slabs of A and B staged through
-// shared memory.
+// hylu_gemm_update_* (the parent design of the node step, kept as
+// chip_smoke.py's yardstick for it, and the trailing update of K3's solves
+// blocked over k > 128, kernels/trisolve/ops.py): OUT[e] = C[e] - A[e] @
+// B[e] over a batch, C and OUT (batch, nr, m), A (batch, nr, k), B (batch,
+// k, m), each row-major with its own batch and row stride (views), OUT
+// either its own buffer or C itself (in place: each entry is read and then
+// written by one thread).  It sums A @ B with fused multiply-adds in the
+// input type and then subtracts it from C, as the Pallas kernel does for
+// its one k-tile (k <= 128; any k here).  The JAX wrapper pads nr, k and m
+// to multiples of 8 or 128 with exact zeros; this kernel masks the ragged
+// tile edges instead.  One edge is at most nr = k = 128, m ~ 100 (at
+// fem2d_10k): bound by bytes, and at one system per launch by launch
+// latency.  A plain shared-memory tiled GEMM: a 64x64 tile of OUT per
+// block, 16x16 threads with a 4x4 register tile each, 16-deep slabs of A
+// and B staged through shared memory; it is not tuned.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -73,11 +76,15 @@ constexpr int kSlab = 16;
 constexpr int kThreadsDim = 16;
 constexpr int kPer = kTile / kThreadsDim;   // 4 outputs per thread per dim
 
+// Strides are in elements; columns are unit-stride.  C and OUT may alias,
+// so neither is __restrict__.
 template <typename T>
 __global__ void __launch_bounds__(kThreadsDim * kThreadsDim)
-gemm_update_kernel(const T* __restrict__ C, const T* __restrict__ A,
-                   const T* __restrict__ B, T* __restrict__ OUT, int nr,
-                   int k, int m, int tiles_r, int tiles_c) {
+gemm_update_kernel(const T* C, long long sc_b, long long sc_r,
+                   const T* __restrict__ A, long long sa_b, long long sa_r,
+                   const T* __restrict__ B, long long sb_b, long long sb_r,
+                   T* OUT, long long so_b, long long so_r, int nr, int k,
+                   int m, int tiles_r, int tiles_c) {
   __shared__ T As[kSlab][kTile + 1];   // A slab, transposed: As[kk][row]
   __shared__ T Bs[kSlab][kTile + 1];
   const int per = tiles_r * tiles_c;
@@ -87,8 +94,8 @@ gemm_update_kernel(const T* __restrict__ C, const T* __restrict__ A,
   const int col0 = (rem % tiles_c) * kTile;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kThreadsDim + tx;
-  const T* Ae = A + e * nr * k;
-  const T* Be = B + e * k * m;
+  const T* Ae = A + e * sa_b;
+  const T* Be = B + e * sb_b;
 
   T acc[kPer][kPer];
 #pragma unroll
@@ -100,10 +107,10 @@ gemm_update_kernel(const T* __restrict__ C, const T* __restrict__ A,
     for (int t = tid; t < kTile * kSlab; t += kThreadsDim * kThreadsDim) {
       const int r = t / kSlab, kk = t % kSlab;      // A: along its rows' k
       const int ar = row0 + r, ac = k0 + kk;
-      As[kk][r] = (ar < nr && ac < k) ? Ae[(long long)ar * k + ac] : T(0);
+      As[kk][r] = (ar < nr && ac < k) ? Ae[ar * sa_r + ac] : T(0);
       const int br = k0 + t / kTile, bc = col0 + t % kTile;   // B: along m
       Bs[t / kTile][t % kTile] =
-          (br < k && bc < m) ? Be[(long long)br * m + bc] : T(0);
+          (br < k && bc < m) ? Be[br * sb_r + bc] : T(0);
     }
     __syncthreads();
 #pragma unroll
@@ -120,34 +127,37 @@ gemm_update_kernel(const T* __restrict__ C, const T* __restrict__ A,
     }
     __syncthreads();
   }
-  const T* Ce = C + e * nr * m;
-  T* Oe = OUT + e * nr * m;
+  const T* Ce = C + e * sc_b;
+  T* Oe = OUT + e * so_b;
 #pragma unroll
   for (int i = 0; i < kPer; ++i)
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
       const int r = row0 + ty + i * kThreadsDim;
       const int c = col0 + tx + j * kThreadsDim;
-      if (r < nr && c < m) {
-        const long long o = (long long)r * m + c;
-        Oe[o] = Ce[o] - acc[i][j];
-      }
+      if (r < nr && c < m) Oe[r * so_r + c] = Ce[r * sc_r + c] - acc[i][j];
     }
 }
 
 template <typename T>
-int launch_gemm_update(const void* C, const void* A, const void* B, void* OUT,
-                       int batch, int nr, int k, int m, void* stream) {
-  if (batch < 1 || nr < 1 || k < 1 || m < 1)
+int launch_gemm_update(const void* C, long long sc_b, long long sc_r,
+                       const void* A, long long sa_b, long long sa_r,
+                       const void* B, long long sb_b, long long sb_r,
+                       void* OUT, long long so_b, long long so_r, int batch,
+                       int nr, int k, int m, void* stream) {
+  if (batch < 1 || nr < 1 || k < 1 || m < 1 || sc_r < m || sa_r < k ||
+      sb_r < m || so_r < m)
     return (int)cudaErrorInvalidValue;
   const int tiles_r = (nr + kTile - 1) / kTile;
   const int tiles_c = (m + kTile - 1) / kTile;
+  if ((long long)batch * tiles_r * tiles_c > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const dim3 block(kThreadsDim, kThreadsDim);
-  gemm_update_kernel<T><<<(unsigned)batch * tiles_r * tiles_c, block, 0,
-                          (cudaStream_t)stream>>>(
-      static_cast<const T*>(C), static_cast<const T*>(A),
-      static_cast<const T*>(B), static_cast<T*>(OUT), nr, k, m, tiles_r,
-      tiles_c);
+  gemm_update_kernel<T><<<(unsigned)((long long)batch * tiles_r * tiles_c),
+                          block, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(C), sc_b, sc_r, static_cast<const T*>(A), sa_b,
+      sa_r, static_cast<const T*>(B), sb_b, sb_r, static_cast<T*>(OUT), so_b,
+      so_r, nr, k, m, tiles_r, tiles_c);
   return (int)cudaGetLastError();
 }
 
@@ -402,16 +412,30 @@ int launch_node_edges(void* vals, long long ldv, long long off, int nr,
 
 }  // namespace
 
-extern "C" int hylu_gemm_update_f64(const void* C, const void* A,
-                                    const void* B, void* OUT, int batch,
+// OUT[e] = C[e] - A[e] @ B[e]; each operand with its batch and row stride
+// in elements; OUT may be C.
+extern "C" int hylu_gemm_update_f64(const void* C, long long sc_b,
+                                    long long sc_r, const void* A,
+                                    long long sa_b, long long sa_r,
+                                    const void* B, long long sb_b,
+                                    long long sb_r, void* OUT,
+                                    long long so_b, long long so_r, int batch,
                                     int nr, int k, int m, void* stream) {
-  return launch_gemm_update<double>(C, A, B, OUT, batch, nr, k, m, stream);
+  return launch_gemm_update<double>(C, sc_b, sc_r, A, sa_b, sa_r, B, sb_b,
+                                    sb_r, OUT, so_b, so_r, batch, nr, k, m,
+                                    stream);
 }
 
-extern "C" int hylu_gemm_update_f32(const void* C, const void* A,
-                                    const void* B, void* OUT, int batch,
+extern "C" int hylu_gemm_update_f32(const void* C, long long sc_b,
+                                    long long sc_r, const void* A,
+                                    long long sa_b, long long sa_r,
+                                    const void* B, long long sb_b,
+                                    long long sb_r, void* OUT,
+                                    long long so_b, long long so_r, int batch,
                                     int nr, int k, int m, void* stream) {
-  return launch_gemm_update<float>(C, A, B, OUT, batch, nr, k, m, stream);
+  return launch_gemm_update<float>(C, sc_b, sc_r, A, sa_b, sa_r, B, sb_b,
+                                   sb_r, OUT, so_b, so_r, batch, nr, k, m,
+                                   stream);
 }
 
 // One node step of the unrolled schedule in place: vals (K, ldv), the

@@ -5,18 +5,14 @@
 //       (trsm_upper :37, pallas_call :47), reached through trisolve/ops.py
 //       trsm_batched (:48) and the left solves (:69, :81).
 //
-// Three solve entry points, each for k <= 128, and the product that
-// blocks them over larger k:
+// Three solve entry points, each for k <= 128:
 //   hylu_trsm_right_*             Y U = X per batch member (sup-sup edges);
 //                                 U upper, optionally unit-diagonal, taken
 //                                 with its batch and row strides (a view of
 //                                 the gathered source rows); only U's upper
 //                                 triangle is read.
 //   hylu_trsm_left_unit_lower_*   L w = b with L = tril(blk, -1) + I;
-//   hylu_trsm_left_upper_*        U w = b with U = triu(blk);
-//   hylu_trsm_update_*            C -= A B per batch member, on strided
-//                                 views: the trailing update between the
-//                                 diagonal blocks of a solve with k > 128.
+//   hylu_trsm_left_upper_*        U w = b with U = triu(blk).
 // The left solves read the diagonal block of the panel buffer in place:
 // none of the triu / swapaxes / flip copies of trisolve/ops.py:69-90 is
 // made, and k is not padded to a multiple of 8.  A solve kernel takes any
@@ -25,12 +21,10 @@
 // (kernels/trisolve/ops.py) solve a larger k by blocks of 128: solve the
 // leading (trailing, for U w = b) diagonal block with the solve kernel,
 // subtract its product from the columns (right solve) or rows (left
-// solves) still to be solved with hylu_trsm_update_*, and repeat.  That
-// product is a plain shared-memory tiled GEMM (a 64 x 64 tile of C per
-// block, 16 x 16 threads with a 4 x 4 register tile each, 16-deep slabs
-// of A and B) that sums A B with fused multiply-adds and subtracts it
-// from C in place; it is not tuned, since only supernodes above the
-// default cap reach it.
+// solves) still to be solved, and repeat.  That product, C -= A B in
+// place on strided views, is K5's tiled GEMM update
+// (csrc/gemm_update.cu, hylu_gemm_update_*); it is not tuned, since only
+// supernodes above the default cap reach it.
 //
 // What bounds it on the card: neither bytes (k = 128 f64 is 64 KB of a
 // triangle read once) nor operations, but the latency of the k-step
@@ -588,93 +582,6 @@ int launch_left(const void* blk, const void* B, void* W, int batch, int k,
                 : launch_left_mc<T, UPPER, 4>(a, b, w, batch, k, m, st);
 }
 
-// --------------------------------------------------------- blocked update
-constexpr int kUpdTile = 64;
-constexpr int kUpdSlab = 16;
-constexpr int kUpdDim = 16;                 // threads per tile dimension
-constexpr int kUpdPer = kUpdTile / kUpdDim;  // outputs per thread per dim
-
-// C[e] -= A[e] B[e]: C (rows x cols), A (rows x kd), B (kd x cols), each
-// with its own batch and row stride and unit column stride.
-template <typename T>
-__global__ void __launch_bounds__(kUpdDim * kUpdDim)
-trsm_update_kernel(T* __restrict__ C, long long sc_b, long long sc_r,
-                   const T* __restrict__ A, long long sa_b, long long sa_r,
-                   const T* __restrict__ B, long long sb_b, long long sb_r,
-                   int rows, int cols, int kd, int tiles_r, int tiles_c) {
-  __shared__ T As[kUpdSlab][kUpdTile + 1];   // A slab, transposed
-  __shared__ T Bs[kUpdSlab][kUpdTile + 1];
-  const int per = tiles_r * tiles_c;
-  const long long e = blockIdx.x / per;
-  const int rem = blockIdx.x % per;
-  const int row0 = (rem / tiles_c) * kUpdTile;
-  const int col0 = (rem % tiles_c) * kUpdTile;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kUpdDim + tx;
-  const T* Ae = A + e * sa_b;
-  const T* Be = B + e * sb_b;
-  T* Ce = C + e * sc_b;
-
-  T acc[kUpdPer][kUpdPer];
-#pragma unroll
-  for (int i = 0; i < kUpdPer; ++i)
-#pragma unroll
-    for (int j = 0; j < kUpdPer; ++j) acc[i][j] = T(0);
-
-  for (int k0 = 0; k0 < kd; k0 += kUpdSlab) {
-    for (int t = tid; t < kUpdTile * kUpdSlab; t += kUpdDim * kUpdDim) {
-      const int r = t / kUpdSlab, kk = t % kUpdSlab;   // A: along its rows
-      const int ar = row0 + r, ac = k0 + kk;
-      As[kk][r] = (ar < rows && ac < kd) ? Ae[ar * sa_r + ac] : T(0);
-      const int br = k0 + t / kUpdTile, bc = col0 + t % kUpdTile;
-      Bs[t / kUpdTile][t % kUpdTile] =
-          (br < kd && bc < cols) ? Be[br * sb_r + bc] : T(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kUpdSlab; ++kk) {
-      T a[kUpdPer], b[kUpdPer];
-#pragma unroll
-      for (int i = 0; i < kUpdPer; ++i) a[i] = As[kk][ty + i * kUpdDim];
-#pragma unroll
-      for (int j = 0; j < kUpdPer; ++j) b[j] = Bs[kk][tx + j * kUpdDim];
-#pragma unroll
-      for (int i = 0; i < kUpdPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kUpdPer; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < kUpdPer; ++i)
-#pragma unroll
-    for (int j = 0; j < kUpdPer; ++j) {
-      const int r = row0 + ty + i * kUpdDim;
-      const int c = col0 + tx + j * kUpdDim;
-      if (r < rows && c < cols) Ce[r * sc_r + c] -= acc[i][j];
-    }
-}
-
-template <typename T>
-int launch_update(void* C, long long sc_b, long long sc_r, const void* A,
-                  long long sa_b, long long sa_r, const void* B,
-                  long long sb_b, long long sb_r, int batch, int rows,
-                  int cols, int kd, void* stream) {
-  if (batch < 1 || rows < 1 || cols < 1 || kd < 1 || sc_r < cols ||
-      sa_r < kd || sb_r < cols)
-    return (int)cudaErrorInvalidValue;
-  const int tiles_r = (rows + kUpdTile - 1) / kUpdTile;
-  const int tiles_c = (cols + kUpdTile - 1) / kUpdTile;
-  if ((long long)batch * tiles_r * tiles_c > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  trsm_update_kernel<T><<<(unsigned)((long long)batch * tiles_r * tiles_c),
-                          dim3(kUpdDim, kUpdDim), 0, (cudaStream_t)stream>>>(
-      static_cast<T*>(C), sc_b, sc_r, static_cast<const T*>(A), sa_b, sa_r,
-      static_cast<const T*>(B), sb_b, sb_r, rows, cols, kd, tiles_r,
-      tiles_c);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int hylu_trsm_right_f64(const void* U, const void* X, void* Y,
@@ -715,22 +622,4 @@ extern "C" int hylu_trsm_left_upper_f32(const void* blk, const void* B,
                                         void* W, int batch, int k, int m,
                                         void* stream) {
   return launch_left<float, true>(blk, B, W, batch, k, m, stream);
-}
-
-extern "C" int hylu_trsm_update_f64(void* C, long long sc_b, long long sc_r,
-                                    const void* A, long long sa_b,
-                                    long long sa_r, const void* B,
-                                    long long sb_b, long long sb_r, int batch,
-                                    int rows, int cols, int kd, void* stream) {
-  return launch_update<double>(C, sc_b, sc_r, A, sa_b, sa_r, B, sb_b, sb_r,
-                               batch, rows, cols, kd, stream);
-}
-
-extern "C" int hylu_trsm_update_f32(void* C, long long sc_b, long long sc_r,
-                                    const void* A, long long sa_b,
-                                    long long sa_r, const void* B,
-                                    long long sb_b, long long sb_r, int batch,
-                                    int rows, int cols, int kd, void* stream) {
-  return launch_update<float>(C, sc_b, sc_r, A, sa_b, sa_r, B, sb_b, sb_r,
-                              batch, rows, cols, kd, stream);
 }

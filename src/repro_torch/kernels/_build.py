@@ -43,9 +43,8 @@ _BATCHED_PANEL = [_P] * 6 + [_I] * 4 + [_P]
 _BUCKET_PANEL = [_P, _L] + [_P] * 5 + [_I] * 7 + [_P]
 _RIGHT = [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P]
 _LEFT = [_P, _P, _P, _I, _I, _I, _P]
-_TRSM_UPDATE = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _I, _I, _I, _I, _P]
 _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
-_GEMM_UPDATE = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_GEMM_UPDATE = [_P, _L, _L] * 4 + [_I, _I, _I, _I, _P]
 _NODE_EDGES = [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
 _SUPROW = [_P, _P, _P, _P, _I, _I, _I, _P]
 _SUPROW_GROUPED = [_P, _I, _I, _I, _I, _P]
@@ -59,7 +58,6 @@ SIGNATURES = {
     **{f"hylu_trsm_right_{s}": _RIGHT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_unit_lower_{s}": _LEFT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_upper_{s}": _LEFT for s in ("f64", "f32")},
-    **{f"hylu_trsm_update_{s}": _TRSM_UPDATE for s in ("f64", "f32")},
     **{f"hylu_bmm_{s}": _BMM for s in ("f64", "f32")},
     **{f"hylu_gemm_update_{s}": _GEMM_UPDATE for s in ("f64", "f32")},
     **{f"hylu_node_edges_{s}": _NODE_EDGES for s in ("f64", "f32")},
@@ -211,6 +209,17 @@ def check_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
         if t.dtype != dt:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and {dt}")
+
+
+def row_strides(name: str, t) -> tuple:
+    """(batch stride, row stride) of a (B, R, C) view whose rows are dense,
+    for an entry point that takes a view by its strides (the strides of a
+    dimension of size 1 are arbitrary, so they are normalised)."""
+    nb, r, c = t.shape
+    if c > 1 and t.stride(2) != 1:
+        raise ValueError(f"{name}: rows must be dense, got strides "
+                         f"{tuple(t.stride())}")
+    return (t.stride(0) if nb > 1 else 0), (t.stride(1) if r > 1 else c)
 
 
 def stream_of(t):

@@ -4,7 +4,9 @@ update of a sup-sup edge bucket, and K5 (``csrc/gemm_update.cu``):
 edge loop, the sup-sup updates C − A·B among them, in one launch, in
 place), and the parent design ``gemm_update``, C − A·B per edge, under
 ``supsup_update`` (K3's right solve, then ``gemm_update``), which no engine
-path calls any more.
+path calls any more.  Its kernel (``hylu_gemm_update_*``) takes strided
+views and may write C in place: K3's solves blocked over k > 128 run
+their trailing updates through it (``kernels/trisolve/ops.py``).
 
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version of :mod:`.ref`.  Every launch adds one to
@@ -200,10 +202,12 @@ def gemm_update(c: torch.Tensor, a: torch.Tensor,
     _build.check_cuda("gemm_update", c, a, b)
     out = torch.empty_like(c)
     if e and nr:
+        sc, sa, sb = (_build.row_strides("gemm_update", t) for t in (c, a, b))
         with _build.on_device(c):
             _build.launch(f"hylu_gemm_update_{_build.suffix(c)}",
-                          _build.ptr(c), _build.ptr(a), _build.ptr(b),
-                          _build.ptr(out), e, nr, k, m, _build.stream_of(c))
+                          _build.ptr(c), *sc, _build.ptr(a), *sa,
+                          _build.ptr(b), *sb, _build.ptr(out), *sc, e, nr, k,
+                          m, _build.stream_of(c))
         gemm_update.launches += 1
     return out
 

@@ -13,9 +13,10 @@ A solve kernel takes k <= ``BLOCK_K`` (128, the default supernode cap).
 A supernode may have up to ``max_super`` rows, so a larger k goes to the
 blocked path (``trsm_right_blocked``, ``trsm_left_unit_lower_blocked``,
 ``trsm_left_upper_blocked``, each counting its calls): the solve kernel on
-each diagonal block of at most 128, and between blocks K3's trailing
-update (``hylu_trsm_update_*``), C −= A·B on the columns (right solve) or
-rows (left solves) still to be solved.
+each diagonal block of at most 128, and between blocks the trailing
+update C −= A·B on the columns (right solve) or rows (left solves) still
+to be solved, in place on views by K5's GEMM update
+(``csrc/gemm_update.cu``, ``hylu_gemm_update_*``).
 """
 from __future__ import annotations
 
@@ -78,30 +79,20 @@ def _right(u, x, unit_diag):
     return y
 
 
-def _rows_dense(name, t):
-    """(batch stride, row stride) of a (B, R, C) view whose rows are dense
-    (the strides of a dimension of size 1 are arbitrary)."""
-    nb, r, c = t.shape
-    if c > 1 and t.stride(2) != 1:
-        raise ValueError(f"{name}: rows must be dense, got strides "
-                         f"{tuple(t.stride())}")
-    return (t.stride(0) if nb > 1 else 0), (t.stride(1) if r > 1 else c)
-
-
 def _update(c, a, b):
-    """c −= a @ b in place (``hylu_trsm_update_*``): c (B, R, N), a (B, R,
-    Kd), b (B, Kd, N), views of one dtype on one device whose rows are
-    dense."""
+    """c −= a @ b in place by K5's GEMM update (``hylu_gemm_update_*``,
+    its output c itself): c (B, R, N), a (B, R, Kd), b (B, Kd, N), views
+    of one dtype on one device whose rows are dense."""
     nb, rows, cols = c.shape
     kd = a.shape[2]
     if not (nb and rows and cols and kd):
         return
-    strides = [s for t in (c, a, b) for s in _rows_dense("trsm update", t)]
+    sc, sa, sb = (_build.row_strides("trsm update", t) for t in (c, a, b))
     with _build.on_device(c):
-        _build.launch(f"hylu_trsm_update_{_build.suffix(c)}", _build.ptr(c),
-                      strides[0], strides[1], _build.ptr(a), strides[2],
-                      strides[3], _build.ptr(b), strides[4], strides[5], nb,
-                      rows, cols, kd, _build.stream_of(c))
+        _build.launch(f"hylu_gemm_update_{_build.suffix(c)}", _build.ptr(c),
+                      *sc, _build.ptr(a), *sa, _build.ptr(b), *sb,
+                      _build.ptr(c), *sc, nb, rows, kd, cols,
+                      _build.stream_of(c))
 
 
 def trsm_batched(u: torch.Tensor, x: torch.Tensor,
@@ -129,7 +120,7 @@ def trsm_right_blocked(u: torch.Tensor, x: torch.Tensor,
     """K3's right solve blocked over k (the wide path of
     :func:`trsm_batched`; same arguments and result, any k): per column
     block J of at most 128, Y_J = X_J U_JJ⁻¹ by the solve kernel, then
-    X[:, later] −= Y_J U[J, later] by K3's update."""
+    X[:, later] −= Y_J U[J, later] by the GEMM update."""
     _check_right(u, x)
     if x.device.type == "cpu":
         return trsm_plain(u, x, unit_diag=unit_diag)
@@ -164,7 +155,7 @@ def _left(name, blk, b):
 def _left_blocked(name, blk, b, upper):
     """A left solve blocked over k: each diagonal block of at most 128 by
     the solve kernel, in sweep order (backward for U), then the rows still
-    to be solved take its product by K3's update."""
+    to be solved take its product by the GEMM update."""
     nb, k, m = b.shape
     _build.check_cuda(name, blk, b)
     w = b.clone()

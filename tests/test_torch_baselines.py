@@ -37,10 +37,10 @@ from repro_torch.core import (CSR, HyluOptions, analyze, baselines,  # noqa: E40
                               solve, solve_batched, torch_repeated_engine)
 from repro_torch.core.api import (_batched_matvec,  # noqa: E402
                                   _solve_batched_hostloop)
-from repro_torch.core.options import (PLAN_OPTION_FIELDS,  # noqa: E402
-                                      check_plan_supported)
+from repro_torch.core.options import PLAN_OPTION_FIELDS  # noqa: E402
 from repro_torch.core.structure import build_solve_structure  # noqa: E402
-from repro_torch.core.torch_engine import RepeatedSolveEngine  # noqa: E402
+from repro_torch.core.torch_engine import (  # noqa: E402
+    RepeatedSolveEngine, _check_edge_sources, node_step_max_k)
 
 from tests.helpers import (empty_row_pattern, random_system,  # noqa: E402
                            scenario_system)
@@ -384,24 +384,30 @@ def test_wide_plan_batched_matches_jax(name, wide_cases):
 
 # ------------------------------------------------ the unrolled refusal
 def test_unrolled_on_cuda_refuses_wide_edge_sources(wide_cases):
-    """The unrolled schedule on CUDA runs K5's node step, which takes edge
-    sources of at most 128 rows: building that engine for a plan with a
-    140-row source raises before any tensor reaches the device.  The
-    bucketed schedule, the plain route and the CPU take the plan."""
+    """The unrolled schedule on CUDA with kernels runs K5's node step,
+    which takes edge sources of at most 128 rows: building that engine for
+    a plan with a 140-row source raises before any tensor reaches the
+    device.  The bucketed schedule, the plain node step
+    (``use_kernels=False``, on the card too) and the CPU take the plan."""
     a, aj, at, vb, bb, kw = wide_cases["wide_source"]
     an = analyze(at, baselines.pardiso_like_options(device="cpu", **kw))
     cuda = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="Queue C"):
-        check_plan_supported(an.plan, "unrolled", True, cuda)
+    assert node_step_max_k("unrolled", True, cuda) == 128
     for args in (("bucketed", True, cuda), ("unrolled", False, cuda),
                  ("unrolled", True, torch.device("cpu"))):
-        check_plan_supported(an.plan, *args)
+        assert node_step_max_k(*args) is None
+        _check_edge_sources(an.plan, node_step_max_k(*args))
     ss = build_solve_structure(an.plan, bulk_min_width=2)
-    with pytest.raises(NotImplementedError, match="K5"):
+    with pytest.raises(NotImplementedError, match="Queue C"):
         RepeatedSolveEngine(
             an.plan, ss, src_map=an.src_map, scale_map=an.scale_map, p=an.p,
             q=an.q, row_scale=an.match.row_scale,
             col_scale=an.match.col_scale, device="cuda",
             schedule="unrolled")
+    eng = RepeatedSolveEngine(
+        an.plan, ss, src_map=an.src_map, scale_map=an.scale_map, p=an.p,
+        q=an.q, row_scale=an.match.row_scale, col_scale=an.match.col_scale,
+        device="cpu", schedule="unrolled")
+    assert max(e[1] for e in eng._edges.edges) == 140
     narrow = analyze(at, HyluOptions(device="cpu", force_mode="supernodal"))
-    check_plan_supported(narrow.plan, "unrolled", True, cuda)
+    _check_edge_sources(narrow.plan, node_step_max_k("unrolled", True, cuda))

@@ -1878,3 +1878,38 @@ def test_pardiso_like_on_card_matches_cpu(name, cuda):
         with pytest.raises(NotImplementedError, match="Queue C"):
             torch_repeated_engine(an_u)
         assert kernels.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_unrolled_plain_node_step_on_card_takes_wide_sources(cuda):
+    """The unrolled schedule with ``use_kernels=False`` on the card runs
+    the plain node step, which takes any edge source: ``pardiso_like``'s
+    plan of the 140-row source factors and solves there and matches the
+    CPU's plain route (equal pivots and perturbation counts, factors and
+    solutions within 1e-10), launching no kernel."""
+    from repro_torch.core import baselines
+
+    A = to_csr(_card_wide_source())
+    kw = dict(orderings=("natural",), bulk_min_width=2,
+              factor_schedule="unrolled", use_kernels=False)
+    rng = np.random.default_rng(4)
+    vb = A.data[None] * rng.uniform(0.8, 1.2, (3, A.nnz))
+    bb = rng.normal(size=(3, A.n))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        an = analyze(A, baselines.pardiso_like_options(device=dev, **kw))
+        kernels.reset_launch_counts()
+        bst = factor_batched(an, A, vb)
+        out[dev] = (bst,) + solve_batched(bst, bb) + (
+            kernels.launch_counts(),)
+        eng = torch_repeated_engine(an)
+        assert eng.schedule == "unrolled" and not eng.use_kernels
+        assert max(e[1] for e in eng._edges.edges) == 140
+    (bc, xc, ic, _), (bg, xg, ig, counts) = out["cpu"], out["cuda"]
+    assert not any(counts.values()), counts
+    assert torch.equal(bg.inode_perm.cpu(), bc.inode_perm)
+    assert np.array_equal(bg.n_perturb, bc.n_perturb)
+    torch.testing.assert_close(bg.vals.cpu(), bc.vals, rtol=1e-10,
+                               atol=1e-10)
+    assert max(ig["residual"].max(), ic["residual"].max()) < 1e-10
+    assert np.abs(xg - xc).max() / np.abs(xc).max() < 1e-10
