@@ -69,8 +69,21 @@ Phases, each printing one JSON line:
             with scipy's ``spsolve`` and the launch counts are checked
             (one K1 launch per panel bucket), and the device kernels of
             one bucketed refactor counted with and without the in-place
-            K1 (torch.profiler);
+            K1 (torch.profiler); the T-step ``solve_sequence`` runs the
+            double-buffered pipeline (pinned staging, a copy stream);
+5b. pipeline  the pipeline on the main phase's analysis, values and
+            right-hand sides: T = 3 without and with donation, then T = 6
+            with donation, each after a reset of the peak memory
+            statistics: the donating stream within 1e-10 of the other
+            with equal counts and masks, its peak no higher, T = 3 -> 6
+            growing by less than one factor buffer; the seconds per step
+            beside T sequential ``factor_batched`` + ``solve_batched``;
 6. width1   circuit_like(2000, seed 3), K = 8: the scanned width-1 tail;
+6b. autodiff  ``make_sparse_solve`` on fem2d_10k, one right-hand side:
+            x, b's and A's values' gradients of sum(W x) by ``backward()``
+            against ``spsolve(A, b)``, y = ``spsolve(Aᵀ, W)`` and
+            -y[rows] x[cols] (1e-10), K1-K4 launched in the forward,
+            forward and backward ms;
 7. baselines  the paper's §4 comparison at fem2d_10k, K = 32, the main
             phase's values and right-hand sides: the ``hylu`` (the main
             phase's analysis), ``pardiso_like`` (supernodal only, relax
@@ -85,7 +98,10 @@ Phases, each printing one JSON line:
             (one refinement) beside the fused one (x within 1e-10, equal
             refinement counts and failure masks); ``pardiso_like`` on a
             200-row system with a 140-row supernode, the wide paths
-            fem2d_10k does not reach (K1's, K3's blocked right solve);
+            fem2d_10k does not reach (K1's, K3's blocked right solve),
+            also under the unrolled schedule (K5's wide node step,
+            ``node_edges_wide``: against ``spsolve`` and the bucketed
+            factors), with that node step's kernel record;
             and the wide paths' kernel records, float64: K2 on the root's
             32 panels and at 256 and 300 rows, K1 on buckets padded to 256
             and 512 rows, K3's blocked right solve at k = 140 and 256 and
@@ -145,8 +161,9 @@ Phases, each printing one JSON line:
             The peak memory is that of the serving calls alone.
 
 Then one ``{"kernels": [...]}`` line (each record's ``launches_by_path``
-counts the batched, baselines, scalar and solver-serving phases, or the
-models' serving calls), the nvidia-smi line, and, last,
+counts the batched, pipeline, autodiff, baselines, scalar and
+solver-serving phases, or the models' serving calls), the nvidia-smi
+line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero; it also exits non-zero, printing no result, without a CUDA
 device or outside a checkout of the repository.
@@ -472,6 +489,9 @@ def main() -> int:
           f"K1 launches per bucketed refactor {per_refactor} != one per "
           f"panel bucket ({n_buckets})")
 
+    pipeline_counts = pipeline_phase(torch, np, kernels, A, an64, values, b,
+                                     xs, info_seq)
+
     # ---- 6. width-1 path -------------------------------------------------
     t = time.perf_counter()
     C = to_csr(circuit_like(2000, seed=3))
@@ -491,6 +511,7 @@ def main() -> int:
     check(np.isfinite(xc).all() and infoc["residual"].max() <= 1e-10,
           f"width-1 residual {infoc['residual'].max()}")
 
+    autodiff_counts = autodiff_phase(torch, np, kernels, A, an64)
     baseline_counts, wide = baselines_phase(torch, np, kernels, A, an64,
                                             values[0], b)
     records.extend(wide)
@@ -502,6 +523,8 @@ def main() -> int:
     for rec in records:
         w = rec.pop("wrapper")
         rec["launches_by_path"] = {"batched": counts[w],
+                                   "pipeline": pipeline_counts[w],
+                                   "autodiff": autodiff_counts[w],
                                    "baselines": baseline_counts[w],
                                    "scalar": scalar_counts[w],
                                    "serving": serving_counts[w]}
@@ -510,8 +533,11 @@ def main() -> int:
 
     for name in SERVING_MODELS:
         rec = serving_phase(torch, np, kernels, registry.get(name))
-        rec["launches_by_path"]["serving"] = serving_counts[rec["name"]]
-        rec["launches_by_path"]["baselines"] = baseline_counts[rec["name"]]
+        for path, c in (("serving", serving_counts),
+                        ("baselines", baseline_counts),
+                        ("pipeline", pipeline_counts),
+                        ("autodiff", autodiff_counts)):
+            rec["launches_by_path"][path] = c[rec["name"]]
         records.append(rec)
     emit({"kernels": records})
     print(smi, flush=True)
@@ -519,6 +545,172 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def pipeline_phase(torch, np, kernels, A, an64, values, b, xs, info_seq):
+    """Phase 5b: the T-step ``solve_sequence`` pipeline on fem2d_10k at
+    K = 32 (the main phase's analysis, values and right-hand sides): T = 3
+    without and with donation, then T = 6 with donation (three more
+    steps of new values), each after a reset of the peak memory
+    statistics, beside T = 3 sequential ``factor_batched`` +
+    ``solve_batched`` calls before and after the streams (the host's
+    launch cost drifts within a process).  The donating stream must give the answers of
+    the stream without donation (1e-10, ``index_add_`` is atomic on the
+    card) with equal counts and masks, peak no higher, and grow by less
+    than one factor buffer from T = 3 to T = 6.  Returns the phase's
+    launch counts."""
+    import dataclasses
+
+    from repro_torch.core import factor_batched, solve_batched
+    from repro_torch.core.batched import _run_pipeline
+
+    t_all = time.perf_counter()
+    pattern = (A.indptr, A.indices)
+    an_d = dataclasses.replace(an64, opts=dataclasses.replace(an64.opts,
+                                                              donate=True))
+    rng = np.random.default_rng(17)
+    values6 = np.concatenate([values, A.data[None, None] * rng.uniform(
+        0.8, 1.2, (3,) + values.shape[1:])])
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+
+    def sequential():                   # T factor_batched + solve_batched
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(values.shape[0]):
+            solve_batched(factor_batched(an64, A, values[t]), b)
+        return (time.perf_counter() - t0) / values.shape[0]
+
+    seq_s = [sequential()]              # before and after the streams
+    runs = {}
+    for label, an, vals in (("t3", an64, values), ("t3_donate", an_d, values),
+                            ("t6_donate", an_d, values6)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        x, info = _run_pipeline(an, pattern, vals, b)
+        sec = time.perf_counter() - t0
+        for w, c in kernels.launch_counts().items():
+            total[w] += c
+        runs[label] = (x, info, sec, torch.cuda.max_memory_allocated())
+    seq_s.append(sequential())
+    (x3, i3, s3, p3), (xd, idn, sd, pd), (x6, i6, s6, p6) = (
+        runs[k] for k in ("t3", "t3_donate", "t6_donate"))
+    factor_bytes = values.shape[1] * int(an64.plan.total_slots) * 8
+    err_d = float(np.abs(xd - x3).max() / np.abs(x3).max())
+    err_main = float(np.abs(x3 - xs).max() / np.abs(xs).max())
+    err_6 = float(np.abs(x6[:3] - xd).max() / np.abs(xd).max())
+    same = {key: bool(np.array_equal(idn[key], i3[key])) for key in
+            ("n_refine_per_system", "refine_failed", "refine_stalled",
+             "n_perturb")}
+    rec = {"phase": "pipeline", "matrix": "fem2d_10k",
+           "k": int(values.shape[1]),
+           "donating_vs_plain_rel_err": err_d,
+           "plain_vs_solve_sequence_rel_err": err_main,
+           "t6_first3_vs_t3_rel_err": err_6,
+           "n_refine": {"t3": i3["n_refine"], "t3_donate": idn["n_refine"],
+                        "t6_donate": i6["n_refine"]},
+           "equal_counts_and_masks": same,
+           "max_residual": max(float(r[1]["residual"].max())
+                               for r in runs.values()),
+           "peak_bytes": {"t3": p3, "t3_donate": pd, "t6_donate": p6},
+           "factor_buffer_bytes": factor_bytes,
+           "s_per_step": {"t3": s3 / 3, "t3_donate": sd / 3,
+                          "t6_donate": s6 / 6,
+                          "sequential_factor_solve_before_after": seq_s},
+           "pipeline_s_reported": {k: r[1]["timings"]["pipeline"]
+                                   for k, r in runs.items()},
+           "donate": {k: r[1]["donate"] for k, r in runs.items()},
+           "launches": {w: c for w, c in total.items() if c},
+           "seconds": time.perf_counter() - t_all}
+    emit(rec)
+    check(x3.shape == xs.shape and x6.shape[0] == 6,
+          "pipeline: solutions of (T, K, n)")
+    check(rec["max_residual"] <= 1e-10,
+          f"pipeline: residual {rec['max_residual']} > 1e-10")
+    check(err_d <= 1e-10, f"pipeline: donating vs plain stream {err_d}")
+    check(err_main <= 1e-10, f"pipeline: vs solve_sequence {err_main}")
+    check(err_6 <= 1e-10, f"pipeline: T = 6's first steps vs T = 3 {err_6}")
+    check(idn["n_refine"] == i3["n_refine"] and all(same.values()),
+          f"pipeline: donating counts or masks differ: {same}")
+    check(not i3["donate"] and idn["donate"] and i6["donate"],
+          "pipeline: donate flags")
+    check(pd <= p3, f"pipeline: donating peak {pd} > plain peak {p3}")
+    check(p6 - pd < factor_bytes, f"pipeline: T = 3 -> 6 grew by "
+                                  f"{p6 - pd} B >= one factor buffer "
+                                  f"({factor_bytes} B)")
+    for w in ("panel_lu_bucket_inplace", "panel_lu", "trsm_batched",
+              "gemm_batched", "trsm_left_unit_lower_batched",
+              "trsm_left_upper_batched"):
+        check(total[w] > 0, f"pipeline: kernel {w} was not launched")
+    return total
+
+
+def autodiff_phase(torch, np, kernels, A, an64):
+    """Phase 6b: the differentiable solve (``make_sparse_solve``) at
+    fem2d_10k, the whole matrix: x of one right-hand side and the
+    gradients of sum(W x) with respect to b and A's values by
+    ``backward()``, held to scipy alone: x to ``spsolve(A, b)``, b's
+    gradient to y = ``spsolve(Aᵀ, W)``, the values' to −y[rows] x[cols]
+    (each relative to its largest magnitude, 1e-10).  The forward must
+    launch K1–K4 (the bucketed one-system refactor); forward and backward
+    ms after a warm-up call.  Returns the phase's launch counts."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from repro_torch.core import make_sparse_solve, torch_repeated_engine
+
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(41)
+    b, W = rng.normal(size=A.n), rng.normal(size=A.n)
+    solve = make_sparse_solve(an64)
+    dev = torch_repeated_engine(an64).device
+    w_dev = torch.from_numpy(W).to(dev)
+
+    def run():
+        a_t = torch.tensor(A.data, device=dev, requires_grad=True)
+        b_t = torch.tensor(b, device=dev, requires_grad=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = solve(a_t, b_t)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd = kernels.launch_counts()
+        (w_dev * x).sum().backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return x, a_t.grad, b_t.grad, fwd, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    run()                                        # warm-up (uploads)
+    kernels.reset_launch_counts()
+    x, a_grad, b_grad, fwd, fwd_ms, bwd_ms = run()
+    total = kernels.launch_counts()
+    a = sp.csr_matrix((A.data, A.indices, A.indptr), shape=(A.n, A.n))
+    x_ref = spla.spsolve(a.tocsc(), b)
+    y = spla.spsolve(a.T.tocsc(), W)
+    rows = np.repeat(np.arange(A.n), np.diff(A.indptr))
+    a_ref = -y[rows] * x_ref[A.indices]
+
+    def rel(got, ref):
+        return float(np.abs(got.detach().cpu().numpy() - ref).max()
+                     / np.abs(ref).max())
+
+    rec = {"phase": "autodiff", "matrix": "fem2d_10k", "n": A.n,
+           "nnz": A.nnz, "x_rel_err": rel(x, x_ref),
+           "b_grad_rel_err": rel(b_grad, y),
+           "a_grad_rel_err": rel(a_grad, a_ref),
+           "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+           "forward_launches": {w: c for w, c in fwd.items() if c},
+           "backward_launches": {w: total[w] - fwd[w] for w in total
+                                 if total[w] - fwd[w]},
+           "seconds": time.perf_counter() - t_all}
+    emit(rec)
+    for key in ("x_rel_err", "b_grad_rel_err", "a_grad_rel_err"):
+        check(rec[key] <= 1e-10, f"autodiff: {key} = {rec[key]} > 1e-10")
+    for w in ("panel_lu_bucket_inplace", "panel_lu", "trsm_batched",
+              "gemm_batched"):
+        check(fwd[w] > 0, f"autodiff: the forward launched no {w}")
+    return total
 
 
 def unrolled_operands(torch, np, eng_u, a_dev, pred):
@@ -774,13 +966,14 @@ def suprow_large(torch, suprow_ops, dev):
     return out
 
 
-def node_work(np, plan, t, elem):
-    """(operations, bytes) of node t's step on one system: per edge nr k^2
-    for the right solve and 2 nr k m for the product; the panel's touched
-    columns read and written once per row, of each edge's source rows the
-    part the function reads once (U's upper triangle, k (k + 1) / 2, and
-    the k x m rows past it), its col_map, the descriptors and, for a
-    width-1 node, its pivot and threshold."""
+def node_work(np, plan, t, elem, k_sys=1):
+    """(operations, bytes) of node t's step on ``k_sys`` systems: per
+    system and edge nr k^2 for the right solve and 2 nr k m for the
+    product; per system the panel's touched columns read and written once
+    per row, of each edge's source rows the part the function reads once
+    (U's upper triangle, k (k + 1) / 2, and the k x m rows past it) and,
+    for a width-1 node, its pivot and threshold; once, each edge's col_map
+    and descriptor."""
     nodes = plan.nodes
     nd = nodes[t]
     flops = float(sum(nd.nr * (nodes[e.src].nr ** 2 + 2 * nodes[e.src].nr
@@ -791,10 +984,10 @@ def node_work(np, plan, t, elem):
     src_elems = sum(
         k * (k + 1) // 2 + k * (len(e.col_map) - k)
         for e in nd.edges for k in (nodes[e.src].nr,))
-    nbytes = (2 * nd.nr * touched * elem + src_elems * elem
-              + sum(8 * (len(e.col_map) + 5) for e in nd.edges)
-              + (2 * elem + 4 if nd.nr == 1 else 0))
-    return flops, nbytes
+    nbytes = (k_sys * (2 * nd.nr * touched * elem + src_elems * elem
+                       + (2 * elem + 4 if nd.nr == 1 else 0))
+              + sum(8 * (len(e.col_map) + 5) for e in nd.edges))
+    return k_sys * flops, nbytes
 
 
 def node_bound_ms(np, plan, t, dname):
@@ -2246,8 +2439,10 @@ def scalar_phase(torch, np, kernels, A, an64, an_u, an32):
           "unrolled and bucketed perturbation counts differ")
     check(unrolled_vs_bucketed <= 1e-10,
           f"unrolled vs bucketed factors {unrolled_vs_bucketed} > 1e-10")
-    check(u_counts.get("node_edges_inplace", 0) == n_steps > 0,
-          f"K5 node steps per unrolled refactor {u_counts} != {n_steps}")
+    check(u_counts.get("node_edges_inplace", 0) == n_steps > 0
+          and "node_edges_wide" not in u_counts,
+          f"K5 node steps per unrolled refactor {u_counts} != {n_steps} "
+          "of the k <= 128 instance")
     check(n_supsup > 0 and "gemm_update" not in u_counts
           and "trsm_batched" not in u_counts,
           f"the unrolled refactor launched per-edge K3 or K5: {u_counts}")
@@ -2433,6 +2628,7 @@ def baselines_phase(torch, np, kernels, A, an64, values0, b):
     for w, c in wide_plan.pop("counts").items():
         total[w] += c
     records = wide_records(torch, np, states["pardiso_like"][1], values0)
+    records.append(wide_plan.pop("node_edges_wide"))
     emit({"phase": "baselines", "matrix": "fem2d_10k", "k": K_MAIN,
           "presets": presets, "hostloop": hostloop, "wide_plan": wide_plan,
           "wide_records": records, "seconds": time.perf_counter() - t_all})
@@ -2472,11 +2668,17 @@ def wide_plan_run(torch, np, kernels, analyze, baselines, factor_batched,
     ``factor_batched`` and ``solve_batched``: the wide paths fem2d_10k
     does not reach, K1's (``panel_lu_bucket_wide``) and K3's blocked right
     solve (``trsm_right_blocked``), run in the engine and are checked
-    against ``spsolve``.  Returns the record, its launch counts under
-    ``counts``."""
+    against ``spsolve``; then the same plan under the unrolled schedule,
+    whose node steps with the 140-row source run K5's wide instance
+    (``node_edges_wide``): against ``spsolve`` and the bucketed run's
+    factors (1e-10, equal pivots and perturbation counts), and that wide
+    node step's kernel record (``wide_node_record``).  Returns the record,
+    its launch counts under ``counts`` and the kernel record under
+    ``node_edges_wide``."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
+    from repro_torch.core import torch_repeated_engine
     from repro_torch.matrices import to_csr
 
     t = time.perf_counter()
@@ -2485,28 +2687,136 @@ def wide_plan_run(torch, np, kernels, analyze, baselines, factor_batched,
     rng = np.random.default_rng(7)
     vb = A.data[None] * rng.uniform(0.8, 1.2, (8, A.nnz))
     bb = rng.normal(size=(8, A.n))
-    an = analyze(A, baselines.pardiso_like_options(
-        orderings=("natural",), bulk_min_width=2))
+    kw = dict(orderings=("natural",), bulk_min_width=2)
+    an = analyze(A, baselines.pardiso_like_options(**kw))
+    an_u = analyze(A, baselines.pardiso_like_options(
+        factor_schedule="unrolled", **kw), reuse=an)
+    torch_repeated_engine(an_u)                 # built outside the counts
+    refs = [spla.spsolve(sp.csr_matrix((vb[k], A.indices, A.indptr),
+                                       shape=(A.n, A.n)).tocsc(), bb[k])
+            for k in range(vb.shape[0])]
+
+    def err_of(x):
+        return max(float(np.abs(x[k] - r).max() / np.abs(r).max())
+                   for k, r in enumerate(refs))
+
     kernels.reset_launch_counts()
-    x, info = solve_batched(factor_batched(an, A, vb), bb)
+    bst = factor_batched(an, A, vb)
+    x, info = solve_batched(bst, bb)
+    bst_u = factor_batched(an_u, A, vb)
+    x_u, info_u = solve_batched(bst_u, bb)
     counts = kernels.launch_counts()
-    err = 0.0
-    for k in range(vb.shape[0]):
-        ref = spla.spsolve(sp.csr_matrix((vb[k], A.indices, A.indptr),
-                                         shape=(A.n, A.n)).tocsc(), bb[k])
-        err = max(err, float(np.abs(x[k] - ref).max() / np.abs(ref).max()))
+    err, err_u = err_of(x), err_of(x_u)
+    vals_err = float((bst_u.vals - bst.vals).abs().max())
+    same = {"inode_perm": bool(torch.equal(bst_u.inode_perm,
+                                           bst.inode_perm)),
+            "n_perturb": bool(np.array_equal(bst_u.n_perturb,
+                                             bst.n_perturb))}
     rec = {"matrix": "wide_source_matrix(200, 140, 20, seed=6)", "k": 8,
            "max_nr": max(nd.nr for nd in an.plan.nodes),
            "max_residual": float(info["residual"].max()),
            "scipy_rel_err": err,
+           "unrolled": {"max_residual": float(info_u["residual"].max()),
+                        "scipy_rel_err": err_u,
+                        "vals_vs_bucketed_max_abs": vals_err,
+                        "same_as_bucketed": same,
+                        "wide_node_steps": sum(
+                            st.kmax > 128 for _, st in
+                            torch_repeated_engine(an_u)._nodes)},
            "launches": {w: c for w, c in counts.items() if c},
            "seconds": time.perf_counter() - t, "counts": counts}
     check(np.isfinite(x).all() and rec["max_residual"] <= 1e-10,
           f"wide plan: residual {rec['max_residual']}")
     check(err <= 1e-10, f"wide plan: spsolve disagreement {err}")
-    for w in ("panel_lu_bucket_wide", "trsm_right_blocked"):
+    check(np.isfinite(x_u).all() and info_u["residual"].max() <= 1e-10
+          and err_u <= 1e-10, f"wide plan unrolled: residual "
+                              f"{info_u['residual'].max()}, spsolve {err_u}")
+    check(vals_err <= 1e-10 and all(same.values()),
+          f"wide plan unrolled vs bucketed: vals {vals_err}, {same}")
+    for w in ("panel_lu_bucket_wide", "trsm_right_blocked",
+              "node_edges_wide"):
         check(counts[w] >= 1, f"wide plan: the wide path {w} was not "
                               "launched")
+    rec["node_edges_wide"] = wide_node_record(
+        torch, np, torch_repeated_engine(an_u),
+        torch.from_numpy(vb).to(bst.vals.device))
+    rec["seconds"] = time.perf_counter() - t
+    return rec
+
+
+def wide_node_record(torch, np, eng_u, a_dev):
+    """The kernel record of K5's wide instance (``node_edges_wide``) at the
+    unrolled plan's node with a source over 128 rows and the most edge
+    work, on the buffer its program hands it (all K systems), float64:
+    held to ``node_edges_plain`` (values within 1e-10, equal perturbation
+    counts, no slot outside the panel written), its time per call by CUDA
+    events (back-to-back calls, each from the node's input panel, the
+    restoring copy's time taken off), the plain version's and the bound of
+    ``node_work`` over the K systems."""
+    from repro_torch.kernels.supsup import ops as supsup_ops
+
+    plan = eng_u.plan
+    nodes = plan.nodes
+    K = a_dev.shape[0]
+    wide = [t for t, (_, st) in enumerate(eng_u._nodes)
+            if st.kmax > supsup_ops.WIDE_K]
+    t = max(wide, key=lambda t_: node_work(np, plan, t_, 8)[0])
+    _, step = eng_u._nodes[t]
+    base, eps = eng_u.refactor_batched(a_dev, stop=(t, 0))
+    lo, hi = step.off, step.off + step.nr * step.w
+    pan = base[:, lo:hi].clone()
+    g, r = base.clone(), base.clone()
+    ng = torch.zeros(K, dtype=torch.int32, device=base.device)
+    nr_ = torch.zeros_like(ng)
+    before = supsup_ops.node_edges_wide.launches
+    supsup_ops.node_edges_inplace(g, eng_u._edges, step, eps, ng)
+    supsup_ops.node_edges_plain(r, eng_u._edges, step, eps, nr_)
+    torch.cuda.synchronize()
+    check(supsup_ops.node_edges_wide.launches == before + 1,
+          "node_edges_wide: the node step did not run the wide instance")
+    check(torch.equal(ng, nr_), "node_edges_wide: perturbation counts differ")
+    check(torch.equal(_bits(torch, g[:, :lo]), _bits(torch, base[:, :lo]))
+          and torch.equal(_bits(torch, g[:, hi:]), _bits(torch, base[:, hi:])),
+          "node_edges_wide: a slot outside the node's panel changed")
+    err = float((g[:, lo:hi] - r[:, lo:hi]).abs().max())
+    check(bool(torch.allclose(g[:, lo:hi], r[:, lo:hi], rtol=TOL["float64"],
+                              atol=TOL["float64"])),
+          f"node_edges_wide: max |kernel - plain| = {err}")
+    nper = torch.zeros_like(ng)
+
+    def restore():
+        g[:, lo:hi].copy_(pan)
+
+    r_ms = bench_ms(torch, restore)
+    flops, nbytes = node_work(np, plan, t, 8, K)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float64"]
+    nd = nodes[t]
+    rec = {"name": "node_edges_wide", "route": "cuda",
+           "source": "src/repro_torch/csrc/gemm_update.cu",
+           "replaces": "src/repro/kernels/supsup/kernel.py:21",
+           "wrapper": "node_edges_wide",
+           "shape": f"node {t} in place ({K}, {step.nr}, {step.w}), "
+                    f"{step.e1 - step.e0} edges, widest source "
+                    f"{step.kmax} rows (wide_source_matrix, pardiso_like, "
+                    "unrolled)",
+           "edge_ks": sorted(nodes[e.src].nr for e in nd.edges),
+           "max_abs_err": err, "tol": TOL["float64"], "restore_ms": r_ms,
+           "ms": bench_ms(torch, lambda: (restore(), supsup_ops.
+                                          node_edges_inplace(
+                                              g, eng_u._edges, step, eps,
+                                              nper))) - r_ms,
+           "plain_ms": bench_ms(torch, lambda: (restore(), supsup_ops.
+                                                node_edges_plain(
+                                                    g, eng_u._edges, step,
+                                                    eps, nper))) - r_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None,
+           "library_none_because": "no single PyTorch call runs a node's "
+                                   "edge loop (per edge a gather, a "
+                                   "triangular solve, a product and a "
+                                   "scatter)"}
+    del g, r, base
     return rec
 
 

@@ -10,6 +10,8 @@
                                K value sets of one pattern, factored and
                                solved on the device
     torch_repeated_engine      the per-analysis engine
+    make_sparse_solve          the differentiable solve (autograd, adjoint
+                               on the forward factors)
     analysis_from_arrays       an analysis written by either package
     PlanCache / save_analysis / load_analysis
                                the content-addressed plan cache and its
@@ -21,7 +23,8 @@ from .matrix import CSR
 from .api import (HyluOptions, Analysis, BatchedFactorState, FactorState,
                   analyze, factor, refactor, solve, solve_system,
                   factor_batched, solve_batched, solve_sequence,
-                  torch_repeated_engine, analysis_from_arrays,
+                  torch_repeated_engine, make_sparse_solve,
+                  analysis_from_arrays,
                   pattern_key, plan_fingerprint, PlanCache, save_analysis,
                   load_analysis)
 from . import baseline as baselines
@@ -29,6 +32,7 @@ from . import baseline as baselines
 __all__ = ["CSR", "HyluOptions", "Analysis", "BatchedFactorState",
            "FactorState", "analyze", "factor", "refactor", "solve",
            "solve_system", "factor_batched", "solve_batched",
-           "solve_sequence", "torch_repeated_engine", "analysis_from_arrays",
+           "solve_sequence", "torch_repeated_engine", "make_sparse_solve",
+           "analysis_from_arrays",
            "pattern_key", "plan_fingerprint", "PlanCache", "save_analysis",
            "load_analysis", "baselines"]

@@ -7,8 +7,8 @@ Mirrors ``src/repro/core/api.py`` for the names the port has, the
 host-side oracles ``_batched_matvec`` and ``_solve_batched_hostloop``
 included (the JAX tests and benchmark import them from ``api``); the
 paper's baseline presets are ``repro_torch.core.baselines``; solver
-serving lives in ``repro_torch.serve``, and the differentiable solve is
-still to be ported (ROADMAP.md)."""
+serving lives in ``repro_torch.serve``; the differentiable solve is
+``make_sparse_solve`` (``core/autodiff.py``)."""
 from __future__ import annotations
 
 from .options import (HyluOptions, PLAN_OPTION_FIELDS, plan_options_key,
@@ -21,6 +21,7 @@ from .analysis import (Analysis, FactorState, analyze, factor, refactor,
 from .batched import (BatchedFactorState, factor_batched, solve_batched,
                       solve_sequence, _batched_matvec,
                       _solve_batched_hostloop)
+from .autodiff import make_sparse_solve
 from .convert import analysis_from_arrays
 from .plan_cache import (PlanCache, PlanCacheFormatError, load_analysis,
                          save_analysis)
@@ -34,6 +35,6 @@ __all__ = [
     "solve_system", "torch_repeated_engine",
     "BatchedFactorState", "factor_batched", "solve_batched",
     "solve_sequence", "_batched_matvec", "_solve_batched_hostloop",
-    "analysis_from_arrays", "PlanCache",
+    "make_sparse_solve", "analysis_from_arrays", "PlanCache",
     "PlanCacheFormatError", "save_analysis", "load_analysis",
 ]

@@ -1,17 +1,18 @@
 """Batched repeated solve: K value sets of one pattern on one device.
 
 Adapted from ``src/repro/core/batched.py``: ``factor_batched``,
-``solve_batched`` (with the non-finite guard ``_nonfinite_failed`` and the
-per-system fp64 escape hatch ``_fp64_redo``), ``solve_sequence`` (one
-step, or a T-step sequence), and the host-side oracles the JAX benchmark
-holds the fused solve against: ``_batched_matvec`` (numpy residuals) and
-``_solve_batched_hostloop`` (device substitution, numpy residuals, a
-Python refinement loop).  Inputs may be host arrays or torch tensors;
-results come back as numpy arrays, as the JAX package returns them.
+``solve_batched`` (with the non-finite guard ``_nonfinite_failed``, the
+per-system fp64 escape hatch ``_fp64_redo`` and buffer donation, which
+spends the state: ``BatchedFactorState.consumed``), ``solve_sequence``
+(one step, or a T-step sequence through the double-buffered pipeline
+``_solve_sequence_pipelined``, donating with ``opts.donate``), and the
+host-side oracles the JAX benchmark holds the fused solve against:
+``_batched_matvec`` (numpy residuals) and ``_solve_batched_hostloop``
+(device substitution, numpy residuals, a Python refinement loop).  Inputs
+may be host arrays or torch tensors; results come back as numpy arrays,
+as the JAX package returns them.
 
-Not in this slice (``NotImplementedError``, see ROADMAP.md): buffer
-donation, multi-device sharding, and the double-buffered sequence
-pipeline — a T-step sequence runs its steps one after another.
+Not in this slice (see ROADMAP.md): multi-device sharding.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ class BatchedFactorState:
     n_perturb: np.ndarray      # (K,) perturbation counts
     timings: dict
     k: int
+    consumed: bool = False     # its buffers were donated to a solve
     _values_host: np.ndarray | None = dataclasses.field(default=None,
                                                         repr=False)
 
@@ -100,19 +102,26 @@ def _stage_values(eng, values_batch):
     return torch.from_numpy(host).to(eng.device), host, host.shape[0]
 
 
-def _stage_rhs(eng, b_batch, k: int) -> torch.Tensor:
-    """Right-hand sides (K, n), (n,) broadcast or (K, n, m) on the device;
-    a leading dimension that matches neither K nor 1 raises."""
+def _check_rhs(b_batch, k: int) -> None:
     if getattr(b_batch, "ndim", 1) > 1 and b_batch.shape[0] != k:
         raise ValueError(f"b_batch has leading (batch) dimension "
                          f"{b_batch.shape[0]} but the factorization batch "
                          f"size is {k}")
+
+
+def _stage_rhs(eng, b_batch, k: int, copy: bool = False) -> torch.Tensor:
+    """Right-hand sides (K, n), (n,) broadcast or (K, n, m) on the device;
+    a leading dimension that matches neither K nor 1 raises.  ``copy``
+    gives a buffer of the solve's own even for a tensor that is already on
+    the device in the right dtype (a donated buffer is never the
+    caller's)."""
+    _check_rhs(b_batch, k)
     if isinstance(b_batch, torch.Tensor):
-        b = b_batch.to(device=eng.device, dtype=eng.values_dtype)
+        b = b_batch.to(device=eng.device, dtype=eng.values_dtype, copy=copy)
     else:
         b = torch.from_numpy(np.ascontiguousarray(
             np.asarray(b_batch, dtype=_np_dtype(eng.values_dtype))))
-        b = b.to(eng.device)
+        b = b.to(eng.device, copy=copy)
     if b.ndim == 1:
         b = b.expand(k, b.shape[0])
     return b
@@ -146,10 +155,21 @@ def solve_batched(bst: BatchedFactorState, b_batch,
     ``refine_failed``/``refine_stalled`` masks, ``fallback_mask`` and
     ``n_fp64_fallback``.  refine=False skips refinement.  On a
     reduced-precision engine refining in float64, refinement-failed systems
-    are re-factored and re-solved in float64 when ``opts.fp64_fallback``."""
-    if donate:
-        raise NotImplementedError("solve_batched(donate=True) is not ported "
-                                  "yet; see ROADMAP.md")
+    are re-factored and re-solved in float64 when ``opts.fp64_fallback``.
+
+    donate=True gives the state's staged A values and the staged right-hand
+    sides to the call (the sequence pipeline's mode, ``batched.py:213–303``
+    of the JAX package): the host copy of the values is made first (the
+    escape hatch and ``values_batch`` read it), the right-hand sides are
+    staged into a buffer of the solve's own even when the caller passed a
+    device tensor (a caller's buffer is never given away) and snapshotted
+    when the escape hatch is armed; the solve may overwrite both buffers
+    (this one reads them only) and drops them at its end, and ``bst`` is
+    marked consumed: a later solve against it raises."""
+    if bst.consumed:
+        raise RuntimeError(
+            "this BatchedFactorState was consumed by a donating solve; "
+            "refactor (factor_batched) before solving again")
     an = bst.analysis
     opts = an.opts
     eng = torch_repeated_engine(an)
@@ -159,11 +179,17 @@ def solve_batched(bst: BatchedFactorState, b_batch,
         max_iter > 0 and bool(opts.fp64_fallback)
         and eng.factor_dtype != torch.float64
         and eng.values_dtype == torch.float64)
-    b_dev = _stage_rhs(eng, b_batch, bst.k)
+    if donate:
+        _ = bst.values_batch     # the host copy, before the buffer goes
+    b_dev = _stage_rhs(eng, b_batch, bst.k, copy=donate)
+    b_src = b_dev.clone() if (donate and fallback_armed) else b_dev
     solver = eng.refined_batched_solver(*bst.a_pattern)
     x, resid, n_iter, n_ref_sys, stalled, failed = solver(
         bst.vals, bst.inode_perm, bst.values_dev, b_dev, max_iter,
         resolve_refine_tol(opts, eng.refine_dtype))
+    if donate:
+        bst.consumed = True
+        bst.values_dev = None
     x = x.cpu().numpy()
     info = dict(residual=resid.cpu().numpy(), n_refine=int(n_iter),
                 n_refine_per_system=n_ref_sys.cpu().numpy(),
@@ -179,7 +205,7 @@ def solve_batched(bst: BatchedFactorState, b_batch,
         # must still count as failed (batched.py:290–295 of the JAX package)
         info["refine_failed"] = _nonfinite_failed(x, info)
     if fallback_armed and info["refine_failed"].any():
-        x = _fp64_redo(bst, b_dev, x, info)
+        x = _fp64_redo(bst, b_src, x, info)
         info["escalation"].append("fp64_fallback")
         info["refine_failed"] = _nonfinite_failed(x, info)
         info["solve_time"] = time.perf_counter() - t0
@@ -207,7 +233,9 @@ def _fp64_redo(bst: BatchedFactorState, b_dev: torch.Tensor, x: np.ndarray,
     idx = np.nonzero(sys_mask)[0]
     eng64 = torch_repeated_engine(an, dtype="float64", refine_dtype="float64")
     sel = torch.from_numpy(idx).to(eng64.device)
-    v_sub = bst.values_dev.to(eng64.device, torch.float64)[sel]
+    values = (bst.values_dev if bst.values_dev is not None
+              else torch.from_numpy(bst.values_batch))   # donated: the host copy
+    v_sub = values.to(eng64.device, torch.float64)[sel]
     f = eng64.refactor_batched(v_sub)
     solver = eng64.refined_batched_solver(*bst.a_pattern)
     x64, resid64, _, n_ref64, st64, fl64 = solver(
@@ -318,47 +346,179 @@ def solve_sequence(a_pattern, values_batch, b_batch,
     values_batch is (K, nnz) — one step — or a T-step sequence ((T, K, nnz)
     or a list of (K, nnz)); b_batch is one RHS batch reused every step or,
     for a sequence, a list with one entry per step.  One step returns
-    (x (K, n[, m]), info); a sequence returns (x (T, K, n[, m]), info) with
-    info["residual"] (T, K[, m]) and per-step counts.  The sequence path
-    reports the failure masks but runs no fp64 escape hatch, as the JAX
-    package's pipeline."""
+    (x (K, n[, m]), info); a sequence runs the double-buffered pipeline
+    (:func:`_solve_sequence_pipelined`, donating with ``opts.donate``) and
+    returns (x (T, K, n[, m]), info) with info["residual"] (T, K[, m]) and
+    per-step counts.  The sequence reports the failure masks but runs no
+    fp64 escape hatch, as the JAX package's pipeline."""
     pattern = _pattern_of(a_pattern)
     n = len(pattern[0]) - 1
-    if not _is_step_sequence(values_batch):
-        an = analyze(CSR(n, pattern[0], pattern[1],
-                         _seed_values(values_batch)), opts)
-        bst = factor_batched(an, pattern, values_batch)
-        x, info = solve_batched(bst, b_batch)
-        info.update(timings={"preprocess": an.timings,
-                             "factor": bst.timings},
-                    mode=an.choice.mode, ordering=an.ordering_name,
-                    engine="torch-batched", k=bst.k)
-        return x, info
+    if _is_step_sequence(values_batch):
+        return _solve_sequence_pipelined(pattern, values_batch, b_batch, opts)
+    an = analyze(CSR(n, pattern[0], pattern[1], _seed_values(values_batch)),
+                 opts)
+    bst = factor_batched(an, pattern, values_batch)
+    x, info = solve_batched(bst, b_batch)
+    info.update(timings={"preprocess": an.timings, "factor": bst.timings},
+                mode=an.choice.mode, ordering=an.ordering_name,
+                engine="torch-batched", k=bst.k)
+    return x, info
 
-    steps_v = (list(values_batch) if isinstance(values_batch, (list, tuple))
-               else [values_batch[t] for t in range(values_batch.shape[0])])
-    per_step_b = isinstance(b_batch, (list, tuple))
-    if per_step_b and len(b_batch) != len(steps_v):
-        raise ValueError(f"got {len(b_batch)} per-step right-hand sides "
-                         f"for {len(steps_v)} steps")
+
+class _Staging:
+    """Two device buffers filled in turn (double buffering).  On CUDA a host
+    array goes through a pinned host buffer of its slot and a
+    ``non_blocking`` copy on the copy stream; events order the copy stream
+    against the compute stream both ways (a slot is refilled only after the
+    step that read it).  A tensor already on the device is used in place,
+    or copied into the slot when ``copy`` (a donated buffer is never the
+    caller's).  On the CPU the same slots are filled by plain copies."""
+
+    def __init__(self, device, dtype, copy: bool):
+        self.device, self.dtype, self.copy = device, dtype, copy
+        self.cuda = device.type == "cuda"
+        self.dev = [None, None]
+        self.pinned = [None, None]
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device)
+            self.ready = [torch.cuda.Event(), torch.cuda.Event()]
+            self.free = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def _slot(self, bufs, slot, shape, pin=False):
+        t = bufs[slot]
+        if t is None or tuple(t.shape) != tuple(shape):
+            t = bufs[slot] = (torch.empty(shape, dtype=self.dtype,
+                                          pin_memory=True) if pin
+                              else torch.empty(shape, dtype=self.dtype,
+                                               device=self.device))
+        return t
+
+    def fill(self, slot: int, src) -> torch.Tensor:
+        """Queue the copy of ``src`` into ``slot``; returns the tensor the
+        step reads (after :meth:`use`)."""
+        if isinstance(src, torch.Tensor) and src.device == self.device:
+            if not self.copy:
+                return src.to(self.dtype)
+            host = None
+        else:
+            src = (src.detach().cpu() if isinstance(src, torch.Tensor)
+                   else torch.from_numpy(np.ascontiguousarray(np.asarray(
+                       src, dtype=_np_dtype(self.dtype)))))
+            host = src.to(self.dtype)
+        dst = self._slot(self.dev, slot, src.shape)
+        if not self.cuda:
+            dst.copy_(src if host is None else host)
+            return dst
+        if host is not None:
+            self.ready[slot].synchronize()   # its last copy has left it
+            pin = self._slot(self.pinned, slot, host.shape, pin=True)
+            pin.copy_(host)
+            src = pin
+        else:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(self.free[slot])
+            dst.copy_(src, non_blocking=True)
+            self.ready[slot].record(self.stream)
+        return dst
+
+    def use(self, slot: int) -> None:
+        """The compute stream waits for the slot's copy."""
+        if self.cuda:
+            torch.cuda.current_stream(self.device).wait_event(
+                self.ready[slot])
+
+    def release(self, slot: int) -> None:
+        """The step that read the slot is queued: it may be refilled after
+        that step."""
+        if self.cuda:
+            self.free[slot].record(torch.cuda.current_stream(self.device))
+
+
+def _solve_sequence_pipelined(pattern, values_steps, b_steps,
+                              opts: HyluOptions | None = None) -> tuple:
+    """The T-step pipeline behind :func:`solve_sequence`
+    (``_solve_sequence_pipelined``, ``src/repro/core/batched.py:493–580``).
+
+    Each step's values and right-hand sides go into two device staging
+    buffers in turn (:class:`_Staging`): on CUDA from pinned host memory by
+    ``non_blocking`` copies on a copy stream, ordered against the compute
+    stream by events.  The copy for step t + 1 is queued as soon as step
+    t's refactor is queued, so it overlaps step t's factor and solve.  With
+    ``opts.donate`` step t + 1's refactor writes into step t's factor
+    buffers (``refactor_batched(out=)``) and a device tensor of the caller
+    is copied into the staging buffer, never used in place: the stream
+    allocates no new factor buffer per step.  The JAX pipeline syncs the
+    host once, at the end; here the refinement loop syncs the host once per
+    iteration (``torch_engine.py``, ``refined_batched_solver``), so the
+    overlap ends at each step's first refinement test, and the host's
+    launches of step t + 1 wait for step t's last one.  The sequence runs
+    no fp64 escape hatch (a redo mid-stream would stall the buffers), as in
+    the JAX package."""
+    steps_v = _check_steps(values_steps, b_steps)
+    n = len(pattern[0]) - 1
     an = analyze(CSR(n, pattern[0], pattern[1], _seed_values(steps_v[0])),
                  opts)
+    return _run_pipeline(an, pattern, steps_v, b_steps)
+
+
+def _check_steps(values_steps, b_steps) -> list:
+    """The steps' value sets as a list; per-step right-hand sides come as
+    a list/tuple of one entry per step (a bare array is one RHS reused
+    every step, so (K, n, m) stays unambiguous)."""
+    steps_v = (list(values_steps) if isinstance(values_steps, (list, tuple))
+               else [values_steps[t] for t in range(values_steps.shape[0])])
+    if isinstance(b_steps, (list, tuple)) and len(b_steps) != len(steps_v):
+        raise ValueError(f"got {len(b_steps)} per-step right-hand sides "
+                         f"for {len(steps_v)} steps")
+    return steps_v
+
+
+def _run_pipeline(an: Analysis, pattern, values_steps, b_steps) -> tuple:
+    """The pipeline of :func:`_solve_sequence_pipelined` on an analysis of
+    the pattern (``an.opts`` decides donation): ``chip_smoke.py`` runs
+    several streams on one analysis of fem2d_10k."""
+    steps_v = _check_steps(values_steps, b_steps)
+    n_steps = len(steps_v)
+    per_step_b = isinstance(b_steps, (list, tuple))
+
+    def b_of(t):
+        return b_steps[t] if per_step_b else b_steps
+
     opts = an.opts
     eng = torch_repeated_engine(an)
+    donate = bool(opts.donate)
     solver = eng.refined_batched_solver(*pattern)
+    max_iter = opts.refine_max_iter
     tol = resolve_refine_tol(opts, eng.refine_dtype)
+    vstage = _Staging(eng.device, eng.values_dtype, donate)
+    bstage = _Staging(eng.device, eng.values_dtype, donate)
+
+    k = len(steps_v[0])                 # every step is (K, nnz)
+
+    def stage(t):
+        if len(steps_v[t]) != k:
+            raise ValueError(f"step {t} has batch size {len(steps_v[t])}, "
+                             f"step 0 had {k}")
+        _check_rhs(b_of(t), k)
+        return vstage.fill(t % 2, steps_v[t]), bstage.fill(t % 2, b_of(t))
+
     t_all = time.perf_counter()
-    outs, n_pert, k = [], [], None
-    for t, v in enumerate(steps_v):
-        v_dev, _, kt = _stage_values(eng, v)
-        if k is not None and kt != k:
-            raise ValueError(f"step {t} has batch size {kt}, step 0 had {k}")
-        k = kt
-        b_dev = _stage_rhs(eng, b_batch[t] if per_step_b else b_batch, k)
-        f = eng.refactor_batched(v_dev)
-        outs.append(solver(f.vals, f.inode_perm, v_dev, b_dev,
-                           opts.refine_max_iter, tol))
+    v_dev, b_dev = stage(0)
+    outs, n_pert, prev = [], [], None
+    for t in range(n_steps):
+        vstage.use(t % 2)
+        bstage.use(t % 2)
+        f = eng.refactor_batched(v_dev, out=prev if donate else None)
+        nxt = stage(t + 1) if t + 1 < n_steps else None
+        b = b_dev if b_dev.ndim > 1 else b_dev.expand(k, b_dev.shape[0])
+        outs.append(solver(f.vals, f.inode_perm, v_dev, b, max_iter, tol))
+        vstage.release(t % 2)
+        bstage.release(t % 2)
         n_pert.append(f.n_perturb)
+        prev = f
+        if nxt is not None:
+            v_dev, b_dev = nxt
     _sync(eng.device)
     t_all = time.perf_counter() - t_all
 
@@ -372,6 +532,5 @@ def solve_sequence(a_pattern, values_batch, b_batch,
                 solve_time=t_all,
                 timings={"preprocess": an.timings, "pipeline": t_all},
                 mode=an.choice.mode, ordering=an.ordering_name,
-                engine="torch-batched", k=k, steps=len(steps_v),
-                donate=False)
+                engine="torch-batched", k=k, steps=n_steps, donate=donate)
     return stack(0), info

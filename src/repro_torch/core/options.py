@@ -59,7 +59,9 @@ class HyluOptions:
                                            # card (plain PyTorch on the CPU)
     factor_schedule: str = "bucketed"
     device: str = "cuda"                   # "cuda" | "cuda:N" | "cpu"
-    donate: bool = False
+    donate: bool = False                   # the T-step pipeline reuses
+                                           # its factor buffers (runtime
+                                           # only, never in a fingerprint)
     cache_root: str | None = None          # plan-cache root; None →
                                            # $HYLU_CACHE_ROOT or
                                            # <repo>/checkpoints
@@ -161,8 +163,6 @@ def check_supported(opts: HyluOptions, device) -> None:
         raise NotImplementedError(
             f"{what} is not ported yet; see ROADMAP.md, Queue A")
 
-    if opts.donate:
-        missing("donate=True (buffer donation)")
     if opts.engine not in ("torch", "ref"):
         raise ValueError(f"repro_torch runs engine='torch' or 'ref', got "
                          f"{opts.engine!r}")

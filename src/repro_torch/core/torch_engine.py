@@ -60,33 +60,6 @@ from ..kernels.trisolve import ops as trisolve_ops
 IDENTITY_PIVOT = 1e30     # padded block diagonals (jax_engine.py:197–201)
 
 
-def node_step_max_k(schedule: str, use_kernels: bool, device):
-    """The widest edge source the engine's node step takes: 128 on the
-    unrolled schedule's kernel route on CUDA (K5's node step holds k in
-    registers), else None (any: the bucketed schedule and the plain
-    node step)."""
-    if schedule == "unrolled" and use_kernels \
-            and torch.device(device).type == "cuda":
-        return supsup_ops.MAX_K
-    return None
-
-
-def _check_edge_sources(plan, max_k) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP.md, Queue C) for a plan with
-    an edge source of more than ``max_k`` rows, before anything reaches
-    the device."""
-    if max_k is None:
-        return
-    nodes = plan.nodes
-    k = max((nodes[e.src].nr for nd in nodes for e in nd.edges), default=0)
-    if k > max_k:
-        raise NotImplementedError(
-            f"the unrolled schedule on CUDA runs K5's node step, which takes "
-            f"edge sources of at most {max_k} rows; this plan has one of "
-            f"{k}: not ported yet, see ROADMAP.md, Queue C; the bucketed "
-            "schedule and use_kernels=False take it")
-
-
 class TorchFactors(NamedTuple):
     vals: torch.Tensor         # (K, total_slots) factored panels
     inode_perm: torch.Tensor   # (K, n) int64 in-node pivot permutations
@@ -202,8 +175,6 @@ class RepeatedSolveEngine:
             raise ValueError(f"unknown factor schedule {schedule!r}: "
                              "expected 'bucketed' or 'unrolled'")
         dev = torch.device(device)
-        self._max_k = node_step_max_k(schedule, use_kernels, dev)
-        _check_edge_sources(plan, self._max_k)
         self.device = dev
         self.n = plan.n
         self.plan = plan
@@ -265,17 +236,21 @@ class RepeatedSolveEngine:
     def _upload_unrolled(self):
         """The unrolled program's per-node and per-edge constants: one
         edge table (every ``col_map`` a view of one device tensor) and per
-        node its :class:`~repro_torch.kernels.supsup.ops.NodeStep`."""
+        node its :class:`~repro_torch.kernels.supsup.ops.NodeStep`, with
+        the rows of its widest edge source (over 128, K5's wide
+        instance)."""
         nodes, offs = self.plan.nodes, self.plan.panel_offset
         self._edges = supsup_ops.edge_table(
             [(int(offs[e.src]), nodes[e.src].nr, nodes[e.src].width,
               nodes[e.src].lsize, e.col_map) for nd in nodes
-             for e in nd.edges], self.device, max_k=self._max_k)
+             for e in nd.edges], self.device)
         self._nodes, e0 = [], 0
         for nd in nodes:
             e1 = e0 + len(nd.edges)
+            kmax = max((nodes[e.src].nr for e in nd.edges), default=0)
             self._nodes.append((nd.r0, supsup_ops.node_step(
-                int(offs[nd.nid]), nd.nr, nd.width, nd.lsize, e0, e1)))
+                int(offs[nd.nid]), nd.nr, nd.width, nd.lsize, e0, e1,
+                kmax)))
             e0 = e1
 
     def _upload_blocks(self, blocks):
@@ -317,10 +292,17 @@ class RepeatedSolveEngine:
         return tri
 
     # ------------------------------------------------------------ factor
-    def refactor_batched(self, a_batch: torch.Tensor, stop=None):
+    def refactor_batched(self, a_batch: torch.Tensor, stop=None, out=None):
         """K numeric factorizations: ``a_batch`` (K, nnz) original-A values
         on the engine's device.  M.data = A.data[src] · scale, then the
         factor program of the engine's schedule.
+
+        ``out``, the :class:`TorchFactors` of an earlier call of this
+        engine at the same K, gives its buffers (``vals``, ``inode_perm``)
+        to this factorization, which overwrites them (the counterpart of
+        ``refactor_batched_reuse``, ``jax_engine.py:755–765``): a stream of
+        refactors then allocates no new factor buffer per step.  The
+        factors are the same as without ``out``.
 
         ``stop`` ends the program early and returns ``(vals, eps)``: the
         value buffer, (K, n_ext) with its sentinel slots in the bucketed
@@ -332,8 +314,37 @@ class RepeatedSolveEngine:
         that node's edge loop."""
         b = a_batch.to(self.dtype)[:, self._src] * self._scl
         if self.schedule == "unrolled":
-            return self._factor_unrolled(b, stop)
-        return self._factor(b, stop)
+            return self._factor_unrolled(b, stop, out)
+        return self._factor(b, stop, out)
+
+    def _buffers(self, K: int, n_vals: int, n_inode: int, out):
+        """The value buffer (K, n_vals), zeroed, and the in-node pivot map
+        (K, n_inode), the identity: ``out``'s storage when it is given
+        (its vals / inode_perm, or the buffers they are the leading columns
+        of), else new tensors."""
+        dev = self.device
+        if out is None:
+            return (torch.zeros((K, n_vals), dtype=self.dtype, device=dev),
+                    torch.arange(n_inode, device=dev).repeat(K, 1))
+        bufs = []
+        for t, width in ((out.vals, n_vals), (out.inode_perm, n_inode)):
+            full = t if t.shape[1] == width else t._base
+            if full is None or tuple(full.shape) != (K, width) \
+                    or not full.is_contiguous() \
+                    or full.device.type != dev.type:
+                raise ValueError(f"refactor_batched(out=): need the factors "
+                                 f"of this engine at K = {K}, got "
+                                 f"{tuple(t.shape)} of a buffer "
+                                 f"{None if full is None else tuple(full.shape)}"
+                                 f" on {t.device}")
+            bufs.append(full)
+        vals, inode = bufs
+        if vals.dtype != self.dtype:
+            raise TypeError(f"refactor_batched(out=): vals is {vals.dtype}, "
+                            f"the engine factors in {self.dtype}")
+        vals.zero_()
+        inode.copy_(torch.arange(n_inode, device=dev).expand(K, n_inode))
+        return vals, inode
 
     def refactor(self, a_data: torch.Tensor) -> TorchFactors:
         """One numeric factorization: ``a_data`` (nnz,) → TorchFactors with
@@ -352,15 +363,14 @@ class RepeatedSolveEngine:
             return panel_ops.panel_lu(P, nr, lsize, eps)
         return panel_ops.panel_lu_plain(P, lsize, P.shape[2], eps)
 
-    def _factor(self, b: torch.Tensor, stop=None):
+    def _factor(self, b: torch.Tensor, stop=None, out=None):
         sched, dt, dev = self.sched, self.dtype, self.device
         K = b.shape[0]
         eps = self.perturb_eps * b.abs().amax(dim=1)        # (K,) per system
         eps_c = eps[:, None]
-        vals = torch.zeros((K, sched.n_ext), dtype=dt, device=dev)
+        vals, inode = self._buffers(K, sched.n_ext, self.n + 1, out)
         vals[:, self._a_scatter] = b
         vals[:, sched.one_slot] = IDENTITY_PIVOT
-        inode = torch.arange(self.n + 1, device=dev).repeat(K, 1)
         nper = torch.zeros(K, dtype=torch.int32, device=dev)
 
         def perturb(slots):
@@ -431,7 +441,7 @@ class RepeatedSolveEngine:
         return TorchFactors(vals=vals[:, :self.plan.total_slots],
                             inode_perm=inode[:, :self.n], n_perturb=nper)
 
-    def _factor_unrolled(self, b: torch.Tensor, stop=None):
+    def _factor_unrolled(self, b: torch.Tensor, stop=None, out=None):
         """The unrolled schedule (``make_factor_fn`` :303–326): node by node,
         a left-looking loop over the node's edges, then the node's own LU
         (``_node_step_unrolled`` :132–161, ``_node_lu_writeback`` :113–129).
@@ -445,9 +455,8 @@ class RepeatedSolveEngine:
         dt, dev = self.dtype, self.device
         K = b.shape[0]
         eps = self.perturb_eps * b.abs().amax(dim=1)
-        vals = torch.zeros((K, self.plan.total_slots), dtype=dt, device=dev)
+        vals, inode = self._buffers(K, self.plan.total_slots, self.n, out)
         vals[:, self._a_scatter] = b
-        inode = torch.arange(self.n, device=dev).repeat(K, 1)
         nper = torch.zeros(K, dtype=torch.int32, device=dev)
         for t, (r0, step) in enumerate(self._nodes):
             n_edges = None                     # stop = (t, j): j edges only
@@ -561,18 +570,19 @@ class RepeatedSolveEngine:
 
     def apply(self, vals, inode_perm, b: torch.Tensor):
         """x solving A x = b for one system (vals (total_slots,), inode_perm
-        (n,), b (n,)), by the level-scheduled substitution."""
+        (n,), b (n,) or (n, m)), by the level-scheduled substitution."""
         return self._apply(self._level_solve, vals[None], inode_perm[None],
                            b[None])[0]
 
     def lut_solve(self, vals, c: torch.Tensor):
-        """L⁻ᵀ U⁻ᵀ c for one system (vals (total_slots,), c (n,)): ``ut_fwd``
-        with U's diagonal, then ``lt_bwd`` — the adjoint solve of
+        """L⁻ᵀ U⁻ᵀ c for one system (vals (total_slots,), c (n,) or (n, m)):
+        ``ut_fwd`` with U's diagonal, then ``lt_bwd`` — the adjoint solve of
         ``make_lu_solver``, without permutations or scaling."""
-        w = c.to(self.dtype)[None, :, None]
+        w = c.to(self.dtype)[None]
+        w = w if w.ndim == 3 else w[..., None]
         w = self._tri_solve("lt_bwd", vals[None],
                             self._tri_solve("ut_fwd", vals[None], w))
-        return w[0, :, 0]
+        return w[0] if c.ndim == 2 else w[0, :, 0]
 
     def refined_batched_solver(self, indptr, indices):
         """The batched solve for K systems of the given original-A pattern:

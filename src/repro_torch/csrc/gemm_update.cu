@@ -34,7 +34,15 @@
 // product in one sweep.  Columns past 128 (len(cm) > 128) take a second
 // sweep over the stored lts.  Each division is K3's (csrc/div_fast.cuh): a
 // product by the reciprocal corrected to a true division's bits, by true
-// division where that cannot vouch for the quotient.
+// division where that cannot vouch for the quotient.  A node with an edge
+// source of more than 128 rows runs the WIDE instance, which blocks that
+// edge's solve over k by 128, as K3 does: block 0 is the sweep above; each
+// later block of 128 columns first takes the lts of the blocks before it
+// from shared memory (a GEMV against U's rows, the form of the sweep past
+// 128), then sweeps its own j on the lanes' registers and publishes its
+// lts, whose buffer is dynamic shared memory sized to the node's widest
+// source.  Per column the subtractions keep the order j = 0, 1, ... of the
+// unblocked sweep.  Every other node runs the instance without the flag.
 //
 // What bounds it on the card: per edge 2 nr k (k + m) operations on the
 // panel's touched columns and the source rows, so bytes; but the edges of
@@ -171,6 +179,8 @@ constexpr int kWindow = 256;           // descriptors in shared at a time
 // a row up to this stays in shared memory: with the static buffers
 // (desc_s 10 KB, the ring 4 / 8 KB, lts_s 0.5 / 1 KB) under 48 KB
 constexpr int kRowSmemBytes = 24576;
+// the WIDE instance's lts buffer (dynamic shared memory, beside the row)
+constexpr int kMaxWideLtsBytes = 131072;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -229,17 +239,82 @@ __device__ __forceinline__ void stage_edge(const T* vs, const long long* cm,
   }
 }
 
-// One edge on one row (in shared or device memory): the column-form sweep
-// over j < k on the lane's registers, then the columns past 128, if any,
-// from the lts published in shared memory.
+// The WIDE instance's solve blocks past the first (an edge with k > 128):
+// block [b0, b0 + 128) of the edge's columns is read from the row, takes
+// the lts of the blocks before it from shared memory as a GEMV against U's
+// rows j < b0, then runs the column-form sweep of its own j on the lanes'
+// registers (U's diagonal and rows read from the source, K3's division),
+// publishes its lts and is written back.  Returns the first column past
+// the solve's blocks.
 template <typename T>
+__device__ __forceinline__ int wide_blocks(T* row, const T* src,
+                                           const long long* cme,
+                                           const EdgeDesc& d, T* lts_s,
+                                           int lane) {
+  const int k = d.k, len = d.len;
+  int b0 = kMaxK;
+  for (; b0 < k; b0 += kMaxK) {
+    int cc[kSlots];
+    T y[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = b0 + lane + 32 * s;
+      cc[s] = c < len ? (int)__ldg(cme + c) : 0;
+      y[s] = c < len ? row[cc[s]] : T(0);
+    }
+#pragma unroll 4
+    for (int j = 0; j < b0; ++j) {          // the blocks before: a GEMV
+      const T l = lts_s[j];
+      const T* uj = src + (long long)j * d.sw;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int c = b0 + lane + 32 * s;
+        if (c < len) y[s] = fma(-l, __ldg(uj + c), y[s]);
+      }
+    }
+    const int be = min(k, b0 + kMaxK);
+    for (int j = b0; j < be; ++j) {         // the block's own sweep
+      const int js = (j - b0) >> 5, jl = (j - b0) & 31;
+      T xo = y[0];
+#pragma unroll
+      for (int s = 1; s < kSlots; ++s)
+        if (js == s) xo = y[s];
+      const T xj = __shfl_sync(kFull, xo, jl);
+      const T* uj = src + (long long)j * d.sw;
+      const T dj = __ldg(uj + j);
+      bool ok = true;
+      T l = div_fast(xj, dj, recip(dj), ok);
+      if (!ok) l = true_div(xj, dj);
+      if (lane == 0) lts_s[j] = l;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int c = b0 + lane + 32 * s;
+        if (c == j)
+          y[s] = l;
+        else if (c > j && c < len)
+          y[s] = fma(-l, __ldg(uj + c), y[s]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+      if (b0 + lane + 32 * s < len) row[cc[s]] = y[s];
+    __syncwarp();             // the block's lts and columns for every lane
+  }
+  return b0;
+}
+
+// One edge on one row (in shared or device memory): the column-form sweep
+// over j < k (j < 128 in the WIDE instance, whose later blocks follow in
+// wide_blocks) on the lane's registers, then the columns past the solve,
+// if any, from the lts published in shared memory.
+template <typename T, bool WIDE>
 __device__ __forceinline__ void edge_step(T* row, const T* vs,
                                           const long long* cm,
                                           const EdgeDesc& d,
                                           const long long* col_s,
                                           const T* u0_s, const T* dg_s,
                                           T* lts_s, int lane) {
-  const int k = d.k, len = d.len;
+  const int k = WIDE ? min(d.k, kMaxK) : d.k, len = d.len;
   const T* src = vs + d.src;
   int col[kSlots];
   T x[kSlots], u[kSlots], dg[kSlots];
@@ -294,7 +369,9 @@ __device__ __forceinline__ void edge_step(T* row, const T* vs,
   if (len > kMaxK) {                      // the columns past 128
     __syncwarp();
     const long long* cme = cm + d.cm;
-    for (int c0 = kMaxK; c0 < len; c0 += kMaxK) {
+    for (int c0 = WIDE ? wide_blocks<T>(row, src, cme, d, lts_s, lane)
+                       : kMaxK;
+         c0 < len; c0 += kMaxK) {
       int cc[kSlots];
       T y[kSlots];
 #pragma unroll
@@ -304,7 +381,7 @@ __device__ __forceinline__ void edge_step(T* row, const T* vs,
         y[s] = c < len ? row[cc[s]] : T(0);
       }
 #pragma unroll 4
-      for (int j = 0; j < k; ++j) {
+      for (int j = 0; j < d.k; ++j) {
         const T l = lts_s[j];
         const T* uj = src + (long long)j * d.sw;
 #pragma unroll
@@ -325,16 +402,19 @@ __device__ __forceinline__ void edge_step(T* row, const T* vs,
 // system blockIdx.y.  The edges [e0, e1) of the descriptor table go in
 // windows of kWindow: a window's descriptors are copied to shared memory,
 // then each edge is staged kRing - 1 edges ahead into a ring of kRing
-// slots by cp.async, so its loads fly while the edges before it run.
-template <typename T, bool SMEM>
+// slots by cp.async, so its loads fly while the edges before it run.  The
+// WIDE instance keeps its lts in the dynamic shared memory past the row
+// (past its first lts_off bytes).
+template <typename T, bool SMEM, bool WIDE>
 __global__ void __launch_bounds__(32)
 node_edges_kernel(T* vals, long long ldv, long long off, int w, int lsize,
                   const long long* __restrict__ desc,
                   const long long* __restrict__ cm, int e0, int e1,
                   const T* __restrict__ eps, int* __restrict__ nper,
-                  int perturb) {
+                  int perturb, int lts_off) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T lts_s[kMaxK];
+  __shared__ T lts_static[WIDE ? 1 : kMaxK];
+  T* lts_s = WIDE ? reinterpret_cast<T*>(smem_raw + lts_off) : lts_static;
   __shared__ long long desc_s[kWindow * kDescFields];
   __shared__ long long col_s[kRing][kMaxK];
   __shared__ T u0_s[kRing][kMaxK], dg_s[kRing][kMaxK];
@@ -367,8 +447,8 @@ node_edges_kernel(T* vals, long long ldv, long long off, int w, int lsize,
       cp_commit();
       cp_wait<kRing - 1>();     // edge i's stage has landed
       const int si = i % kRing;
-      edge_step<T>(row, vs, cm, read_desc(desc_s + i * kDescFields),
-                   col_s[si], u0_s[si], dg_s[si], lts_s, lane);
+      edge_step<T, WIDE>(row, vs, cm, read_desc(desc_s + i * kDescFields),
+                         col_s[si], u0_s[si], dg_s[si], lts_s, lane);
     }
   }
   __syncwarp();
@@ -385,29 +465,54 @@ node_edges_kernel(T* vals, long long ldv, long long off, int w, int lsize,
   }
 }
 
-template <typename T>
+template <typename T, bool SMEM, bool WIDE>
+int launch_node_edges_kernel(const dim3& grid, int dyn, T* v, long long ldv,
+                             long long off, int w, int lsize,
+                             const long long* d, const long long* c, int e0,
+                             int e1, const T* ep, int* np, int perturb,
+                             int lts_off, cudaStream_t stream) {
+  if (WIDE) {               // the lts buffer may pass the default 48 KB
+    const cudaError_t rc = cudaFuncSetAttribute(
+        node_edges_kernel<T, SMEM, WIDE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  node_edges_kernel<T, SMEM, WIDE><<<grid, 32, dyn, stream>>>(
+      v, ldv, off, w, lsize, d, c, e0, e1, ep, np, perturb, lts_off);
+  return (int)cudaGetLastError();
+}
+
+// kmax: the widest edge source of the node (the WIDE instance's lts).
+template <typename T, bool WIDE>
 int launch_node_edges(void* vals, long long ldv, long long off, int nr,
                       int w, int lsize, const void* desc, const void* cm,
                       int e0, int e1, const void* eps, void* nper,
-                      int perturb, int nsys, void* stream) {
+                      int perturb, int nsys, int kmax, void* stream) {
   if (nr < 1 || w < 1 || nsys < 1 || nsys > 65535 || e0 < 0 || e1 < e0 ||
-      (perturb && (nr != 1 || lsize < 0 || lsize >= w)))
+      (perturb && (nr != 1 || lsize < 0 || lsize >= w)) ||
+      (WIDE && (kmax < 1 ||
+                (long long)kmax * sizeof(T) > kMaxWideLtsBytes)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(nr, nsys);
   const long long row_bytes = (long long)w * sizeof(T);
+  const bool smem = row_bytes <= kRowSmemBytes;
+  // the row (when it fits), then, for WIDE, the lts at a 16-byte boundary
+  const int lts_off = smem ? (int)((row_bytes + 15) / 16 * 16) : 0;
+  const int dyn = WIDE ? lts_off + kmax * (int)sizeof(T)
+                       : (smem ? (int)row_bytes : 0);
   T* v = static_cast<T*>(vals);
   const long long* d = static_cast<const long long*>(desc);
   const long long* c = static_cast<const long long*>(cm);
   const T* ep = static_cast<const T*>(eps);
   int* np = static_cast<int*>(nper);
-  if (row_bytes <= kRowSmemBytes)
-    node_edges_kernel<T, true><<<grid, 32, row_bytes,
-                                 (cudaStream_t)stream>>>(
-        v, ldv, off, w, lsize, d, c, e0, e1, ep, np, perturb);
-  else
-    node_edges_kernel<T, false><<<grid, 32, 0, (cudaStream_t)stream>>>(
-        v, ldv, off, w, lsize, d, c, e0, e1, ep, np, perturb);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (smem)
+    return launch_node_edges_kernel<T, true, WIDE>(
+        grid, dyn, v, ldv, off, w, lsize, d, c, e0, e1, ep, np, perturb,
+        lts_off, st);
+  return launch_node_edges_kernel<T, false, WIDE>(
+      grid, dyn, v, ldv, off, w, lsize, d, c, e0, e1, ep, np, perturb,
+      lts_off, st);
 }
 
 }  // namespace
@@ -448,8 +553,9 @@ extern "C" int hylu_node_edges_f64(void* vals, long long ldv, long long off,
                                    const void* cm, int e0, int e1,
                                    const void* eps, void* nper, int perturb,
                                    int nsys, void* stream) {
-  return launch_node_edges<double>(vals, ldv, off, nr, w, lsize, desc, cm,
-                                   e0, e1, eps, nper, perturb, nsys, stream);
+  return launch_node_edges<double, false>(vals, ldv, off, nr, w, lsize, desc,
+                                          cm, e0, e1, eps, nper, perturb,
+                                          nsys, 0, stream);
 }
 
 extern "C" int hylu_node_edges_f32(void* vals, long long ldv, long long off,
@@ -457,6 +563,33 @@ extern "C" int hylu_node_edges_f32(void* vals, long long ldv, long long off,
                                    const void* cm, int e0, int e1,
                                    const void* eps, void* nper, int perturb,
                                    int nsys, void* stream) {
-  return launch_node_edges<float>(vals, ldv, off, nr, w, lsize, desc, cm,
-                                  e0, e1, eps, nper, perturb, nsys, stream);
+  return launch_node_edges<float, false>(vals, ldv, off, nr, w, lsize, desc,
+                                         cm, e0, e1, eps, nper, perturb,
+                                         nsys, 0, stream);
+}
+
+// The same node step for a node with an edge source of more than 128 rows
+// (the WIDE instance): kmax, the node's widest source, sizes its lts.
+extern "C" int hylu_node_edges_wide_f64(void* vals, long long ldv,
+                                        long long off, int nr, int w,
+                                        int lsize, const void* desc,
+                                        const void* cm, int e0, int e1,
+                                        const void* eps, void* nper,
+                                        int perturb, int nsys, int kmax,
+                                        void* stream) {
+  return launch_node_edges<double, true>(vals, ldv, off, nr, w, lsize, desc,
+                                         cm, e0, e1, eps, nper, perturb,
+                                         nsys, kmax, stream);
+}
+
+extern "C" int hylu_node_edges_wide_f32(void* vals, long long ldv,
+                                        long long off, int nr, int w,
+                                        int lsize, const void* desc,
+                                        const void* cm, int e0, int e1,
+                                        const void* eps, void* nper,
+                                        int perturb, int nsys, int kmax,
+                                        void* stream) {
+  return launch_node_edges<float, true>(vals, ldv, off, nr, w, lsize, desc,
+                                        cm, e0, e1, eps, nper, perturb, nsys,
+                                        kmax, stream);
 }

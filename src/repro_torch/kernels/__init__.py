@@ -21,8 +21,9 @@ from .wkv import ops as wkv_ops
 #: for supernodes of more than 128 rows, which the engine reaches through
 #: the entry above each;
 #: ``gemm_update`` none since the unrolled schedule runs K5 as one
-#: ``node_edges_inplace`` launch per node; ``flash_attention`` and ``wkv``
-#: run in the models' prefill)
+#: ``node_edges_inplace`` launch per node, ``node_edges_wide`` for a node
+#: with an edge source of more than 128 rows; ``flash_attention`` and
+#: ``wkv`` run in the models' prefill)
 WRAPPERS = {
     "panel_lu_bucket_inplace": panel_ops.panel_lu_bucket_inplace,
     "panel_lu_bucket_wide": panel_ops.panel_lu_bucket_wide,
@@ -39,6 +40,7 @@ WRAPPERS = {
     "gemm_batched": supsup_ops.gemm_batched,
     "gemm_update": supsup_ops.gemm_update,
     "node_edges_inplace": supsup_ops.node_edges_inplace,
+    "node_edges_wide": supsup_ops.node_edges_wide,
     "suprow_update": suprow_ops.suprow_update,
     "suprow_update_grouped": suprow_ops.suprow_update_grouped,
     "flash_attention": flashattn_ops.flash_attention,

@@ -46,6 +46,7 @@ _LEFT = [_P, _P, _P, _I, _I, _I, _P]
 _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
 _GEMM_UPDATE = [_P, _L, _L] * 4 + [_I, _I, _I, _I, _P]
 _NODE_EDGES = [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
+_NODE_EDGES_WIDE = _NODE_EDGES[:-1] + [_I, _P]
 _SUPROW = [_P, _P, _P, _P, _I, _I, _I, _P]
 _SUPROW_GROUPED = [_P, _I, _I, _I, _I, _P]
 _FLASH = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, *[_L] * 9, _P]
@@ -61,6 +62,7 @@ SIGNATURES = {
     **{f"hylu_bmm_{s}": _BMM for s in ("f64", "f32")},
     **{f"hylu_gemm_update_{s}": _GEMM_UPDATE for s in ("f64", "f32")},
     **{f"hylu_node_edges_{s}": _NODE_EDGES for s in ("f64", "f32")},
+    **{f"hylu_node_edges_wide_{s}": _NODE_EDGES_WIDE for s in ("f64", "f32")},
     **{f"hylu_suprow_{s}": _SUPROW for s in ("f64", "f32")},
     **{f"hylu_suprow_grouped_{s}": _SUPROW_GROUPED for s in ("f64", "f32")},
     **{f"hylu_flash_attn_{s}": _FLASH for s in ("f32", "bf16")},

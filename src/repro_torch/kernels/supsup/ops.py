@@ -2,7 +2,9 @@
 update of a sup-sup edge bucket, and K5 (``csrc/gemm_update.cu``):
 ``node_edges_inplace``, the unrolled schedule's node step (a node's whole
 edge loop, the sup-sup updates C − A·B among them, in one launch, in
-place), and the parent design ``gemm_update``, C − A·B per edge, under
+place; a node with an edge source of more than 128 rows goes to
+``node_edges_wide``, the kernel's instance that blocks the solve over k),
+and the parent design ``gemm_update``, C − A·B per edge, under
 ``supsup_update`` (K3's right solve, then ``gemm_update``), which no engine
 path calls any more.  Its kernel (``hylu_gemm_update_*``) takes strided
 views and may write C in place: K3's solves blocked over k > 128 run
@@ -28,13 +30,16 @@ from .ref import (gemm_batched_plain, gemm_update_plain, node_edges_plain,
                   supsup_update_plain)
 
 __all__ = ["EdgeTable", "NodeStep", "edge_table", "node_step",
-           "node_edges_inplace", "node_edges_plain", "gemm_batched",
+           "node_edges_inplace", "node_edges_wide", "node_edges_plain",
+           "gemm_batched",
            "gemm_update", "supsup_update", "gemm_batched_plain",
            "gemm_update_plain", "supsup_update_plain"]
 
-MAX_K = 128                 # the node kernel holds k <= 128 in registers
+WIDE_K = 128                # sources above this run the wide instance
 _NODE_EDGES = {torch.float64: "hylu_node_edges_f64",
                torch.float32: "hylu_node_edges_f32"}
+_NODE_EDGES_WIDE = {torch.float64: "hylu_node_edges_wide_f64",
+                    torch.float32: "hylu_node_edges_wide_f32"}
 
 
 class EdgeTable(NamedTuple):
@@ -48,35 +53,33 @@ class EdgeTable(NamedTuple):
 
 class NodeStep(NamedTuple):
     """One node of the unrolled program: its panel (nr rows of w at slot
-    offset ``off``, pivot block at column ``lsize``) and its edges
-    [e0, e1) of the :class:`EdgeTable`; ``args`` are the launch's constant
-    ctypes arguments, made once."""
+    offset ``off``, pivot block at column ``lsize``), its edges [e0, e1) of
+    the :class:`EdgeTable` and the rows of its widest edge source
+    ``kmax``; ``args`` are the launch's constant ctypes arguments, made
+    once."""
     off: int
     nr: int
     w: int
     lsize: int
     e0: int
     e1: int
+    kmax: int
     args: tuple
 
 
-def edge_table(edges, device, max_k=MAX_K) -> EdgeTable:
+def edge_table(edges, device) -> EdgeTable:
     """An :class:`EdgeTable` on ``device`` from host edges ``(soff, k, sw,
     slsize, col_map)``: one host→device copy for all col_maps and one for
-    the descriptors.  Raises for k > ``max_k`` (the node kernel's 128; None
-    for a table only the plain node step reads) or a col_map shorter than
-    k."""
+    the descriptors.  Raises for k < 1 or a col_map shorter than k."""
     cms = [np.asarray(e[4], np.int64) for e in edges]
     lens = np.array([len(c) for c in cms], np.int64)
     starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
     desc = np.array([(soff + slsize, o, k, sw, n) for (soff, k, sw, slsize,
                                                        _), o, n
                      in zip(edges, starts, lens)], np.int64).reshape(-1, 5)
-    kmax = np.inf if max_k is None else max_k
-    if ((desc[:, 2] < 1) | (desc[:, 2] > kmax) | (desc[:, 4] < desc[:, 2])
-            ).any():
-        raise ValueError(f"edge descriptors need 1 <= k <= {kmax} and "
-                         "len(col_map) >= k")
+    if ((desc[:, 2] < 1) | (desc[:, 4] < desc[:, 2])).any():
+        raise ValueError("edge descriptors need k >= 1 and len(col_map) "
+                         ">= k")
     dev = torch.device(device)
     flat = torch.from_numpy(np.concatenate(cms) if cms
                             else np.zeros(0, np.int64)).to(dev)
@@ -87,13 +90,15 @@ def edge_table(edges, device, max_k=MAX_K) -> EdgeTable:
                             in zip(edges, views)])
 
 
-def node_step(off: int, nr: int, w: int, lsize: int, e0: int,
-              e1: int) -> NodeStep:
-    """A :class:`NodeStep`, its launch arguments made once."""
-    if not (1 <= nr and 0 <= lsize and lsize + nr <= w and 0 <= e0 <= e1):
+def node_step(off: int, nr: int, w: int, lsize: int, e0: int, e1: int,
+              kmax: int) -> NodeStep:
+    """A :class:`NodeStep`, its launch arguments made once; ``kmax`` is the
+    rows of the node's widest edge source (0 without edges)."""
+    if not (1 <= nr and 0 <= lsize and lsize + nr <= w and 0 <= e0 <= e1
+            and (kmax >= 1 or e0 == e1) and kmax >= 0):
         raise ValueError(f"node (off={off}, nr={nr}, w={w}, lsize={lsize}, "
-                         f"edges [{e0}, {e1})) is not a panel")
-    return NodeStep(off, nr, w, lsize, e0, e1,
+                         f"edges [{e0}, {e1}), kmax={kmax}) is not a panel")
+    return NodeStep(off, nr, w, lsize, e0, e1, kmax,
                     (ctypes.c_longlong(off), ctypes.c_int(nr),
                      ctypes.c_int(w), ctypes.c_int(lsize)))
 
@@ -109,16 +114,46 @@ def node_edges_inplace(vals: torch.Tensor, table: EdgeTable, step: NodeStep,
     vals dtype, counted into ``nper`` (K,) int32 — as :func:`.ref.
     node_edges_plain`.  ``n_edges`` runs only the first ``n_edges`` edges
     and no perturbation.  Nothing is launched when there is nothing to
-    do.  Replaces the engine's per-edge gather, ``supsup_update`` (K3 +
-    ``gemm_update``) and write-back, and ``repro.kernels.supsup.ops.
-    supsup_update`` under ``_node_step_unrolled``."""
+    do.  A node with an edge source of more than 128 rows goes to
+    :func:`node_edges_wide`.  Replaces the engine's per-edge gather,
+    ``supsup_update`` (K3 + ``gemm_update``) and write-back, and
+    ``repro.kernels.supsup.ops.supsup_update`` under
+    ``_node_step_unrolled``."""
     if vals.device.type == "cpu":
         return node_edges_plain(vals, table, step, eps, nper, n_edges)
+    if step.kmax > WIDE_K:
+        return node_edges_wide(vals, table, step, eps, nper, n_edges)
+    if _launch_node_edges(_NODE_EDGES, vals, table, step, eps, nper,
+                          n_edges):
+        node_edges_inplace.launches += 1
+    return None
+
+
+def node_edges_wide(vals: torch.Tensor, table: EdgeTable, step: NodeStep,
+                    eps: torch.Tensor, nper: torch.Tensor,
+                    n_edges=None) -> None:
+    """K5's node step for a node with an edge source of any rows (the
+    kernel's WIDE instance, ``hylu_node_edges_wide_*``): each edge's solve
+    runs in blocks of 128 source rows, the lts of the blocks before taken
+    from shared memory, sized to ``step.kmax``.  Otherwise as
+    :func:`node_edges_inplace`, which hands it the nodes that need it."""
+    if vals.device.type == "cpu":
+        return node_edges_plain(vals, table, step, eps, nper, n_edges)
+    if _launch_node_edges(_NODE_EDGES_WIDE, vals, table, step, eps, nper,
+                          n_edges, (step.kmax,)):
+        node_edges_wide.launches += 1
+    return None
+
+
+def _launch_node_edges(names, vals, table, step, eps, nper, n_edges,
+                       extra=()) -> bool:
+    """Check the operands and launch one node step on CUDA tensors; False
+    when there is nothing to do."""
     e1 = step.e1 if n_edges is None else step.e0 + n_edges
     perturb = n_edges is None and step.nr == 1
     if e1 == step.e0 and not perturb:
-        return None
-    name = _NODE_EDGES.get(vals.dtype)
+        return False
+    name = names.get(vals.dtype)
     if name is None:
         raise TypeError(f"the CUDA kernels take float64 or float32, got "
                         f"{vals.dtype}")
@@ -145,9 +180,9 @@ def node_edges_inplace(vals: torch.Tensor, table: EdgeTable, step: NodeStep,
         _build.launch(name, vals.data_ptr(), vals.shape[1], *step.args,
                       table.desc.data_ptr(), table.col_map.data_ptr(),
                       step.e0, e1, eps.data_ptr(), nper.data_ptr(),
-                      int(perturb), vals.shape[0], _build.stream_of(vals))
-    node_edges_inplace.launches += 1
-    return None
+                      int(perturb), vals.shape[0], *extra,
+                      _build.stream_of(vals))
+    return True
 
 
 # K4's entry points by dtype: the wrapper runs 516 times per bucketed
@@ -228,3 +263,4 @@ def supsup_update(x: torch.Tensor, src: torch.Tensor, k: int):
 gemm_batched.launches = 0
 gemm_update.launches = 0
 node_edges_inplace.launches = 0
+node_edges_wide.launches = 0

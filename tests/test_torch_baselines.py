@@ -38,9 +38,7 @@ from repro_torch.core import (CSR, HyluOptions, analyze, baselines,  # noqa: E40
 from repro_torch.core.api import (_batched_matvec,  # noqa: E402
                                   _solve_batched_hostloop)
 from repro_torch.core.options import PLAN_OPTION_FIELDS  # noqa: E402
-from repro_torch.core.structure import build_solve_structure  # noqa: E402
-from repro_torch.core.torch_engine import (  # noqa: E402
-    RepeatedSolveEngine, _check_edge_sources, node_step_max_k)
+from repro_torch.kernels.supsup import ops as supsup  # noqa: E402
 
 from tests.helpers import (empty_row_pattern, random_system,  # noqa: E402
                            scenario_system)
@@ -382,32 +380,40 @@ def test_wide_plan_batched_matches_jax(name, wide_cases):
     assert max(info_t["residual"].max(), info_h["residual"].max()) < TOL
 
 
-# ------------------------------------------------ the unrolled refusal
+# ----------------------------------- the unrolled schedule, wide sources
 def test_unrolled_on_cuda_refuses_wide_edge_sources(wide_cases):
-    """The unrolled schedule on CUDA with kernels runs K5's node step,
-    which takes edge sources of at most 128 rows: building that engine for
-    a plan with a 140-row source raises before any tensor reaches the
-    device.  The bucketed schedule, the plain node step
-    (``use_kernels=False``, on the card too) and the CPU take the plan."""
+    """The refusal this test once held is gone: K5's node step takes edge
+    sources of any rows (over 128, its wide instance, chosen per node by
+    the rows of the node's widest source).  The edge table takes sources
+    of 140 and 300 rows; the unrolled engine marks exactly the nodes with
+    a source over 128 rows for the wide instance; and its batched factor
+    of ``pardiso_like``'s 140-row plan (the plain node step on the CPU)
+    matches the JAX bucketed run of the same plan to 1e-10 with equal
+    pivots and perturbation counts (the JAX unrolled Pallas route returns
+    NaN there: ROADMAP.md, Queue C, reference faults)."""
+    rng = np.random.default_rng(2)
+    for k in (140, 300):
+        cm = np.sort(rng.choice(k + 40, size=k + 9, replace=False))
+        table = supsup.edge_table([(0, k, k + 9, 0, cm)], "cpu")
+        assert table.desc[0, 2] == k and table.edges[0][1] == k
+        assert supsup.node_step(0, 2, k + 40, 0, 0, 1, k).kmax == k
     a, aj, at, vb, bb, kw = wide_cases["wide_source"]
-    an = analyze(at, baselines.pardiso_like_options(device="cpu", **kw))
-    cuda = torch.device("cuda")
-    assert node_step_max_k("unrolled", True, cuda) == 128
-    for args in (("bucketed", True, cuda), ("unrolled", False, cuda),
-                 ("unrolled", True, torch.device("cpu"))):
-        assert node_step_max_k(*args) is None
-        _check_edge_sources(an.plan, node_step_max_k(*args))
-    ss = build_solve_structure(an.plan, bulk_min_width=2)
-    with pytest.raises(NotImplementedError, match="Queue C"):
-        RepeatedSolveEngine(
-            an.plan, ss, src_map=an.src_map, scale_map=an.scale_map, p=an.p,
-            q=an.q, row_scale=an.match.row_scale,
-            col_scale=an.match.col_scale, device="cuda",
-            schedule="unrolled")
-    eng = RepeatedSolveEngine(
-        an.plan, ss, src_map=an.src_map, scale_map=an.scale_map, p=an.p,
-        q=an.q, row_scale=an.match.row_scale, col_scale=an.match.col_scale,
-        device="cpu", schedule="unrolled")
-    assert max(e[1] for e in eng._edges.edges) == 140
-    narrow = analyze(at, HyluOptions(device="cpu", force_mode="supernodal"))
-    _check_edge_sources(narrow.plan, node_step_max_k("unrolled", True, cuda))
+    an = analyze(at, baselines.pardiso_like_options(
+        device="cpu", factor_schedule="unrolled", **kw))
+    eng = torch_repeated_engine(an)
+    nodes = an.plan.nodes
+    wide = [nd.nid for nd in nodes
+            if any(nodes[e.src].nr > 128 for e in nd.edges)]
+    assert wide and [t for t, (_, st) in enumerate(eng._nodes)
+                     if st.kmax > supsup.WIDE_K] == wide
+    an_j = jax_analyze(aj, jax_baselines.pardiso_like_options(
+        engine="jax", use_pallas=True, **kw))
+    bst_j = jax_factor_batched(an_j, aj, vb)
+    kernels.reset_launch_counts()
+    bst_t = factor_batched(an, at, vb)
+    assert not any(kernels.launch_counts().values())
+    assert torch.equal(bst_t.inode_perm,
+                       torch.from_numpy(np.array(bst_j.inode_perm)[:K]))
+    assert np.array_equal(bst_t.n_perturb, np.asarray(bst_j.n_perturb))
+    np.testing.assert_allclose(bst_t.vals.numpy(),
+                               np.asarray(bst_j.vals)[:K], rtol=TOL, atol=TOL)

@@ -102,7 +102,8 @@ def _node_buffer(rng, K, nr, w, lsize, sources, tdt, dev):
     for o, p in parts:
         vals[:, o:o + p[0].size] = p.reshape(K, -1)
     table = supsup.edge_table(edges, dev)
-    step = supsup.node_step(off, nr, w, lsize, 0, len(edges))
+    step = supsup.node_step(off, nr, w, lsize, 0, len(edges),
+                            max((k for k, _ in sources), default=0))
     return torch.tensor(vals, dtype=tdt, device=dev), table, step
 
 
@@ -193,6 +194,16 @@ def _cases(rng, tdt, dev):
     uw = t(_wide_block(rng, 3, 150))
     xw = t(rng.normal(size=(3, 40, 150)))
     bw = t(rng.normal(size=(2, 150, 3)))
+    # K5's wide node step: a node of 9 rows fed by a 150-row source among
+    # narrow ones
+    vnw, tabw, stpw = _node_buffer(rng, 3, 9, 260, 30,
+                                   [(1, 5), (150, 90), (7, 20)], tdt, dev)
+
+    def node_step_wide(fn):
+        v = vnw.clone()
+        nper = torch.zeros(3, dtype=torch.int32, device=dev)
+        fn(v, tabw, stpw, eps(3), nper)
+        return v, nper
 
     return {
         "panel_lu_bucket_inplace": (
@@ -239,6 +250,8 @@ def _cases(rng, tdt, dev):
                           lambda: suprow.suprow_update_plain(x6, s6, 96)),
         "node_edges_inplace": (lambda: node_step(supsup.node_edges_inplace),
                                lambda: node_step(supsup.node_edges_plain)),
+        "node_edges_wide": (lambda: node_step_wide(supsup.node_edges_wide),
+                            lambda: node_step_wide(supsup.node_edges_plain)),
         "suprow_update_grouped": (
             lambda: grouped(suprow.suprow_update_grouped, g6),
             lambda: grouped(suprow.suprow_update_grouped_plain, g6)),
@@ -1093,18 +1106,20 @@ NODES = {
 
 
 def _node_step_held(v0, table, step, eps, tol, nonfinite=False):
-    """Kernel and plain version on copies of v0: launches, nper, the
-    node's panel (NaN and inf positions too) and every other slot's
-    bits."""
+    """Kernel and plain version on copies of v0: launches (of the wide
+    instance for a source over 128 rows), nper, the node's panel (NaN and
+    inf positions too) and every other slot's bits."""
     K = v0.shape[0]
     g, r = v0.clone(), v0.clone()
     ng = torch.zeros(K, dtype=torch.int32, device=v0.device)
     nr_ = torch.zeros_like(ng)
-    before = supsup.node_edges_inplace.launches
+    counter = (supsup.node_edges_wide if step.kmax > supsup.WIDE_K
+               else supsup.node_edges_inplace)
+    before = counter.launches
     supsup.node_edges_inplace(g, table, step, eps, ng)
     supsup.node_edges_plain(r, table, step, eps, nr_)
     torch.cuda.synchronize()
-    assert supsup.node_edges_inplace.launches == before + 1
+    assert counter.launches == before + 1
     assert torch.equal(ng, nr_)
     lo, hi = step.off, step.off + step.nr * step.w
     for a, b in ((g[:, :lo], v0[:, :lo]), (g[:, hi:], v0[:, hi:])):
@@ -1839,8 +1854,9 @@ def test_pardiso_like_on_card_matches_cpu(name, cuda):
     node of more than 128 rows on the card (the wide paths) against the
     CPU's plain versions: equal pivots and perturbation counts, factors
     and solutions within 1e-10 (``index_add_`` sums in another order on
-    the card), the wide paths launched; the unrolled schedule refuses a
-    140-row edge source on the card at engine build."""
+    the card), the wide paths launched; for the 140-row edge source also
+    the unrolled schedule's kernel route (K5's wide node step) against the
+    CPU's unrolled run and the bucketed one."""
     from repro_torch.core import baselines
 
     if name == "wide_source":
@@ -1871,13 +1887,26 @@ def test_pardiso_like_on_card_matches_cpu(name, cuda):
                                atol=1e-10)
     assert max(ig["residual"].max(), ic["residual"].max()) < 1e-10
     assert np.abs(xg - xc).max() / np.abs(xc).max() < 1e-10
-    if name == "wide_source":
-        an_u = analyze(A, baselines.pardiso_like_options(
-            factor_schedule="unrolled", **kw))
-        before = kernels.launch_counts()
-        with pytest.raises(NotImplementedError, match="Queue C"):
-            torch_repeated_engine(an_u)
-        assert kernels.launch_counts() == before
+    if name == "wide_source":             # the unrolled kernel route
+        out_u = {}
+        for dev in ("cpu", "cuda"):
+            an_u = analyze(A, baselines.pardiso_like_options(
+                device=dev, factor_schedule="unrolled", **kw))
+            kernels.reset_launch_counts()
+            bst = factor_batched(an_u, A, vb)
+            out_u[dev] = (bst,) + solve_batched(bst, bb) + (
+                kernels.launch_counts(),)
+        (uc, xuc, _, _), (ug, xug, iug, cu) = out_u["cpu"], out_u["cuda"]
+        assert cu["node_edges_wide"] > 0 and cu["node_edges_inplace"] > 0
+        assert torch.equal(ug.inode_perm.cpu(), uc.inode_perm)
+        assert torch.equal(ug.inode_perm.cpu(), bc.inode_perm)
+        assert np.array_equal(ug.n_perturb, uc.n_perturb)
+        torch.testing.assert_close(ug.vals.cpu(), uc.vals, rtol=1e-10,
+                                   atol=1e-10)
+        torch.testing.assert_close(ug.vals.cpu(), bc.vals, rtol=1e-10,
+                                   atol=1e-10)
+        assert iug["residual"].max() < 1e-10
+        assert np.abs(xug - xuc).max() / np.abs(xuc).max() < 1e-10
 
 
 @pytest.mark.cuda
@@ -1913,3 +1942,132 @@ def test_unrolled_plain_node_step_on_card_takes_wide_sources(cuda):
                                atol=1e-10)
     assert max(ig["residual"].max(), ic["residual"].max()) < 1e-10
     assert np.abs(xg - xc).max() / np.abs(xc).max() < 1e-10
+
+
+# K5's wide node step (``node_edges_wide``, a source over 128 rows): k of
+# 129, 140, 256 and 300 with col_maps shorter than, as long as and longer
+# than k + 128, mixed with narrow sources, into a width-1 node and a node
+# of 5 rows
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("nr", [1, 5])
+@pytest.mark.parametrize("m", [60, 128, 200])
+@pytest.mark.parametrize("k", [129, 140, 256, 300])
+def test_node_edges_wide_sources(k, m, nr, dt, cuda):
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(k + m + nr)
+    sources = [(2, 9), (k, m), (1, 4), (64, 30), (k, m // 2)]
+    v0, table, step = _node_buffer(rng, 3, nr, k + m + 30, 7, sources, tdt,
+                                   cuda)
+    assert step.kmax == k > supsup.WIDE_K
+    eps = torch.full((3,), 1e-8, dtype=tdt, device=cuda)
+    before = supsup.node_edges_inplace.launches
+    _node_step_held(v0, table, step, eps, tol)
+    assert supsup.node_edges_inplace.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("nr", [1, 17])
+@pytest.mark.parametrize("case", ["nan_in_source", "zero_pivot",
+                                  "zero_source_diagonal"])
+def test_node_edges_wide_nonfinite(case, nr, dt, cuda):
+    """``test_node_edges_nonfinite``'s cases on a 140-row source, placed
+    in its second block of the solve (row and column 133): the wide
+    instance gives the plain version's NaN and inf positions, infinities
+    and finite values."""
+    tdt, tol, _ = TOLS[dt]
+    rng = np.random.default_rng(nr + len(case))
+    sources = [(140, 12), (1, 4), (30, 9), (1, 10)]
+    v0, table, step = _node_buffer(rng, 2, nr, 240, 25, sources, tdt, cuda)
+    e140, e1, e30 = table.edges[0], table.edges[-1], table.edges[2]
+    u133 = e140[0] + 133 * e140[2] + e140[3] + 133          # U[133, 133]
+    if case == "nan_in_source":
+        v0[0, u133 - 133 * e140[2] + 1] = float("nan")       # U[0, 134]
+        v0[1, e1[0] + e1[3] + 5] = float("nan")              # suffix
+    elif case == "zero_pivot":
+        v0[:, e1[0] + e1[3]] = 0.0                           # k = 1 divisor
+        if nr > 1:
+            v0[1, u133] = 0.0
+        v0[:, step.off + step.lsize] = 0.0                   # target pivot
+    else:
+        v0[1, u133] = v0[1, u133 + 1] = 0.0
+        v0[0, e30[0] + e30[3]] = 0.0                         # U[0, 0] ...
+        v0[0, step.off + int(e30[4][0])] = 0.0               # ... of x_0 = 0
+    eps = torch.zeros(2, dtype=tdt, device=cuda)
+    g, ng = _node_step_held(v0, table, step, eps, tol, nonfinite=True)
+    assert not torch.isfinite(g[:, step.off:step.off + step.nr * step.w]
+                              ).all()
+    assert ng.tolist() == [0, 0]
+
+
+@pytest.mark.cuda
+def test_node_edges_fem2d_10k_keeps_the_narrow_instance(cuda):
+    """fem2d_10k's sources have at most 64 rows: one unrolled refactor
+    launches the k <= 128 instance once per node step and the wide one
+    never."""
+    A, eng = _fem2d_10k()
+    assert max(st.kmax for _, st in eng._nodes) <= supsup.WIDE_K
+    kernels.reset_launch_counts()
+    eng.refactor(torch.from_numpy(A.data).to(cuda))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["node_edges_wide"] == 0
+    assert counts["node_edges_inplace"] == sum(
+        1 for nd in eng.plan.nodes if nd.edges or nd.nr == 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("donate", [False, True])
+def test_sequence_pipeline_on_card_matches_sequential(donate, cuda):
+    """The T-step pipeline on the card (pinned staging, a copy stream,
+    with and without donation) against T sequential ``factor_batched`` +
+    ``solve_batched`` calls on the card: x within 1e-10, equal counts and
+    masks; a caller's device RHS shared by the steps comes out
+    unchanged."""
+    A = to_csr(fem2d(12, 12, seed=1))
+    rng = np.random.default_rng(12)
+    steps = [A.data[None] * rng.uniform(0.8, 1.2, (4, A.nnz))
+             for _ in range(3)]
+    b = rng.normal(size=(4, A.n))
+    b_dev = torch.from_numpy(b).to(cuda)
+    opts = HyluOptions(force_mode="supernodal", bulk_min_width=2,
+                       donate=donate)
+    from repro_torch.core import solve_sequence
+    xs, info = solve_sequence(A, steps, b_dev, opts)
+    an = analyze(A, HyluOptions(force_mode="supernodal", bulk_min_width=2))
+    for t in range(3):
+        x, it = solve_batched(factor_batched(an, A, steps[t]), b)
+        assert np.abs(xs[t] - x).max() / np.abs(x).max() < 1e-10
+        assert info["n_refine"][t] == it["n_refine"]
+        for key in ("n_refine_per_system", "refine_failed",
+                    "refine_stalled", "n_perturb"):
+            assert np.array_equal(info[key][t], it[key]), key
+    assert torch.equal(b_dev.cpu(), torch.from_numpy(b))
+    assert info["donate"] is donate and info["residual"].max() < 1e-10
+
+
+@pytest.mark.cuda
+def test_make_sparse_solve_on_card_matches_cpu(cuda):
+    """x, ā and b̄ of the differentiable solve on the card (K1-K4 in its
+    forward) against the port on the CPU, 1e-10."""
+    from repro_torch.core import make_sparse_solve
+
+    A = to_csr(fem2d(12, 12, seed=1))
+    rng = np.random.default_rng(13)
+    b, w = rng.normal(size=A.n), rng.normal(size=A.n)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        an = analyze(A, HyluOptions(force_mode="supernodal",
+                                    bulk_min_width=2, device=dev))
+        a_t = torch.tensor(A.data, requires_grad=True)
+        b_t = torch.tensor(b, requires_grad=True)
+        kernels.reset_launch_counts()
+        x = make_sparse_solve(an)(a_t, b_t)
+        (torch.from_numpy(w).to(x.device) * x).sum().backward()
+        out[dev] = (x.detach().cpu().numpy(), a_t.grad.numpy(),
+                    b_t.grad.numpy(), kernels.launch_counts())
+    for got, want in zip(out["cuda"][:3], out["cpu"][:3]):
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-10
+    assert out["cuda"][3]["panel_lu_bucket_inplace"] > 0
+    assert not any(out["cpu"][3].values())

@@ -84,7 +84,9 @@ def _port_table(nodes, offs, nd):
         [(int(offs[e.src]), nodes[e.src].nr, nodes[e.src].width,
           nodes[e.src].lsize, e.col_map) for e in nd.edges], "cpu")
     step = supsup.node_step(int(offs[nd.nid]), nd.nr, nd.width, nd.lsize,
-                            0, len(nd.edges))
+                            0, len(nd.edges),
+                            max((nodes[e.src].nr for e in nd.edges),
+                                default=0))
     return table, step
 
 
@@ -301,10 +303,16 @@ def test_unrolled_routes_agree_on_the_cpu():
 
 
 def test_edge_table_refuses_what_the_kernel_does_not_take():
-    cm = np.arange(130)
-    with pytest.raises(ValueError, match="k <= 128"):
-        supsup.edge_table([(0, 129, 130, 0, cm)], "cpu")
+    """An edge needs a source row and a col_map of at least k columns, a
+    node step a panel and, with edges, its widest source; a source of any
+    rows is taken (more than 128: the kernel's wide instance)."""
+    table = supsup.edge_table([(0, 129, 130, 0, np.arange(130))], "cpu")
+    assert table.edges[0][1] == 129
+    with pytest.raises(ValueError, match="k >= 1"):
+        supsup.edge_table([(0, 0, 4, 2, np.arange(2))], "cpu")
     with pytest.raises(ValueError, match="len"):
         supsup.edge_table([(0, 3, 4, 2, np.arange(2))], "cpu")
     with pytest.raises(ValueError, match="not a panel"):
-        supsup.node_step(0, 4, 5, 2, 0, 1)
+        supsup.node_step(0, 4, 5, 2, 0, 1, 3)
+    with pytest.raises(ValueError, match="not a panel"):
+        supsup.node_step(0, 2, 5, 2, 0, 1, 0)
