@@ -25,6 +25,7 @@ import torch
 from .matrix import CSR
 from .analysis import Analysis, _sync, analyze, torch_repeated_engine
 from .options import HyluOptions, resolve_refine_tol
+from .torch_engine import on_device
 
 
 @dataclasses.dataclass
@@ -396,7 +397,7 @@ class _Staging:
     def fill(self, slot: int, src) -> torch.Tensor:
         """Queue the copy of ``src`` into ``slot``; returns the tensor the
         step reads (after :meth:`use`)."""
-        if isinstance(src, torch.Tensor) and src.device == self.device:
+        if isinstance(src, torch.Tensor) and on_device(src, self.device):
             if not self.copy:
                 return src.to(self.dtype)
             host = None

@@ -64,6 +64,21 @@ class TorchFactors(NamedTuple):
     vals: torch.Tensor         # (K, total_slots) factored panels
     inode_perm: torch.Tensor   # (K, n) int64 in-node pivot permutations
     n_perturb: torch.Tensor    # (K,) int32 perturbed pivots per system
+    # the whole (vals, inode_perm) storage that vals / inode_perm lead, the
+    # buffers a later refactor_batched(out=) overwrites; None: not reusable
+    buffers: tuple | None = None
+
+
+def on_device(t: torch.Tensor, dev: torch.device) -> bool:
+    """Whether ``t`` lies on ``dev``.  A tensor's own device always carries
+    its index (``cuda:0``); ``dev`` without one (``cuda``) is the current
+    CUDA device, where torch puts what is made on it."""
+    if t.device.type != dev.type:
+        return False
+    if dev.type != "cuda":
+        return True
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    return t.device.index == idx
 
 
 def _index(a, device) -> torch.Tensor:
@@ -319,25 +334,22 @@ class RepeatedSolveEngine:
 
     def _buffers(self, K: int, n_vals: int, n_inode: int, out):
         """The value buffer (K, n_vals), zeroed, and the in-node pivot map
-        (K, n_inode), the identity: ``out``'s storage when it is given
-        (its vals / inode_perm, or the buffers they are the leading columns
-        of), else new tensors."""
+        (K, n_inode), the identity: ``out.buffers``, the whole storage of
+        an earlier batched factorization's vals / inode_perm, when ``out``
+        is given, else new tensors."""
         dev = self.device
         if out is None:
             return (torch.zeros((K, n_vals), dtype=self.dtype, device=dev),
                     torch.arange(n_inode, device=dev).repeat(K, 1))
-        bufs = []
-        for t, width in ((out.vals, n_vals), (out.inode_perm, n_inode)):
-            full = t if t.shape[1] == width else t._base
-            if full is None or tuple(full.shape) != (K, width) \
-                    or not full.is_contiguous() \
-                    or full.device.type != dev.type:
-                raise ValueError(f"refactor_batched(out=): need the factors "
-                                 f"of this engine at K = {K}, got "
-                                 f"{tuple(t.shape)} of a buffer "
-                                 f"{None if full is None else tuple(full.shape)}"
-                                 f" on {t.device}")
-            bufs.append(full)
+        bufs = out.buffers
+        want = ((K, n_vals), (K, n_inode))
+        if bufs is None or any(tuple(t.shape) != w or not on_device(t, dev)
+                               for t, w in zip(bufs, want)):
+            raise ValueError(
+                f"refactor_batched(out=): need the factors of this engine "
+                f"at K = {K} on {dev}, got buffers "
+                f"{None if bufs is None else [tuple(t.shape) for t in bufs]}"
+                f" on {out.vals.device}")
         vals, inode = bufs
         if vals.dtype != self.dtype:
             raise TypeError(f"refactor_batched(out=): vals is {vals.dtype}, "
@@ -439,7 +451,8 @@ class RepeatedSolveEngine:
                 vals.index_add_(1, write_idx[lv].view(-1), upd.view(K, -1))
 
         return TorchFactors(vals=vals[:, :self.plan.total_slots],
-                            inode_perm=inode[:, :self.n], n_perturb=nper)
+                            inode_perm=inode[:, :self.n], n_perturb=nper,
+                            buffers=(vals, inode))
 
     def _factor_unrolled(self, b: torch.Tensor, stop=None, out=None):
         """The unrolled schedule (``make_factor_fn`` :303–326): node by node,
@@ -480,7 +493,8 @@ class RepeatedSolveEngine:
             inode[:, r0:r0 + nr] = torch.gather(inode[:, r0:r0 + nr], 1,
                                                 lperm.long())
             panel.copy_(P)
-        return TorchFactors(vals=vals, inode_perm=inode, n_perturb=nper)
+        return TorchFactors(vals=vals, inode_perm=inode, n_perturb=nper,
+                            buffers=(vals, inode))
 
     # ------------------------------------------------------------- solve
     def _block_solve(self, vals: torch.Tensor, c: torch.Tensor):

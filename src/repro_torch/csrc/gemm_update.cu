@@ -73,6 +73,7 @@
 // and B staged through shared memory; it is not tuned.
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "div_fast.cuh"
@@ -181,6 +182,9 @@ constexpr int kWindow = 256;           // descriptors in shared at a time
 constexpr int kRowSmemBytes = 24576;
 // the WIDE instance's lts buffer (dynamic shared memory, beside the row)
 constexpr int kMaxWideLtsBytes = 131072;
+// the most dynamic shared memory a WIDE launch asks for: the row, then lts
+constexpr int kMaxWideDynBytes = kRowSmemBytes + kMaxWideLtsBytes;
+constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -465,16 +469,32 @@ node_edges_kernel(T* vals, long long ldv, long long off, int w, int lsize,
   }
 }
 
+// The WIDE instance's lts buffer may pass the default 48 KB of dynamic
+// shared memory: raise the instance's limit to kMaxWideDynBytes once per
+// device, not per launch.
+template <typename T, bool SMEM>
+cudaError_t allow_wide_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  rc = cudaFuncSetAttribute(node_edges_kernel<T, SMEM, true>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            kMaxWideDynBytes);
+  if (rc == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return rc;
+}
+
 template <typename T, bool SMEM, bool WIDE>
 int launch_node_edges_kernel(const dim3& grid, int dyn, T* v, long long ldv,
                              long long off, int w, int lsize,
                              const long long* d, const long long* c, int e0,
                              int e1, const T* ep, int* np, int perturb,
                              int lts_off, cudaStream_t stream) {
-  if (WIDE) {               // the lts buffer may pass the default 48 KB
-    const cudaError_t rc = cudaFuncSetAttribute(
-        node_edges_kernel<T, SMEM, WIDE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (WIDE) {
+    const cudaError_t rc = allow_wide_smem<T, SMEM>();
     if (rc != cudaSuccess) return (int)rc;
   }
   node_edges_kernel<T, SMEM, WIDE><<<grid, 32, dyn, stream>>>(

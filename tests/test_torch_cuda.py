@@ -2019,12 +2019,18 @@ def test_node_edges_fem2d_10k_keeps_the_narrow_instance(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("donate", [False, True])
-def test_sequence_pipeline_on_card_matches_sequential(donate, cuda):
+def test_sequence_pipeline_on_card_matches_sequential(donate, cuda,
+                                                     monkeypatch):
     """The T-step pipeline on the card (pinned staging, a copy stream,
     with and without donation) against T sequential ``factor_batched`` +
     ``solve_batched`` calls on the card: x within 1e-10, equal counts and
     masks; a caller's device RHS shared by the steps comes out
-    unchanged."""
+    unchanged.  Host values go through the pinned buffers; device values
+    and right-hand sides never do: without donation the step reads the
+    caller's tensor in place, with it a device-to-device copy."""
+    from repro_torch.core import batched as batched_mod
+    from repro_torch.core import solve_sequence
+
     A = to_csr(fem2d(12, 12, seed=1))
     rng = np.random.default_rng(12)
     steps = [A.data[None] * rng.uniform(0.8, 1.2, (4, A.nnz))
@@ -2033,8 +2039,33 @@ def test_sequence_pipeline_on_card_matches_sequential(donate, cuda):
     b_dev = torch.from_numpy(b).to(cuda)
     opts = HyluOptions(force_mode="supernodal", bulk_min_width=2,
                        donate=donate)
-    from repro_torch.core import solve_sequence
+    fills, pinned = [], []
+    fill, slot = batched_mod._Staging.fill, batched_mod._Staging._slot
+
+    def spy_fill(self, i, src):
+        out = fill(self, i, src)
+        fills.append((src, out))
+        return out
+
+    def spy_slot(self, bufs, i, shape, pin=False):
+        pinned.append(pin)
+        return slot(self, bufs, i, shape, pin)
+
+    monkeypatch.setattr(batched_mod._Staging, "fill", spy_fill)
+    monkeypatch.setattr(batched_mod._Staging, "_slot", spy_slot)
     xs, info = solve_sequence(A, steps, b_dev, opts)
+    assert any(pinned)                       # the host values' staging
+    steps_dev = [torch.from_numpy(v).to(cuda) for v in steps]
+    fills.clear()
+    pinned.clear()
+    xs_dev, info_dev = solve_sequence(A, steps_dev, b_dev, opts)
+    assert len(fills) == 6 and not any(pinned)
+    for src, out in fills:
+        assert out.is_cuda
+        assert (out.data_ptr() == src.data_ptr()) is (not donate)
+    # index_add_ is atomic on CUDA: two runs agree to rounding, not bits
+    assert np.abs(xs_dev - xs).max() / np.abs(xs).max() < 1e-10
+    assert info_dev["n_refine"] == info["n_refine"]
     an = analyze(A, HyluOptions(force_mode="supernodal", bulk_min_width=2))
     for t in range(3):
         x, it = solve_batched(factor_batched(an, A, steps[t]), b)
@@ -2045,6 +2076,21 @@ def test_sequence_pipeline_on_card_matches_sequential(donate, cuda):
             assert np.array_equal(info[key][t], it[key]), key
     assert torch.equal(b_dev.cpu(), torch.from_numpy(b))
     assert info["donate"] is donate and info["residual"].max() < 1e-10
+
+
+@pytest.mark.cuda
+def test_on_device_resolves_the_current_index(cuda):
+    """A tensor made on ``cuda`` reports ``cuda:<current>``: ``on_device``
+    holds it on the engine's ``cuda`` and on that index, not on the CPU."""
+    from repro_torch.core.torch_engine import on_device
+
+    t = torch.zeros(3, device="cuda")
+    idx = torch.cuda.current_device()
+    assert t.device.index == idx
+    assert on_device(t, torch.device("cuda"))
+    assert on_device(t, torch.device("cuda", idx))
+    assert not on_device(t, torch.device("cpu"))
+    assert not on_device(t.cpu(), torch.device("cuda"))
 
 
 @pytest.mark.cuda

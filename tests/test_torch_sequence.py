@@ -225,6 +225,8 @@ def test_refactor_batched_out_reuses_the_buffers(schedule, stream):
     assert torch.equal(got.n_perturb, fresh.n_perturb)
     with pytest.raises(ValueError, match="out="):
         eng.refactor_batched(a1[:2], out=got)
+    with pytest.raises(ValueError, match="out="):    # one system: no
+        eng.refactor_batched(a1[:1], out=eng.refactor(a1[0]))  # buffers
 
 
 def test_donate_is_runtime_only():
@@ -236,3 +238,34 @@ def test_donate_is_runtime_only():
     assert plan_fingerprint(at, on) == plan_fingerprint(at, off)
     eng = torch_repeated_engine(analyze(at, dataclasses.replace(on)))
     assert eng.device.type == "cpu"
+
+
+def test_on_device_compares_types_and_indices():
+    """``on_device`` holds a CPU tensor on the CPU and never on a CUDA
+    device, whatever its index (the card's own case is in
+    ``tests/test_torch_cuda.py``)."""
+    from repro_torch.core.torch_engine import on_device
+
+    t = torch.zeros(2)
+    assert on_device(t, torch.device("cpu"))
+    assert not on_device(t, torch.device("cuda"))
+    assert not on_device(t, torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("copy", [False, True])
+def test_staging_uses_a_device_tensor_in_place_unless_copying(copy):
+    """A tensor already on the staging device is read in place (no host
+    round trip), or copied into the slot's own buffer under donation;
+    host arrays always land in the slot, and each slot keeps its
+    buffer."""
+    from repro_torch.core.batched import _Staging
+
+    st = _Staging(torch.device("cpu"), torch.float64, copy)
+    src = torch.arange(6, dtype=torch.float64).view(2, 3)
+    out = st.fill(0, src)
+    assert torch.equal(out, src)
+    assert (out.data_ptr() == src.data_ptr()) is (not copy)
+    host = st.fill(1, src.numpy() + 1)
+    assert host.data_ptr() not in (src.data_ptr(), out.data_ptr())
+    assert st.fill(1, src.numpy()).data_ptr() == host.data_ptr()
+    assert st.pinned == [None, None]
