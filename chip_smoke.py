@@ -10,7 +10,11 @@ Phases, each printing one JSON line:
 3. analyze  host analysis of fem2d_10k (the corpus's FEM entry: a 100x100
             5-point stencil with a diagonal jitter, seed 930; n = 10,000);
 4. kernels  every CUDA kernel of the main path against its plain PyTorch
-            version on the card, in float64 and float32, on the operands
+            version on the card, in float64 and float32 (K1-K5 also in
+            bfloat16, records named ``..._bf16``: equal pivots and
+            counts, values within two bf16 ulps of the plain output's
+            largest magnitude; ``solve_triangular`` takes no bfloat16 on
+            CUDA, so K3's bf16 records have no library time), on the operands
             fem2d_10k's factor program hands it (largest panel bucket,
             which K1 reads and writes in place in the value buffer,
             largest narrow-level node, largest sup-sup edge bucket) and on
@@ -120,6 +124,19 @@ Phases, each printing one JSON line:
 9. plain    one batched step at K = 32 with ``use_kernels=False`` (plain
             factor program, level-scheduled substitution): residuals, no
             kernel launched, and its times beside the kernel route's;
+9b. bf16    bfloat16 factors at fem2d_10k, K = 32: ``factor_batched`` +
+            ``solve_batched`` with ``factor_dtype="bfloat16"`` beside the
+            float64 step (every x within 1e-10 of ``spsolve``, all-clear
+            ``refine_failed``, ``n_fp64_fallback``, ms, peak memory,
+            factor storage; the bf16 entry points launched, counted by a
+            spy on ``_build.launch``), then the one-system unrolled
+            lifecycle in bfloat16 (times, launches, every node step of
+            one refactor held to its plain version; its host refinement
+            reported as it ends, there being no fallback on that path);
+9c. mesh    the split of K: ``mesh=["cuda:0", "cuda:0"]`` and ``mesh=1``
+            against the unsplit step (x within 1e-10, equal pivots and
+            counts), timed in turns with it; K = 31 on two shards; a
+            donating T = 3 pipeline on the split;
 10. serving_solver  solver serving at the same sizes: the analyses of
             fem2d_10k and the circuit are put into a ``PlanCache`` on a
             temporary directory, and a fresh ``SolverService`` on it
@@ -161,8 +178,9 @@ Phases, each printing one JSON line:
             The peak memory is that of the serving calls alone.
 
 Then one ``{"kernels": [...]}`` line (each record's ``launches_by_path``
-counts the batched, pipeline, autodiff, baselines, scalar and
-solver-serving phases, or the models' serving calls), the nvidia-smi
+counts the batched, pipeline, autodiff, baselines, scalar, mesh and
+solver-serving phases, or the models' serving calls; a bfloat16 record
+its entry point's launches in the bf16 phase), the nvidia-smi
 line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero; it also exits non-zero, printing no result, without a CUDA
@@ -171,6 +189,7 @@ device or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -189,6 +208,27 @@ TOL = {"float64": 1e-10, "float32": 1e-4}
 REL_TOL_F64 = {"gemm_update": 1e-12, "suprow_update": 1e-12,
                "suprow_update_grouped": 1e-12}
 SUPROW_LARGE = (128, 300)           # K6's large shape (k, m), K rows
+# the bfloat16 instances of K1-K5 (no bfloat16 K6: it has no engine path):
+# kernel record -> its entry point, and the needles of its ptxas lines;
+# held within BF16_ULPS of the plain output's largest magnitude (the
+# kernels round where the plain versions do, summing in another order)
+BF16_ULPS = 2
+BF16_ENTRY = {"panel_lu_bucketed": "hylu_bucket_panel_lu_bf16",
+              "panel_lu": "hylu_node_panel_lu_bf16",
+              "trsm_right": "hylu_trsm_right_bf16",
+              "trsm_left_unit_lower": "hylu_trsm_left_unit_lower_bf16",
+              "trsm_left_upper": "hylu_trsm_left_upper_bf16",
+              "bmm": "hylu_bmm_bf16",
+              "gemm_update": "hylu_gemm_update_bf16",
+              "node_edges": "hylu_node_edges_bf16"}
+BF16_PTXAS = {"panel_lu_bucketed": ("panel_lu_window_kernel", "bf16r"),
+              "panel_lu": ("panel_lu_window_kernel", "bf16r"),
+              "trsm_right": ("trsm_right_bf16_kernel",),
+              "trsm_left_unit_lower": ("trsm_left_bf16_kernel",),
+              "trsm_left_upper": ("trsm_left_bf16_kernel",),
+              "bmm": ("bmm_kernel", "bfloat16"),
+              "gemm_update": ("gemm_update_kernel", "bfloat16"),
+              "node_edges": ("node_edges_kernel", "bfloat16")}
 TOL_LEFT = {"float64": 1e-10, "float32": 1e-3}
 # the serving phases: two models at full width and depth, 4 requests of
 # 2,048 prompt tokens and 16 new tokens each, weights and prompts from SEED
@@ -518,16 +558,28 @@ def main() -> int:
     scalar_counts = scalar_phase(torch, np, kernels, A, an64, an_u, an32)
     plain_phase(torch, np, kernels, A, an64, bst, values[0], b, t_factor,
                 t_solve)
+    bf16_counts, bf16_entries = bf16_phase(torch, np, kernels, A, an64,
+                                           values[0], b)
+    mesh_counts = mesh_phase(torch, np, kernels, A, an64, values[0], b, bst,
+                             x64, xs, values)
     serving_counts = serving_solver_phase(torch, np, kernels, A, an64, C, anc)
 
     for rec in records:
         w = rec.pop("wrapper")
-        rec["launches_by_path"] = {"batched": counts[w],
-                                   "pipeline": pipeline_counts[w],
-                                   "autodiff": autodiff_counts[w],
-                                   "baselines": baseline_counts[w],
-                                   "scalar": scalar_counts[w],
-                                   "serving": serving_counts[w]}
+        if rec.get("dtype") == "bfloat16":
+            # the bfloat16 instance's own launches on the bfloat16 path
+            # (its wrapper also counts the float64 fallback's)
+            rec["launches_by_path"] = {"bf16": bf16_entries.get(
+                rec["entry"], 0)}
+            rec["wrapper_launches_bf16_phase"] = bf16_counts[w]
+        else:
+            rec["launches_by_path"] = {"batched": counts[w],
+                                       "pipeline": pipeline_counts[w],
+                                       "autodiff": autodiff_counts[w],
+                                       "baselines": baseline_counts[w],
+                                       "scalar": scalar_counts[w],
+                                       "mesh": mesh_counts[w],
+                                       "serving": serving_counts[w]}
         rec["launches"] = sum(rec["launches_by_path"].values())
     from repro_torch.configs import registry
 
@@ -536,7 +588,8 @@ def main() -> int:
         for path, c in (("serving", serving_counts),
                         ("baselines", baseline_counts),
                         ("pipeline", pipeline_counts),
-                        ("autodiff", autodiff_counts)):
+                        ("autodiff", autodiff_counts),
+                        ("mesh", mesh_counts)):
             rec["launches_by_path"][path] = c[rec["name"]]
         records.append(rec)
     emit({"kernels": records})
@@ -545,6 +598,315 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def bf16_phase(torch, np, kernels, A, an64, values0, b):
+    """Phase 9b: bfloat16 factors at fem2d_10k, K = 32, full size.
+    ``factor_batched`` + ``solve_batched`` with ``factor_dtype="bfloat16"``
+    (bucketed) beside the same step in float64: every x within 1e-10 of
+    scipy's ``spsolve`` (the float64 refinement, then the float64 fallback
+    for the systems it leaves above tolerance) with an all-clear
+    ``refine_failed``; factor and solve ms, peak memory, factor storage,
+    ``n_fp64_fallback``.  Then the one-system lifecycle in bfloat16 under
+    the unrolled schedule (``factor`` -> ``refactor`` -> ``solve``): its
+    times and launches, every K5 node step of one more refactor held to
+    ``node_edges_plain`` on the same input (BF16_ULPS), and the host
+    refinement's honest result (no float64 fallback on that path, in
+    either package).  The wrappers count launches whatever the dtype and
+    the fallback launches float64 kernels through them, so a spy on
+    ``_build.launch`` also counts launches by entry point.  Returns the
+    phase's (wrapper counts, entry-point counts)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    import dataclasses
+
+    from repro_torch.core import (CSR, analyze, factor, factor_batched,
+                                  refactor, solve, solve_batched,
+                                  torch_repeated_engine)
+    from repro_torch.core.options import resolve_refine_tol
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.supsup import ops as supsup_ops
+
+    t_all = time.perf_counter()
+    K = values0.shape[0]
+    an_bf = analyze(A, dataclasses.replace(an64.opts,
+                                           factor_dtype="bfloat16"),
+                    reuse=an64)
+    an_bu = analyze(A, dataclasses.replace(an_bf.opts,
+                                           factor_schedule="unrolled"),
+                    reuse=an64)
+    for an in (an64, an_bf, an_bu):
+        torch_repeated_engine(an)              # built outside the timings
+    entries, orig = {}, _build.launch
+
+    def spy(name, *args):
+        entries[name] = entries.get(name, 0) + 1
+        return orig(name, *args)
+
+    def mats(vals):
+        return [sp.csr_matrix((v, A.indices, A.indptr),
+                              shape=(A.n, A.n)).tocsc() for v in vals]
+
+    xr = np.stack([spla.spsolve(m, b[k]) for k, m in
+                   enumerate(mats(values0))])
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    runs = {}
+    for label, an in (("float64", an64), ("bfloat16", an_bf)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        entries.clear()
+        _build.launch = spy
+        try:
+            t0 = time.perf_counter()
+            bst = factor_batched(an, A, values0)
+            t_f = time.perf_counter() - t0
+            factor_entries = dict(entries)
+            t0 = time.perf_counter()
+            x, info = solve_batched(bst, b)
+            t_s = time.perf_counter() - t0
+        finally:
+            _build.launch = orig
+        counts = kernels.launch_counts()
+        if label == "bfloat16":
+            for w, c in counts.items():
+                total[w] += c
+        runs[label] = {
+            "factor_batched_ms": t_f * 1e3, "solve_batched_ms": t_s * 1e3,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "factor_storage_bytes": bst.vals.numel() * bst.vals.element_size(),
+            "factor_dtype": info["factor_dtype"],
+            "n_fp64_fallback": info["n_fp64_fallback"],
+            "escalation": info["escalation"],
+            "n_refine": info["n_refine"],
+            "n_perturb": int(bst.n_perturb.sum()),
+            "max_residual": float(info["residual"].max()),
+            "refine_failed": int(info["refine_failed"].sum()),
+            "scipy_rel_err": float(np.abs(x - xr).max() / np.abs(xr).max()),
+            "launches": {w: c for w, c in counts.items() if c},
+            "entry_points_factor": factor_entries,
+            "entry_points": dict(entries)}
+    batched_entries = dict(runs["bfloat16"]["entry_points"])
+
+    # the one-system lifecycle, unrolled, in bfloat16
+    rng = np.random.default_rng(9)
+    v1, v2 = (A.data * rng.uniform(0.8, 1.2, A.nnz) for _ in range(2))
+    A1 = CSR(A.n, A.indptr, A.indices, v1)
+    A2 = CSR(A.n, A.indptr, A.indices, v2)
+    bs = rng.normal(size=A.n)
+    xr1 = spla.spsolve(mats([v2])[0], bs)
+    nodes = an_bu.plan.nodes
+    n_steps = sum(1 for nd in nodes if nd.edges or nd.nr == 1)
+    n_wide = sum(1 for nd in nodes if nd.nr > 1)
+    torch.cuda.synchronize()
+    entries.clear()
+    _build.launch = spy
+    try:
+        t0 = time.perf_counter()
+        st = factor(an_bu, A1)
+        t_f = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st = refactor(st, A2)
+        t_r = time.perf_counter() - t0
+        per_refactor = kernels.launch_counts()
+        t0 = time.perf_counter()
+        x1, info1 = solve(st, bs)
+        t_s = time.perf_counter() - t0
+    finally:
+        _build.launch = orig
+    for w, c in kernels.launch_counts().items():
+        total[w] += c
+    for name, c in entries.items():
+        batched_entries[name] = batched_entries.get(name, 0) + c
+    # every node step of one more refactor against its plain version, on
+    # the input the program hands it
+    worst, steps_held, orig_ns = [0.0, 0.0], [0], supsup_ops.node_edges_inplace
+
+    def held_step(vals, table, step, eps, nper, n_edges=None):
+        v0, n0 = vals.clone(), nper.clone()
+        orig_ns(vals, table, step, eps, nper, n_edges)
+        supsup_ops.node_edges_plain(v0, table, step, eps, n0, n_edges)
+        lo, hi = step.off, step.off + step.nr * step.w
+        e_, u_ = bf16_err(torch, vals[:, lo:hi], v0[:, lo:hi])
+        check(torch.equal(nper, n0) and u_ <= BF16_ULPS,
+              f"bf16: node step at slot {lo} differs from its plain "
+              f"version by {e_} ({u_} ulps) or in its perturbations")
+        worst[0], worst[1] = max(worst[0], e_), max(worst[1], u_)
+        steps_held[0] += 1
+
+    held_step.launches = 0
+    eng_u = torch_repeated_engine(an_bu)
+    supsup_ops.node_edges_inplace = held_step
+    try:
+        eng_u.refactor(torch.from_numpy(v2).to(eng_u.device))
+    finally:
+        supsup_ops.node_edges_inplace = orig_ns
+    torch.cuda.synchronize()
+    tf = st.torch_factors
+    tol = resolve_refine_tol(an_bu.opts, "float64")
+    scalar = {"factor_ms": t_f * 1e3, "refactor_ms": t_r * 1e3,
+              "solve_ms": t_s * 1e3, "residual": info1["residual"],
+              "n_refine": info1["n_refine"],
+              "n_perturb": info1["n_perturb"],
+              "refine_failed": info1["refine_failed"],
+              "scipy_rel_err": float(np.abs(x1 - xr1).max()
+                                     / np.abs(xr1).max()),
+              "launches_per_refactor": {w: c for w, c in
+                                        per_refactor.items() if c},
+              "node_steps_held": steps_held[0],
+              "node_steps_max_abs_err": worst[0],
+              "node_steps_max_ulps": worst[1]}
+    rec = {"phase": "bf16", "matrix": "fem2d_10k", "k": K, "runs": runs,
+           "scalar_unrolled": scalar, "entry_points": batched_entries,
+           "factor_storage_ratio":
+               runs["bfloat16"]["factor_storage_bytes"]
+               / runs["float64"]["factor_storage_bytes"],
+           "seconds": time.perf_counter() - t_all}
+    emit(rec)
+    r = runs["bfloat16"]
+    check(r["factor_dtype"] == "bfloat16", "bf16: factor dtype")
+    for label, run in runs.items():
+        check(run["scipy_rel_err"] <= 1e-10 and run["max_residual"] <= 1e-10
+              and run["refine_failed"] == 0,
+              f"bf16 phase {label}: x off spsolve by {run['scipy_rel_err']},"
+              f" residual {run['max_residual']}, {run['refine_failed']} "
+              "failed")
+    for name in ("hylu_bucket_panel_lu_bf16", "hylu_node_panel_lu_bf16",
+                 "hylu_trsm_right_bf16", "hylu_bmm_bf16"):
+        check(r["entry_points_factor"].get(name, 0) > 0,
+              f"bf16: {name} was not launched by factor_batched")
+    for name in ("hylu_trsm_left_unit_lower_bf16",
+                 "hylu_trsm_left_upper_bf16", "hylu_node_edges_bf16"):
+        check(batched_entries.get(name, 0) > 0,
+              f"bf16: {name} was not launched on the bfloat16 path")
+    for w in ("panel_lu_bucket_inplace", "panel_lu", "trsm_batched",
+              "trsm_left_unit_lower_batched", "trsm_left_upper_batched",
+              "gemm_batched", "node_edges_inplace"):
+        check(total[w] > 0, f"bf16: wrapper {w} was not launched")
+    check(scalar["launches_per_refactor"].get("node_edges_inplace", 0)
+          == n_steps and scalar["launches_per_refactor"].get("panel_lu", 0)
+          == n_wide, f"bf16 unrolled refactor: launches "
+                     f"{scalar['launches_per_refactor']} != {n_steps} node "
+                     f"steps, {n_wide} K2")
+    check(steps_held[0] == n_steps, f"bf16: {steps_held[0]} node steps "
+                                    f"held of {n_steps}")
+    check(bool(torch.isfinite(tf.vals.float()).all())
+          and bool(np.isfinite(x1).all()), "bf16 unrolled: non-finite")
+    check(info1["refine_failed"] == (info1["residual"] > tol),
+          "bf16 unrolled: refine_failed disagrees with the residual")
+    return total, batched_entries
+
+
+def mesh_phase(torch, np, kernels, A, an64, values0, b, bst64, x64, xs,
+               values):
+    """Phase 9c: the split of K on the card at fem2d_10k, K = 32:
+    ``HyluOptions(mesh=["cuda:0", "cuda:0"])`` (two shards of 16 on one
+    card, one engine) and ``mesh=1`` against the unsplit main step (x
+    within 1e-10, equal pivots, perturbation and refinement counts), timed
+    in turns with the unsplit step (unsplit, split, split, unsplit; on one
+    card the shards run one after the other, so no gain is expected); K =
+    31 on the two shards (the second padded with system 0); one donating
+    T = 3 pipeline (``solve_sequence``'s ``_run_pipeline``) on the split
+    against the main phase's ``solve_sequence``.  Returns the launch
+    counts of the split runs."""
+    import dataclasses
+
+    from repro_torch.core import (analyze, factor_batched, solve_batched,
+                                  torch_repeated_engine)
+    from repro_torch.core.batched import _run_pipeline
+
+    t_all = time.perf_counter()
+    K = values0.shape[0]
+    two = ["cuda:0", "cuda:0"]
+    an2 = analyze(A, dataclasses.replace(an64.opts, mesh=two), reuse=an64)
+    an1 = analyze(A, dataclasses.replace(an64.opts, mesh=1), reuse=an64)
+    for an in (an2, an1):
+        torch_repeated_engine(an, device="cuda:0")   # outside the timings
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+
+    def run(an, vals, bb, count):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = factor_batched(an, A, vals)
+        t1 = time.perf_counter()
+        x, info = solve_batched(bst, bb)
+        t2 = time.perf_counter()
+        if count:
+            for w, c in kernels.launch_counts().items():
+                total[w] += c
+        return bst, x, info, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    def held(label, bst, x, info, k):
+        inode = torch.cat([p.inode_perm for p in bst.parts])[:k]
+        err = float(np.abs(x - x64[:k]).max() / np.abs(x64[:k]).max())
+        ok = {"x_rel_err": err,
+              "same_pivots": bool(torch.equal(inode, bst64.inode_perm[:k])),
+              "same_n_perturb": bool(np.array_equal(bst.n_perturb,
+                                                    bst64.n_perturb[:k])),
+              "shards": [p.k for p in bst.parts], "k_pad": bst.k_pad,
+              "max_residual": float(info["residual"].max())}
+        check(err <= 1e-10 and ok["same_pivots"] and ok["same_n_perturb"]
+              and ok["max_residual"] <= 1e-10,
+              f"mesh {label}: {ok}")
+        return ok
+
+    times = {"unsplit": [], "mesh_cuda0_x2": []}
+    res, infos = {}, {}
+    for label, an in (("unsplit", an64), ("mesh_cuda0_x2", an2),
+                      ("mesh_cuda0_x2", an2), ("unsplit", an64)):
+        bst, x, info, tf, ts = run(an, values0, b, label != "unsplit")
+        times[label].append({"factor_ms": tf, "solve_ms": ts})
+        infos[label] = info
+        if label != "unsplit":
+            res[label] = held(label, bst, x, info, K)
+    check(bool(np.array_equal(infos["unsplit"]["n_refine_per_system"],
+                              infos["mesh_cuda0_x2"]["n_refine_per_system"])),
+          "mesh: refinement counts differ")
+    bst, x, info, tf, ts = run(an1, values0, b, True)
+    res["mesh_1"] = held("1", bst, x, info, K)
+    times["mesh_1"] = [{"factor_ms": tf, "solve_ms": ts}]
+    bst, x, info, tf, ts = run(an2, values0[:K - 1], b[:K - 1], True)
+    res["mesh_cuda0_x2_k31"] = held("K = 31", bst, x, info, K - 1)
+    check(res["mesh_cuda0_x2_k31"]["shards"] == [K // 2, K // 2],
+          f"mesh: K = 31 shards {res['mesh_cuda0_x2_k31']['shards']}")
+    an2d = dataclasses.replace(an2, opts=dataclasses.replace(an2.opts,
+                                                             donate=True))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    xs2, info_s = _run_pipeline(an2d, (A.indptr, A.indices), values, b)
+    t_pipe = time.perf_counter() - t0
+    for w, c in kernels.launch_counts().items():
+        total[w] += c
+    err_seq = float(np.abs(xs2 - xs).max() / np.abs(xs).max())
+
+    def med(label, key):
+        return _median([t[key] for t in times[label]])
+
+    rec = {"phase": "mesh", "matrix": "fem2d_10k", "k": K, "mesh": two,
+           "runs": res, "times_ms": times,
+           "split_over_unsplit": {
+               key: med("mesh_cuda0_x2", key) / med("unsplit", key)
+               for key in ("factor_ms", "solve_ms")},
+           "engines": len(an2.engine_cache),
+           "pipeline_t3_donate": {"x_vs_solve_sequence_rel_err": err_seq,
+                                  "s": t_pipe, "donate": info_s["donate"],
+                                  "max_residual": float(
+                                      info_s["residual"].max())},
+           "launches": {w: c for w, c in total.items() if c},
+           "seconds": time.perf_counter() - t_all}
+    emit(rec)
+    check(rec["engines"] == 1, "mesh: shards on one card share one engine")
+    check(err_seq <= 1e-10 and info_s["donate"]
+          and rec["pipeline_t3_donate"]["max_residual"] <= 1e-10,
+          f"mesh pipeline: {rec['pipeline_t3_donate']}")
+    for w in ("panel_lu_bucket_inplace", "panel_lu", "trsm_batched",
+              "gemm_batched", "trsm_left_unit_lower_batched",
+              "trsm_left_upper_batched"):
+        check(total[w] > 0, f"mesh: kernel {w} was not launched")
+    return total
 
 
 def pipeline_phase(torch, np, kernels, A, an64, values, b, xs, info_seq):
@@ -1019,8 +1381,43 @@ def parent_node_step(torch, eng, t, vals, eps, nper, record=None):
         supsup_ref.supsup_update_plain = plain_update
 
 
+def bf16_err(torch, got, ref):
+    """(max |got - ref| over ref's finite entries, that in bf16 ulps of
+    ref's largest finite magnitude); (inf, inf) when the NaN or inf
+    positions or the infinities differ."""
+    g, r = got.float(), ref.float()
+    if not (torch.equal(torch.isnan(g), torch.isnan(r))
+            and torch.equal(torch.isinf(g), torch.isinf(r))
+            and torch.equal(g[torch.isinf(g)], r[torch.isinf(r)])):
+        return float("inf"), float("inf")
+    fin = torch.isfinite(r)
+    if not fin.any():
+        return 0.0, 0.0
+    err = float((g[fin] - r[fin]).abs().max())
+    m = float(r[fin].abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 1.0
+    return err, err / ulp
+
+
+def bf16_library(torch, lib):
+    """(lib, None), or (None, why) when the library call takes no bfloat16
+    on the card (``torch.linalg.solve_triangular``)."""
+    if lib is None:
+        return None, None
+    try:
+        lib()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, f"the library call takes no bfloat16 on CUDA: {e}"
+    return lib, None
+
+
 def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
-    """Phase 4: each kernel against its plain version on the card."""
+    """Phase 4: each kernel against its plain version on the card, in
+    float64 and float32, and K1-K5 in bfloat16 (records named ..._bf16,
+    held within two bf16 ulps of the plain output's largest magnitude,
+    pivots and counts equal)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.panel import ops as panel_ops
     from repro_torch.kernels.suprow import ops as suprow_ops
     from repro_torch.kernels.supsup import ops as supsup_ops
@@ -1148,7 +1545,8 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
         x6, s6 = c(X6), c(S6)
         x6k = x6[:, None, :k6].contiguous()
         g6 = [(c(x_), c(s_), k_) for (k_, _), (x_, s_) in G6.items()]
-        t6 = suprow_ops.suprow_groups(g6)
+        t6 = (suprow_ops.suprow_groups(g6) if dt != torch.bfloat16
+              else None)                       # K6 takes no bfloat16
         f6, b6 = suprow_work(G6, sz(dt))
         vn, en = node_base[t_n]
         base_n, eps_n = c(vn), en.to(dt)
@@ -1269,7 +1667,9 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     def held(name, dname, tol, got, ref, what=""):
         """Check kernel output against plain output; returns the max
         error and, for a panel LU, (rows moved by pivoting, pivots
-        perturbed)."""
+        perturbed).  bfloat16 (tol None): equal NaN and inf positions and
+        finite values within BF16_ULPS of the plain output's largest
+        magnitude."""
         torch.cuda.synchronize()
         moved = None
         if name.startswith("panel_lu"):             # (panels, perm, nper)
@@ -1282,6 +1682,15 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
             got, ref = got[0], ref[0]
         pairs = (list(zip(got, ref)) if isinstance(got, tuple)
                  else [(got, ref)])
+        if tol is None:
+            err = 0.0
+            for g, r in pairs:
+                e_, ulps = bf16_err(torch, g, r)
+                check(ulps <= BF16_ULPS, f"{name} {dname}{what}: "
+                      f"max |kernel - plain| = {e_}, {ulps} bf16 ulps of "
+                      f"the largest magnitude > {BF16_ULPS}")
+                err = max(err, e_)
+            return err, moved
         err = max(float((g - r).abs().max()) for g, r in pairs)
         check(all(bool(torch.allclose(g, r, rtol=tol, atol=tol))
                   for g, r in pairs),
@@ -1295,17 +1704,29 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
         return err, moved
 
     records = {}
-    for dt in (torch.float64, torch.float32):
+    for dt in (torch.float64, torch.float32, torch.bfloat16):
         dname = str(dt).replace("torch.", "")
+        bf = dt == torch.bfloat16
         for (name, wrapper, replaces, source, shape, kern, plain, lib, flops,
              nbytes, tol, shuf, *restore) in cases(dt):
-            rec = records.setdefault(name, {
-                "name": name, "route": "cuda", "source": source,
+            if bf and name not in BF16_ENTRY:        # K6: f64 / f32 only
+                continue
+            key = name + "_bf16" if bf else name
+            rec = records.setdefault(key, {
+                "name": key, "route": "cuda", "source": source,
                 "replaces": replaces, "wrapper": wrapper, "shape": shape})
-            err, moved = held(name, dname, tol[dname], kern(), plain())
-            sfx = "" if dname == "float64" else "_f32"
+            if bf:
+                rec.update(dtype="bfloat16", entry=BF16_ENTRY[name],
+                           tol=f"{BF16_ULPS} bf16 ulps of max |plain|")
+                lib, note = bf16_library(torch, lib)
+                if note:
+                    rec["library_note"] = note
+            err, moved = held(name, dname, None if bf else tol[dname],
+                              kern(), plain())
+            sfx = "_f32" if dname == "float32" else ""
             if shuf is not None:
-                err_s, moved_s = held(name, dname, tol[dname], shuf[0](),
+                err_s, moved_s = held(name, dname,
+                                      None if bf else tol[dname], shuf[0](),
                                       shuf[1](), " (rows shuffled)")
                 check(moved_s[0] > 0, f"{name} {dname}: no row moved by "
                                       "pivoting on the shuffled panels")
@@ -1315,12 +1736,17 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
                             "rows_moved_shuffled" + sfx: moved_s[0],
                             "perturbed_shuffled" + sfx: moved_s[1]})
             t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = flops / PEAK_FLOPS[dname]
+            # bfloat16 runs on the tensor cores in K4 only; elsewhere its
+            # float32 arithmetic is SIMT
+            t_ops = flops / PEAK_FLOPS[
+                ("bfloat16" if name == "bmm" else "float32") if bf
+                else dname]
             r_ms = bench_ms(torch, restore[0]) if restore else 0.0
             if restore:
                 rec["restore_ms" + sfx] = r_ms
             rec.update({
-                "max_abs_err" + sfx: err, "tol" + sfx: tol[dname],
+                "max_abs_err" + sfx: err,
+                "tol" + sfx: rec["tol"] if bf else tol[dname],
                 "ms" + sfx: bench_ms(torch, kern) - r_ms,
                 "plain_ms" + sfx: bench_ms(torch, plain) - r_ms,
                 "bound_ms" + sfx: max(t_bytes, t_ops) * 1e3,
@@ -1386,8 +1812,13 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
         records[name].update(extra)
     for name, extra in panel_extra(torch, np, eng, eng_u, a_dev).items():
         records[name].update(extra)
+    log = _build.last_build["log"]
+    for name, needles in BF16_PTXAS.items():
+        records[name + "_bf16"]["ptxas"] = [
+            ln for ln in ptxas_of(log, needles[0])
+            if all(nd in ln for nd in needles[1:])]
     out = list(records.values())
-    emit({"phase": "kernels", "dtypes": ["float64", "float32"],
+    emit({"phase": "kernels", "dtypes": ["float64", "float32", "bfloat16"],
           "records": out, "seconds": time.perf_counter() - t})
     return out
 

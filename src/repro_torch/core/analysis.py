@@ -157,7 +157,12 @@ def torch_repeated_engine(an: Analysis, dtype=None, refine_dtype=None,
     CUDA device that is missing raises — and ``use_kernels`` /
     ``schedule`` (defaults ``an.opts.use_kernels`` /
     ``an.opts.factor_schedule``) the kernel route and the factor schedule.
-    Every one of them is part of the cache key."""
+    Every one of them is part of the cache key, the device by its index
+    (``"cuda"`` is the current card), so the shards of a split of K
+    (``HyluOptions.mesh``) share one engine per device, as the JAX
+    package keys its engines on the mesh's devices."""
+    import torch
+
     from .structure import build_solve_structure
     from .torch_engine import RepeatedSolveEngine
 
@@ -170,7 +175,11 @@ def torch_repeated_engine(an: Analysis, dtype=None, refine_dtype=None,
     use_kernels = bool(opts.use_kernels if use_kernels is None
                        else use_kernels)
     schedule = opts.factor_schedule if schedule is None else schedule
-    key = (fname, rname, use_kernels, schedule, str(dev))
+    # one engine per physical device: "cuda" keys as the current device
+    idx = (torch.cuda.current_device() if dev.type == "cuda"
+           and dev.index is None else dev.index)
+    key = (fname, rname, use_kernels, schedule,
+           dev.type if idx is None else f"{dev.type}:{idx}")
     eng = an.engine_cache.get(key)
     if eng is None:
         ss = build_solve_structure(an.plan, bulk_min_width=opts.bulk_min_width)
@@ -273,7 +282,9 @@ def solve(st: FactorState, b: np.ndarray, refine: bool | None = None) -> tuple:
         def lu_apply(rhs: np.ndarray) -> np.ndarray:
             rhs_dev = torch.from_numpy(np.ascontiguousarray(rhs)).to(
                 eng.device)
-            return eng.apply(tf.vals, tf.inode_perm, rhs_dev).cpu().numpy()
+            # widened on the device: numpy has no bfloat16
+            return eng.apply(tf.vals, tf.inode_perm,
+                             rhs_dev).double().cpu().numpy()
     else:
         f = st.factors
         n_perturb = f.n_perturb

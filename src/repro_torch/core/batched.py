@@ -12,7 +12,16 @@ host-side oracles the JAX benchmark holds the fused solve against:
 may be host arrays or torch tensors; results come back as numpy arrays,
 as the JAX package returns them.
 
-Not in this slice (see ROADMAP.md): multi-device sharding.
+The split of K over devices (``HyluOptions.mesh``, the JAX package's
+shard over a 1-D mesh, ``src/repro/core/batched.py:98–181``): K is padded
+up to a multiple of the shard count, values by replicating system 0 and
+right-hand sides by zeros (a padded system converges at iteration 0), and
+each contiguous shard is factored and solved on its device by its
+device's engine, as one unsplit batch each (``BatchedFactorState.parts``);
+results are gathered and cut back to the caller's K.  Every system's
+arithmetic is its own, so on the CPU the split is bit-identical to the
+unsplit run; the reported refinement count is the largest shard's, as the
+JAX package's ``pmax``.
 """
 from __future__ import annotations
 
@@ -24,13 +33,18 @@ import torch
 
 from .matrix import CSR
 from .analysis import Analysis, _sync, analyze, torch_repeated_engine
-from .options import HyluOptions, resolve_refine_tol
+from .options import HyluOptions, resolve_mesh, resolve_refine_tol
 from .torch_engine import on_device
 
 
 @dataclasses.dataclass
 class BatchedFactorState:
-    """K factorizations of one sparsity pattern, held as device tensors."""
+    """K factorizations of one sparsity pattern, held as device tensors.
+
+    Under a split of K (``HyluOptions.mesh``) the state holds one unsplit
+    state per shard in ``parts`` (each of ``k_pad / shards`` systems on
+    its device) and no tensors of its own; ``k`` is the caller's K and
+    every result is cut back to it."""
     analysis: Analysis
     a_pattern: tuple           # (indptr, indices) of the original matrices
     values_dev: torch.Tensor   # (K, nnz) A values, refine dtype, on device
@@ -40,15 +54,84 @@ class BatchedFactorState:
     timings: dict
     k: int
     consumed: bool = False     # its buffers were donated to a solve
+    device: torch.device | None = None   # its engine's (None: opts.device)
+    parts: list | None = None  # the shards of a split of K, in order
     _values_host: np.ndarray | None = dataclasses.field(default=None,
                                                         repr=False)
+
+    @property
+    def k_pad(self) -> int:
+        """K padded to a multiple of the shard count (K unsplit)."""
+        return sum(p.k for p in self.parts) if self.parts else self.k
 
     @property
     def values_batch(self) -> np.ndarray:
         """(K, nnz) host copy of the A values (copied on first access)."""
         if self._values_host is None:
-            self._values_host = self.values_dev.cpu().numpy()
+            self._values_host = (
+                np.concatenate([p.values_batch for p in self.parts])[:self.k]
+                if self.parts else self.values_dev.cpu().numpy())
         return self._values_host
+
+
+def _engine(bst: BatchedFactorState, **kw):
+    return torch_repeated_engine(bst.analysis, device=bst.device, **kw)
+
+
+def _split_rows(x, n: int, fill: str) -> list:
+    """(K, ...) rows — a host array or a tensor — in n contiguous shards of
+    ceil(K / n) rows, the last ones filled up to that size with system 0's
+    row (``fill="first"``) or zeros (``"zeros"``): the padding of
+    ``_stage_values`` / ``_stage_rhs`` in ``src/repro/core/batched.py``.
+    Full shards are views of x (no copy)."""
+    k = x.shape[0]
+    s = -(-k // n)
+    out = []
+    for i in range(n):
+        piece = x[i * s:(i + 1) * s]
+        short = s - piece.shape[0]
+        if short:
+            tensor = isinstance(x, torch.Tensor)
+            if fill == "first":
+                row = x[:1]
+                pad = (row.expand((short,) + tuple(x.shape[1:])) if tensor
+                       else np.broadcast_to(row, (short,) + x.shape[1:]))
+            else:
+                pad = (x.new_zeros((short,) + tuple(x.shape[1:])) if tensor
+                       else np.zeros((short,) + x.shape[1:], x.dtype))
+            piece = (torch.cat([piece, pad]) if tensor
+                     else np.concatenate([piece, pad]))
+        out.append(piece)
+    return out
+
+
+def _split_rhs(b_batch, k: int, n: int) -> list:
+    """A right-hand-side batch in n shards: a 1-D right-hand side goes to
+    every shard, a (K, rows[, m]) batch is split and zero-padded; a
+    leading dimension that matches neither K nor 1 raises first."""
+    _check_rhs(b_batch, k)
+    if getattr(b_batch, "ndim", np.ndim(b_batch)) == 1:
+        return [b_batch] * n
+    if not isinstance(b_batch, torch.Tensor):
+        b_batch = np.asarray(b_batch)
+    return _split_rows(b_batch, n, "zeros")
+
+
+def _merge_info(infos: list, k: int) -> dict:
+    """The shards' infos of a split solve as one, cut back to K: per-system
+    arrays concatenated, the refinement count the largest."""
+    out = dict(infos[0])
+    for key, v in infos[0].items():
+        if isinstance(v, np.ndarray) and v.ndim >= 1:
+            out[key] = np.concatenate([i[key] for i in infos])[:k]
+    out["n_refine"] = max(int(i["n_refine"]) for i in infos)
+    if "n_fp64_fallback" in out:
+        out["n_fp64_fallback"] = int(np.asarray(out["fallback_mask"]).sum())
+        out["escalation"] = max((i["escalation"] for i in infos), key=len)
+    for key in ("solve_time", "fallback_time"):
+        if any(key in i for i in infos):
+            out[key] = sum(i.get(key, 0.0) for i in infos)
+    return out
 
 
 def _pattern_of(a_pattern) -> tuple:
@@ -131,8 +214,31 @@ def _stage_rhs(eng, b_batch, k: int, copy: bool = False) -> torch.Tensor:
 def factor_batched(an: Analysis, a_pattern, values_batch) -> BatchedFactorState:
     """K numeric factorizations (one pattern, K value sets) on the
     analysis' device.  ``values_batch`` is a host (K, nnz) array or a
-    tensor."""
-    eng = torch_repeated_engine(an)
+    tensor.  Under ``an.opts.mesh`` K is padded to a multiple of the shard
+    count (by system 0's values) and each shard is factored on its
+    device; a shard of a tensor on its device is read in place."""
+    mesh = resolve_mesh(an.opts)
+    if mesh is None:
+        return _factor_on(an, a_pattern, values_batch, None)
+    t0 = time.perf_counter()
+    if not isinstance(values_batch, torch.Tensor):
+        values_batch = np.atleast_2d(np.asarray(values_batch))
+    elif values_batch.ndim == 1:
+        values_batch = values_batch[None]
+    k = int(values_batch.shape[0])
+    parts = [_factor_on(an, a_pattern, piece, dev) for piece, dev
+             in zip(_split_rows(values_batch, len(mesh), "first"), mesh)]
+    return BatchedFactorState(
+        analysis=an, a_pattern=_pattern_of(a_pattern), values_dev=None,
+        vals=None, inode_perm=None,
+        n_perturb=np.concatenate([p.n_perturb for p in parts])[:k],
+        timings={"factor_batched": time.perf_counter() - t0}, k=k,
+        parts=parts)
+
+
+def _factor_on(an, a_pattern, values_batch, device) -> BatchedFactorState:
+    """One unsplit batch on ``device`` (None: ``an.opts.device``)."""
+    eng = torch_repeated_engine(an, device=device)
     t0 = time.perf_counter()
     values_dev, values_host, k = _stage_values(eng, values_batch)
     f = eng.refactor_batched(values_dev)
@@ -142,7 +248,7 @@ def factor_batched(an: Analysis, a_pattern, values_batch) -> BatchedFactorState:
         values_dev=values_dev, vals=f.vals, inode_perm=f.inode_perm,
         n_perturb=n_perturb,
         timings={"factor_batched": time.perf_counter() - t0}, k=k,
-        _values_host=values_host)
+        device=device, _values_host=values_host)
 
 
 def solve_batched(bst: BatchedFactorState, b_batch,
@@ -171,9 +277,20 @@ def solve_batched(bst: BatchedFactorState, b_batch,
         raise RuntimeError(
             "this BatchedFactorState was consumed by a donating solve; "
             "refactor (factor_batched) before solving again")
+    if bst.parts is not None:                  # a split of K: per shard
+        t0 = time.perf_counter()
+        outs = [solve_batched(p, piece, refine, donate) for p, piece
+                in zip(bst.parts, _split_rhs(b_batch, bst.k,
+                                             len(bst.parts)))]
+        if donate:
+            bst.consumed = True
+        info = _merge_info([o[1] for o in outs], bst.k)
+        info["n_perturb"] = bst.n_perturb
+        info["solve_time"] = time.perf_counter() - t0
+        return np.concatenate([o[0] for o in outs])[:bst.k], info
     an = bst.analysis
     opts = an.opts
-    eng = torch_repeated_engine(an)
+    eng = _engine(bst)
     t0 = time.perf_counter()
     max_iter = 0 if refine is False else opts.refine_max_iter
     fallback_armed = (
@@ -232,7 +349,7 @@ def _fp64_redo(bst: BatchedFactorState, b_dev: torch.Tensor, x: np.ndarray,
     failed_h = info["refine_failed"]
     sys_mask = failed_h if failed_h.ndim == 1 else failed_h.any(axis=1)
     idx = np.nonzero(sys_mask)[0]
-    eng64 = torch_repeated_engine(an, dtype="float64", refine_dtype="float64")
+    eng64 = _engine(bst, dtype="float64", refine_dtype="float64")
     sel = torch.from_numpy(idx).to(eng64.device)
     values = (bst.values_dev if bst.values_dev is not None
               else torch.from_numpy(bst.values_batch))   # donated: the host copy
@@ -266,9 +383,20 @@ def _solve_batched_hostloop(bst: BatchedFactorState, b_batch,
     masking and the same multi-RHS shapes.  Returns (x, info) with
     ``residual``, ``n_refine``, ``n_perturb``, ``refine_failed``,
     ``refine_stalled`` and ``solve_time``."""
+    if bst.parts is not None:                  # a split of K: per shard
+        t0 = time.perf_counter()
+        if isinstance(b_batch, torch.Tensor):
+            b_batch = b_batch.detach().cpu().numpy()
+        outs = [_solve_batched_hostloop(p, piece, refine) for p, piece
+                in zip(bst.parts, _split_rhs(b_batch, bst.k,
+                                             len(bst.parts)))]
+        info = _merge_info([o[1] for o in outs], bst.k)
+        info["n_perturb"] = bst.n_perturb
+        info["solve_time"] = time.perf_counter() - t0
+        return np.concatenate([o[0] for o in outs])[:bst.k], info
     an = bst.analysis
     opts = an.opts
-    eng = torch_repeated_engine(an)
+    eng = _engine(bst)
     t0 = time.perf_counter()
     # staged and accumulated in the engine's refine dtype, as the fused
     # path (the substitution runs in the factor dtype inside apply_batched)
@@ -282,8 +410,9 @@ def _solve_batched_hostloop(bst: BatchedFactorState, b_batch,
 
     def apply(r):
         rhs = torch.from_numpy(np.ascontiguousarray(r)).to(eng.device)
+        # widened on the device (numpy has no bfloat16)
         return eng.apply_batched(bst.vals, bst.inode_perm,
-                                 rhs).cpu().numpy().astype(rdt)
+                                 rhs).to(eng.refine_dtype).cpu().numpy()
 
     def residuals(x):
         r = b_batch - _batched_matvec(bst.a_pattern, bst.values_batch, x)
@@ -475,10 +604,26 @@ def _check_steps(values_steps, b_steps) -> list:
     return steps_v
 
 
+class _Shard:
+    """One shard of the pipeline: its device's engine and solver, its
+    staging buffers, its last factors and its per-step results."""
+
+    def __init__(self, an: Analysis, pattern, device, donate: bool):
+        self.eng = torch_repeated_engine(an, device=device)
+        self.solver = self.eng.refined_batched_solver(*pattern)
+        self.vstage = _Staging(self.eng.device, self.eng.values_dtype, donate)
+        self.bstage = _Staging(self.eng.device, self.eng.values_dtype, donate)
+        self.prev, self.outs, self.n_pert = None, [], []
+
+
 def _run_pipeline(an: Analysis, pattern, values_steps, b_steps) -> tuple:
     """The pipeline of :func:`_solve_sequence_pipelined` on an analysis of
     the pattern (``an.opts`` decides donation): ``chip_smoke.py`` runs
-    several streams on one analysis of fem2d_10k."""
+    several streams on one analysis of fem2d_10k.  Under ``an.opts.mesh``
+    each step's K is padded and split as :func:`factor_batched` splits it,
+    and every shard runs the pipeline on its device with its own staging
+    buffers (all shards' refactors of a step are queued, then the next
+    step's copies, then the solves)."""
     steps_v = _check_steps(values_steps, b_steps)
     n_steps = len(steps_v)
     per_step_b = isinstance(b_steps, (list, tuple))
@@ -487,51 +632,72 @@ def _run_pipeline(an: Analysis, pattern, values_steps, b_steps) -> tuple:
         return b_steps[t] if per_step_b else b_steps
 
     opts = an.opts
-    eng = torch_repeated_engine(an)
     donate = bool(opts.donate)
-    solver = eng.refined_batched_solver(*pattern)
+    shards = [_Shard(an, pattern, dev, donate)
+              for dev in (resolve_mesh(opts) or (None,))]
+    n_sh = len(shards)
     max_iter = opts.refine_max_iter
-    tol = resolve_refine_tol(opts, eng.refine_dtype)
-    vstage = _Staging(eng.device, eng.values_dtype, donate)
-    bstage = _Staging(eng.device, eng.values_dtype, donate)
+    tol = resolve_refine_tol(opts, shards[0].eng.refine_dtype)
 
     k = len(steps_v[0])                 # every step is (K, nnz)
 
     def stage(t):
+        """Queue step t's copies; per shard (values, right-hand sides)."""
         if len(steps_v[t]) != k:
             raise ValueError(f"step {t} has batch size {len(steps_v[t])}, "
                              f"step 0 had {k}")
-        _check_rhs(b_of(t), k)
-        return vstage.fill(t % 2, steps_v[t]), bstage.fill(t % 2, b_of(t))
+        v, b = steps_v[t], b_of(t)
+        if n_sh == 1:
+            _check_rhs(b, k)
+            vs, bs = [v], [b]
+        else:
+            vs = _split_rows(v if isinstance(v, torch.Tensor)
+                             else np.asarray(v), n_sh, "first")
+            bs = _split_rhs(b, k, n_sh)
+        return [(sh.vstage.fill(t % 2, v_), sh.bstage.fill(t % 2, b_))
+                for sh, v_, b_ in zip(shards, vs, bs)]
 
     t_all = time.perf_counter()
-    v_dev, b_dev = stage(0)
-    outs, n_pert, prev = [], [], None
+    cur = stage(0)
     for t in range(n_steps):
-        vstage.use(t % 2)
-        bstage.use(t % 2)
-        f = eng.refactor_batched(v_dev, out=prev if donate else None)
+        fs = []
+        for sh, (v_dev, _) in zip(shards, cur):
+            sh.vstage.use(t % 2)
+            sh.bstage.use(t % 2)
+            fs.append(sh.eng.refactor_batched(
+                v_dev, out=sh.prev if donate else None))
         nxt = stage(t + 1) if t + 1 < n_steps else None
-        b = b_dev if b_dev.ndim > 1 else b_dev.expand(k, b_dev.shape[0])
-        outs.append(solver(f.vals, f.inode_perm, v_dev, b, max_iter, tol))
-        vstage.release(t % 2)
-        bstage.release(t % 2)
-        n_pert.append(f.n_perturb)
-        prev = f
+        for sh, f, (v_dev, b_dev) in zip(shards, fs, cur):
+            ks = v_dev.shape[0]
+            b = b_dev if b_dev.ndim > 1 else b_dev.expand(ks, b_dev.shape[0])
+            sh.outs.append(sh.solver(f.vals, f.inode_perm, v_dev, b,
+                                     max_iter, tol))
+            sh.vstage.release(t % 2)
+            sh.bstage.release(t % 2)
+            sh.n_pert.append(f.n_perturb)
+            sh.prev = f
         if nxt is not None:
-            v_dev, b_dev = nxt
-    _sync(eng.device)
+            cur = nxt
+    for sh in shards:
+        _sync(sh.eng.device)
     t_all = time.perf_counter() - t_all
 
-    def stack(i):
-        return np.stack([o[i].cpu().numpy() for o in outs])
+    def stack(get):
+        """(T, K, ...) of one result over the steps, the shards gathered
+        and cut back to K."""
+        return np.stack([np.concatenate([get(sh, t).cpu().numpy()
+                                         for sh in shards])[:k]
+                         for t in range(n_steps)])
 
-    info = dict(residual=stack(1), n_refine=[int(o[2]) for o in outs],
-                n_refine_per_system=stack(3),
-                n_perturb=np.stack([p.cpu().numpy() for p in n_pert]),
-                refine_stalled=stack(4), refine_failed=stack(5),
+    info = dict(residual=stack(lambda sh, t: sh.outs[t][1]),
+                n_refine=[max(int(sh.outs[t][2]) for sh in shards)
+                          for t in range(n_steps)],
+                n_refine_per_system=stack(lambda sh, t: sh.outs[t][3]),
+                n_perturb=stack(lambda sh, t: sh.n_pert[t]),
+                refine_stalled=stack(lambda sh, t: sh.outs[t][4]),
+                refine_failed=stack(lambda sh, t: sh.outs[t][5]),
                 solve_time=t_all,
                 timings={"preprocess": an.timings, "pipeline": t_all},
                 mode=an.choice.mode, ordering=an.ordering_name,
                 engine="torch-batched", k=k, steps=n_steps, donate=donate)
-    return stack(0), info
+    return stack(lambda sh, t: sh.outs[t][0]), info

@@ -1,11 +1,18 @@
 """Solver options, device resolution, and pattern fingerprints.
 
 Adapted from ``src/repro/core/options.py``.  The option schema and the
-fingerprints are the same as the JAX package's, with three changes:
+fingerprints are the same as the JAX package's, with these changes:
 
-* ``mesh`` becomes ``device`` (default ``"cuda"``): every entry point runs
-  on the card unless the caller asks for ``"cpu"``, and a missing card
-  raises instead of falling back to the CPU (:func:`resolve_device`);
+* ``device`` (default ``"cuda"``) says where an entry point runs: on the
+  card unless the caller asks for ``"cpu"``, and a missing card raises
+  instead of falling back to the CPU (:func:`resolve_device`);
+* ``mesh`` splits the batched path's system batch K over devices, as the
+  JAX package shards it over a 1-D mesh: ``None`` (no split), an int N
+  (the first N CUDA devices, ``repro_torch.launch.mesh.make_solver_mesh``;
+  with ``device="cpu"`` N shards on the CPU) or a sequence of devices,
+  repeats allowed (``["cuda:0", "cuda:0"]`` splits K in two on one card,
+  as the JAX package's virtual CPU devices do) (:func:`resolve_mesh`).
+  As in the JAX package it is runtime-only: never in a fingerprint;
 * ``use_pallas`` becomes ``use_kernels`` (default ``True``) in the same
   position of ``PLAN_OPTION_FIELDS``, so ``plan_options_key`` and
   ``plan_fingerprint`` hash exactly as the JAX package's do with
@@ -14,8 +21,8 @@ fingerprints are the same as the JAX package's, with three changes:
 * ``engine`` is ``"torch"`` (the default) or ``"ref"``, and
   ``refine_dtype="auto"`` always means float64 (PyTorch has no x64 switch).
 
-Options this slice of the port does not run raise ``NotImplementedError``
-(:func:`check_supported`); ROADMAP.md lists them.
+An option the port does not run would raise ``NotImplementedError``
+(:func:`check_supported`); every option of the schema runs today.
 """
 from __future__ import annotations
 
@@ -29,10 +36,11 @@ import numpy as np
 class HyluOptions:
     """Solver options — every knob of the analyze/factor/solve pipeline.
     Field meanings are those of the JAX package (docs/API.md), apart from
-    ``device``/``use_kernels``/``engine`` (module docstring).  The serving
-    and plan-cache knobs (``deadline_ms``, ``retry_max``,
-    ``retry_perturb_boost``, ``cache_root``) are runtime-only, as in the
-    JAX package: they never enter a fingerprint."""
+    ``device``/``mesh``/``use_kernels``/``engine`` (module docstring).
+    The serving and plan-cache knobs (``deadline_ms``, ``retry_max``,
+    ``retry_perturb_boost``, ``cache_root``) and ``mesh`` are
+    runtime-only, as in the JAX package: they never enter a
+    fingerprint."""
     force_mode: str | None = None          # rowrow | hybrid | supernodal
     orderings: tuple = ("min_degree", "nested_dissection", "natural")
     relax: int = 8
@@ -43,7 +51,7 @@ class HyluOptions:
     refine_max_iter: int = 3
     refine_tol: float | None = None        # None → 1e-12 scaled by
                                            # eps(refine_dtype)/eps(f64)
-    factor_dtype: str = "float64"          # float64 | float32
+    factor_dtype: str = "float64"          # float64 | float32 | bfloat16
     refine_dtype: str = "auto"             # auto → float64
     fp64_fallback: bool = True
     deadline_ms: float | None = None       # async server: default
@@ -65,6 +73,8 @@ class HyluOptions:
     cache_root: str | None = None          # plan-cache root; None →
                                            # $HYLU_CACHE_ROOT or
                                            # <repo>/checkpoints
+    mesh: object = None                    # None | int | devices: the
+                                           # split of K (runtime only)
 
 
 # Options that change the analysis artifact or the engine built from it —
@@ -156,19 +166,50 @@ def resolve_device(device):
     return dev
 
 
-def check_supported(opts: HyluOptions, device) -> None:
-    """Raise ``NotImplementedError`` for options this slice of the port does
-    not run (see ROADMAP.md), instead of computing something else."""
-    def missing(what):
-        raise NotImplementedError(
-            f"{what} is not ported yet; see ROADMAP.md, Queue A")
+def resolve_mesh(opts: HyluOptions | None) -> tuple | None:
+    """``opts.mesh`` → the devices of the split of K, one per shard (a
+    tuple of torch devices, repeats allowed), or None for no split (the
+    counterpart of ``_resolve_mesh``, ``src/repro/core/options.py:
+    255–280``).  An int N takes the first N CUDA devices
+    (``make_solver_mesh``, which raises when fewer are visible), or N
+    shards on the CPU when ``opts.device`` is the CPU; a sequence names
+    its devices, each resolved by :func:`resolve_device`, all of one
+    type."""
+    import torch
 
+    opts = opts or HyluOptions()
+    mesh = opts.mesh
+    if mesh is None:
+        return None
+    if isinstance(mesh, (int, np.integer)) and not isinstance(mesh, bool):
+        n = int(mesh)
+        if torch.device(opts.device).type == "cpu":
+            if n < 1:
+                raise ValueError(f"mesh: need at least one shard, got {n}")
+            return (torch.device("cpu"),) * n
+        from ..launch.mesh import make_solver_mesh
+        return tuple(make_solver_mesh(n))
+    if not isinstance(mesh, (list, tuple)):
+        raise TypeError(f"mesh must be None, an int device count, or a "
+                        f"sequence of devices — got {type(mesh).__name__}")
+    devs = tuple(resolve_device(d) for d in mesh)
+    if not devs:
+        raise ValueError("mesh: an empty sequence of devices")
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"mesh: every shard on one device type, got "
+                         f"{[str(d) for d in devs]}")
+    return devs
+
+
+def check_supported(opts: HyluOptions, device) -> None:
+    """Raise for options the port does not run on ``device``, instead of
+    computing something else: the place where an option that is not
+    ported yet raises ``NotImplementedError`` (ROADMAP.md).  Every option
+    of the schema runs today, bfloat16 factors on the card among them, so
+    only an unknown engine raises (``ValueError``)."""
     if opts.engine not in ("torch", "ref"):
         raise ValueError(f"repro_torch runs engine='torch' or 'ref', got "
                          f"{opts.engine!r}")
-    if dtype_name(opts.factor_dtype) == "bfloat16" and \
-            getattr(device, "type", str(device)) == "cuda":
-        missing("factor_dtype='bfloat16' on CUDA")
 
 
 def plan_options_key(opts: HyluOptions | None) -> tuple:

@@ -38,6 +38,15 @@
 //   - float32 runs on FMA with a 4 x 8 register tile per thread; A and B
 //     are read from shared memory as float4, so one 16-byte load feeds 8
 //     or 16 FMAs.
+//   - bfloat16 (the Pallas kernel's bf16 operands with a float32 scratch
+//     accumulator, preferred_element_type, and one rounding at the store)
+//     runs on the bf16 tensor cores by mma.sync m16n8k16 with float32
+//     accumulators: each warp owns a 32 x 32 quarter, 2 x 4 MMAs per k16
+//     step, A's fragments read as 32-bit pairs from rows 72 elements
+//     apart, B's packed from two 16-bit loads; slabs 64 deep.  Two-byte
+//     rows that are not 16-byte aligned are staged by plain loads, which
+//     cp.async does not copy.  wgmma is later work.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -61,6 +70,11 @@ struct Cfg<double> {
 template <>
 struct Cfg<float> {
   static constexpr int BK = 32, LDA = 36, LDB = kBN + 4;
+};
+// bfloat16 rows 72 elements (144 B) apart
+template <>
+struct Cfg<__nv_bfloat16> {
+  static constexpr int BK = 64, LDA = 72, LDB = kBN + 8;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -90,6 +104,17 @@ __device__ __forceinline__ void cp_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
 }
 
+// BYTES of src to dst, or zeros when !ok: by cp.async, or, for a two-byte
+// element (which cp.async does not copy), by a plain load and store
+template <int BYTES, typename T>
+__device__ __forceinline__ void copy_or_zero(T* dst, const T* src, bool ok) {
+  if constexpr (BYTES == 2)
+    *reinterpret_cast<unsigned short*>(dst) =
+        ok ? *reinterpret_cast<const unsigned short*>(src) : 0;
+  else
+    cp_async<BYTES>(smem_u32(dst), src, ok ? BYTES : 0);
+}
+
 // Stage the k-slab starting at k0: A rows row0.. (kBM x BK) and B rows
 // k0.. (BK x kBN), V elements per copy.
 template <typename T, int V>
@@ -104,16 +129,16 @@ __device__ __forceinline__ void load_slab(T* As, T* Bs, const T* Ae,
     const int r = i / (BK / V), c = (i % (BK / V)) * V;
     const int gr = row0 + r, gc = k0 + c;
     const bool ok = gr < nr && gc < k;
-    cp_async<BYTES>(smem_u32(As + r * LDA + c),
-                    ok ? Ae + (long long)gr * k + gc : Ae, ok ? BYTES : 0);
+    copy_or_zero<BYTES>(As + r * LDA + c,
+                        ok ? Ae + (long long)gr * k + gc : Ae, ok);
   }
 #pragma unroll
   for (int i = tid; i < BK * kBN / V; i += kThreads) {
     const int r = i / (kBN / V), c = (i % (kBN / V)) * V;
     const int gr = k0 + r, gc = col0 + c;
     const bool ok = gr < k && gc < m;
-    cp_async<BYTES>(smem_u32(Bs + r * LDB + c),
-                    ok ? Be + (long long)gr * m + gc : Be, ok ? BYTES : 0);
+    copy_or_zero<BYTES>(Bs + r * LDB + c,
+                        ok ? Be + (long long)gr * m + gc : Be, ok);
   }
 }
 
@@ -190,6 +215,89 @@ __device__ __forceinline__ void slab_products(const float* As,
   }
 }
 
+// bfloat16: warp (wm, wn) owns rows wm*32.. and columns wn*32.. of the
+// tile as 2 x 4 tiles of 16 x 8; fragments of m16n8k16 (g = lane / 4,
+// t = lane % 4): A {row g | g + 8} x {k 2t, 2t + 1 | 2t + 8, 2t + 9}, B
+// {k 2t, 2t + 1 | 2t + 8, 2t + 9} x col g, C {row g | g + 8} x {col 2t,
+// 2t + 1}.  Tiles wholly past nr or m (ni 8-row blocks, nj 8-column ones
+// hold any of the product) are skipped.
+__device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16* lo,
+                                              const __nv_bfloat16* hi) {
+  return (uint32_t)*reinterpret_cast<const unsigned short*>(lo) |
+         ((uint32_t)*reinterpret_cast<const unsigned short*>(hi) << 16);
+}
+
+__device__ __forceinline__ void slab_products(const __nv_bfloat16* As,
+                                              const __nv_bfloat16* Bs,
+                                              float (&acc)[2][4][4], int tid,
+                                              int ni, int nj) {
+  constexpr int LDA = Cfg<__nv_bfloat16>::LDA, LDB = Cfg<__nv_bfloat16>::LDB;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < Cfg<__nv_bfloat16>::BK; kk += 16) {
+    uint32_t a[2][4], b[4][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const __nv_bfloat16* Ar = As + (wm * 32 + i * 16 + g) * LDA + kk + 2 * t;
+      a[i][0] = *reinterpret_cast<const uint32_t*>(Ar);
+      a[i][1] = *reinterpret_cast<const uint32_t*>(Ar + 8 * LDA);
+      a[i][2] = *reinterpret_cast<const uint32_t*>(Ar + 8);
+      a[i][3] = *reinterpret_cast<const uint32_t*>(Ar + 8 * LDA + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat16* Bc = Bs + (kk + 2 * t) * LDB + wn * 32 + j * 8 + g;
+      b[j][0] = pack_bf16(Bc, Bc + LDB);
+      b[j][1] = pack_bf16(Bc + 8 * LDB, Bc + 9 * LDB);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (2 * i < ni && j < nj)
+          asm volatile(
+              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+              "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+              "{%0, %1, %2, %3};\n"
+              : "+f"(acc[i][j][0]), "+f"(acc[i][j][1]), "+f"(acc[i][j][2]),
+                "+f"(acc[i][j][3])
+              : "r"(a[i][0]), "r"(a[i][1]), "r"(a[i][2]), "r"(a[i][3]),
+                "r"(b[j][0]), "r"(b[j][1]));
+  }
+}
+
+__device__ __forceinline__ void store_tile(__nv_bfloat16* Ce,
+                                           const float (&acc)[2][4][4],
+                                           int row0, int col0, int nr, int m,
+                                           int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int g = lane / 4, t = lane % 4;
+  const bool vec = m % 2 == 0;       // pairs start 4-byte aligned
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wm * 32 + i * 16 + g + 8 * h;
+      if (r >= nr) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = col0 + wn * 32 + j * 8 + 2 * t;
+        __nv_bfloat16* dst = Ce + (long long)r * m + c;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (vec && c < m) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (c < m) dst[0] = __float2bfloat16_rn(v0);
+          if (c + 1 < m) dst[1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+}
+
 __device__ __forceinline__ void store_tile(double* Ce, const double (&acc)[4][4][2],
                                            int row0, int col0, int nr, int m,
                                            int tid) {
@@ -247,6 +355,8 @@ template <>
 struct Acc<double> { using type = double[4][4][2]; };
 template <>
 struct Acc<float> { using type = float[4][8]; };
+template <>
+struct Acc<__nv_bfloat16> { using type = float[2][4][4]; };
 
 template <typename T>
 constexpr int smem_bytes() {
@@ -273,8 +383,8 @@ bmm_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const T* Be = B + e * k * m;
 
   typename Acc<T>::type acc = {};
-  // float64: the 8-row and 8-column blocks of this warp's 32 x 32 quarter
-  // that hold any of the product
+  // float64 and bfloat16: the 8-row and 8-column blocks of this warp's
+  // 32 x 32 quarter that hold any of the product
   const int wm = tid / 64, wn = (tid / 32) % 2;
   const int ni = min(4, max(0, (nr - row0 - 32 * wm + 7) / 8));
   const int nj = min(4, max(0, (m - col0 - 32 * wn + 7) / 8));
@@ -346,4 +456,9 @@ extern "C" int hylu_bmm_f64(const void* A, const void* B, void* C, int batch,
 extern "C" int hylu_bmm_f32(const void* A, const void* B, void* C, int batch,
                             int nr, int k, int m, void* stream) {
   return launch_bmm<float>(A, B, C, batch, nr, k, m, stream);
+}
+
+extern "C" int hylu_bmm_bf16(const void* A, const void* B, void* C, int batch,
+                             int nr, int k, int m, void* stream) {
+  return launch_bmm<__nv_bfloat16>(A, B, C, batch, nr, k, m, stream);
 }

@@ -71,10 +71,28 @@
 // latency.  A plain shared-memory tiled GEMM: a 64x64 tile of OUT per
 // block, 16x16 threads with a 4x4 register tile each, 16-deep slabs of A
 // and B staged through shared memory; it is not tuned.
+//
+// bfloat16 (hylu_gemm_update_bf16, hylu_node_edges[_wide]_bf16): values
+// stored in bfloat16, arithmetic in float32.  The GEMM update stages A and B
+// as float32, sums A @ B in float32 and rounds C - A @ B once at the store,
+// as the Pallas kernel's float32 scratch accumulator does.  The node step
+// rounds where its plain version (node_edges_plain) does: per column of an
+// edge the float32 sum of lts_j src[j, c] over the solved j is rounded to
+// bfloat16 and subtracted from the entry, the difference rounded; a solve
+// column then divides by its diagonal (the true float32 quotient, rounded),
+// as K3 does (csrc/trsm.cu).  The register sweep keeps that float32 sum per
+// column.  (A single rounding of C - A.B, as the GEMM update above, drifted
+// three bf16 ulps from the plain version over the 1,085 dependent edges of
+// fem2d_10k's largest node.)  cp.async copies no two-byte element, so an
+// edge's ring slot holds, per column, the aligned 4-byte word around its
+// source row 0 and diagonal entries, and the lane takes the half it
+// needs.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 #include "div_fast.cuh"
 
@@ -85,6 +103,25 @@ constexpr int kSlab = 16;
 constexpr int kThreadsDim = 16;
 constexpr int kPer = kTile / kThreadsDim;   // 4 outputs per thread per dim
 
+// The sum's type: the input type, float32 for bfloat16.
+template <typename T>
+struct AccOf { using type = T; };
+template <>
+struct AccOf<__nv_bfloat16> { using type = float; };
+
+__device__ __forceinline__ double to_acc(double v) { return v; }
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_acc(typename AccOf<T>::type v) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+
 // Strides are in elements; columns are unit-stride.  C and OUT may alias,
 // so neither is __restrict__.
 template <typename T>
@@ -94,8 +131,9 @@ gemm_update_kernel(const T* C, long long sc_b, long long sc_r,
                    const T* __restrict__ B, long long sb_b, long long sb_r,
                    T* OUT, long long so_b, long long so_r, int nr, int k,
                    int m, int tiles_r, int tiles_c) {
-  __shared__ T As[kSlab][kTile + 1];   // A slab, transposed: As[kk][row]
-  __shared__ T Bs[kSlab][kTile + 1];
+  using Acc = typename AccOf<T>::type;
+  __shared__ Acc As[kSlab][kTile + 1];   // A slab, transposed: As[kk][row]
+  __shared__ Acc Bs[kSlab][kTile + 1];
   const int per = tiles_r * tiles_c;
   const long long e = blockIdx.x / per;
   const int rem = blockIdx.x % per;
@@ -106,25 +144,25 @@ gemm_update_kernel(const T* C, long long sc_b, long long sc_r,
   const T* Ae = A + e * sa_b;
   const T* Be = B + e * sb_b;
 
-  T acc[kPer][kPer];
+  Acc acc[kPer][kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i)
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) acc[i][j] = T(0);
+    for (int j = 0; j < kPer; ++j) acc[i][j] = Acc(0);
 
   for (int k0 = 0; k0 < k; k0 += kSlab) {
     for (int t = tid; t < kTile * kSlab; t += kThreadsDim * kThreadsDim) {
       const int r = t / kSlab, kk = t % kSlab;      // A: along its rows' k
       const int ar = row0 + r, ac = k0 + kk;
-      As[kk][r] = (ar < nr && ac < k) ? Ae[ar * sa_r + ac] : T(0);
+      As[kk][r] = (ar < nr && ac < k) ? to_acc(Ae[ar * sa_r + ac]) : Acc(0);
       const int br = k0 + t / kTile, bc = col0 + t % kTile;   // B: along m
       Bs[t / kTile][t % kTile] =
-          (br < k && bc < m) ? Be[br * sb_r + bc] : T(0);
+          (br < k && bc < m) ? to_acc(Be[br * sb_r + bc]) : Acc(0);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kSlab; ++kk) {
-      T a[kPer], b[kPer];
+      Acc a[kPer], b[kPer];
 #pragma unroll
       for (int i = 0; i < kPer; ++i) a[i] = As[kk][ty + i * kThreadsDim];
 #pragma unroll
@@ -144,7 +182,8 @@ gemm_update_kernel(const T* C, long long sc_b, long long sc_r,
     for (int j = 0; j < kPer; ++j) {
       const int r = row0 + ty + i * kThreadsDim;
       const int c = col0 + tx + j * kThreadsDim;
-      if (r < nr && c < m) Oe[r * so_r + c] = Ce[r * sc_r + c] - acc[i][j];
+      if (r < nr && c < m)
+        Oe[r * so_r + c] = from_acc<T>(to_acc(Ce[r * sc_r + c]) - acc[i][j]);
     }
 }
 
@@ -402,6 +441,237 @@ __device__ __forceinline__ void edge_step(T* row, const T* vs,
   __syncwarp();               // the next edge reads what other lanes wrote
 }
 
+// ------------------------------------------------- node step, bfloat16
+__device__ __forceinline__ float bf2f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float bf_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float ldg_bf(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+// the 4-byte aligned word around a two-byte element, and the element's half
+// of that word once staged
+__device__ __forceinline__ const void* word_of(const void* p) {
+  return reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(p) &
+                                       ~uintptr_t(3));
+}
+__device__ __forceinline__ float staged_bf(unsigned w,
+                                           const __nv_bfloat16* p) {
+  const unsigned b = (reinterpret_cast<uintptr_t>(p) & 2) ? w >> 16
+                                                           : w & 0xffffu;
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)b));
+}
+
+// A ring slot of a bfloat16 edge: stage_edge's copies, each element as its
+// aligned word.
+__device__ __forceinline__ void stage_edge_bf16(const __nv_bfloat16* vs,
+                                                const long long* cm,
+                                                const EdgeDesc& d,
+                                                long long* col, unsigned* u0,
+                                                unsigned* dg, int lane) {
+  const __nv_bfloat16* src = vs + d.src;
+  const long long* cme = cm + d.cm;
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int c = lane + 32 * s;
+    const bool in = c < d.len, diag = c < d.k;
+    cp_async<8>(col + c, in ? cme + c : cm, in ? 8 : 0);
+    cp_async<4>(u0 + c, word_of(in ? src + c : vs), in ? 4 : 0);
+    cp_async<4>(dg + c, word_of(diag ? src + (long long)c * d.sw + c : vs),
+                diag ? 4 : 0);
+  }
+}
+
+// A column's entry x less the float32 sum a of its products, each rounded
+// to bfloat16
+__device__ __forceinline__ float less_sum(float x, float a) {
+  return bf_round(__fsub_rn(x, bf_round(a)));
+}
+
+// Unknown j of an edge's solve from its column's entry x, the sum a of the
+// products of the lts before it and its divisor dj; every lane computes and
+// lane jl's value is taken.
+__device__ __forceinline__ float lts_bf16(float x, float a, float dj,
+                                          int jl) {
+  return __shfl_sync(kFull, bf_round(__fdiv_rn(less_sum(x, a), dj)), jl);
+}
+
+// The WIDE instance's solve blocks past the first, bfloat16: wide_blocks
+// with per column the float32 sum of its products.
+__device__ __forceinline__ int wide_blocks_bf16(__nv_bfloat16* row,
+                                                const __nv_bfloat16* src,
+                                                const long long* cme,
+                                                const EdgeDesc& d,
+                                                __nv_bfloat16* lts_s,
+                                                int lane) {
+  const int k = d.k, len = d.len;
+  int b0 = kMaxK;
+  for (; b0 < k; b0 += kMaxK) {
+    int cc[kSlots];
+    float xv[kSlots], acc[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = b0 + lane + 32 * s;
+      cc[s] = c < len ? (int)__ldg(cme + c) : 0;
+      xv[s] = c < len ? bf2f(row[cc[s]]) : 0.f;
+      acc[s] = 0.f;
+    }
+#pragma unroll 4
+    for (int j = 0; j < b0; ++j) {          // the blocks before: a GEMV
+      const float l = bf2f(lts_s[j]);
+      const __nv_bfloat16* uj = src + (long long)j * d.sw;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int c = b0 + lane + 32 * s;
+        if (c < len) acc[s] = fmaf(l, ldg_bf(uj + c), acc[s]);
+      }
+    }
+    const int be = min(k, b0 + kMaxK);
+    for (int j = b0; j < be; ++j) {         // the block's own sweep
+      const int js = (j - b0) >> 5, jl = (j - b0) & 31;
+      float xo = xv[0], ao = acc[0];
+#pragma unroll
+      for (int s = 1; s < kSlots; ++s)
+        if (js == s) {
+          xo = xv[s];
+          ao = acc[s];
+        }
+      const __nv_bfloat16* uj = src + (long long)j * d.sw;
+      const float l = lts_bf16(xo, ao, ldg_bf(uj + j), jl);
+      if (lane == 0) lts_s[j] = __float2bfloat16_rn(l);
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int c = b0 + lane + 32 * s;
+        if (c == j)
+          xv[s] = l;
+        else if (c > j && c < len)
+          acc[s] = fmaf(l, ldg_bf(uj + c), acc[s]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = b0 + lane + 32 * s;
+      if (c < len)
+        row[cc[s]] = __float2bfloat16_rn(c < k ? xv[s]
+                                               : less_sum(xv[s], acc[s]));
+    }
+    __syncwarp();             // the block's lts and columns for every lane
+  }
+  return b0;
+}
+
+// edge_step in bfloat16: the same sweep, with the roundings above.
+template <bool WIDE>
+__device__ __forceinline__ void edge_step_bf16(__nv_bfloat16* row,
+                                               const __nv_bfloat16* vs,
+                                               const long long* cm,
+                                               const EdgeDesc& d,
+                                               const long long* col_s,
+                                               const unsigned* u0_s,
+                                               const unsigned* dg_s,
+                                               __nv_bfloat16* lts_s,
+                                               int lane) {
+  const int k = WIDE ? min(d.k, kMaxK) : d.k, len = d.len;
+  const __nv_bfloat16* src = vs + d.src;
+  int col[kSlots];
+  float xv[kSlots], acc[kSlots], u[kSlots], dg[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int c = lane + 32 * s;
+    col[s] = (int)col_s[c];
+    xv[s] = c < len ? bf2f(row[col[s]]) : 0.f;
+    acc[s] = 0.f;
+    u[s] = staged_bf(u0_s[c], src + c);
+    dg[s] = staged_bf(dg_s[c], src + (long long)c * d.sw + c);
+  }
+  for (int j = 0; j < k; ++j) {
+    float un[kSlots];                     // U's row j + 1, a step ahead
+    const __nv_bfloat16* next = src + (long long)(j + 1) * d.sw;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = lane + 32 * s;
+      un[s] = (j + 1 < k && c > j + 1 && c < len) ? ldg_bf(next + c) : 0.f;
+    }
+    const int js = j >> 5, jl = j & 31;
+    float xo = xv[0], ao = acc[0], dd = dg[0];
+#pragma unroll
+    for (int s = 1; s < kSlots; ++s)
+      if (js == s) {
+        xo = xv[s];
+        ao = acc[s];
+        dd = dg[s];
+      }
+    const float l = lts_bf16(xo, ao, dd, jl);
+    if (len > kMaxK && lane == 0) lts_s[j] = __float2bfloat16_rn(l);
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = lane + 32 * s;
+      if (c == j)
+        xv[s] = l;
+      else if (c > j && c < len)
+        acc[s] = fmaf(l, u[s], acc[s]);
+      u[s] = un[s];
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int c = lane + 32 * s;
+    if (c < len)
+      row[col[s]] = __float2bfloat16_rn(c < d.k ? xv[s]
+                                                : less_sum(xv[s], acc[s]));
+  }
+  if (len > kMaxK) {                      // the columns past 128
+    __syncwarp();
+    const long long* cme = cm + d.cm;
+    for (int c0 = WIDE ? wide_blocks_bf16(row, src, cme, d, lts_s, lane)
+                       : kMaxK;
+         c0 < len; c0 += kMaxK) {
+      int cc[kSlots];
+      float y[kSlots], a[kSlots];
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int c = c0 + lane + 32 * s;
+        cc[s] = c < len ? (int)__ldg(cme + c) : 0;
+        y[s] = c < len ? bf2f(row[cc[s]]) : 0.f;
+        a[s] = 0.f;
+      }
+#pragma unroll 4
+      for (int j = 0; j < d.k; ++j) {
+        const float l = bf2f(lts_s[j]);
+        const __nv_bfloat16* uj = src + (long long)j * d.sw;
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          const int c = c0 + lane + 32 * s;
+          if (c < len) a[s] = fmaf(l, ldg_bf(uj + c), a[s]);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+        if (c0 + lane + 32 * s < len)
+          row[cc[s]] = __float2bfloat16_rn(less_sum(y[s], a[s]));
+    }
+  }
+  __syncwarp();               // the next edge reads what other lanes wrote
+}
+
+// a ring slot's element type: the value's, or for bfloat16 its 4-byte word
+template <typename T>
+using Staged = std::conditional_t<sizeof(T) == 2, unsigned, T>;
+
+template <typename T>
+__device__ __forceinline__ void stage_slot(const T* vs, const long long* cm,
+                                           const EdgeDesc& d, long long* col,
+                                           Staged<T>* u0, Staged<T>* dg,
+                                           int lane) {
+  if constexpr (sizeof(T) == 2)
+    stage_edge_bf16(vs, cm, d, col, u0, dg, lane);
+  else
+    stage_edge<T>(vs, cm, d, col, u0, dg, lane);
+}
+
 // grid (nr, K), one warp a block: row blockIdx.x of the node's panel of
 // system blockIdx.y.  The edges [e0, e1) of the descriptor table go in
 // windows of kWindow: a window's descriptors are copied to shared memory,
@@ -421,7 +691,7 @@ node_edges_kernel(T* vals, long long ldv, long long off, int w, int lsize,
   T* lts_s = WIDE ? reinterpret_cast<T*>(smem_raw + lts_off) : lts_static;
   __shared__ long long desc_s[kWindow * kDescFields];
   __shared__ long long col_s[kRing][kMaxK];
-  __shared__ T u0_s[kRing][kMaxK], dg_s[kRing][kMaxK];
+  __shared__ Staged<T> u0_s[kRing][kMaxK], dg_s[kRing][kMaxK];
   const int lane = threadIdx.x;
   const long long sys = blockIdx.y;
   const T* vs = vals + sys * ldv;
@@ -439,27 +709,31 @@ node_edges_kernel(T* vals, long long ldv, long long off, int w, int lsize,
 #pragma unroll
     for (int x = 0; x < kRing - 1; ++x) {
       if (x < n)
-        stage_edge<T>(vs, cm, read_desc(desc_s + x * kDescFields), col_s[x],
-                      u0_s[x], dg_s[x], lane);
+        stage_slot(vs, cm, read_desc(desc_s + x * kDescFields), col_s[x],
+                   u0_s[x], dg_s[x], lane);
       cp_commit();
     }
     for (int i = 0; i < n; ++i) {
       const int x = i + kRing - 1, slot = x % kRing;
       if (x < n)                // into the slot edge i - 1 has finished with
-        stage_edge<T>(vs, cm, read_desc(desc_s + x * kDescFields),
-                      col_s[slot], u0_s[slot], dg_s[slot], lane);
+        stage_slot(vs, cm, read_desc(desc_s + x * kDescFields), col_s[slot],
+                   u0_s[slot], dg_s[slot], lane);
       cp_commit();
       cp_wait<kRing - 1>();     // edge i's stage has landed
       const int si = i % kRing;
-      edge_step<T, WIDE>(row, vs, cm, read_desc(desc_s + i * kDescFields),
-                         col_s[si], u0_s[si], dg_s[si], lts_s, lane);
+      if constexpr (sizeof(T) == 2)
+        edge_step_bf16<WIDE>(row, vs, cm, read_desc(desc_s + i * kDescFields),
+                             col_s[si], u0_s[si], dg_s[si], lts_s, lane);
+      else
+        edge_step<T, WIDE>(row, vs, cm, read_desc(desc_s + i * kDescFields),
+                           col_s[si], u0_s[si], dg_s[si], lts_s, lane);
     }
   }
   __syncwarp();
   if (perturb && lane == 0) {            // width 1: the pivot, row 0
-    const T d = row[lsize], ep = eps[sys];
+    const auto d = to_acc(row[lsize]), ep = to_acc(eps[sys]);
     if (fabs(d) < ep) {
-      row[lsize] = d >= T(0) ? ep : -ep;
+      row[lsize] = from_acc<T>(d >= 0 ? ep : -ep);
       atomicAdd(nper + sys, 1);
     }
   }
@@ -612,4 +886,39 @@ extern "C" int hylu_node_edges_wide_f32(void* vals, long long ldv,
   return launch_node_edges<float, true>(vals, ldv, off, nr, w, lsize, desc,
                                         cm, e0, e1, eps, nper, perturb, nsys,
                                         kmax, stream);
+}
+
+extern "C" int hylu_gemm_update_bf16(const void* C, long long sc_b,
+                                     long long sc_r, const void* A,
+                                     long long sa_b, long long sa_r,
+                                     const void* B, long long sb_b,
+                                     long long sb_r, void* OUT,
+                                     long long so_b, long long so_r,
+                                     int batch, int nr, int k, int m,
+                                     void* stream) {
+  return launch_gemm_update<__nv_bfloat16>(C, sc_b, sc_r, A, sa_b, sa_r, B,
+                                           sb_b, sb_r, OUT, so_b, so_r, batch,
+                                           nr, k, m, stream);
+}
+
+extern "C" int hylu_node_edges_bf16(void* vals, long long ldv, long long off,
+                                    int nr, int w, int lsize,
+                                    const void* desc, const void* cm, int e0,
+                                    int e1, const void* eps, void* nper,
+                                    int perturb, int nsys, void* stream) {
+  return launch_node_edges<__nv_bfloat16, false>(
+      vals, ldv, off, nr, w, lsize, desc, cm, e0, e1, eps, nper, perturb,
+      nsys, 0, stream);
+}
+
+extern "C" int hylu_node_edges_wide_bf16(void* vals, long long ldv,
+                                         long long off, int nr, int w,
+                                         int lsize, const void* desc,
+                                         const void* cm, int e0, int e1,
+                                         const void* eps, void* nper,
+                                         int perturb, int nsys, int kmax,
+                                         void* stream) {
+  return launch_node_edges<__nv_bfloat16, true>(
+      vals, ldv, off, nr, w, lsize, desc, cm, e0, e1, eps, nper, perturb,
+      nsys, kmax, stream);
 }

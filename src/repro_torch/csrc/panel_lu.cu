@@ -45,6 +45,17 @@
 // flag when one of those is not finite, and only then runs the masked
 // update of the whole panel (slow, and reached only by degenerate input).
 //
+// bfloat16 panels.  Both kernels are instantiated a third time, on bf16r:
+// bfloat16 storage whose every operation computes in float32 and rounds its
+// result to bfloat16 (round to nearest even), as PyTorch's bfloat16
+// elementwise operations do and as the plain version runs.  So each pivot
+// test compares bfloat16 magnitudes, each multiplier is a true float32
+// quotient rounded once (div_fast, then the rounding), and each entry of the
+// rank-1 update is a rounded product subtracted and rounded again: the
+// kernel computes the plain version's function bit for bit, and picks the
+// same pivots where bfloat16 magnitudes tie.  Two-byte elements have no
+// cp.async, so they are staged by plain loads.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -63,11 +74,101 @@ constexpr int kMaxRowsWide = 16384;  // panel_lu_kernel: 12 bytes a row in
 constexpr int kThreads = 256;
 constexpr size_t kMaxDynSmem = 220 * 1024;
 
+// bfloat16 with float32 arithmetic rounded after every operation
+struct bf16r {
+  unsigned short bits;
+  bf16r() = default;
+  __device__ __forceinline__ explicit bf16r(float f)
+      : bits(__bfloat16_as_ushort(__float2bfloat16_rn(f))) {}
+  __device__ __forceinline__ explicit bf16r(int i) : bf16r((float)i) {}
+  __device__ __forceinline__ explicit operator float() const {
+    return __bfloat162float(__ushort_as_bfloat16(bits));
+  }
+  __device__ __forceinline__ explicit operator double() const {
+    return (double)(float)*this;
+  }
+};
+
+__device__ __forceinline__ bf16r bf_bits(unsigned short b) {
+  bf16r r;
+  r.bits = b;
+  return r;
+}
+__device__ __forceinline__ bf16r operator-(bf16r a, bf16r b) {
+  return bf16r(__fsub_rn((float)a, (float)b));
+}
+__device__ __forceinline__ bf16r operator*(bf16r a, bf16r b) {
+  return bf16r(__fmul_rn((float)a, (float)b));
+}
+__device__ __forceinline__ bf16r operator/(bf16r a, bf16r b) {
+  return bf16r(__fdiv_rn((float)a, (float)b));
+}
+__device__ __forceinline__ bf16r operator-(bf16r a) {
+  return bf_bits(a.bits ^ 0x8000u);
+}
+__device__ __forceinline__ bf16r& operator-=(bf16r& a, bf16r b) {
+  return a = a - b;
+}
+__device__ __forceinline__ bool operator<(bf16r a, bf16r b) {
+  return (float)a < (float)b;
+}
+__device__ __forceinline__ bool operator>(bf16r a, bf16r b) {
+  return (float)a > (float)b;
+}
+__device__ __forceinline__ bool operator>=(bf16r a, bf16r b) {
+  return (float)a >= (float)b;
+}
+__device__ __forceinline__ bool operator==(bf16r a, bf16r b) {
+  return (float)a == (float)b;
+}
+__device__ __forceinline__ bool operator!=(bf16r a, bf16r b) {
+  return (float)a != (float)b;
+}
+
+// the float32 quotient (correctly rounded, as div_fast gives it) rounded
+// to bfloat16
+__device__ __forceinline__ bf16r div_fast(bf16r a, bf16r b, double rb,
+                                          bool& ok) {
+  return bf16r(div_fast((float)a, (float)b, rb, ok));
+}
+
 template <typename T>
 __device__ __forceinline__ bool is_nan(T v) { return v != v; }
 
 __device__ __forceinline__ double abs_val(double v) { return fabs(v); }
 __device__ __forceinline__ float abs_val(float v) { return fabsf(v); }
+__device__ __forceinline__ bf16r abs_val(bf16r v) {
+  return bf_bits(v.bits & 0x7fffu);
+}
+
+template <typename T>
+__device__ __forceinline__ bool is_fin(T v) { return isfinite(v); }
+__device__ __forceinline__ bool is_fin(bf16r v) {
+  return (v.bits & 0x7f80u) != 0x7f80u;
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_val(T v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+__device__ __forceinline__ bf16r shfl_val(bf16r v, int src) {
+  return bf_bits((unsigned short)__shfl_sync(0xffffffffu, (unsigned)v.bits,
+                                             src));
+}
+template <typename T>
+__device__ __forceinline__ T shfl_down_val(T v, int off) {
+  return __shfl_down_sync(0xffffffffu, v, off);
+}
+__device__ __forceinline__ bf16r shfl_down_val(bf16r v, int off) {
+  return bf_bits((unsigned short)__shfl_down_sync(0xffffffffu,
+                                                  (unsigned)v.bits, off));
+}
+
+template <typename T>
+__device__ __forceinline__ T ldg_val(const T* p) { return __ldg(p); }
+__device__ __forceinline__ bf16r ldg_val(const bf16r* p) {
+  return bf_bits(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
 
 // jnp.argmax order: NaN is the largest value; ties go to the lower index.
 template <typename T>
@@ -148,7 +249,7 @@ panel_lu_kernel(const T* __restrict__ in, long long sb, T* __restrict__ out,
         if (bi == nr || pivot_better(v, i, best, bi)) { best = v; bi = i; }
       }
       for (int off = 16; off > 0; off >>= 1) {
-        const T ov = __shfl_down_sync(0xffffffffu, best, off);
+        const T ov = shfl_down_val(best, off);
         const int oi = __shfl_down_sync(0xffffffffu, bi, off);
         if (oi < nr && (bi == nr || pivot_better(ov, oi, best, bi))) {
           best = ov;
@@ -196,10 +297,10 @@ panel_lu_kernel(const T* __restrict__ in, long long sb, T* __restrict__ out,
       T q = div_fast(a, piv, rpiv, ok);
       if (!ok) q = true_div(a, piv);
       lcol[i] = q;
-      bad |= !isfinite(q);
+      bad |= !is_fin(q);
     }
     for (int c = pc + 1 + tid; c < wlim; c += blockDim.x)
-      bad |= !isfinite(rj[c]);
+      bad |= !is_fin(rj[c]);
     if (!__syncthreads_or(bad)) {
       // (4) rank-1 update: one warp per row, lanes along the columns
       for (int i = j + 1 + warp; i < nr; i += nwarps) {
@@ -369,6 +470,9 @@ template <> __device__ __forceinline__ double nan_val<double>() {
 template <> __device__ __forceinline__ float nan_val<float>() {
   return CUDART_NAN_F;
 }
+template <> __device__ __forceinline__ bf16r nan_val<bf16r>() {
+  return bf_bits(0x7fc0u);
+}
 
 // jnp.argmax order on (|value|, logical row) as integer keys: the bits of
 // |v| order like |v| (every NaN mapped to one NaN, above inf), plus one so
@@ -381,6 +485,11 @@ __device__ __forceinline__ unsigned long long mag_key(double v) {
 __device__ __forceinline__ unsigned long long mag_key(float v) {
   unsigned b = __float_as_uint(v) & 0x7fffffffu;
   if (b > 0x7f800000u) b = 0x7fc00000u;
+  return b + 1;
+}
+__device__ __forceinline__ unsigned long long mag_key(bf16r v) {
+  unsigned b = v.bits & 0x7fffu;
+  if (b > 0x7f80u) b = 0x7fc0u;
   return b + 1;
 }
 
@@ -403,7 +512,7 @@ __device__ __forceinline__ void warp_argmax(T& v, int& p, int& r,
   }
   const int pm = __reduce_min_sync(kFull, tie ? p : 0x7fffffff);
   const int src = __ffs(__ballot_sync(kFull, tie && p == pm)) - 1;
-  v = __shfl_sync(kFull, v, src < 0 ? 0 : src);
+  v = shfl_val(v, src < 0 ? 0 : src);
   r = __shfl_sync(kFull, r, src < 0 ? 0 : src);
   p = src < 0 ? -1 : pm;
 }
@@ -427,6 +536,16 @@ __device__ __forceinline__ void cp_async_ca(void* s, const void* g) {
   const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(sa),
                "l"(g), "n"(N));
+}
+
+// one element of g to s: by cp.async (4 and 8 bytes), by a plain load
+// and store for a two-byte element, which cp.async does not copy
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* s, const T* g) {
+  if constexpr (sizeof(T) == 2)
+    *s = *g;
+  else
+    cp_async_ca<sizeof(T)>(s, g);
 }
 
 __host__ __device__ inline size_t align16(size_t x) {
@@ -490,11 +609,11 @@ __device__ __forceinline__ void stage_run(T* s, const T* g, int n, int lane) {
     head = min(n, (int)(((16u - ga) & 15u) / sizeof(T)));
     nv = (n - head) / V;
   }
-  for (int c = lane; c < head; c += 32) cp_async_ca<sizeof(T)>(s + c, g + c);
+  for (int c = lane; c < head; c += 32) cp_async_elem(s + c, g + c);
   for (int q = lane; q < nv; q += 32)
     cp_async16(s + head + q * V, g + head + q * V);
   for (int c = head + nv * V + lane; c < n; c += 32)
-    cp_async_ca<sizeof(T)>(s + c, g + c);
+    cp_async_elem(s + c, g + c);
 }
 
 // One launch's panels.  Uniform panels (K2's node panels, K1's contiguous
@@ -640,7 +759,7 @@ panel_lu_window_kernel(const Args<T> a) {
       const T* gr = src + (long long)i * ld + psrc + col_lo;
       T* sr = S + i * nst;
       for (int c = lane; c < nst; c += 32)
-        cp_async_ca<sizeof(T)>(sr + c, gr + c);
+        cp_async_elem(sr + c, gr + c);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -657,7 +776,7 @@ panel_lu_window_kernel(const Args<T> a) {
   // and subtracts zeros (at most a zero's sign changes, in rows that are
   // never written).  The loop stops before them then.
   bool clean = true;
-  const bool inert = BUCKET && isfinite(oval) && oval != T(0) &&
+  const bool inert = BUCKET && is_fin(oval) && oval != T(0) &&
                      !(abs_val(oval) < e) && zval == T(0);
   if constexpr (NWS > NWF) {                   // the window from all warps
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
@@ -715,7 +834,7 @@ panel_lu_window_kernel(const Args<T> a) {
         ++nper;
       }
       if constexpr (BUCKET)
-        clean = clean && isfinite(piv) && piv != T(0) && prow < nreal;
+        clean = clean && is_fin(piv) && piv != T(0) && prow < nreal;
       const bool act = has && myrow != prow && (pos == j ? lp : pos) > j;
       if (has) {                               // swap positions j and lp
         if (myrow == prow) {
@@ -730,7 +849,7 @@ panel_lu_window_kernel(const Args<T> a) {
         T* R = W + myrow * ldw;
         l = R[j] / piv;
         R[j] = l;
-        if (!isfinite(l)) {                    // 0 inf: the row turns NaN
+        if (!is_fin(l)) {                    // 0 inf: the row turns NaN
           for (int c = 0; c < j; ++c) R[c] = qnan;
           poison[myrow] = 1;
         }
@@ -746,9 +865,9 @@ panel_lu_window_kernel(const Args<T> a) {
         if (j < nreal) {
 #pragma unroll
           for (int m = 0; m < kRowRegs; ++m)
-            if (j + 1 + lane + 32 * m < ww) clean = clean && isfinite(urow[m]);
+            if (j + 1 + lane + 32 * m < ww) clean = clean && is_fin(urow[m]);
           for (int c = j + 1 + lane + 32 * kRowRegs; c < ww; c += 32)
-            clean = clean && isfinite(U[c]);
+            clean = clean && is_fin(U[c]);
         }
       }
       // the rank-1 update of the warp's active rows, kRows at a time, from
@@ -765,12 +884,12 @@ panel_lu_window_kernel(const Args<T> a) {
 #pragma unroll
         for (int q = 0; q < kRows; ++q) {
           if constexpr (NWF == 1) {            // nr <= kRows: row q, lane q
-            lq[q] = __shfl_sync(kFull, l, q);
+            lq[q] = shfl_val(l, q);
             R[q] = (todo >> q) & 1 ? W + q * ldw : spare;
           } else {
             const bool okq = t0 + q < n_act;
             const int k = alist[warp * 32 + (okq ? t0 + q : 0)];
-            lq[q] = __shfl_sync(kFull, l, k);
+            lq[q] = shfl_val(l, k);
             R[q] = okq ? W + (warp + k * NWF) * ldw : spare;
           }
         }
@@ -831,7 +950,7 @@ panel_lu_window_kernel(const Args<T> a) {
 #pragma unroll
         for (int u = 0; u < kPrefixRegs; ++u) {
           const int cc = c + 32 * u;
-          v[u] = (cc < col_hi && !pois) ? __ldg(grow + cc) : qnan;
+          v[u] = (cc < col_hi && !pois) ? ldg_val(grow + cc) : qnan;
         }
 #pragma unroll
         for (int u = 0; u < kPrefixRegs; ++u) {
@@ -867,13 +986,13 @@ panel_lu_window_kernel(const Args<T> a) {
   // when the window holds a non-finite value at all)
   bool any_nf = false;
   for (int i = warp; i < nr; i += NWB)
-    for (int c = lane; c < ww; c += 32) any_nf |= !isfinite(W[i * ldw + c]);
+    for (int c = lane; c < ww; c += 32) any_nf |= !is_fin(W[i * ldw + c]);
   if (__syncthreads_or(any_nf)) {
     for (int c = tid; c < ww; c += NTB) {
       const int lim = c < nr ? c : nr;
       bool nf = false;
       for (int i = 0; i < lim; ++i)
-        nf |= !isfinite(W[rowmap[i] * ldw + c]);
+        nf |= !is_fin(W[rowmap[i] * ldw + c]);
       if (nf)
         for (int i = 0; i < lim; ++i) W[rowmap[i] * ldw + c] = qnan;
     }
@@ -1116,6 +1235,14 @@ extern "C" int hylu_panel_lu_f32(const void* in, long long sb, void* out,
                                 wt, c0, wlim, stream);
 }
 
+extern "C" int hylu_panel_lu_bf16(const void* in, long long sb, void* out,
+                                  void* perm, void* nper, const void* eps,
+                                  int npanels, int nr, int wt, int c0,
+                                  int wlim, void* stream) {
+  return launch_panel_lu<bf16r>(in, sb, out, perm, nper, eps, npanels, nr,
+                                wt, c0, wlim, stream);
+}
+
 extern "C" const char* hylu_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -1127,7 +1254,9 @@ extern "C" long long hylu_panel_lu_scratch(int nr, int ww, int np,
                                            int inplace, int elem_bytes) {
   return elem_bytes == 8
              ? node::scratch_elems<double>(nr, ww, np, inplace != 0)
-             : node::scratch_elems<float>(nr, ww, np, inplace != 0);
+         : elem_bytes == 4
+             ? node::scratch_elems<float>(nr, ww, np, inplace != 0)
+             : node::scratch_elems<bf16r>(nr, ww, np, inplace != 0);
 }
 
 // K2.  in: npanels panels of nr x w (rows dense, panel b at in + b * sb);
@@ -1150,6 +1279,15 @@ extern "C" int hylu_node_panel_lu_f32(const void* in, long long sb, void* out,
                                   npanels, nr, w, c0, stream);
 }
 
+extern "C" int hylu_node_panel_lu_bf16(const void* in, long long sb,
+                                       void* out, void* perm, void* nper,
+                                       const void* eps, void* scratch,
+                                       int npanels, int nr, int w, int c0,
+                                       void* stream) {
+  return node::launch_node<bf16r>(in, sb, out, perm, nper, eps, scratch,
+                                  npanels, nr, w, c0, stream);
+}
+
 // K1 on contiguous panels.  in, out: (npanels, nr, wt) [window (wu) |
 // prefix]; perm (npanels, nr), nper (npanels,) int32; eps (npanels,);
 // scratch: npanels times hylu_panel_lu_scratch(nr, wu, wt - wu, 0).
@@ -1168,6 +1306,15 @@ extern "C" int hylu_panel_lu_batched_f32(const void* in, void* out,
                                          int npanels, int nr, int wt, int wu,
                                          void* stream) {
   return node::launch_batched<float>(in, out, perm, nper, eps, scratch,
+                                     npanels, nr, wt, wu, stream);
+}
+
+extern "C" int hylu_panel_lu_batched_bf16(const void* in, void* out,
+                                          void* perm, void* nper,
+                                          const void* eps, void* scratch,
+                                          int npanels, int nr, int wt, int wu,
+                                          void* stream) {
+  return node::launch_batched<bf16r>(in, out, perm, nper, eps, scratch,
                                      npanels, nr, wt, wu, stream);
 }
 
@@ -1195,6 +1342,17 @@ extern "C" int hylu_bucket_panel_lu_f32(void* vals, long long ldv,
                                         int nrp, int wu, int lsp, int zero,
                                         int one, void* stream) {
   return node::launch_bucket<float>(vals, ldv, desc, perm, nper, eps,
+                                    scratch, nsys, bper, nrp, wu, lsp, zero,
+                                    one, stream);
+}
+
+extern "C" int hylu_bucket_panel_lu_bf16(void* vals, long long ldv,
+                                         const void* desc, void* perm,
+                                         void* nper, const void* eps,
+                                         void* scratch, int nsys, int bper,
+                                         int nrp, int wu, int lsp, int zero,
+                                         int one, void* stream) {
+  return node::launch_bucket<bf16r>(vals, ldv, desc, perm, nper, eps,
                                     scratch, nsys, bper, nrp, wu, lsp, zero,
                                     one, stream);
 }

@@ -59,6 +59,21 @@
 // publishes the 32 values, and after one barrier every warp with rows
 // still to update applies the block's columns to its own rows: k / 32 + 1
 // barriers per sweep (5 at k = 128).
+//
+// bfloat16 (hylu_trsm_*_bf16).  The plain version's arithmetic in bfloat16
+// (trisolve/ref.py, as PyTorch runs it): per unknown j the dot of the
+// solved unknowns with their coefficients is summed in float32 and rounded
+// to bfloat16 once, the difference from the right-hand side is rounded, and
+// so is the division by the diagonal (none for a unit diagonal); nothing is
+// upcast past that.  A separate, simple kernel: one warp solves one vector
+// of k <= 128 unknowns, lane l owning unknowns l + 32 s, right-looking: the
+// owner of unknown j computes it, __shfl_sync broadcasts it, and every lane
+// adds its products to the float32 dots of its own unknowns still to solve,
+// reading the triangle (staged once per block in shared memory, as
+// bfloat16) along a row (right solve) or a column (left solves).  Its chain
+// is k steps of a shuffle and a few operations; the right solve's block
+// stages U once for 32 rows of X, four warps taking eight rows each.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -582,7 +597,189 @@ int launch_left(const void* blk, const void* B, void* W, int batch, int k,
                 : launch_left_mc<T, UPPER, 4>(a, b, w, batch, k, m, st);
 }
 
+// ------------------------------------------------------------- bfloat16
+__device__ __forceinline__ float bf_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// One solve of k <= 128 unknowns by one warp: x holds lane l's entries
+// l + 32 s of the right-hand side and comes back holding the solution.
+// Unknowns go in ascending order (descending for UP); coef(i, j) is the
+// coefficient of unknown j in the equation of unknown i, diag(j) the
+// divisor of unknown j (read only with DIV).
+template <bool UP, bool DIV, typename Coef, typename Diag>
+__device__ __forceinline__ void solve_vec_bf16(float (&x)[kMaxK / 32], int k,
+                                               int lane, Coef coef,
+                                               Diag diag) {
+  constexpr int NS = kMaxK / 32;
+  float acc[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) acc[s] = 0.f;
+  for (int step = 0; step < k; ++step) {
+    const int j = UP ? k - 1 - step : step;
+    const int js = j >> 5, jl = j & 31;
+    float xo = x[0], ao = acc[0];
+#pragma unroll
+    for (int s = 1; s < NS; ++s)
+      if (js == s) {
+        xo = x[s];
+        ao = acc[s];
+      }
+    // every lane computes; lane jl's value is unknown j's
+    float v = bf_round(__fsub_rn(xo, bf_round(ao)));
+    if (DIV) v = bf_round(__fdiv_rn(v, diag(j)));
+    v = __shfl_sync(0xffffffffu, v, jl);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int i = lane + 32 * s;
+      if (i == j)
+        x[s] = v;
+      else if (UP ? i < j : (i > j && i < k))
+        acc[s] = fmaf(v, coef(i, j), acc[s]);
+    }
+  }
+}
+
+// Y U = X: one block per (batch member, 32 rows of X), U's upper triangle
+// staged with rows k + 1 apart.
+__global__ void __launch_bounds__(kThreads)
+trsm_right_bf16_kernel(const __nv_bfloat16* __restrict__ U, long long su_b,
+                       long long su_r, const __nv_bfloat16* __restrict__ X,
+                       __nv_bfloat16* __restrict__ Y, int nr, int k,
+                       int unit_diag, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int ld = k + 1;
+  const long long e = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x % tiles) * kRows;
+  const int rows = min(kRows, nr - r0);
+  const __nv_bfloat16* Ue = U + e * su_b;
+  for (int i = threadIdx.x; i < k * k; i += blockDim.x) {
+    const int r = i / k, c = i % k;
+    if (c >= r) Us[r * ld + c] = Ue[r * su_r + c];
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto coef = [&](int i, int j) { return __bfloat162float(Us[j * ld + i]); };
+  auto diag = [&](int j) { return __bfloat162float(Us[j * ld + j]); };
+  for (int r = warp; r < rows; r += kThreads / 32) {
+    const long long row = (e * nr + r0 + r) * (long long)k;
+    float x[kMaxK / 32];
+#pragma unroll
+    for (int s = 0; s < kMaxK / 32; ++s) {
+      const int c = lane + 32 * s;
+      x[s] = c < k ? __bfloat162float(X[row + c]) : 0.f;
+    }
+    if (unit_diag)
+      solve_vec_bf16<false, false>(x, k, lane, coef, diag);
+    else
+      solve_vec_bf16<false, true>(x, k, lane, coef, diag);
+#pragma unroll
+    for (int s = 0; s < kMaxK / 32; ++s) {
+      const int c = lane + 32 * s;
+      if (c < k) Y[row + c] = __float2bfloat16_rn(x[s]);
+    }
+  }
+}
+
+// L w = b (unit lower) or U w = b (UPPER): one block per (batch member, 4
+// right-hand-side columns), a warp a column; the triangle that is read
+// staged with rows k + 1 apart.
+template <bool UPPER>
+__global__ void __launch_bounds__(kThreads)
+trsm_left_bf16_kernel(const __nv_bfloat16* __restrict__ blk,
+                      const __nv_bfloat16* __restrict__ B,
+                      __nv_bfloat16* __restrict__ W, int k, int m,
+                      int tiles) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int ld = k + 1;
+  const long long e = blockIdx.x / tiles;
+  const __nv_bfloat16* Ae = blk + e * k * k;
+  for (int i = threadIdx.x; i < k * k; i += blockDim.x) {
+    const int r = i / k, c = i % k;
+    if (UPPER ? c >= r : c < r) As[r * ld + c] = Ae[i];
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = (blockIdx.x % tiles) * 4 + warp;
+  if (col >= m) return;
+  const long long base = e * k * m + col;
+  float x[kMaxK / 32];
+#pragma unroll
+  for (int s = 0; s < kMaxK / 32; ++s) {
+    const int i = lane + 32 * s;
+    x[s] = i < k ? __bfloat162float(B[base + (long long)i * m]) : 0.f;
+  }
+  auto coef = [&](int i, int j) { return __bfloat162float(As[i * ld + j]); };
+  auto diag = [&](int j) { return __bfloat162float(As[j * ld + j]); };
+  if (UPPER)
+    solve_vec_bf16<true, true>(x, k, lane, coef, diag);
+  else
+    solve_vec_bf16<false, false>(x, k, lane, coef, diag);
+#pragma unroll
+  for (int s = 0; s < kMaxK / 32; ++s) {
+    const int i = lane + 32 * s;
+    if (i < k) W[base + (long long)i * m] = __float2bfloat16_rn(x[s]);
+  }
+}
+
+int launch_right_bf16(const void* U, const void* X, void* Y, int batch,
+                      int nr, int k, int unit_diag, long long su_b,
+                      long long su_r, void* stream) {
+  if (batch < 1 || nr < 1 || k < 1 || k > kMaxK || su_r < k)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (nr + kRows - 1) / kRows;
+  if ((long long)batch * tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)k * (k + 1) * sizeof(__nv_bfloat16);
+  trsm_right_bf16_kernel<<<(unsigned)(batch * tiles), kThreads, smem,
+                           (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(U), su_b, su_r,
+      static_cast<const __nv_bfloat16*>(X), static_cast<__nv_bfloat16*>(Y),
+      nr, k, unit_diag, (int)tiles);
+  return (int)cudaGetLastError();
+}
+
+template <bool UPPER>
+int launch_left_bf16(const void* blk, const void* B, void* W, int batch,
+                     int k, int m, void* stream) {
+  if (batch < 1 || m < 1 || k < 1 || k > kMaxK)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (m + 3) / 4;
+  if ((long long)batch * tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)k * (k + 1) * sizeof(__nv_bfloat16);
+  const int threads = 32 * (m < 4 ? m : 4);     // a warp a column
+  trsm_left_bf16_kernel<UPPER><<<(unsigned)(batch * tiles), threads, smem,
+                                 (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(blk),
+      static_cast<const __nv_bfloat16*>(B), static_cast<__nv_bfloat16*>(W),
+      k, m, (int)tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int hylu_trsm_right_bf16(const void* U, const void* X, void* Y,
+                                    int batch, int nr, int k, int unit_diag,
+                                    long long su_b, long long su_r,
+                                    void* stream) {
+  return launch_right_bf16(U, X, Y, batch, nr, k, unit_diag, su_b, su_r,
+                           stream);
+}
+
+extern "C" int hylu_trsm_left_unit_lower_bf16(const void* blk, const void* B,
+                                              void* W, int batch, int k,
+                                              int m, void* stream) {
+  return launch_left_bf16<false>(blk, B, W, batch, k, m, stream);
+}
+
+extern "C" int hylu_trsm_left_upper_bf16(const void* blk, const void* B,
+                                         void* W, int batch, int k, int m,
+                                         void* stream) {
+  return launch_left_bf16<true>(blk, B, W, batch, k, m, stream);
+}
 
 extern "C" int hylu_trsm_right_f64(const void* U, const void* X, void* Y,
                                    int batch, int nr, int k, int unit_diag,

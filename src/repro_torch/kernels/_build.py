@@ -51,18 +51,22 @@ _SUPROW = [_P, _P, _P, _P, _I, _I, _I, _P]
 _SUPROW_GROUPED = [_P, _I, _I, _I, _I, _P]
 _FLASH = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, *[_L] * 9, _P]
 _WKV = [_P] * 7 + [_I] * 4 + [_L] * 8 + [_P]
+# K1-K5 in float64, float32 and bfloat16; K6 and K8 in float64 / float32
+# or float32; K7 in float32 and bfloat16
+_FACTOR_DTYPES = ("f64", "f32", "bf16")
 SIGNATURES = {
-    **{f"hylu_panel_lu_{s}": _PANEL for s in ("f64", "f32")},
-    **{f"hylu_node_panel_lu_{s}": _NODE_PANEL for s in ("f64", "f32")},
-    **{f"hylu_panel_lu_batched_{s}": _BATCHED_PANEL for s in ("f64", "f32")},
-    **{f"hylu_bucket_panel_lu_{s}": _BUCKET_PANEL for s in ("f64", "f32")},
-    **{f"hylu_trsm_right_{s}": _RIGHT for s in ("f64", "f32")},
-    **{f"hylu_trsm_left_unit_lower_{s}": _LEFT for s in ("f64", "f32")},
-    **{f"hylu_trsm_left_upper_{s}": _LEFT for s in ("f64", "f32")},
-    **{f"hylu_bmm_{s}": _BMM for s in ("f64", "f32")},
-    **{f"hylu_gemm_update_{s}": _GEMM_UPDATE for s in ("f64", "f32")},
-    **{f"hylu_node_edges_{s}": _NODE_EDGES for s in ("f64", "f32")},
-    **{f"hylu_node_edges_wide_{s}": _NODE_EDGES_WIDE for s in ("f64", "f32")},
+    **{f"hylu_panel_lu_{s}": _PANEL for s in _FACTOR_DTYPES},
+    **{f"hylu_node_panel_lu_{s}": _NODE_PANEL for s in _FACTOR_DTYPES},
+    **{f"hylu_panel_lu_batched_{s}": _BATCHED_PANEL for s in _FACTOR_DTYPES},
+    **{f"hylu_bucket_panel_lu_{s}": _BUCKET_PANEL for s in _FACTOR_DTYPES},
+    **{f"hylu_trsm_right_{s}": _RIGHT for s in _FACTOR_DTYPES},
+    **{f"hylu_trsm_left_unit_lower_{s}": _LEFT for s in _FACTOR_DTYPES},
+    **{f"hylu_trsm_left_upper_{s}": _LEFT for s in _FACTOR_DTYPES},
+    **{f"hylu_bmm_{s}": _BMM for s in _FACTOR_DTYPES},
+    **{f"hylu_gemm_update_{s}": _GEMM_UPDATE for s in _FACTOR_DTYPES},
+    **{f"hylu_node_edges_{s}": _NODE_EDGES for s in _FACTOR_DTYPES},
+    **{f"hylu_node_edges_wide_{s}": _NODE_EDGES_WIDE
+       for s in _FACTOR_DTYPES},
     **{f"hylu_suprow_{s}": _SUPROW for s in ("f64", "f32")},
     **{f"hylu_suprow_grouped_{s}": _SUPROW_GROUPED for s in ("f64", "f32")},
     **{f"hylu_flash_attn_{s}": _FLASH for s in ("f32", "bf16")},
@@ -188,15 +192,17 @@ def launch(name: str, *args) -> None:
 
 # ---------------------------------------------------------------- wrappers
 def suffix(t) -> str:
-    """Entry-point suffix of a tensor's dtype; raises for other dtypes."""
+    """Entry-point suffix of a tensor's dtype; raises for other dtypes (an
+    entry point that lacks the suffix's instance is missing from the
+    library and raises when it is looked up)."""
     import torch
 
-    if t.dtype == torch.float64:
-        return "f64"
-    if t.dtype == torch.float32:
-        return "f32"
-    raise TypeError(f"the CUDA kernels take float64 or float32, got "
-                    f"{t.dtype}")
+    name = {torch.float64: "f64", torch.float32: "f32",
+            torch.bfloat16: "bf16"}.get(t.dtype)
+    if name is None:
+        raise TypeError(f"the CUDA kernels take bfloat16, float64 or "
+                        f"float32, got {t.dtype}")
+    return name
 
 
 def check_cuda(name: str, *tensors) -> None:

@@ -41,6 +41,16 @@ def _check_k(k: int) -> None:
         raise ValueError(f"the sup-row kernel takes k <= {MAX_K}, got {k}")
 
 
+def _suffix(t) -> str:
+    """The entry-point suffix: K6 has float64 and float32 instances only
+    (no engine path runs it, in any dtype)."""
+    sfx = _build.suffix(t)
+    if sfx not in ("f64", "f32"):
+        raise TypeError(f"the sup-row kernel takes float64 or float32, got "
+                        f"{t.dtype}")
+    return sfx
+
+
 def suprow_update(x: torch.Tensor, src: torch.Tensor, k: int):
     """K6 — x (E, k+m) rows, src (E, k, k+m) source rows: returns
     ``y = x[:, :k] · U⁻¹`` (E, k) and ``xr = x[:, k:] − y · src[:, :, k:]``
@@ -55,7 +65,7 @@ def suprow_update(x: torch.Tensor, src: torch.Tensor, k: int):
     xr = torch.empty((e, w - k), dtype=x.dtype, device=x.device)
     if e:
         with _build.on_device(x):
-            _build.launch(f"hylu_suprow_{_build.suffix(x)}", _build.ptr(x),
+            _build.launch(f"hylu_suprow_{_suffix(x)}", _build.ptr(x),
                           _build.ptr(src), _build.ptr(y), _build.ptr(xr), e,
                           k, w - k, _build.stream_of(x))
         suprow_update.launches += 1
@@ -96,7 +106,7 @@ def suprow_groups(groups) -> SuprowGroups:
     out = [(torch.empty((x.shape[0], k), dtype=x.dtype, device=x.device),
             torch.empty((x.shape[0], x.shape[1] - k), dtype=x.dtype,
                         device=x.device)) for x, _, k in groups]
-    elem = 8 if _build.suffix(x0) == "f64" else 4
+    elem = 8 if _suffix(x0) == "f64" else 4
     warps = _build.library().hylu_suprow_warps(k_max, elem)
     rows = np.array([x.shape[0] for x, _, _ in groups], np.int64)
     nblk = -(-rows // warps)
@@ -126,7 +136,7 @@ def suprow_update_grouped(groups):
     if groups.blocks:
         x0 = groups.groups[0][0]
         with _build.on_device(x0):
-            _build.launch(f"hylu_suprow_grouped_{_build.suffix(x0)}",
+            _build.launch(f"hylu_suprow_grouped_{_suffix(x0)}",
                           _build.ptr(groups.table), len(groups.groups),
                           groups.blocks, groups.k_max, groups.warps,
                           _build.stream_of(x0))

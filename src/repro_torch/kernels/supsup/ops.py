@@ -37,9 +37,11 @@ __all__ = ["EdgeTable", "NodeStep", "edge_table", "node_step",
 
 WIDE_K = 128                # sources above this run the wide instance
 _NODE_EDGES = {torch.float64: "hylu_node_edges_f64",
-               torch.float32: "hylu_node_edges_f32"}
+               torch.float32: "hylu_node_edges_f32",
+               torch.bfloat16: "hylu_node_edges_bf16"}
 _NODE_EDGES_WIDE = {torch.float64: "hylu_node_edges_wide_f64",
-                    torch.float32: "hylu_node_edges_wide_f32"}
+                    torch.float32: "hylu_node_edges_wide_f32",
+                    torch.bfloat16: "hylu_node_edges_wide_bf16"}
 
 
 class EdgeTable(NamedTuple):
@@ -155,8 +157,8 @@ def _launch_node_edges(names, vals, table, step, eps, nper, n_edges,
         return False
     name = names.get(vals.dtype)
     if name is None:
-        raise TypeError(f"the CUDA kernels take float64 or float32, got "
-                        f"{vals.dtype}")
+        raise TypeError(f"the CUDA kernels take bfloat16, float64 or "
+                        f"float32, got {vals.dtype}")
     if (vals.ndim != 2 or not vals.is_contiguous() or not eps.is_contiguous()
             or not nper.is_contiguous() or eps.shape != vals.shape[:1]
             or nper.shape != vals.shape[:1]):
@@ -187,7 +189,8 @@ def _launch_node_edges(names, vals, table, step, eps, nper, n_edges,
 
 # K4's entry points by dtype: the wrapper runs 516 times per bucketed
 # refactor of fem2d_10k, where its host cost is that of the launch
-_BMM = {torch.float64: "hylu_bmm_f64", torch.float32: "hylu_bmm_f32"}
+_BMM = {torch.float64: "hylu_bmm_f64", torch.float32: "hylu_bmm_f32",
+        torch.bfloat16: "hylu_bmm_bf16"}
 
 
 def gemm_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -206,8 +209,8 @@ def gemm_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _build.check_cuda("gemm_batched", a, b)
     name = _BMM.get(a.dtype)
     if name is None:
-        raise TypeError(f"the CUDA kernels take float64 or float32, got "
-                        f"{a.dtype}")
+        raise TypeError(f"the CUDA kernels take bfloat16, float64 or "
+                        f"float32, got {a.dtype}")
     c = a.new_empty((e, nr, m))
     if e and nr:
         with _build.on_device(a):

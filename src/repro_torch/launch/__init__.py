@@ -1,2 +1,3 @@
 """repro_torch.launch — command-line entry points (``serve``: the async
-solver server driven by a fault-laced load generator)."""
+solver server driven by a fault-laced load generator) and the devices of
+the batched solver's split of K (``mesh``)."""

@@ -14,9 +14,13 @@ solution, or a healthy request off fp64-oracle parity).
         --batch-size 8 --fault-rate 0.2 --deadline-ms 200
 
 Runs on the card (``--device cuda``, the default; without one it raises)
-or, with ``--device cpu``, on the plain PyTorch path.  The shard of the
-system batch over several devices is not ported (ROADMAP.md, Queue A
-item 7): one device serves every dispatch.
+or, with ``--device cpu``, on the plain PyTorch path.  ``--devices N``
+splits every dispatch's system batch over the first N CUDA devices (with
+``--device cpu``: N shards on the CPU), as the JAX CLI shards it over N
+jax devices:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 40 \\
+        --device cpu --devices 2
 """
 from __future__ import annotations
 
@@ -50,8 +54,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default), 'cuda:N', or 'cpu' for the plain "
-                        "PyTorch path; one device serves every dispatch "
-                        "(the shard over K across devices is not ported)")
+                        "PyTorch path")
+    p.add_argument("--devices", type=int, default=None,
+                   help="split each dispatch's system batch over the first "
+                        "N CUDA devices (N shards on the CPU with --device "
+                        "cpu)")
     return p
 
 
@@ -61,7 +68,9 @@ async def _serve_and_drive(args) -> dict:
     from ..serve.async_server import AsyncSolverServer
     from ..serve.solver_service import SolverService
 
-    opts = HyluOptions(deadline_ms=args.deadline_ms, device=args.device)
+    opts = HyluOptions(deadline_ms=args.deadline_ms, device=args.device,
+                       mesh=(args.devices if args.devices
+                             and args.devices > 1 else None))
     service = SolverService(opts=opts, cache_dir=None,
                             batch_size=args.batch_size)
     stream = faultinject.make_stream(args.requests,
@@ -77,6 +86,8 @@ async def _serve_and_drive(args) -> dict:
         report = await faultinject.run_stream(server, stream)
         report["wall_s"] = time.perf_counter() - t0
     report["device"] = str(service.device)
+    report["mesh"] = (None if service.mesh is None
+                      else [str(d) for d in service.mesh])
     return report
 
 
@@ -88,9 +99,10 @@ def print_report(report: dict, file=sys.stdout) -> None:
     def fmt(v, spec=".2f"):
         return "n/a" if v is None else format(v, spec)
 
+    mesh = report.get("mesh")
     print(f"serve: {n} requests in {wall:.2f}s "
-          f"({n / wall:.1f} req/s) on {report.get('device', '?')}",
-          file=file)
+          f"({n / wall:.1f} req/s) on {report.get('device', '?')}"
+          + (f", K split over {mesh}" if mesh else ""), file=file)
     print(f"  outcomes: {report['by_status']}", file=file)
     print(f"  lost: {report['lost']}   "
           f"healthy fp64-oracle worst rel err: "

@@ -60,6 +60,7 @@ import numpy as np
 from ..core.batched import factor_batched, solve_batched
 from ..core.matrix import CSR
 from ..core.options import (HyluOptions, plan_fingerprint, resolve_device,
+                            resolve_mesh,
                             resolve_dtype_names, resolve_retry_perturb)
 from ..core.plan_cache import DEFAULT_CACHE_DIR, PlanCache
 
@@ -247,9 +248,11 @@ class SolverService:
     """Front-end for heterogeneous (pattern, values, b) solve traffic.
 
     opts           — HyluOptions template applied to every request
-                     (device, refinement, kernel thresholds, retry
-                     ladder, …); its device is resolved here, so a
-                     missing card raises at construction
+                     (device, mesh, refinement, kernel thresholds, retry
+                     ladder, …); its device and its split of K over
+                     devices (``opts.mesh``: every dispatch is split over
+                     them) are resolved here, so a missing card raises at
+                     construction
     cache          — a PlanCache to share across services; built from
                      cache_dir/cache_capacity when None
     cache_dir      — artifact-store directory for the internally-built
@@ -280,6 +283,7 @@ class SolverService:
                  batch_size: int | None = 8):
         self.opts = opts or HyluOptions()
         self.device = resolve_device(self.opts.device)
+        self.mesh = resolve_mesh(self.opts)
         self.cache = cache if cache is not None else PlanCache(
             capacity=cache_capacity, directory=cache_dir,
             cache_root=self.opts.cache_root)

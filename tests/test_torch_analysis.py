@@ -147,7 +147,8 @@ def test_artifact_rejects_other_plan_options(tmp_path):
 
 def test_plan_option_fields_align_with_jax():
     """use_kernels sits where use_pallas sits, so both packages hash the
-    same options to the same fingerprint."""
+    same options to the same fingerprint; ``mesh`` (the split of K, as the
+    JAX package's) is runtime-only in both, never in the key."""
     from repro.core.options import PLAN_OPTION_FIELDS as JAX_FIELDS
     from repro.core.options import plan_options_key as jax_key
     from repro_torch.core.options import plan_options_key
@@ -159,5 +160,8 @@ def test_plan_option_fields_align_with_jax():
         assert jax_key(JaxOptions(use_pallas=True, **kw)) == \
             plan_options_key(HyluOptions(**kw))
     torch_fields = {f.name for f in dataclasses.fields(HyluOptions)}
-    assert {"device", "use_kernels"} <= torch_fields
-    assert not {"mesh", "use_pallas"} & torch_fields
+    assert {"device", "use_kernels", "mesh"} <= torch_fields
+    assert "use_pallas" not in torch_fields
+    assert "mesh" not in PLAN_OPTION_FIELDS and "mesh" not in JAX_FIELDS
+    assert plan_options_key(HyluOptions(mesh=["cpu"] * 2)) == \
+        plan_options_key(HyluOptions())

@@ -2117,3 +2117,552 @@ def test_make_sparse_solve_on_card_matches_cpu(cuda):
         assert np.abs(got - want).max() / np.abs(want).max() < 1e-10
     assert out["cuda"][3]["panel_lu_bucket_inplace"] > 0
     assert not any(out["cpu"][3].values())
+
+
+# ------------------------------------------------------------- bfloat16
+# The bfloat16 instances of K1-K5 against their plain versions run in
+# bfloat16 on the card.  Pivots and perturbation counts must be equal; the
+# values within two bf16 ulps of the largest magnitude of the plain
+# version's output (BF16_ULPS): the panel LUs round where the plain version
+# does (bit for bit in the normal case), the solves and products sum their
+# dots in float32 in another order, K4 rounds a float32 sum once as cuBLAS
+# does, and K5 rounds C - A.B once where the plain version rounds A.B
+# first.  Operands are diagonally dominant, so that one rounding step's
+# difference is not amplified by a solve.
+BF16_ULPS = 2
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at the largest finite magnitude of t (2^-7 of its
+    binade)."""
+    m = float(t.float()[torch.isfinite(t.float())].abs().max())
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _held_bf16(got, ref):
+    """got and ref (bfloat16, one pair or tuples of pairs): equal NaN and
+    inf positions and infinities, finite values within BF16_ULPS of the
+    reference's largest magnitude; returns the largest error in ulps."""
+    pairs = (list(zip(got, ref)) if isinstance(got, tuple)
+             else [(got, ref)])
+    worst = 0.0
+    for g, r in pairs:
+        assert g.dtype == r.dtype == torch.bfloat16
+        g, r = g.float(), r.float()
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        assert torch.equal(torch.isinf(g), torch.isinf(r))
+        assert torch.equal(g[torch.isinf(g)], r[torch.isinf(r)])
+        fin = torch.isfinite(r)
+        if not fin.any():
+            continue
+        ulp = _bf16_ulp(r)
+        err = float((g[fin] - r[fin]).abs().max())
+        assert err <= BF16_ULPS * ulp, (err, ulp)
+        worst = max(worst, err / ulp if ulp else 0.0)
+    return worst
+
+
+def _bf16_lu_held(got, ref):
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    return _held_bf16(got[0], ref[0])
+
+
+def _bf16_bucket_held(vals, lay, eps, counter):
+    """K1 in place in bfloat16 against its plain version: one launch,
+    equal pivots and counts, no slot outside the members written, the real
+    slots held by :func:`_held_bf16`."""
+    before = counter.launches
+    got, ref = vals.clone(), vals.clone()
+    gp, gn = panel.panel_lu_bucket_inplace(got, lay, eps)
+    rp, rn = panel.panel_lu_bucket_plain(ref, lay, eps)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert torch.equal(gp, rp) and torch.equal(gn, rn)
+    real = torch.zeros(vals.shape[1], dtype=torch.bool, device=vals.device)
+    for off, nr, w, _, _ in lay.desc.tolist():
+        real[off:off + nr * w] = True
+    assert torch.equal(got[:, ~real].view(torch.int16),
+                       vals[:, ~real].view(torch.int16))
+    _held_bf16(got[:, real], ref[:, real])
+    return gp
+
+
+@functools.lru_cache(maxsize=1)
+def _fem2d_10k_bf16():
+    """fem2d_10k's bucketed and unrolled bfloat16 engines on the card and
+    K = 3 value sets (analysed once)."""
+    A = to_csr(fem2d(100, 100, seed=930))
+    an = analyze(A, HyluOptions(factor_dtype="bfloat16"))
+    an_u = analyze(A, HyluOptions(factor_dtype="bfloat16",
+                                  factor_schedule="unrolled"), reuse=an)
+    vals = A.data[None] * np.random.default_rng(3).uniform(0.8, 1.2,
+                                                            (3, A.nnz))
+    return (A, torch_repeated_engine(an), torch_repeated_engine(an_u),
+            torch.from_numpy(vals).to("cuda"))
+
+
+@pytest.mark.cuda
+def test_bf16_k1_at_fem2d_10k_largest_bucket(cuda):
+    """K1 in place on fem2d_10k's largest panel bucket, on the value buffer
+    and thresholds the bfloat16 factor program hands it."""
+    _, eng, _, a_dev = _fem2d_10k_bf16()
+    st, (lay, _) = max(((i, p) for i, s in enumerate(eng._steps)
+                        for p in s[1]), key=lambda ip: ip[1][0].gather.numel())
+    vals, eps = eng.refactor_batched(a_dev, stop=(st, "panels"))
+    assert vals.dtype == eps.dtype == torch.bfloat16
+    _bf16_bucket_held(vals, lay, eps, panel.panel_lu_bucket_inplace)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", range(len(WIDE_BUCKETS)))
+def test_bf16_k1_wide_buckets(bucket, cuda):
+    """K1's wide path in bfloat16: padded to 256 (window kernel) and 512
+    rows (panel_lu_kernel on the gathered panels)."""
+    nrp, usp, lsp, members = WIDE_BUCKETS[bucket]
+    rng = np.random.default_rng(nrp)
+    desc, parts, n = _place(rng, 3, members, 5, 1)
+    vals = _bucket_vals(3, n, parts, torch.bfloat16, cuda)
+    perm = _bf16_bucket_held(vals, _layout(desc, nrp, usp, lsp, n, cuda),
+                             _eps_per_system(3, torch.bfloat16, cuda),
+                             panel.panel_lu_bucket_wide)
+    assert (perm != torch.arange(nrp, device=cuda)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", range(len(BUCKETS)))
+def test_bf16_k1_buckets(bucket, cuda):
+    """K1 in place in bfloat16 on every bucket shape of the float tests,
+    rows not 4-byte aligned (a gap of one slot)."""
+    nrp, usp, lsp, members = BUCKETS[bucket]
+    rng = np.random.default_rng(bucket)
+    desc, parts, n = _place(rng, 4, members, 3, 1)
+    vals = _bucket_vals(4, n, parts, torch.bfloat16, cuda)
+    _bf16_bucket_held(vals, _layout(desc, nrp, usp, lsp, n, cuda),
+                      _eps_per_system(4, torch.bfloat16, cuda),
+                      panel.panel_lu_bucket_inplace)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nr,lsize,us,counter",
+                         [(128, 2197, 22, "panel_lu"), (8, 2197, 0,
+                                                        "panel_lu"),
+                          (40, 3, 17, "panel_lu"), (150, 40, 10,
+                                                    "panel_lu_wide"),
+                          (300, 12, 20, "panel_lu_wide")])
+def test_bf16_k2(nr, lsize, us, counter, cuda):
+    """K2 in bfloat16: fem2d_10k's largest narrow node shape (128 x 2,347),
+    a lone pivot warp, the wide path at 150 (window kernel) and 300 rows
+    (panel_lu_kernel), rows shuffled so that pivoting moves them, and a
+    strided view of every other panel."""
+    rng = np.random.default_rng(nr + lsize)
+    P = torch.tensor(_node_panels(rng, 6, nr, lsize, us, dominant=True),
+                     dtype=torch.bfloat16, device=cuda)[::2]
+    eps = torch.full((3,), 1e-8, dtype=torch.bfloat16, device=cuda)
+    fn = getattr(panel, counter)
+    before = fn.launches
+    got = panel.panel_lu(P, nr, lsize, eps)
+    ref = panel.panel_lu_plain(P, lsize, P.shape[2], eps)
+    _bf16_lu_held(got, ref)
+    assert fn.launches == before + 1
+    assert (got[1] != torch.arange(nr, device=cuda)).any()
+
+
+@pytest.mark.cuda
+def test_bf16_k2_at_fem2d_10k_largest_narrow_node(cuda):
+    """K2 on fem2d_10k's largest narrow-level node, on the value buffer the
+    bucketed bfloat16 program hands it (a strided view)."""
+    _, eng, _, a_dev = _fem2d_10k_bf16()
+    st, (nr, w, lsize, off, _) = max(
+        ((i, q) for i, s in enumerate(eng._steps) for q in s[2]),
+        key=lambda iq: iq[1][0] * iq[1][1])
+    vals, eps = eng.refactor_batched(a_dev, stop=(st, "seq"))
+    P = vals[:, off:off + nr * w].view(-1, nr, w)
+    _bf16_lu_held(panel.panel_lu(P, nr, lsize, eps),
+                  panel.panel_lu_plain(P, lsize, w, eps))
+
+
+def _bf16_tensor(a, dev):
+    return torch.tensor(a, dtype=torch.bfloat16, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 33, 100, 128, 150, 256])
+def test_bf16_k3(k, cuda):
+    """K3's three entries in bfloat16: the right solve on a strided view of
+    source rows (nr 70 and 1), both left solves at one and 17 right-hand
+    sides; k = 150 and 256 run the blocked path, whose trailing updates
+    are K5's bfloat16 GEMM update."""
+    rng = np.random.default_rng(k)
+    blk = _wide_block(rng, 3, k)
+    S = np.concatenate([blk, rng.normal(size=(3, k, 9))], axis=2)
+    S = _bf16_tensor(S, cuda)
+    U = S[..., :k]                                 # rows k + 9 apart
+    for nr in (70, 1):
+        x = _bf16_tensor(rng.normal(size=(3, nr, k)), cuda)
+        _held_bf16(tri.trsm_batched(U, x), tri.trsm_plain(U, x))
+    B = _bf16_tensor(blk, cuda)
+    for m in (1, 17):
+        b = _bf16_tensor(rng.normal(size=(3, k, m)), cuda)
+        _held_bf16(tri.trsm_left_unit_lower_batched(B, b),
+                   tri.trsm_left_unit_lower_plain(B, b))
+        _held_bf16(tri.trsm_left_upper_batched(B, b),
+                   tri.trsm_left_upper_plain(B, b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_bf16_k3_quotients_and_infinities(cuda):
+    """At k = 1 the bfloat16 solves are one rounded float32 division per
+    entry, bit for bit torch's; an infinite entry of X or b gives the plain
+    version's NaN and inf positions."""
+    rng = np.random.default_rng(9)
+    X = _bf16_tensor(rng.normal(size=(64, 500, 1))
+                     * 2.0 ** rng.integers(-60, 60, size=(64, 500, 1)), cuda)
+    U = _bf16_tensor(rng.normal(size=(64, 1, 1)), cuda)
+    assert torch.equal(tri.trsm_batched(U, X), X / U)
+    b = X[:, :1].contiguous()
+    assert torch.equal(tri.trsm_left_upper_batched(U, b), b / U)
+    u = _bf16_tensor(_wide_block(rng, 2, 40), cuda)
+    x = _bf16_tensor(rng.normal(size=(2, 33, 40)), cuda)
+    x[0, 3, 5], x[1, 7, 0] = float("inf"), -float("inf")
+    bb = _bf16_tensor(rng.normal(size=(2, 40, 3)), cuda)
+    bb[0, 30, 1], bb[1, 39, 0] = float("inf"), -float("inf")
+    for got, ref in ((tri.trsm_batched(u, x), tri.trsm_plain(u, x)),
+                     (tri.trsm_left_upper_batched(u, bb),
+                      tri.trsm_left_upper_plain(u, bb))):
+        torch.cuda.synchronize()
+        assert torch.isinf(ref).any()
+        _held_bf16(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,nr,k,m", [(64, 128, 64, 104), (5, 40, 24, 50),
+                                      (7, 33, 13, 5), (3, 1, 1, 1),
+                                      (2048, 32, 16, 40)])
+def test_bf16_k4(e, nr, k, m, cuda):
+    """K4 in bfloat16 (tensor cores, float32 sums): fem2d_10k's 64-product
+    bucket shape, rows that are not 16-byte aligned (plain loads), ragged
+    tiles and many products."""
+    rng = np.random.default_rng(e + nr)
+    a = _bf16_tensor(rng.normal(size=(e, nr, k)), cuda)
+    b = _bf16_tensor(rng.normal(size=(e, k, m)), cuda)
+    before = supsup.gemm_batched.launches
+    _held_bf16(supsup.gemm_batched(a, b), supsup.gemm_batched_plain(a, b))
+    assert supsup.gemm_batched.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 128, 128, 100), (2, 70, 17, 65),
+                                   (1, 1, 200, 3)])
+def test_bf16_k5_gemm_update(shape, cuda):
+    """K5's GEMM update in bfloat16, out of place and in place on a strided
+    view (C - A.B summed in float32 and rounded once)."""
+    e, nr, k, m = shape
+    rng = np.random.default_rng(nr + k)
+    wide = _bf16_tensor(rng.normal(size=(e, nr, m + 3)), cuda)
+    c = wide[..., :m].contiguous()
+    a = _bf16_tensor(rng.normal(size=(e, nr, k)) / np.sqrt(k), cuda)
+    b = _bf16_tensor(rng.normal(size=(e, k, m)), cuda)
+    ref = supsup.gemm_update_plain(c, a, b)
+    _held_bf16(supsup.gemm_update(c, a, b), ref)
+    cv = wide[..., :m]                             # a view, rows m + 3 apart
+    tri._update(cv, a, b)
+    torch.cuda.synchronize()
+    _held_bf16(cv, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(NODES))
+def test_bf16_node_edges_shapes(case, cuda):
+    """K5's node step in bfloat16 on the float tests' synthetic nodes (a
+    width-1 node perturbs its pivot in the last system)."""
+    nr, w, lsize, sources = NODES[case]
+    rng = np.random.default_rng(len(case) * 7)
+    v0, table, step = _node_buffer(rng, 3, nr, w, lsize, sources,
+                                   torch.bfloat16, cuda)
+    eps = torch.full((3,), 1e-8, dtype=torch.bfloat16, device=cuda)
+    eps[-1] = 1e6 if nr == 1 else 1e-8
+    _bf16_node_held(v0, table, step, eps)
+
+
+def _bf16_node_held(v0, table, step, eps):
+    """The bfloat16 node step against its plain version on copies of v0:
+    one launch of the right instance, equal counts, no slot outside the
+    node written, the panel held by :func:`_held_bf16`."""
+    K = v0.shape[0]
+    g, r = v0.clone(), v0.clone()
+    ng = torch.zeros(K, dtype=torch.int32, device=v0.device)
+    nr_ = torch.zeros_like(ng)
+    counter = (supsup.node_edges_wide if step.kmax > supsup.WIDE_K
+               else supsup.node_edges_inplace)
+    before = counter.launches
+    supsup.node_edges_inplace(g, table, step, eps, ng)
+    supsup.node_edges_plain(r, table, step, eps, nr_)
+    torch.cuda.synchronize()
+    assert counter.launches == before + (step.e1 > step.e0 or step.nr == 1)
+    assert torch.equal(ng, nr_)
+    lo, hi = step.off, step.off + step.nr * step.w
+    for a, b in ((g[:, :lo], v0[:, :lo]), (g[:, hi:], v0[:, hi:])):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return _held_bf16(g[:, lo:hi], r[:, lo:hi])
+
+
+@pytest.mark.cuda
+def test_bf16_node_edges_at_fem2d_10k_largest_node(cuda):
+    """fem2d_10k's node with the most edge work (node 7,665: 128 rows,
+    1,085 edges) on the buffer the unrolled bfloat16 program hands it."""
+    _, _, eng, a_dev = _fem2d_10k_bf16()
+    plan = eng.plan
+    work = [sum(nd.nr * plan.nodes[e.src].nr * len(e.col_map)
+                for e in nd.edges) for nd in plan.nodes]
+    t = int(np.argmax(work))
+    v0, eps = eng.refactor_batched(a_dev, stop=(t, 0))
+    _bf16_node_held(v0, eng._edges, eng._nodes[t][1], eps)
+
+
+@pytest.mark.cuda
+def test_bf16_node_edges_wide_node_of_the_140_row_plan(cuda):
+    """The wide instance in bfloat16 at the node of pardiso_like's 140-row
+    plan whose edge source has 140 rows, on the buffer its unrolled
+    program hands it, and on a synthetic node fed by a 150-row source."""
+    from repro_torch.core import baselines
+
+    A = to_csr(_card_wide_source())
+    an = analyze(A, baselines.pardiso_like_options(
+        orderings=("natural",), bulk_min_width=2, factor_dtype="bfloat16",
+        factor_schedule="unrolled"))
+    eng = torch_repeated_engine(an)
+    t = next(i for i, (_, s) in enumerate(eng._nodes)
+             if s.kmax > supsup.WIDE_K)
+    vals = A.data[None] * np.random.default_rng(2).uniform(0.8, 1.2,
+                                                            (2, A.nnz))
+    v0, eps = eng.refactor_batched(torch.from_numpy(vals).to(cuda),
+                                   stop=(t, 0))
+    _bf16_node_held(v0, eng._edges, eng._nodes[t][1], eps)
+    rng = np.random.default_rng(11)
+    v1, tab, stp = _node_buffer(rng, 3, 9, 260, 30,
+                                [(1, 5), (150, 90), (7, 20)],
+                                torch.bfloat16, cuda)
+    _bf16_node_held(v1, tab, stp, torch.full((3,), 1e-8,
+                                             dtype=torch.bfloat16,
+                                             device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucketed", [True, False])
+@pytest.mark.parametrize("case", ["zero_pivot", "nan_in_u", "inf_in_l",
+                                  "nan_in_block", "zero_pivot_global"])
+def test_bf16_panel_lu_nonfinite_steps(case, bucketed, cuda):
+    """test_panel_lu_nonfinite_steps in bfloat16: the plain version's
+    pivots, counts, NaN and inf positions and finite values."""
+    rng = np.random.default_rng(4)
+    if case == "zero_pivot_global":
+        p = rng.normal(size=(2, 128, 300))
+        p[:, :, 100] = 0.0
+        nr, c0, eps = 128, 100, 0.0
+    else:
+        p = rng.normal(size=(2, 5, 12))
+        nr, c0, eps = 5, 3, 1e-8
+        if case == "zero_pivot":
+            p[:, :, 3] = 0.0
+            eps = 0.0
+        else:
+            row, col, v = {"nan_in_u": (1, 9, np.nan),
+                           "inf_in_l": (4, 1, np.inf),
+                           "nan_in_block": (2, 5, np.nan)}[case]
+            p[:, row, col] = v
+    w = p.shape[2]
+    if bucketed:
+        p = np.concatenate([p[:, :, c0:], p[:, :, :c0]], axis=2)
+    P = _bf16_tensor(p, cuda)
+    e = torch.full((2,), eps, dtype=torch.bfloat16, device=cuda)
+    if bucketed:
+        got = panel.panel_lu_batched(P, w - c0, e)
+        ref = panel.panel_lu_plain(P, 0, w - c0, e)
+    else:
+        got = panel.panel_lu(P, nr, c0, e)
+        ref = panel.panel_lu_plain(P, c0, w, e)
+    assert not torch.isfinite(ref[0]).all()
+    _bf16_lu_held(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero_pivot", "nan_pivot_row"])
+def test_bf16_bucket_panel_lu_nonfinite(case, cuda):
+    """K1 in place in bfloat16 with a zero pivot column under eps = 0 or a
+    NaN in a pivot row: the plain version's positions and values."""
+    rng = np.random.default_rng(8)
+    desc, parts, n = _place(rng, 2, [(5, 20, 28), (8, 24, 32)], 3, 1)
+    vals = _bucket_vals(2, n, parts, torch.bfloat16, cuda)
+    off, nr, w, ls, _ = desc[1]
+    if case == "zero_pivot":
+        vals[:, off + ls:off + nr * w:w] = 0.0
+        eps = torch.zeros(2, dtype=torch.bfloat16, device=cuda)
+    else:
+        vals[0, off + 2 * w + ls + 5] = float("nan")
+        eps = torch.full((2,), 1e-8, dtype=torch.bfloat16, device=cuda)
+    _bf16_bucket_held(vals, _layout(desc, 8, 24, 32, n, cuda), eps,
+                      panel.panel_lu_bucket_inplace)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nr", [1, 17])
+@pytest.mark.parametrize("case", ["nan_in_source", "zero_pivot",
+                                  "zero_source_diagonal"])
+def test_bf16_node_edges_nonfinite(case, nr, cuda):
+    """test_node_edges_nonfinite in bfloat16."""
+    rng = np.random.default_rng(nr + len(case))
+    sources = [(6, 12), (1, 4), (30, 9), (1, 10)]
+    v0, table, step = _node_buffer(rng, 2, nr, 70, 25, sources,
+                                   torch.bfloat16, cuda)
+    e6, e1, e30 = table.edges[0], table.edges[-1], table.edges[2]
+    if case == "nan_in_source":
+        v0[0, e6[0] + 2 * e6[2] + e6[3] + 4] = float("nan")
+        v0[1, e1[0] + e1[3] + 5] = float("nan")
+    elif case == "zero_pivot":
+        v0[:, e1[0] + e1[3]] = 0.0
+        if nr > 1:
+            v0[1, e6[0] + 3 * e6[2] + e6[3] + 3] = 0.0
+        v0[:, step.off + step.lsize] = 0.0
+    else:
+        u33 = e6[0] + 3 * e6[2] + e6[3] + 3
+        v0[1, u33] = v0[1, u33 + 1] = 0.0
+        v0[0, e30[0] + e30[3]] = 0.0
+        v0[0, step.off + int(e30[4][0])] = 0.0
+    eps = torch.zeros(2, dtype=torch.bfloat16, device=cuda)
+    _bf16_node_held(v0, table, step, eps)
+    g = v0.clone()
+    supsup.node_edges_inplace(g, table, step, eps,
+                              torch.zeros(2, dtype=torch.int32, device=cuda))
+    assert not torch.isfinite(g[:, step.off:step.off + step.nr * step.w]
+                              ).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 300])
+@pytest.mark.parametrize("nr,lsize,nan_in_u", [(8, 2197, False),
+                                               (128, 300, False),
+                                               (24, 262, True),
+                                               (32, 2197, True)])
+def test_bf16_node_panel_lu_nonfinite_prefix(nr, lsize, nan_in_u, b, cuda):
+    """test_node_panel_lu_nonfinite_multiplier_poisons_prefix and
+    test_node_panel_lu_nonfinite_with_nan_in_u in bfloat16: two
+    infinities in the first block column poison the prefix of every row
+    after the pivot, a NaN in the U suffix its column above; the plain
+    version's positions and values, more panels than SMs too."""
+    rng = np.random.default_rng(nr * b + lsize)
+    p = _node_panels(rng, b, nr, lsize, 9, dominant=True)
+    p[:, 2, lsize] = np.inf
+    p[:, nr - 1, lsize] = np.inf
+    if nan_in_u:
+        p[:, 5, lsize + nr + 3] = np.nan
+    P = _bf16_tensor(p, cuda)
+    eps = torch.full((b,), 1e-8, dtype=torch.bfloat16, device=cuda)
+    got = panel.panel_lu(P, nr, lsize, eps)
+    ref = panel.panel_lu_plain(P, lsize, P.shape[2], eps)
+    assert torch.isnan(ref[0][:, 1:, :lsize]).all()
+    _bf16_lu_held(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nr", [1, 17])
+@pytest.mark.parametrize("case", ["nan_in_source", "zero_pivot",
+                                  "zero_source_diagonal"])
+def test_bf16_node_edges_wide_nonfinite(case, nr, cuda):
+    """test_node_edges_wide_nonfinite in bfloat16: the wide instance on a
+    140-row source with the fault in its second block."""
+    rng = np.random.default_rng(nr + len(case))
+    sources = [(140, 12), (1, 4), (30, 9), (1, 10)]
+    v0, table, step = _node_buffer(rng, 2, nr, 240, 25, sources,
+                                   torch.bfloat16, cuda)
+    e140, e1, e30 = table.edges[0], table.edges[-1], table.edges[2]
+    u133 = e140[0] + 133 * e140[2] + e140[3] + 133
+    if case == "nan_in_source":
+        v0[0, u133 - 133 * e140[2] + 1] = float("nan")
+        v0[1, e1[0] + e1[3] + 5] = float("nan")
+    elif case == "zero_pivot":
+        v0[:, e1[0] + e1[3]] = 0.0
+        if nr > 1:
+            v0[1, u133] = 0.0
+        v0[:, step.off + step.lsize] = 0.0
+    else:
+        v0[1, u133] = v0[1, u133 + 1] = 0.0
+        v0[0, e30[0] + e30[3]] = 0.0
+        v0[0, step.off + int(e30[4][0])] = 0.0
+    _bf16_node_held(v0, table, step,
+                    torch.zeros(2, dtype=torch.bfloat16, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["bucketed", "unrolled"])
+def test_bf16_engine_on_card_matches_cpu(schedule, cuda):
+    """factor_batched + solve_batched with bfloat16 factors on fem2d(12, 12)
+    on the card against the CPU: every system takes the float64 fallback
+    in both, and x agrees to 1e-10; the bfloat16 kernels were launched."""
+    A = to_csr(fem2d(12, 12, seed=1))
+    rng = np.random.default_rng(5)
+    vb = A.data[None] * rng.uniform(0.8, 1.2, (4, A.nnz))
+    bb = rng.normal(size=(4, A.n))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        an = analyze(A, HyluOptions(force_mode="supernodal",
+                                    bulk_min_width=2, device=dev,
+                                    factor_dtype="bfloat16",
+                                    factor_schedule=schedule))
+        kernels.reset_launch_counts()
+        bst = factor_batched(an, A, vb)
+        x, info = solve_batched(bst, bb)
+        out[dev] = (bst, x, info, kernels.launch_counts())
+    (bc, xc, ic, _), (bg, xg, ig, counts) = out["cpu"], out["cuda"]
+    assert bg.vals.dtype == torch.bfloat16
+    assert np.array_equal(bg.n_perturb, bc.n_perturb)
+    assert np.array_equal(ig["fallback_mask"], ic["fallback_mask"])
+    assert not ig["refine_failed"].any()
+    assert np.abs(xg - xc).max() / np.abs(xc).max() < 1e-10
+    path = (("node_edges_inplace",) if schedule == "unrolled"
+            else BATCHED_PATH)
+    assert all(counts[w] > 0 for w in path), counts
+
+
+# ------------------------------------------------------------------ mesh
+@pytest.mark.cuda
+def test_mesh_on_card_matches_unsplit(cuda):
+    """The split of K on one card: mesh=["cuda:0", "cuda:0"] and mesh=1
+    against the unsplit run at K = 5 (the second shard padded): x and the
+    residuals within 1e-10, equal pivots, perturbation counts and
+    refinement counts; one engine serves both shards; the donating
+    pipeline under the split against the unsplit pipeline."""
+    from repro_torch.core import solve_sequence
+
+    A = to_csr(fem2d(12, 12, seed=1))
+    rng = np.random.default_rng(21)
+    vb = A.data[None] * rng.uniform(0.8, 1.2, (5, A.nnz))
+    bb = rng.normal(size=(5, A.n))
+    kw = dict(force_mode="supernodal", bulk_min_width=2)
+    an0 = analyze(A, HyluOptions(**kw))
+    bst0 = factor_batched(an0, A, vb)
+    x0, i0 = solve_batched(bst0, bb)
+    for mesh in (["cuda:0", "cuda:0"], 1):
+        an = analyze(A, HyluOptions(mesh=mesh, **kw), reuse=an0)
+        kernels.reset_launch_counts()
+        bst = factor_batched(an, A, vb)
+        x, info = solve_batched(bst, bb)
+        assert len(bst.parts) == (2 if isinstance(mesh, list) else 1)
+        assert all(p.vals.is_cuda for p in bst.parts)
+        assert kernels.launch_counts()["panel_lu_bucket_inplace"] > 0
+        inode = torch.cat([p.inode_perm for p in bst.parts])[:5]
+        assert torch.equal(inode, bst0.inode_perm)
+        assert np.array_equal(bst.n_perturb, bst0.n_perturb)
+        assert np.abs(x - x0).max() / np.abs(x0).max() < 1e-10
+        np.testing.assert_allclose(info["residual"], i0["residual"],
+                                   rtol=0, atol=1e-10)
+        assert np.array_equal(info["n_refine_per_system"],
+                              i0["n_refine_per_system"])
+        assert len(an.engine_cache) == 1
+    steps = [A.data[None] * rng.uniform(0.8, 1.2, (5, A.nnz))
+             for _ in range(3)]
+    xs, _ = solve_sequence(A, steps, bb, HyluOptions(
+        mesh=["cuda:0", "cuda:0"], donate=True, **kw))
+    xs0, _ = solve_sequence(A, steps, bb, HyluOptions(**kw))
+    assert np.abs(xs - xs0).max() / np.abs(xs0).max() < 1e-10

@@ -1,6 +1,6 @@
 """Package rules of the port: no JAX, no ``repro``, the card unless the CPU
 is asked for, and options it does not run raise instead of computing
-something else."""
+something else (every option runs today)."""
 import ast
 import os
 import pkgutil
@@ -99,9 +99,14 @@ def test_default_device_raises_without_cuda():
 
 @pytest.mark.parametrize("kw", [dict(factor_dtype="bfloat16")])
 def test_unported_options_raise(kw):
-    """bfloat16 factors on the card are the one option still to port."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(HyluOptions(**kw), torch.device("cuda"))
+    """bfloat16 factors on the card were the last option to port: the
+    check that raises for unported options accepts them now, on the card
+    and on the CPU, and still refuses an unknown engine."""
+    for dev in ("cuda", "cpu"):
+        assert check_supported(HyluOptions(**kw), torch.device(dev)) is None
+    with pytest.raises(ValueError, match="engine"):
+        check_supported(HyluOptions(engine="jax", **kw),
+                        torch.device("cuda"))
 
 
 @pytest.mark.parametrize("kw", [dict(use_kernels=False),
@@ -117,9 +122,19 @@ def test_ported_options_build_an_engine(kw):
 
 
 def test_bfloat16_on_cuda_raises():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        check_supported(HyluOptions(factor_dtype="bfloat16"),
-                        torch.device("cuda"))
+    """bfloat16 factors and the split of K no longer raise: an engine
+    builds with factor_dtype="bfloat16" and mesh=2 on the CPU, and a
+    batched factorization runs in two bfloat16 shards."""
+    from repro_torch.core import factor_batched
+
+    a = _tiny()
+    an = analyze(a, HyluOptions(device="cpu", factor_dtype="bfloat16",
+                                mesh=2))
+    eng = torch_repeated_engine(an)
+    assert eng.factor_dtype == torch.bfloat16
+    bst = factor_batched(an, a, a.data[None].repeat(3, axis=0))
+    assert bst.k == 3 and bst.k_pad == 4 and len(bst.parts) == 2
+    assert all(p.vals.dtype == torch.bfloat16 for p in bst.parts)
 
 
 def test_build_is_lazy_and_hashes_the_sources():
