@@ -12,8 +12,8 @@ Phases, each printing one JSON line:
 4. kernels  every CUDA kernel of the main path against its plain PyTorch
             version on the card, in float64 and float32 (K1-K5 also in
             bfloat16, records named ``..._bf16``: equal pivots and
-            counts, values within two bf16 ulps of the plain output's
-            largest magnitude; ``solve_triangular`` takes no bfloat16 on
+            counts; entry by entry, the panel LUs bit-equal, the others
+            within two bf16 ulps of each entry (BF16_ULPS); ``solve_triangular`` takes no bfloat16 on
             CUDA, so K3's bf16 records have no library time), on the operands
             fem2d_10k's factor program hands it (largest panel bucket,
             which K1 reads and writes in place in the value buffer,
@@ -133,6 +133,8 @@ Phases, each printing one JSON line:
             lifecycle in bfloat16 (times, launches, every node step of
             one refactor held to its plain version; its host refinement
             reported as it ends, there being no fallback on that path);
+            the batched and the one-system bf16 factors also held to the
+            CPU's plain bf16 route on the same values (equal pivots);
 9c. mesh    the split of K: ``mesh=["cuda:0", "cuda:0"]`` and ``mesh=1``
             against the unsplit step (x within 1e-10, equal pivots and
             counts), timed in turns with it; K = 31 on two shards; a
@@ -209,10 +211,23 @@ REL_TOL_F64 = {"gemm_update": 1e-12, "suprow_update": 1e-12,
                "suprow_update_grouped": 1e-12}
 SUPROW_LARGE = (128, 300)           # K6's large shape (k, m), K rows
 # the bfloat16 instances of K1-K5 (no bfloat16 K6: it has no engine path):
-# kernel record -> its entry point, and the needles of its ptxas lines;
-# held within BF16_ULPS of the plain output's largest magnitude (the
-# kernels round where the plain versions do, summing in another order)
+# kernel record -> its entry point, and the needles of its ptxas lines.
+# Held to the plain version entry by entry (bf16_err): the panel LUs round
+# where the plain versions do, in their order, so their finite values must
+# be bit-equal; the solves, products and node steps sum in float32 in
+# another order, so each finite entry is held within BF16_ULPS bf16 ulps of
+# its own magnitude plus bf16's smallest normal, and a product also within
+# the float32 summation bound of the two orders, 2 k 2^-24 (|A| |B|).
 BF16_ULPS = 2
+BF16_TINY = 2.0 ** -126
+CPU_SYSTEMS = 2           # bf16 phase: value sets also factored on the CPU
+# A whole bfloat16 factorization on the card against the CPU's plain route:
+# the kernels sum in float32 in another order than the CPU's plain ops, so
+# a rare bf16 rounding lands on the other side and later steps carry that
+# ulp on (into small entries, where it is many of their ulps).  Pivots and
+# counts must be equal, at most this share of the entries may differ at
+# all, and none by more than BF16_ULPS ulps of the system's largest value.
+BF16_DIFFER_SHARE = 1e-4
 BF16_ENTRY = {"panel_lu_bucketed": "hylu_bucket_panel_lu_bf16",
               "panel_lu": "hylu_node_panel_lu_bf16",
               "trsm_right": "hylu_trsm_right_bf16",
@@ -606,16 +621,24 @@ def bf16_phase(torch, np, kernels, A, an64, values0, b):
     (bucketed) beside the same step in float64: every x within 1e-10 of
     scipy's ``spsolve`` (the float64 refinement, then the float64 fallback
     for the systems it leaves above tolerance) with an all-clear
-    ``refine_failed``; factor and solve ms, peak memory, factor storage,
-    ``n_fp64_fallback``.  Then the one-system lifecycle in bfloat16 under
-    the unrolled schedule (``factor`` -> ``refactor`` -> ``solve``): its
-    times and launches, every K5 node step of one more refactor held to
-    ``node_edges_plain`` on the same input (BF16_ULPS), and the host
-    refinement's honest result (no float64 fallback on that path, in
-    either package).  The wrappers count launches whatever the dtype and
-    the fallback launches float64 kernels through them, so a spy on
-    ``_build.launch`` also counts launches by entry point.  Returns the
-    phase's (wrapper counts, entry-point counts)."""
+    ``refine_failed``; factor and solve ms (the solve split into the
+    fallback's ``fallback_time`` and the rest, the bfloat16 applies; every
+    engine built before the timings), peak memory, factor storage,
+    ``n_fp64_fallback``.  The bfloat16 factors themselves are held to the
+    CPU's plain bfloat16 route (the same analysis, ``device="cpu"``) on the
+    first CPU_SYSTEMS value sets: equal pivots and perturbation counts,
+    the values by :func:`held_to_cpu`.  Then the one-system lifecycle in
+    bfloat16 under the unrolled schedule (``factor`` -> ``refactor`` ->
+    ``solve``): its times and launches, every K5 node step of one more
+    refactor held to ``node_edges_plain`` on the same input
+    (:func:`bf16_err`), and its factors held to the CPU's plain lifecycle
+    on the same matrices (equal pivots and counts, values by
+    :func:`held_to_cpu`, the same ``refine_failed``); the host refinement
+    ends where it ends (no float64 fallback on that path, in either
+    package), so x is reported beside the CPU's, not held.  The wrappers count launches
+    whatever the dtype and the fallback launches float64 kernels through
+    them, so a spy on ``_build.launch`` also counts launches by entry
+    point.  Returns the phase's (wrapper counts, entry-point counts)."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
@@ -638,6 +661,8 @@ def bf16_phase(torch, np, kernels, A, an64, values0, b):
                     reuse=an64)
     for an in (an64, an_bf, an_bu):
         torch_repeated_engine(an)              # built outside the timings
+    # the float64 fallback's engine on the bfloat16 analysis, too
+    torch_repeated_engine(an_bf, dtype="float64", refine_dtype="float64")
     entries, orig = {}, _build.launch
 
     def spy(name, *args):
@@ -672,8 +697,11 @@ def bf16_phase(torch, np, kernels, A, an64, values0, b):
         if label == "bfloat16":
             for w, c in counts.items():
                 total[w] += c
+        fb_s = info.get("fallback_time", 0.0)
         runs[label] = {
             "factor_batched_ms": t_f * 1e3, "solve_batched_ms": t_s * 1e3,
+            "fallback_ms": fb_s * 1e3,
+            "solve_without_fallback_ms": (t_s - fb_s) * 1e3,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "factor_storage_bytes": bst.vals.numel() * bst.vals.element_size(),
             "factor_dtype": info["factor_dtype"],
@@ -687,7 +715,29 @@ def bf16_phase(torch, np, kernels, A, an64, values0, b):
             "launches": {w: c for w, c in counts.items() if c},
             "entry_points_factor": factor_entries,
             "entry_points": dict(entries)}
+        if label == "bfloat16":
+            bst_bf = bst
     batched_entries = dict(runs["bfloat16"]["entry_points"])
+    # the bfloat16 factors against the CPU's plain route on the same values
+    t0 = time.perf_counter()
+    f_cpu = torch_repeated_engine(an_bf, device="cpu").refactor_batched(
+        torch.from_numpy(values0[:CPU_SYSTEMS]))
+    e_, u_, d_, o_ = bf16_err(torch, bst_bf.vals[:CPU_SYSTEMS].cpu(),
+                              f_cpu.vals)
+    vs_cpu = {"systems": CPU_SYSTEMS,
+              "held": held_to_cpu(torch, bst_bf.vals[:CPU_SYSTEMS].cpu(),
+                                  f_cpu.vals, d_),
+              "same_pivots": bool(torch.equal(
+                  bst_bf.inode_perm[:CPU_SYSTEMS].cpu(), f_cpu.inode_perm)),
+              "same_n_perturb": bool(np.array_equal(
+                  bst_bf.n_perturb[:CPU_SYSTEMS],
+                  f_cpu.n_perturb.numpy())),
+              "max_abs_err": e_, "max_ulps_of_entry": u_,
+              "entries_differing": d_, "entries_over_limit": o_,
+              "entries": int(f_cpu.vals.numel()),
+              "cpu_s": time.perf_counter() - t0}
+    runs["bfloat16"]["vs_cpu_plain"] = vs_cpu
+    del bst_bf, f_cpu
 
     # the one-system lifecycle, unrolled, in bfloat16
     rng = np.random.default_rng(9)
@@ -722,18 +772,21 @@ def bf16_phase(torch, np, kernels, A, an64, values0, b):
         batched_entries[name] = batched_entries.get(name, 0) + c
     # every node step of one more refactor against its plain version, on
     # the input the program hands it
-    worst, steps_held, orig_ns = [0.0, 0.0], [0], supsup_ops.node_edges_inplace
+    worst, steps_held = [0.0, 0.0, 0], [0]
+    orig_ns = supsup_ops.node_edges_inplace
 
     def held_step(vals, table, step, eps, nper, n_edges=None):
         v0, n0 = vals.clone(), nper.clone()
         orig_ns(vals, table, step, eps, nper, n_edges)
         supsup_ops.node_edges_plain(v0, table, step, eps, n0, n_edges)
         lo, hi = step.off, step.off + step.nr * step.w
-        e_, u_ = bf16_err(torch, vals[:, lo:hi], v0[:, lo:hi])
-        check(torch.equal(nper, n0) and u_ <= BF16_ULPS,
-              f"bf16: node step at slot {lo} differs from its plain "
-              f"version by {e_} ({u_} ulps) or in its perturbations")
+        e_, u_, d_, o_ = bf16_err(torch, vals[:, lo:hi], v0[:, lo:hi])
+        check(torch.equal(nper, n0) and o_ == 0,
+              f"bf16: node step at slot {lo}: {o_} entries over "
+              f"{BF16_ULPS} ulps of their own from its plain version (max "
+              f"{e_}, {u_} ulps) or other perturbations")
         worst[0], worst[1] = max(worst[0], e_), max(worst[1], u_)
+        worst[2] += d_
         steps_held[0] += 1
 
     held_step.launches = 0
@@ -746,6 +799,27 @@ def bf16_phase(torch, np, kernels, A, an64, values0, b):
     torch.cuda.synchronize()
     tf = st.torch_factors
     tol = resolve_refine_tol(an_bu.opts, "float64")
+    # the same lifecycle on the CPU's plain route
+    t0 = time.perf_counter()
+    an_bc = analyze(A, dataclasses.replace(an_bu.opts, device="cpu"),
+                    reuse=an64)
+    st_c = refactor(factor(an_bc, A1), A2)
+    x_c, info_c = solve(st_c, bs)
+    tc = st_c.torch_factors
+    e_, u_, d_, o_ = bf16_err(torch, tf.vals.cpu(), tc.vals)
+    lc_cpu = {"held": held_to_cpu(torch, tf.vals.cpu()[None],
+                                  tc.vals[None], d_),
+              "same_pivots": bool(torch.equal(tf.inode_perm.cpu(),
+                                              tc.inode_perm)),
+              "same_n_perturb": info1["n_perturb"] == info_c["n_perturb"],
+              "max_abs_err": e_, "max_ulps_of_entry": u_,
+              "entries_differing": d_, "entries_over_limit": o_,
+              "x_rel_err": float(np.abs(x1 - x_c).max()
+                                 / np.abs(x_c).max()),
+              "cpu_residual": info_c["residual"],
+              "cpu_n_refine": info_c["n_refine"],
+              "cpu_refine_failed": info_c["refine_failed"],
+              "cpu_s": time.perf_counter() - t0}
     scalar = {"factor_ms": t_f * 1e3, "refactor_ms": t_r * 1e3,
               "solve_ms": t_s * 1e3, "residual": info1["residual"],
               "n_refine": info1["n_refine"],
@@ -757,7 +831,9 @@ def bf16_phase(torch, np, kernels, A, an64, values0, b):
                                         per_refactor.items() if c},
               "node_steps_held": steps_held[0],
               "node_steps_max_abs_err": worst[0],
-              "node_steps_max_ulps": worst[1]}
+              "node_steps_max_ulps_of_entry": worst[1],
+              "node_steps_entries_differing": worst[2],
+              "vs_cpu_plain": lc_cpu}
     rec = {"phase": "bf16", "matrix": "fem2d_10k", "k": K, "runs": runs,
            "scalar_unrolled": scalar, "entry_points": batched_entries,
            "factor_storage_ratio":
@@ -773,6 +849,18 @@ def bf16_phase(torch, np, kernels, A, an64, values0, b):
               f"bf16 phase {label}: x off spsolve by {run['scipy_rel_err']},"
               f" residual {run['max_residual']}, {run['refine_failed']} "
               "failed")
+    check(vs_cpu["same_pivots"] and vs_cpu["same_n_perturb"]
+          and vs_cpu["held"],
+          f"bf16: batched factors differ from the CPU's plain route: "
+          f"{vs_cpu}")
+    # x itself is not held: the refinement does not converge on either
+    # device and a bf16 substitution's scatter-adds run on the card's
+    # atomics (ROADMAP Queue C), so x carries no digits to compare
+    check(lc_cpu["same_pivots"] and lc_cpu["same_n_perturb"]
+          and lc_cpu["held"]
+          and lc_cpu["cpu_refine_failed"] == info1["refine_failed"],
+          f"bf16 unrolled: the lifecycle differs from the CPU's plain "
+          f"route: {lc_cpu}")
     for name in ("hylu_bucket_panel_lu_bf16", "hylu_node_panel_lu_bf16",
                  "hylu_trsm_right_bf16", "hylu_bmm_bf16"):
         check(r["entry_points_factor"].get(name, 0) > 0,
@@ -840,13 +928,13 @@ def mesh_phase(torch, np, kernels, A, an64, values0, b, bst64, x64, xs,
         return bst, x, info, (t1 - t0) * 1e3, (t2 - t1) * 1e3
 
     def held(label, bst, x, info, k):
-        inode = torch.cat([p.inode_perm for p in bst.parts])[:k]
+        inode = bst.inode_perm
         err = float(np.abs(x - x64[:k]).max() / np.abs(x64[:k]).max())
         ok = {"x_rel_err": err,
               "same_pivots": bool(torch.equal(inode, bst64.inode_perm[:k])),
               "same_n_perturb": bool(np.array_equal(bst.n_perturb,
                                                     bst64.n_perturb[:k])),
-              "shards": [p.k for p in bst.parts], "k_pad": bst.k_pad,
+              "shards": [p.k for p in bst.shards], "k_pad": bst.k_pad,
               "max_residual": float(info["residual"].max())}
         check(err <= 1e-10 and ok["same_pivots"] and ok["same_n_perturb"]
               and ok["max_residual"] <= 1e-10,
@@ -1381,22 +1469,58 @@ def parent_node_step(torch, eng, t, vals, eps, nper, record=None):
         supsup_ref.supsup_update_plain = plain_update
 
 
-def bf16_err(torch, got, ref):
-    """(max |got - ref| over ref's finite entries, that in bf16 ulps of
-    ref's largest finite magnitude); (inf, inf) when the NaN or inf
-    positions or the infinities differ."""
+def bf16_err(torch, got, ref, exact=False, bound=None):
+    """Entry by entry over ref's finite entries: (max |got - ref|, the
+    largest |got - ref| in bf16 ulps of its own entry, the entries that
+    differ, the entries over the limit).  The limit is 0 when ``exact``,
+    else BF16_ULPS ulps of the entry plus BF16_TINY plus ``bound`` (a
+    float32 summation bound, broadcast) where given.  Over-limit is inf
+    when the NaN or inf positions or the infinities differ."""
     g, r = got.float(), ref.float()
     if not (torch.equal(torch.isnan(g), torch.isnan(r))
             and torch.equal(torch.isinf(g), torch.isinf(r))
             and torch.equal(g[torch.isinf(g)], r[torch.isinf(r)])):
-        return float("inf"), float("inf")
+        return float("inf"), float("inf"), -1, float("inf")
     fin = torch.isfinite(r)
     if not fin.any():
-        return 0.0, 0.0
-    err = float((g[fin] - r[fin]).abs().max())
-    m = float(r[fin].abs().max())
-    ulp = 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 1.0
-    return err, err / ulp
+        return 0.0, 0.0, 0, 0
+    err = (g - r).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        r.abs().clamp(min=BF16_TINY))) - 7)
+    if exact:
+        lim = torch.zeros_like(err)
+    else:
+        lim = BF16_ULPS * ulp + BF16_TINY
+        if bound is not None:
+            lim = lim + bound
+    e, u = err[fin], ulp[fin]
+    return (float(e.max()), float((e / u).max()), int((e > 0).sum()),
+            int((e > lim[fin]).sum()))
+
+
+def held_to_cpu(torch, got, ref, n_diff):
+    """A card's bfloat16 factors (K, slots) against the CPU's plain route's
+    (BF16_DIFFER_SHARE): equal NaN and inf positions, at most that share of
+    the entries different, none by more than BF16_ULPS ulps of its
+    system's largest finite magnitude."""
+    g, r = got.float(), ref.float()
+    if not (torch.equal(torch.isnan(g), torch.isnan(r))
+            and torch.equal(torch.isinf(g), torch.isinf(r))):
+        return False
+    fin = torch.isfinite(r)
+    big = torch.where(fin, r.abs(), torch.zeros_like(r)).amax(dim=1,
+                                                              keepdim=True)
+    ulp = torch.exp2(torch.floor(torch.log2(big.clamp(min=BF16_TINY))) - 7)
+    err = torch.where(fin, (g - r).abs(), torch.zeros_like(r))
+    return bool(n_diff <= BF16_DIFFER_SHARE * r.numel()
+                and (err <= BF16_ULPS * ulp).all())
+
+
+def sum_bound(torch, a, b):
+    """The float32 summation bound of a (.., nr, k) @ (.., k, m) summed in
+    two orders: 2 k 2^-24 (|a| |b|)."""
+    return (2.0 * a.shape[-1] * 2.0 ** -24
+            * torch.matmul(a.float().abs(), b.float().abs()))
 
 
 def bf16_library(torch, lib):
@@ -1415,8 +1539,7 @@ def bf16_library(torch, lib):
 def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     """Phase 4: each kernel against its plain version on the card, in
     float64 and float32, and K1-K5 in bfloat16 (records named ..._bf16,
-    held within two bf16 ulps of the plain output's largest magnitude,
-    pivots and counts equal)."""
+    held entry by entry by :func:`bf16_err`, pivots and counts equal)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.panel import ops as panel_ops
     from repro_torch.kernels.suprow import ops as suprow_ops
@@ -1527,6 +1650,8 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     # tolerance table, for a panel LU the (kernel, plain) calls on the
     # row-shuffled panels, and for K1 (in place) the copy that restores its
     # operands before each call, timed alone and taken off its times
+    bf16_bounds = {}          # bfloat16 products: their summation bounds
+
     def cases(dt):
         c = lambda t_: t_.to(dt).contiguous()          # noqa: E731
         p2, u, x, us, lts, blk, rhs = map(c, (P2, U, X, Us, LTS, BLK, RHS))
@@ -1542,6 +1667,10 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
             return run
         x5c, x5a, s5u, s5b = (c(X5[..., k5:]), c(LTS5), c(S5[..., :k5]),
                               c(S5[..., k5:]))
+        if dt == torch.bfloat16:
+            bf16_bounds.update(
+                bmm=lambda: sum_bound(torch, lts, us),
+                gemm_update=lambda: sum_bound(torch, x5a, s5b))
         x6, s6 = c(X6), c(S6)
         x6k = x6[:, None, :k6].contiguous()
         g6 = [(c(x_), c(s_), k_) for (k_, _), (x_, s_) in G6.items()]
@@ -1667,9 +1796,10 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     def held(name, dname, tol, got, ref, what=""):
         """Check kernel output against plain output; returns the max
         error and, for a panel LU, (rows moved by pivoting, pivots
-        perturbed).  bfloat16 (tol None): equal NaN and inf positions and
-        finite values within BF16_ULPS of the plain output's largest
-        magnitude."""
+        perturbed).  bfloat16 (tol None): :func:`bf16_err` entry by entry,
+        bit-equal for a panel LU, a product within its summation bound;
+        its largest error in ulps of the entry and the entries that
+        differ go into ``bf16_seen``."""
         torch.cuda.synchronize()
         moved = None
         if name.startswith("panel_lu"):             # (panels, perm, nper)
@@ -1684,12 +1814,18 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
                  else [(got, ref)])
         if tol is None:
             err = 0.0
-            for g, r in pairs:
-                e_, ulps = bf16_err(torch, g, r)
-                check(ulps <= BF16_ULPS, f"{name} {dname}{what}: "
-                      f"max |kernel - plain| = {e_}, {ulps} bf16 ulps of "
-                      f"the largest magnitude > {BF16_ULPS}")
+            exact = name.startswith("panel_lu")
+            for i, (g, r) in enumerate(pairs):
+                bound = (bf16_bounds[name]() if name in bf16_bounds
+                         and i == 0 else None)
+                e_, ulps, n_diff, n_over = bf16_err(torch, g, r, exact,
+                                                    bound)
+                check(n_over == 0, f"{name} {dname}{what}: {n_over} "
+                      f"entries over the limit ({'bit-equal' if exact else f'{BF16_ULPS} ulps of the entry'}); max |kernel - "
+                      f"plain| = {e_}, {ulps} ulps of its entry")
                 err = max(err, e_)
+                seen = bf16_seen.setdefault(name, [0.0, 0])
+                seen[0], seen[1] = max(seen[0], ulps), seen[1] + n_diff
             return err, moved
         err = max(float((g - r).abs().max()) for g, r in pairs)
         check(all(bool(torch.allclose(g, r, rtol=tol, atol=tol))
@@ -1703,7 +1839,7 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
             records[name]["max_rel_err"] = rel
         return err, moved
 
-    records = {}
+    records, bf16_seen = {}, {}
     for dt in (torch.float64, torch.float32, torch.bfloat16):
         dname = str(dt).replace("torch.", "")
         bf = dt == torch.bfloat16
@@ -1717,7 +1853,11 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
                 "replaces": replaces, "wrapper": wrapper, "shape": shape})
             if bf:
                 rec.update(dtype="bfloat16", entry=BF16_ENTRY[name],
-                           tol=f"{BF16_ULPS} bf16 ulps of max |plain|")
+                           tol=("bit-equal" if name.startswith("panel_lu")
+                                else f"{BF16_ULPS} bf16 ulps of each entry"
+                                + (" + float32 summation bound"
+                                   if name in ("bmm", "gemm_update")
+                                   else "")))
                 lib, note = bf16_library(torch, lib)
                 if note:
                     rec["library_note"] = note
@@ -1754,6 +1894,9 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
                 else "operations",
                 "library_ms" + sfx: (bench_ms(torch, lib) if lib is not None
                                      else None)})
+    for name, (ulps, n_diff) in bf16_seen.items():
+        records[name + "_bf16"].update(max_ulps_of_entry=ulps,
+                                       entries_differing=n_diff)
     # K1 and K2 with an exactly zero pivot under a zero threshold: the first
     # block column of one panel set to zero.  The Pallas arithmetic turns
     # the masked terms into 0 * inf = NaN (csrc/panel_lu.cu, "Non-finite

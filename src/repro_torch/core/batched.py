@@ -17,7 +17,8 @@ shard over a 1-D mesh, ``src/repro/core/batched.py:98–181``): K is padded
 up to a multiple of the shard count, values by replicating system 0 and
 right-hand sides by zeros (a padded system converges at iteration 0), and
 each contiguous shard is factored and solved on its device by its
-device's engine, as one unsplit batch each (``BatchedFactorState.parts``);
+device's engine, as one unsplit batch each (``BatchedFactorState.shards``,
+one shard when K is not split);
 results are gathered and cut back to the caller's K.  Every system's
 arithmetic is its own, so on the CPU the split is bit-identical to the
 unsplit run; the reported refinement count is the largest shard's, as the
@@ -38,44 +39,86 @@ from .torch_engine import on_device
 
 
 @dataclasses.dataclass
-class BatchedFactorState:
-    """K factorizations of one sparsity pattern, held as device tensors.
+class FactorShard:
+    """A contiguous run of ``k`` systems of a :class:`BatchedFactorState`,
+    factored on one device by that device's engine."""
+    values_dev: torch.Tensor | None   # (k, nnz) A values, refine dtype;
+    #                                   None once donated to a solve
+    vals: torch.Tensor         # (k, total_slots) factored panels
+    inode_perm: torch.Tensor   # (k, n) in-node pivot permutations
+    n_perturb: np.ndarray      # (k,) perturbation counts
+    k: int
+    device: torch.device | None = None   # its engine's (None: opts.device)
+    values_host: np.ndarray | None = dataclasses.field(default=None,
+                                                       repr=False)
 
-    Under a split of K (``HyluOptions.mesh``) the state holds one unsplit
-    state per shard in ``parts`` (each of ``k_pad / shards`` systems on
-    its device) and no tensors of its own; ``k`` is the caller's K and
-    every result is cut back to it."""
+    @property
+    def values_batch(self) -> np.ndarray:
+        """(k, nnz) host copy of the A values (copied on first access)."""
+        if self.values_host is None:
+            self.values_host = self.values_dev.cpu().numpy()
+        return self.values_host
+
+
+@dataclasses.dataclass
+class BatchedFactorState:
+    """K factorizations of one sparsity pattern, held as device tensors in
+    ``shards``: one shard when K is not split, else one per device of
+    ``HyluOptions.mesh``, each of ``k_pad / len(shards)`` systems.  ``k``
+    is the caller's K, and every result is cut back to it."""
     analysis: Analysis
     a_pattern: tuple           # (indptr, indices) of the original matrices
-    values_dev: torch.Tensor   # (K, nnz) A values, refine dtype, on device
-    vals: torch.Tensor         # (K, total_slots) factored panels
-    inode_perm: torch.Tensor   # (K, n) in-node pivot permutations
+    shards: list               # FactorShard, in order of K
     n_perturb: np.ndarray      # (K,) perturbation counts
     timings: dict
     k: int
     consumed: bool = False     # its buffers were donated to a solve
-    device: torch.device | None = None   # its engine's (None: opts.device)
-    parts: list | None = None  # the shards of a split of K, in order
     _values_host: np.ndarray | None = dataclasses.field(default=None,
                                                         repr=False)
 
     @property
     def k_pad(self) -> int:
         """K padded to a multiple of the shard count (K unsplit)."""
-        return sum(p.k for p in self.parts) if self.parts else self.k
+        return sum(sh.k for sh in self.shards)
+
+    def _gathered(self, name: str):
+        """One tensor field over the shards, on the first shard's device and
+        cut back to K (unsplit: the shard's own tensor)."""
+        ts = [getattr(sh, name) for sh in self.shards]
+        if len(ts) == 1:
+            return ts[0]
+        if any(t is None for t in ts):
+            return None
+        return torch.cat([t.to(ts[0].device) for t in ts])[:self.k]
+
+    @property
+    def values_dev(self) -> torch.Tensor | None:
+        """(K, nnz) A values in the refine dtype (None once donated)."""
+        return self._gathered("values_dev")
+
+    @property
+    def vals(self) -> torch.Tensor:
+        """(K, total_slots) factored panels."""
+        return self._gathered("vals")
+
+    @property
+    def inode_perm(self) -> torch.Tensor:
+        """(K, n) in-node pivot permutations."""
+        return self._gathered("inode_perm")
 
     @property
     def values_batch(self) -> np.ndarray:
         """(K, nnz) host copy of the A values (copied on first access)."""
+        if len(self.shards) == 1:
+            return self.shards[0].values_batch
         if self._values_host is None:
-            self._values_host = (
-                np.concatenate([p.values_batch for p in self.parts])[:self.k]
-                if self.parts else self.values_dev.cpu().numpy())
+            self._values_host = np.concatenate(
+                [sh.values_batch for sh in self.shards])[:self.k]
         return self._values_host
 
 
-def _engine(bst: BatchedFactorState, **kw):
-    return torch_repeated_engine(bst.analysis, device=bst.device, **kw)
+def _engine(an: Analysis, sh: FactorShard, **kw):
+    return torch_repeated_engine(an, device=sh.device, **kw)
 
 
 def _split_rows(x, n: int, fill: str) -> list:
@@ -217,38 +260,33 @@ def factor_batched(an: Analysis, a_pattern, values_batch) -> BatchedFactorState:
     tensor.  Under ``an.opts.mesh`` K is padded to a multiple of the shard
     count (by system 0's values) and each shard is factored on its
     device; a shard of a tensor on its device is read in place."""
-    mesh = resolve_mesh(an.opts)
-    if mesh is None:
-        return _factor_on(an, a_pattern, values_batch, None)
+    devices = resolve_mesh(an.opts) or [None]
+    for dev in devices:                    # built outside the timing
+        torch_repeated_engine(an, device=dev)
     t0 = time.perf_counter()
     if not isinstance(values_batch, torch.Tensor):
         values_batch = np.atleast_2d(np.asarray(values_batch))
     elif values_batch.ndim == 1:
         values_batch = values_batch[None]
     k = int(values_batch.shape[0])
-    parts = [_factor_on(an, a_pattern, piece, dev) for piece, dev
-             in zip(_split_rows(values_batch, len(mesh), "first"), mesh)]
+    shards = [_factor_shard(an, piece, dev) for piece, dev
+              in zip(_split_rows(values_batch, len(devices), "first"),
+                     devices)]
     return BatchedFactorState(
-        analysis=an, a_pattern=_pattern_of(a_pattern), values_dev=None,
-        vals=None, inode_perm=None,
-        n_perturb=np.concatenate([p.n_perturb for p in parts])[:k],
-        timings={"factor_batched": time.perf_counter() - t0}, k=k,
-        parts=parts)
+        analysis=an, a_pattern=_pattern_of(a_pattern), shards=shards,
+        n_perturb=np.concatenate([sh.n_perturb for sh in shards])[:k],
+        timings={"factor_batched": time.perf_counter() - t0}, k=k)
 
 
-def _factor_on(an, a_pattern, values_batch, device) -> BatchedFactorState:
-    """One unsplit batch on ``device`` (None: ``an.opts.device``)."""
+def _factor_shard(an, values_batch, device) -> FactorShard:
+    """One shard's batch factored on ``device`` (None: ``an.opts.device``)."""
     eng = torch_repeated_engine(an, device=device)
-    t0 = time.perf_counter()
     values_dev, values_host, k = _stage_values(eng, values_batch)
     f = eng.refactor_batched(values_dev)
-    n_perturb = f.n_perturb.cpu().numpy()          # waits for the factor
-    return BatchedFactorState(
-        analysis=an, a_pattern=_pattern_of(a_pattern),
-        values_dev=values_dev, vals=f.vals, inode_perm=f.inode_perm,
-        n_perturb=n_perturb,
-        timings={"factor_batched": time.perf_counter() - t0}, k=k,
-        device=device, _values_host=values_host)
+    return FactorShard(values_dev=values_dev, vals=f.vals,
+                       inode_perm=f.inode_perm,
+                       n_perturb=f.n_perturb.cpu().numpy(),  # waits for it
+                       k=k, device=device, values_host=values_host)
 
 
 def solve_batched(bst: BatchedFactorState, b_batch,
@@ -277,20 +315,24 @@ def solve_batched(bst: BatchedFactorState, b_batch,
         raise RuntimeError(
             "this BatchedFactorState was consumed by a donating solve; "
             "refactor (factor_batched) before solving again")
-    if bst.parts is not None:                  # a split of K: per shard
-        t0 = time.perf_counter()
-        outs = [solve_batched(p, piece, refine, donate) for p, piece
-                in zip(bst.parts, _split_rhs(b_batch, bst.k,
-                                             len(bst.parts)))]
-        if donate:
-            bst.consumed = True
-        info = _merge_info([o[1] for o in outs], bst.k)
-        info["n_perturb"] = bst.n_perturb
-        info["solve_time"] = time.perf_counter() - t0
-        return np.concatenate([o[0] for o in outs])[:bst.k], info
-    an = bst.analysis
+    t0 = time.perf_counter()
+    outs = [_solve_shard(bst.analysis, bst.a_pattern, sh, piece, refine,
+                         donate)
+            for sh, piece in zip(bst.shards, _split_rhs(b_batch, bst.k,
+                                                        len(bst.shards)))]
+    if donate:
+        bst.consumed = True
+    info = _merge_info([o[1] for o in outs], bst.k)
+    info["n_perturb"] = bst.n_perturb
+    info["solve_time"] = time.perf_counter() - t0
+    return np.concatenate([o[0] for o in outs])[:bst.k], info
+
+
+def _solve_shard(an: Analysis, pattern, sh: FactorShard, b_batch, refine,
+                 donate: bool) -> tuple:
+    """:func:`solve_batched` on one shard: (x, info) for its k systems."""
     opts = an.opts
-    eng = _engine(bst)
+    eng = _engine(an, sh)
     t0 = time.perf_counter()
     max_iter = 0 if refine is False else opts.refine_max_iter
     fallback_armed = (
@@ -298,24 +340,23 @@ def solve_batched(bst: BatchedFactorState, b_batch,
         and eng.factor_dtype != torch.float64
         and eng.values_dtype == torch.float64)
     if donate:
-        _ = bst.values_batch     # the host copy, before the buffer goes
-    b_dev = _stage_rhs(eng, b_batch, bst.k, copy=donate)
+        _ = sh.values_batch      # the host copy, before the buffer goes
+    b_dev = _stage_rhs(eng, b_batch, sh.k, copy=donate)
     b_src = b_dev.clone() if (donate and fallback_armed) else b_dev
-    solver = eng.refined_batched_solver(*bst.a_pattern)
+    solver = eng.refined_batched_solver(*pattern)
     x, resid, n_iter, n_ref_sys, stalled, failed = solver(
-        bst.vals, bst.inode_perm, bst.values_dev, b_dev, max_iter,
+        sh.vals, sh.inode_perm, sh.values_dev, b_dev, max_iter,
         resolve_refine_tol(opts, eng.refine_dtype))
     if donate:
-        bst.consumed = True
-        bst.values_dev = None
+        sh.values_dev = None
     x = x.cpu().numpy()
     info = dict(residual=resid.cpu().numpy(), n_refine=int(n_iter),
                 n_refine_per_system=n_ref_sys.cpu().numpy(),
-                n_perturb=bst.n_perturb,
+                n_perturb=sh.n_perturb,
                 refine_stalled=stalled.cpu().numpy(),
                 refine_failed=failed.cpu().numpy(),
                 factor_dtype=str(eng.factor_dtype).replace("torch.", ""),
-                fallback_mask=np.zeros(bst.k, bool), n_fp64_fallback=0,
+                fallback_mask=np.zeros(sh.k, bool), n_fp64_fallback=0,
                 solve_time=time.perf_counter() - t0,
                 escalation=(["refine"] if max_iter > 0 else []))
     if max_iter > 0:
@@ -323,7 +364,7 @@ def solve_batched(bst: BatchedFactorState, b_batch,
         # must still count as failed (batched.py:290–295 of the JAX package)
         info["refine_failed"] = _nonfinite_failed(x, info)
     if fallback_armed and info["refine_failed"].any():
-        x = _fp64_redo(bst, b_src, x, info)
+        x = _fp64_redo(an, pattern, sh, b_src, x, info)
         info["escalation"].append("fp64_fallback")
         info["refine_failed"] = _nonfinite_failed(x, info)
         info["solve_time"] = time.perf_counter() - t0
@@ -339,23 +380,23 @@ def _nonfinite_failed(x: np.ndarray, info: dict) -> np.ndarray:
     return failed | bad | (x_bad if bad.ndim == 1 else x_bad[:, None])
 
 
-def _fp64_redo(bst: BatchedFactorState, b_dev: torch.Tensor, x: np.ndarray,
-               info: dict) -> np.ndarray:
-    """Re-factor and re-solve the refinement-failed subset in float64 and
-    splice the results back (the escape hatch of :func:`solve_batched`)."""
-    an = bst.analysis
+def _fp64_redo(an: Analysis, pattern, sh: FactorShard, b_dev: torch.Tensor,
+               x: np.ndarray, info: dict) -> np.ndarray:
+    """Re-factor and re-solve a shard's refinement-failed subset in float64
+    and splice the results back (the escape hatch of
+    :func:`solve_batched`)."""
     opts = an.opts
     t0 = time.perf_counter()
     failed_h = info["refine_failed"]
     sys_mask = failed_h if failed_h.ndim == 1 else failed_h.any(axis=1)
     idx = np.nonzero(sys_mask)[0]
-    eng64 = _engine(bst, dtype="float64", refine_dtype="float64")
+    eng64 = _engine(an, sh, dtype="float64", refine_dtype="float64")
     sel = torch.from_numpy(idx).to(eng64.device)
-    values = (bst.values_dev if bst.values_dev is not None
-              else torch.from_numpy(bst.values_batch))   # donated: the host copy
+    values = (sh.values_dev if sh.values_dev is not None
+              else torch.from_numpy(sh.values_batch))   # donated: the host copy
     v_sub = values.to(eng64.device, torch.float64)[sel]
     f = eng64.refactor_batched(v_sub)
-    solver = eng64.refined_batched_solver(*bst.a_pattern)
+    solver = eng64.refined_batched_solver(*pattern)
     x64, resid64, _, n_ref64, st64, fl64 = solver(
         f.vals, f.inode_perm, v_sub, b_dev.to(torch.float64)[sel],
         opts.refine_max_iter, resolve_refine_tol(opts, "float64"))
@@ -383,39 +424,40 @@ def _solve_batched_hostloop(bst: BatchedFactorState, b_batch,
     masking and the same multi-RHS shapes.  Returns (x, info) with
     ``residual``, ``n_refine``, ``n_perturb``, ``refine_failed``,
     ``refine_stalled`` and ``solve_time``."""
-    if bst.parts is not None:                  # a split of K: per shard
-        t0 = time.perf_counter()
-        if isinstance(b_batch, torch.Tensor):
-            b_batch = b_batch.detach().cpu().numpy()
-        outs = [_solve_batched_hostloop(p, piece, refine) for p, piece
-                in zip(bst.parts, _split_rhs(b_batch, bst.k,
-                                             len(bst.parts)))]
-        info = _merge_info([o[1] for o in outs], bst.k)
-        info["n_perturb"] = bst.n_perturb
-        info["solve_time"] = time.perf_counter() - t0
-        return np.concatenate([o[0] for o in outs])[:bst.k], info
-    an = bst.analysis
+    t0 = time.perf_counter()
+    if isinstance(b_batch, torch.Tensor):
+        b_batch = b_batch.detach().cpu().numpy()
+    outs = [_hostloop_shard(bst.analysis, bst.a_pattern, sh, piece, refine)
+            for sh, piece in zip(bst.shards, _split_rhs(b_batch, bst.k,
+                                                        len(bst.shards)))]
+    info = _merge_info([o[1] for o in outs], bst.k)
+    info["n_perturb"] = bst.n_perturb
+    info["solve_time"] = time.perf_counter() - t0
+    return np.concatenate([o[0] for o in outs])[:bst.k], info
+
+
+def _hostloop_shard(an: Analysis, pattern, sh: FactorShard, b_batch,
+                    refine) -> tuple:
+    """:func:`_solve_batched_hostloop` on one shard."""
     opts = an.opts
-    eng = _engine(bst)
+    eng = _engine(an, sh)
     t0 = time.perf_counter()
     # staged and accumulated in the engine's refine dtype, as the fused
     # path (the substitution runs in the factor dtype inside apply_batched)
     rdt = _np_dtype(eng.refine_dtype)
     tol = resolve_refine_tol(opts, eng.refine_dtype)
-    if isinstance(b_batch, torch.Tensor):
-        b_batch = b_batch.detach().cpu().numpy()
     b_batch = np.asarray(b_batch, dtype=rdt)
     if b_batch.ndim == 1:
-        b_batch = np.broadcast_to(b_batch, (bst.k, b_batch.shape[0]))
+        b_batch = np.broadcast_to(b_batch, (sh.k, b_batch.shape[0]))
 
     def apply(r):
         rhs = torch.from_numpy(np.ascontiguousarray(r)).to(eng.device)
         # widened on the device (numpy has no bfloat16)
-        return eng.apply_batched(bst.vals, bst.inode_perm,
+        return eng.apply_batched(sh.vals, sh.inode_perm,
                                  rhs).to(eng.refine_dtype).cpu().numpy()
 
     def residuals(x):
-        r = b_batch - _batched_matvec(bst.a_pattern, bst.values_batch, x)
+        r = b_batch - _batched_matvec(pattern, sh.values_batch, x)
         return r, np.abs(r).sum(axis=1) / bnorm
 
     bnorm = np.abs(b_batch).sum(axis=1)          # (K,) or (K, m)
@@ -439,7 +481,7 @@ def _solve_batched_hostloop(bst: BatchedFactorState, b_batch,
         resid = np.where(upd, resid2, resid)
         alive = alive & (improved | ~need)
     failed = (resid > tol) & (max_iter > 0)
-    info = dict(residual=resid, n_refine=n_ref, n_perturb=bst.n_perturb,
+    info = dict(residual=resid, n_refine=n_ref, n_perturb=sh.n_perturb,
                 refine_failed=failed, refine_stalled=failed & ~alive,
                 solve_time=time.perf_counter() - t0)
     return x, info

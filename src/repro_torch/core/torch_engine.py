@@ -42,7 +42,13 @@ Scatter-adds with duplicate indices (edge-bucket ``write_idx``, the matvec
 rows, the level substitution's ``rows[seg]``) run on CUDA through
 ``index_add_``'s atomics, so their summation order — and the last bits of
 the factors and solutions — may change from run to run (ROADMAP.md,
-Queue C): the port's tests hold them to 1e-10, not to bit-identity.
+Queue C): the port's tests hold them to 1e-10, not to bit-identity.  The
+bucketed factor's scatter-adds in bfloat16 are the exception
+(:func:`scatter_passes`): there one last bit moves a pivot, so each slot's
+addends are summed in float32 from its value in source order, in passes of
+unique indices, and rounded once, on every device alike.  (A bfloat16
+substitution's last bits may still vary on the card; its result is
+refined in float64.)
 """
 from __future__ import annotations
 
@@ -84,6 +90,41 @@ def on_device(t: torch.Tensor, dev: torch.device) -> bool:
 def _index(a, device) -> torch.Tensor:
     """A host index array as an int64 device tensor (uploaded once)."""
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
+
+
+def scatter_passes(write_idx, device, skip: int) -> tuple:
+    """A scatter-add with duplicate indices as ``(targets, passes)``: the
+    unique indices written, and per pass ``(positions, where)``, the
+    addends that are the r-th to reach their slot and their slots'
+    positions in ``targets``, so that no pass writes one slot twice.
+    Writes to the slot ``skip`` (the schedule's write-only scratch slot,
+    where every padded entry goes) are dropped."""
+    idx = np.asarray(write_idx, np.int64).reshape(-1)
+    keep = np.flatnonzero(idx != skip)
+    tgt, inv = np.unique(idx[keep], return_inverse=True)
+    order = np.argsort(inv, kind="stable")
+    starts = np.flatnonzero(np.r_[True, np.diff(inv[order]) != 0])
+    rank = np.empty(inv.size, np.int64)
+    rank[order] = np.arange(inv.size) - np.repeat(
+        starts, np.diff(np.r_[starts, inv.size]))
+    passes = [(_index(keep[pos], device), _index(inv[pos], device))
+              for pos in (np.flatnonzero(rank == r)
+                          for r in range(int(rank.max(initial=-1)) + 1))]
+    return _index(tgt, device), passes
+
+
+def add_at(vals: torch.Tensor, write, w: torch.Tensor) -> None:
+    """vals[:, write] += w (K, L) in place: ``index_add_`` for an index
+    tensor; for :func:`scatter_passes`, each slot's addends summed in
+    float32 from its value in source order and rounded once."""
+    if isinstance(write, torch.Tensor):
+        vals.index_add_(1, write, w)
+        return
+    tgt, passes = write
+    acc = vals[:, tgt].float()
+    for pos, where in passes:
+        acc.index_add_(1, where, w.index_select(1, pos).float())
+    vals[:, tgt] = acc.to(vals.dtype)
 
 
 def _index_views(arrays, device) -> list:
@@ -210,8 +251,8 @@ class RepeatedSolveEngine:
         if schedule == "bucketed":
             self._steps = [self._upload_step(step) for step in sched.steps]
             self._chunks = [tuple(_index(a, dev) for a in
-                                  (ch.dsl, ch.x_idx, ch.src_idx,
-                                   ch.write_idx))
+                                  (ch.dsl, ch.x_idx, ch.src_idx))
+                            + (self._level_writes(ch.write_idx),)
                             for ch in sched.scan_chunks]
         else:
             self._upload_unrolled()
@@ -244,9 +285,25 @@ class RepeatedSolveEngine:
         seq = [(nodes[int(t)].nr, nodes[int(t)].width, nodes[int(t)].lsize,
                 int(offs[int(t)]), nodes[int(t)].r0) for t in step.seq]
         edges = [(eb.k, eb.nr, eb.m, _index(eb.src_idx, dev),
-                  _index(eb.x_idx, dev), _index(eb.write_idx, dev).view(-1))
+                  _index(eb.x_idx, dev), self._writes(eb.write_idx))
                  for eb in step.edges]
         return diag, panels, seq, edges
+
+    def _writes(self, write_idx):
+        """A scatter-add's slots for :func:`add_at`: an index tensor, or
+        for a bfloat16 factor its :func:`scatter_passes`."""
+        if self.dtype == torch.bfloat16:
+            return scatter_passes(write_idx, self.device,
+                                  self.sched.scratch_slot)
+        return _index(write_idx, self.device).view(-1)
+
+    def _level_writes(self, write_idx):
+        """The width-1 tail chunk's scatter-adds, one per level: rows of one
+        index tensor, or a bfloat16 factor's :func:`scatter_passes`."""
+        if self.dtype == torch.bfloat16:
+            return [scatter_passes(w, self.device, self.sched.scratch_slot)
+                    for w in write_idx]
+        return _index(write_idx, self.device).view(len(write_idx), -1)
 
     def _upload_unrolled(self):
         """The unrolled program's per-node and per-edge constants: one
@@ -438,7 +495,7 @@ class RepeatedSolveEngine:
                 # the trailing update as -delta (jax_engine.py:252–257)
                 w_vals = torch.cat([(lts - X).reshape(K, E, -1),
                                     (-delta).reshape(K, E, -1)], dim=2)
-                vals.index_add_(1, write_idx, w_vals.view(K, -1))
+                add_at(vals, write_idx, w_vals.view(K, -1))
 
         for dsl, x_idx, src_idx, write_idx in self._chunks:   # width-1 tail
             for lv in range(dsl.shape[0]):
@@ -448,7 +505,7 @@ class RepeatedSolveEngine:
                 lts = X / S[..., 0]
                 upd = torch.cat([(lts - X)[..., None],
                                  -lts[..., None] * S[..., 1:]], dim=2)
-                vals.index_add_(1, write_idx[lv].view(-1), upd.view(K, -1))
+                add_at(vals, write_idx[lv], upd.view(K, -1))
 
         return TorchFactors(vals=vals[:, :self.plan.total_slots],
                             inode_perm=inode[:, :self.n], n_perturb=nper,

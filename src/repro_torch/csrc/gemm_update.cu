@@ -76,17 +76,17 @@
 // stored in bfloat16, arithmetic in float32.  The GEMM update stages A and B
 // as float32, sums A @ B in float32 and rounds C - A @ B once at the store,
 // as the Pallas kernel's float32 scratch accumulator does.  The node step
-// rounds where its plain version (node_edges_plain) does: per column of an
-// edge the float32 sum of lts_j src[j, c] over the solved j is rounded to
-// bfloat16 and subtracted from the entry, the difference rounded; a solve
-// column then divides by its diagonal (the true float32 quotient, rounded),
-// as K3 does (csrc/trsm.cu).  The register sweep keeps that float32 sum per
-// column.  (A single rounding of C - A.B, as the GEMM update above, drifted
-// three bf16 ulps from the plain version over the 1,085 dependent edges of
-// fem2d_10k's largest node.)  cp.async copies no two-byte element, so an
-// edge's ring slot holds, per column, the aligned 4-byte word around its
-// source row 0 and diagonal entries, and the lane takes the half it
-// needs.
+// rounds as the JAX package's unrolled node step: the register sweep keeps
+// per column the float32 sum a of lts_j src[j, c] over the solved j.  A
+// solve column (c < k) rounds a, subtracts it from the entry, rounds the
+// difference and divides by its diagonal (the true float32 quotient,
+// rounded), as K3 does (csrc/trsm.cu).  A trailing column (c >= k) of a
+// sup-sup edge (k > 1) of a node of more than one row is C - A.B rounded
+// once, as the Pallas GEMM update; for k == 1 or a one-row node, where the
+// reference runs plain bfloat16 ops, a is rounded, then the difference.
+// cp.async copies no two-byte element, so an edge's ring slot holds, per
+// column, the aligned 4-byte word around its source row 0 and diagonal
+// entries, and the lane takes the half it needs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -491,6 +491,12 @@ __device__ __forceinline__ float less_sum(float x, float a) {
   return bf_round(__fsub_rn(x, bf_round(a)));
 }
 
+// A trailing column's entry x less the sum a: rounded once when ``once``
+// (a sup-sup edge of a node of more than one row), else as less_sum.
+__device__ __forceinline__ float trail(float x, float a, bool once) {
+  return once ? bf_round(__fsub_rn(x, a)) : less_sum(x, a);
+}
+
 // Unknown j of an edge's solve from its column's entry x, the sum a of the
 // products of the lts before it and its divisor dj; every lane computes and
 // lane jl's value is taken.
@@ -506,7 +512,7 @@ __device__ __forceinline__ int wide_blocks_bf16(__nv_bfloat16* row,
                                                 const long long* cme,
                                                 const EdgeDesc& d,
                                                 __nv_bfloat16* lts_s,
-                                                int lane) {
+                                                bool once, int lane) {
   const int k = d.k, len = d.len;
   int b0 = kMaxK;
   for (; b0 < k; b0 += kMaxK) {
@@ -556,7 +562,7 @@ __device__ __forceinline__ int wide_blocks_bf16(__nv_bfloat16* row,
       const int c = b0 + lane + 32 * s;
       if (c < len)
         row[cc[s]] = __float2bfloat16_rn(c < k ? xv[s]
-                                               : less_sum(xv[s], acc[s]));
+                                               : trail(xv[s], acc[s], once));
     }
     __syncwarp();             // the block's lts and columns for every lane
   }
@@ -575,6 +581,7 @@ __device__ __forceinline__ void edge_step_bf16(__nv_bfloat16* row,
                                                __nv_bfloat16* lts_s,
                                                int lane) {
   const int k = WIDE ? min(d.k, kMaxK) : d.k, len = d.len;
+  const bool once = d.k > 1 && gridDim.x > 1;   // grid (nr, K)
   const __nv_bfloat16* src = vs + d.src;
   int col[kSlots];
   float xv[kSlots], acc[kSlots], u[kSlots], dg[kSlots];
@@ -621,12 +628,13 @@ __device__ __forceinline__ void edge_step_bf16(__nv_bfloat16* row,
     const int c = lane + 32 * s;
     if (c < len)
       row[col[s]] = __float2bfloat16_rn(c < d.k ? xv[s]
-                                                : less_sum(xv[s], acc[s]));
+                                                : trail(xv[s], acc[s], once));
   }
   if (len > kMaxK) {                      // the columns past 128
     __syncwarp();
     const long long* cme = cm + d.cm;
-    for (int c0 = WIDE ? wide_blocks_bf16(row, src, cme, d, lts_s, lane)
+    for (int c0 = WIDE ? wide_blocks_bf16(row, src, cme, d, lts_s, once,
+                                          lane)
                        : kMaxK;
          c0 < len; c0 += kMaxK) {
       int cc[kSlots];
@@ -651,7 +659,7 @@ __device__ __forceinline__ void edge_step_bf16(__nv_bfloat16* row,
 #pragma unroll
       for (int s = 0; s < kSlots; ++s)
         if (c0 + lane + 32 * s < len)
-          row[cc[s]] = __float2bfloat16_rn(less_sum(y[s], a[s]));
+          row[cc[s]] = __float2bfloat16_rn(trail(y[s], a[s], once));
     }
   }
   __syncwarp();               // the next edge reads what other lanes wrote

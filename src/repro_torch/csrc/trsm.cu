@@ -72,7 +72,11 @@
 // reading the triangle (staged once per block in shared memory, as
 // bfloat16) along a row (right solve) or a column (left solves).  Its chain
 // is k steps of a shuffle and a few operations; the right solve's block
-// stages U once for 32 rows of X, four warps taking eight rows each.
+// stages U once for 32 rows of X, four warps taking eight rows each.  Over
+// k > 128 (blocked, kernels/trisolve/ops.py) each block's dots start from
+// the float32 sums of the blocks before it (S0, summed by the float32 GEMM
+// update), so each unknown still rounds one dot over all the unknowns
+// before it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -603,18 +607,18 @@ __device__ __forceinline__ float bf_round(float v) {
 }
 
 // One solve of k <= 128 unknowns by one warp: x holds lane l's entries
-// l + 32 s of the right-hand side and comes back holding the solution.
-// Unknowns go in ascending order (descending for UP); coef(i, j) is the
-// coefficient of unknown j in the equation of unknown i, diag(j) the
-// divisor of unknown j (read only with DIV).
+// l + 32 s of the right-hand side and comes back holding the solution; acc
+// holds the float32 sums of products each equation starts from (those of
+// the unknowns of earlier blocks, or 0).  Unknowns go in ascending order
+// (descending for UP); coef(i, j) is the coefficient of unknown j in the
+// equation of unknown i, diag(j) the divisor of unknown j (read only with
+// DIV).
 template <bool UP, bool DIV, typename Coef, typename Diag>
-__device__ __forceinline__ void solve_vec_bf16(float (&x)[kMaxK / 32], int k,
-                                               int lane, Coef coef,
+__device__ __forceinline__ void solve_vec_bf16(float (&x)[kMaxK / 32],
+                                               float (&acc)[kMaxK / 32],
+                                               int k, int lane, Coef coef,
                                                Diag diag) {
   constexpr int NS = kMaxK / 32;
-  float acc[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) acc[s] = 0.f;
   for (int step = 0; step < k; ++step) {
     const int j = UP ? k - 1 - step : step;
     const int js = j >> 5, jl = j & 31;
@@ -641,12 +645,16 @@ __device__ __forceinline__ void solve_vec_bf16(float (&x)[kMaxK / 32], int k,
 }
 
 // Y U = X: one block per (batch member, 32 rows of X), U's upper triangle
-// staged with rows k + 1 apart.
+// staged with rows k + 1 apart.  S0 (X's layout, float32; null for none)
+// holds minus the sums of products of the unknowns of the blocks before
+// (the blocked path over k > 128), so that every unknown rounds one float32
+// sum over all the unknowns before it, as the plain version does.
 __global__ void __launch_bounds__(kThreads)
 trsm_right_bf16_kernel(const __nv_bfloat16* __restrict__ U, long long su_b,
                        long long su_r, const __nv_bfloat16* __restrict__ X,
                        __nv_bfloat16* __restrict__ Y, int nr, int k,
-                       int unit_diag, int tiles) {
+                       int unit_diag, int tiles,
+                       const float* __restrict__ S0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const int ld = k + 1;
@@ -664,16 +672,17 @@ trsm_right_bf16_kernel(const __nv_bfloat16* __restrict__ U, long long su_b,
   auto diag = [&](int j) { return __bfloat162float(Us[j * ld + j]); };
   for (int r = warp; r < rows; r += kThreads / 32) {
     const long long row = (e * nr + r0 + r) * (long long)k;
-    float x[kMaxK / 32];
+    float x[kMaxK / 32], acc[kMaxK / 32];
 #pragma unroll
     for (int s = 0; s < kMaxK / 32; ++s) {
       const int c = lane + 32 * s;
       x[s] = c < k ? __bfloat162float(X[row + c]) : 0.f;
+      acc[s] = S0 != nullptr && c < k ? -S0[row + c] : 0.f;
     }
     if (unit_diag)
-      solve_vec_bf16<false, false>(x, k, lane, coef, diag);
+      solve_vec_bf16<false, false>(x, acc, k, lane, coef, diag);
     else
-      solve_vec_bf16<false, true>(x, k, lane, coef, diag);
+      solve_vec_bf16<false, true>(x, acc, k, lane, coef, diag);
 #pragma unroll
     for (int s = 0; s < kMaxK / 32; ++s) {
       const int c = lane + 32 * s;
@@ -684,13 +693,14 @@ trsm_right_bf16_kernel(const __nv_bfloat16* __restrict__ U, long long su_b,
 
 // L w = b (unit lower) or U w = b (UPPER): one block per (batch member, 4
 // right-hand-side columns), a warp a column; the triangle that is read
-// staged with rows k + 1 apart.
+// staged with rows k + 1 apart.  S0 (B's layout, float32; null for none)
+// as in trsm_right_bf16_kernel.
 template <bool UPPER>
 __global__ void __launch_bounds__(kThreads)
 trsm_left_bf16_kernel(const __nv_bfloat16* __restrict__ blk,
                       const __nv_bfloat16* __restrict__ B,
                       __nv_bfloat16* __restrict__ W, int k, int m,
-                      int tiles) {
+                      int tiles, const float* __restrict__ S0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const int ld = k + 1;
@@ -705,18 +715,19 @@ trsm_left_bf16_kernel(const __nv_bfloat16* __restrict__ blk,
   const int col = (blockIdx.x % tiles) * 4 + warp;
   if (col >= m) return;
   const long long base = e * k * m + col;
-  float x[kMaxK / 32];
+  float x[kMaxK / 32], acc[kMaxK / 32];
 #pragma unroll
   for (int s = 0; s < kMaxK / 32; ++s) {
     const int i = lane + 32 * s;
     x[s] = i < k ? __bfloat162float(B[base + (long long)i * m]) : 0.f;
+    acc[s] = S0 != nullptr && i < k ? -S0[base + (long long)i * m] : 0.f;
   }
   auto coef = [&](int i, int j) { return __bfloat162float(As[i * ld + j]); };
   auto diag = [&](int j) { return __bfloat162float(As[j * ld + j]); };
   if (UPPER)
-    solve_vec_bf16<true, true>(x, k, lane, coef, diag);
+    solve_vec_bf16<true, true>(x, acc, k, lane, coef, diag);
   else
-    solve_vec_bf16<false, false>(x, k, lane, coef, diag);
+    solve_vec_bf16<false, false>(x, acc, k, lane, coef, diag);
 #pragma unroll
   for (int s = 0; s < kMaxK / 32; ++s) {
     const int i = lane + 32 * s;
@@ -726,7 +737,7 @@ trsm_left_bf16_kernel(const __nv_bfloat16* __restrict__ blk,
 
 int launch_right_bf16(const void* U, const void* X, void* Y, int batch,
                       int nr, int k, int unit_diag, long long su_b,
-                      long long su_r, void* stream) {
+                      long long su_r, const void* S0, void* stream) {
   if (batch < 1 || nr < 1 || k < 1 || k > kMaxK || su_r < k)
     return (int)cudaErrorInvalidValue;
   const long long tiles = (nr + kRows - 1) / kRows;
@@ -737,13 +748,13 @@ int launch_right_bf16(const void* U, const void* X, void* Y, int batch,
                            (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(U), su_b, su_r,
       static_cast<const __nv_bfloat16*>(X), static_cast<__nv_bfloat16*>(Y),
-      nr, k, unit_diag, (int)tiles);
+      nr, k, unit_diag, (int)tiles, static_cast<const float*>(S0));
   return (int)cudaGetLastError();
 }
 
 template <bool UPPER>
 int launch_left_bf16(const void* blk, const void* B, void* W, int batch,
-                     int k, int m, void* stream) {
+                     int k, int m, const void* S0, void* stream) {
   if (batch < 1 || m < 1 || k < 1 || k > kMaxK)
     return (int)cudaErrorInvalidValue;
   const long long tiles = (m + 3) / 4;
@@ -755,30 +766,33 @@ int launch_left_bf16(const void* blk, const void* B, void* W, int batch,
                                  (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(blk),
       static_cast<const __nv_bfloat16*>(B), static_cast<__nv_bfloat16*>(W),
-      k, m, (int)tiles);
+      k, m, (int)tiles, static_cast<const float*>(S0));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The bfloat16 entries take S0 (float32, the layout of X or B; null for
+// none): minus the sums of products each unknown's equation starts from.
 extern "C" int hylu_trsm_right_bf16(const void* U, const void* X, void* Y,
                                     int batch, int nr, int k, int unit_diag,
                                     long long su_b, long long su_r,
-                                    void* stream) {
-  return launch_right_bf16(U, X, Y, batch, nr, k, unit_diag, su_b, su_r,
+                                    const void* S0, void* stream) {
+  return launch_right_bf16(U, X, Y, batch, nr, k, unit_diag, su_b, su_r, S0,
                            stream);
 }
 
 extern "C" int hylu_trsm_left_unit_lower_bf16(const void* blk, const void* B,
                                               void* W, int batch, int k,
-                                              int m, void* stream) {
-  return launch_left_bf16<false>(blk, B, W, batch, k, m, stream);
+                                              int m, const void* S0,
+                                              void* stream) {
+  return launch_left_bf16<false>(blk, B, W, batch, k, m, S0, stream);
 }
 
 extern "C" int hylu_trsm_left_upper_bf16(const void* blk, const void* B,
                                          void* W, int batch, int k, int m,
-                                         void* stream) {
-  return launch_left_bf16<true>(blk, B, W, batch, k, m, stream);
+                                         const void* S0, void* stream) {
+  return launch_left_bf16<true>(blk, B, W, batch, k, m, S0, stream);
 }
 
 extern "C" int hylu_trsm_right_f64(const void* U, const void* X, void* Y,

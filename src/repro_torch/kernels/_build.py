@@ -43,6 +43,9 @@ _BATCHED_PANEL = [_P] * 6 + [_I] * 4 + [_P]
 _BUCKET_PANEL = [_P, _L] + [_P] * 5 + [_I] * 7 + [_P]
 _RIGHT = [_P, _P, _P, _I, _I, _I, _I, _L, _L, _P]
 _LEFT = [_P, _P, _P, _I, _I, _I, _P]
+# bfloat16 solves also take the float32 sums they start from (or null)
+_RIGHT_BF16 = _RIGHT[:-1] + [_P, _P]
+_LEFT_BF16 = _LEFT[:-1] + [_P, _P]
 _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
 _GEMM_UPDATE = [_P, _L, _L] * 4 + [_I, _I, _I, _I, _P]
 _NODE_EDGES = [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
@@ -59,9 +62,12 @@ SIGNATURES = {
     **{f"hylu_node_panel_lu_{s}": _NODE_PANEL for s in _FACTOR_DTYPES},
     **{f"hylu_panel_lu_batched_{s}": _BATCHED_PANEL for s in _FACTOR_DTYPES},
     **{f"hylu_bucket_panel_lu_{s}": _BUCKET_PANEL for s in _FACTOR_DTYPES},
-    **{f"hylu_trsm_right_{s}": _RIGHT for s in _FACTOR_DTYPES},
-    **{f"hylu_trsm_left_unit_lower_{s}": _LEFT for s in _FACTOR_DTYPES},
-    **{f"hylu_trsm_left_upper_{s}": _LEFT for s in _FACTOR_DTYPES},
+    **{f"hylu_trsm_right_{s}": _RIGHT for s in ("f64", "f32")},
+    **{f"hylu_trsm_left_unit_lower_{s}": _LEFT for s in ("f64", "f32")},
+    **{f"hylu_trsm_left_upper_{s}": _LEFT for s in ("f64", "f32")},
+    "hylu_trsm_right_bf16": _RIGHT_BF16,
+    "hylu_trsm_left_unit_lower_bf16": _LEFT_BF16,
+    "hylu_trsm_left_upper_bf16": _LEFT_BF16,
     **{f"hylu_bmm_{s}": _BMM for s in _FACTOR_DTYPES},
     **{f"hylu_gemm_update_{s}": _GEMM_UPDATE for s in _FACTOR_DTYPES},
     **{f"hylu_node_edges_{s}": _NODE_EDGES for s in _FACTOR_DTYPES},

@@ -15,7 +15,11 @@ def gemm_batched_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def gemm_update_plain(c: torch.Tensor, a: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
-    """c (E, nr, m) − a (E, nr, k) @ b (E, k, m)."""
+    """c (E, nr, m) − a (E, nr, k) @ b (E, k, m).  Below float32 (bfloat16)
+    the product is summed in float32, subtracted from c in float32 and
+    rounded once, as the Pallas kernel's float32 accumulator does."""
+    if torch.finfo(c.dtype).bits < 32:
+        return (c.float() - torch.matmul(a.float(), b.float())).to(c.dtype)
     return c - torch.matmul(a, b)
 
 
@@ -45,7 +49,8 @@ def node_edges_plain(vals: torch.Tensor, table, step, eps: torch.Tensor,
 
     * k == 1: a divide and a rank-1 update;
     * k > 1 and nr > 1: ``supsup_update_plain`` (the plain versions of K3
-      and K5) when ``use_kernels``, else a triangular solve and a product;
+      and K5; in bfloat16 C − A·B rounded once, as the Pallas kernel) when
+      ``use_kernels``, else a triangular solve and a product;
     * k > 1 and nr == 1: ``trsm_plain`` and a product, as the JAX package
       does there with or without Pallas (``_trsm_upper_jax``,
       ``jax_engine.py:53``): per column a dot over U[:j, j], then a

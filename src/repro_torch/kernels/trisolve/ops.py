@@ -53,7 +53,21 @@ def _check_left(blk, b):
                          f"{tuple(blk.shape)} and {tuple(b.shape)}")
 
 
-def _right(u, x, unit_diag):
+def _carry(t, s0):
+    """A bfloat16 solve's extra argument: the float32 sums its unknowns
+    start from (``s0``, X's or B's layout, contiguous; minus the sums, as
+    the GEMM update leaves them), or null; nothing for other dtypes."""
+    if t.dtype != torch.bfloat16:
+        return ()
+    return (None if s0 is None else _build.ptr(s0),)
+
+
+def _as(t, like):
+    """t in like's dtype (itself when it is already)."""
+    return t if t.dtype == like.dtype else t.to(like.dtype)
+
+
+def _right(u, x, unit_diag, s0=None):
     """One launch of the right solve on k <= 128; u's rows contiguous,
     x contiguous.  Returns y (nothing launched for an empty batch)."""
     b, nr, k = x.shape
@@ -75,7 +89,8 @@ def _right(u, x, unit_diag):
         with _build.on_device(x):
             _build.launch(f"hylu_trsm_right_{_build.suffix(x)}",
                           _build.ptr(u), _build.ptr(x), _build.ptr(y), b, nr,
-                          k, int(unit_diag), su_b, su_r, _build.stream_of(x))
+                          k, int(unit_diag), su_b, su_r, *_carry(x, s0),
+                          _build.stream_of(x))
     return y
 
 
@@ -120,7 +135,11 @@ def trsm_right_blocked(u: torch.Tensor, x: torch.Tensor,
     """K3's right solve blocked over k (the wide path of
     :func:`trsm_batched`; same arguments and result, any k): per column
     block J of at most 128, Y_J = X_J U_JJ⁻¹ by the solve kernel, then
-    X[:, later] −= Y_J U[J, later] by the GEMM update."""
+    X[:, later] −= Y_J U[J, later] by the GEMM update.  In bfloat16 X
+    stays as it is and the products go into float32 sums acc[:, later] −=
+    Y_J U[J, later] (the float32 GEMM update), which the later blocks'
+    solves start from: each unknown then rounds one dot, as the plain
+    version."""
     _check_right(u, x)
     if x.device.type == "cpu":
         return trsm_plain(u, x, unit_diag=unit_diag)
@@ -129,17 +148,21 @@ def trsm_right_blocked(u: torch.Tensor, x: torch.Tensor,
     y = torch.empty_like(x)
     if not (b and nr):
         return y
-    xw = x.clone()
+    bf = x.dtype == torch.bfloat16
+    xw = x if bf else x.clone()
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device) \
+        if bf else xw
     for s, e in _blocks(k):
-        yb = _right(u[:, s:e, s:e], xw[:, :, s:e].contiguous(), unit_diag)
+        yb = _right(u[:, s:e, s:e], xw[:, :, s:e].contiguous(), unit_diag,
+                    acc[:, :, s:e].contiguous() if bf else None)
         y[:, :, s:e] = yb
         if e < k:
-            _update(xw[:, :, e:], yb, u[:, s:e, e:])
+            _update(acc[:, :, e:], _as(yb, acc), _as(u[:, s:e, e:], acc))
     trsm_right_blocked.launches += 1
     return y
 
 
-def _left(name, blk, b):
+def _left(name, blk, b, s0=None):
     """One launch of a left solve on k <= 128; blk and b contiguous."""
     nb, k, m = b.shape
     _build.check_cuda(name, blk, b)
@@ -148,27 +171,33 @@ def _left(name, blk, b):
         with _build.on_device(b):
             _build.launch(f"hylu_{name}_{_build.suffix(b)}", _build.ptr(blk),
                           _build.ptr(b), _build.ptr(w), nb, k, m,
-                          _build.stream_of(b))
+                          *_carry(b, s0), _build.stream_of(b))
     return w
 
 
 def _left_blocked(name, blk, b, upper):
     """A left solve blocked over k: each diagonal block of at most 128 by
     the solve kernel, in sweep order (backward for U), then the rows still
-    to be solved take its product by the GEMM update."""
+    to be solved take its product by the GEMM update (in bfloat16 into
+    float32 sums the later blocks start from, as
+    :func:`trsm_right_blocked`)."""
     nb, k, m = b.shape
     _build.check_cuda(name, blk, b)
     w = b.clone()
     if not (nb and m):
         return w
+    bf = b.dtype == torch.bfloat16
+    acc = torch.zeros(b.shape, dtype=torch.float32, device=b.device) \
+        if bf else w
     for s, e in (reversed(_blocks(k)) if upper else _blocks(k)):
         wb = _left(name, blk[:, s:e, s:e].contiguous(),
-                   w[:, s:e].contiguous())
+                   w[:, s:e].contiguous(),
+                   acc[:, s:e].contiguous() if bf else None)
         w[:, s:e] = wb
         if upper and s > 0:
-            _update(w[:, :s], blk[:, :s, s:e], wb)
+            _update(acc[:, :s], _as(blk[:, :s, s:e], acc), _as(wb, acc))
         elif not upper and e < k:
-            _update(w[:, e:], blk[:, e:, s:e], wb)
+            _update(acc[:, e:], _as(blk[:, e:, s:e], acc), _as(wb, acc))
     return w
 
 

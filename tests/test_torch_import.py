@@ -133,8 +133,8 @@ def test_bfloat16_on_cuda_raises():
     eng = torch_repeated_engine(an)
     assert eng.factor_dtype == torch.bfloat16
     bst = factor_batched(an, a, a.data[None].repeat(3, axis=0))
-    assert bst.k == 3 and bst.k_pad == 4 and len(bst.parts) == 2
-    assert all(p.vals.dtype == torch.bfloat16 for p in bst.parts)
+    assert bst.k == 3 and bst.k_pad == 4 and len(bst.shards) == 2
+    assert all(p.vals.dtype == torch.bfloat16 for p in bst.shards)
 
 
 def test_build_is_lazy_and_hashes_the_sources():

@@ -162,6 +162,41 @@ def test_node_step_matches_jax(k, nr, dt):
         assert port[2].tolist() == [0, 1]
 
 
+@pytest.mark.parametrize("nr", [1, 24])
+def test_bf16_node_step_matches_jax(nr):
+    """bfloat16: a node fed by 16 sources of 1 to 16 rows, against the JAX
+    node step.  The JAX package runs a sup-sup edge of a node of more than
+    one row through the Pallas GEMM update (C − A·B summed in float32 and
+    rounded once) and every other product as bfloat16 ops (the product
+    rounded, then the difference); the plain node step must round at the
+    same places.  Equal pivots and counts, no slot outside the panel
+    written, and each panel value within two bf16 ulps of its own entry of
+    the JAX result (the two sum their float32 dots in other orders)."""
+    rng = np.random.default_rng(300 + nr)
+    ks = tuple(int(k) for k in rng.integers(1, 17, size=16))
+    vals, nodes, offs, nd = _node_case(rng, nr, ks, lsize=40, usize=24)
+    vals = torch.tensor(vals).to(torch.bfloat16).double().numpy()
+    eps = np.array([1e-8, 1e-6])
+    v, perm, nper = _port_node(vals, nodes, offs, nd, eps, torch.bfloat16)
+    ref = _jax_node(vals, nodes, offs, nd, eps, jnp.bfloat16)
+    off = int(offs[nd.nid])
+    inside = np.zeros(vals.shape[1], bool)
+    inside[off:off + nd.nr * nd.width] = True
+    before = torch.tensor(vals, dtype=torch.bfloat16)
+    assert torch.equal(v[:, ~inside].view(torch.int16),
+                       before[:, ~inside].view(torch.int16))
+    for s, (jv, jperm, jnper) in enumerate(ref):
+        assert np.array_equal(perm[s].numpy(), jperm)
+        assert int(nper[s]) == jnper
+        got = v[s, inside].float().numpy()
+        want = jv[inside].astype(np.float32)
+        assert np.isfinite(want).all() and np.isfinite(got).all()
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want),
+                                                  2.0 ** -126))) - 7)
+        assert (np.abs(got - want) <= 2 * ulp + 2.0 ** -126).all(), \
+            np.max(np.abs(got - want) / ulp)
+
+
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_width1_node_without_edges(dt):
     """A width-1 node with no edge only perturbs its pivot: a positive and

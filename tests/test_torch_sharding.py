@@ -61,9 +61,7 @@ def _seeded(at, steps):
 
 
 def _inode(bst):
-    if bst.parts is None:
-        return bst.inode_perm.numpy()
-    return torch.cat([p.inode_perm for p in bst.parts]).numpy()[:bst.k]
+    return bst.inode_perm.numpy()
 
 
 def _same(x, info, x0, info0):
@@ -94,7 +92,7 @@ def test_one_device_mesh_equals_unsharded(scenario, jax_runs):
     _, at, vb, bb = _case(scenario)
     x0, info0, _ = _solve(at, vb, bb, _opts())
     x1, info1, bst1 = _solve(at, vb, bb, _opts(1))
-    assert bst1.k == K and bst1.k_pad == K and len(bst1.parts) == 1
+    assert bst1.k == K and bst1.k_pad == K and len(bst1.shards) == 1
     _same(x1, info1, x0, info0)
     bst_j, x_j, info_j = jax_runs[scenario]
     assert np.abs(x1 - np.asarray(x_j)).max() < TOL
@@ -111,7 +109,7 @@ def test_split_matches_unsplit_and_jax(scenario, mesh, jax_runs):
     _, at, vb, bb = _case(scenario)
     x0, info0, bst0 = _solve(at, vb, bb, _opts())
     x, info, bst = _solve(at, vb, bb, _opts(MESHES[mesh]))
-    nd = len(bst.parts)
+    nd = len(bst.shards)
     assert nd == (4 if mesh == "cpu_x4" else 2)
     assert bst.k == K and bst.k_pad % nd == 0 and bst.k_pad >= K
     assert x.shape == x0.shape
@@ -129,7 +127,7 @@ def test_split_matches_unsplit_and_jax(scenario, mesh, jax_runs):
     an = bst.analysis
     assert len(an.engine_cache) == 1
     assert torch_repeated_engine(an) is torch_repeated_engine(
-        an, device=bst.parts[1].device)
+        an, device=bst.shards[1].device)
 
 
 @pytest.mark.parametrize("mesh", ["1", "cpu_x2"])
@@ -159,9 +157,10 @@ def test_device_buffer_input_no_reupload():
     vdev = torch.from_numpy(vb)
     bst = factor_batched(an, at, vdev)
     base = vdev.untyped_storage().data_ptr()
-    for i, p in enumerate(bst.parts):
+    for i, p in enumerate(bst.shards):
         assert p.values_dev.untyped_storage().data_ptr() == base
         assert p.values_dev.data_ptr() == vdev[3 * i:].data_ptr()
+        assert p.values_host is None
     assert bst._values_host is None
     x, _ = solve_batched(bst, torch.from_numpy(bb))
     x0, _ = solve_batched(factor_batched(analyze(at, _opts()), at, vb), bb)
@@ -170,10 +169,10 @@ def test_device_buffer_input_no_reupload():
     _, at, vb5, _ = _case("circuit")             # K = 5: the last shard
     v5 = torch.from_numpy(vb5)                   # is padded, a copy
     bst5 = factor_batched(an, at, v5)
-    assert bst5.parts[0].values_dev.data_ptr() == v5.data_ptr()
-    assert bst5.parts[1].values_dev.untyped_storage().data_ptr() != \
+    assert bst5.shards[0].values_dev.data_ptr() == v5.data_ptr()
+    assert bst5.shards[1].values_dev.untyped_storage().data_ptr() != \
         v5.untyped_storage().data_ptr()
-    assert [p.k for p in bst5.parts] == [3, 3] and bst5.k_pad == 6
+    assert [p.k for p in bst5.shards] == [3, 3] and bst5.k_pad == 6
 
 
 def test_donating_solve_consumes_state():
@@ -183,7 +182,7 @@ def test_donating_solve_consumes_state():
     bst = factor_batched(an, at, vb)
     xd, _ = solve_batched(bst, bb, donate=True)
     assert np.array_equal(xd, x0)
-    assert bst.consumed and all(p.consumed for p in bst.parts)
+    assert bst.consumed and all(p.values_dev is None for p in bst.shards)
     with pytest.raises(RuntimeError, match="consumed"):
         solve_batched(bst, bb)
     np.testing.assert_array_equal(bst.values_batch, vb)
