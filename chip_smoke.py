@@ -95,7 +95,7 @@ Phases, each printing one JSON line:
             wide path, its 150-row node block K3's blocked left solves)
             and ``klu_like`` (row-row only) presets through
             ``factor_batched`` + ``solve_batched``, once (launches per
-            wrapper counted) and three more times (median and range of
+            wrapper counted) and PRESET_REPEATS more times (median and range of
             the ms and systems/s): plan census, residuals, ``spsolve`` on
             systems 0 and 31; the host-loop solve
             (``_solve_batched_hostloop``) on hylu's and klu_like's factors
@@ -179,9 +179,34 @@ Phases, each printing one JSON line:
             rwkv6 the two routes also in float32 at full depth (2e-3).
             The peak memory is that of the serving calls alone.
 
+9d. repairs  C1: bfloat16 factors with ``use_kernels=False`` on the card
+            (no bfloat16 ``solve_triangular`` there: ``trsm_plain``), the
+            bucketed schedule at K = 32 through ``factor_batched`` +
+            ``solve_batched`` against ``spsolve``, both schedules held to
+            the CPU's plain bfloat16 route; C3: two one-system bfloat16
+            applies on the card bit-identical to each other and to the
+            CPU's (the level substitution's ordered row passes);
+13. moe_serving  qwen3-moe-30b-a3b at full width and depth (48 layers,
+            128 experts top-8, about 30.5 B parameters) in bfloat16 after
+            the earlier models are freed: ``greedy_generate`` on 4
+            requests of 2,048 tokens, 16 new, prefill and decode times,
+            peak memory, MoE's share of the prefill's device time, the
+            device busy share, K7 on layer 0 held to its plain version and
+            launched once per layer per prefill; decode ≡ forward in
+            float32 at 2 layers, at capacity_factor 8.0 (printed) and held
+            at E / k, where no copy can be dropped;
+14. jamba_reduced  jamba-1.5-large at ``.reduced()`` end to end in float32
+            (attention, Mamba, MoE sub-layers): K7 on its attention layers,
+            kernel vs plain route and decode ≡ forward within 2e-3;
+15. mamba_layer  one Mamba layer at jamba's full width (DI 16,384) over
+            4 x 2,048 tokens: ``mamba_seq`` and 16 ``mamba_step`` calls
+            timed in float32 and bfloat16, the steps within 2e-3 of the
+            sequence form over the extended sequence in float32.
+
 Then one ``{"kernels": [...]}`` line (each record's ``launches_by_path``
 counts the batched, pipeline, autodiff, baselines, scalar, mesh and
-solver-serving phases, or the models' serving calls; a bfloat16 record
+solver-serving phases, or the models' serving calls (K7's also
+qwen3-moe's and reduced jamba's ``greedy_generate``); a bfloat16 record
 its entry point's launches in the bf16 phase), the nvidia-smi
 line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -190,6 +215,7 @@ device or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -199,7 +225,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K_MAIN, T_STEPS, K_WIDTH1 = 32, 3, 8
-PRESET_REPEATS = 3                  # timed passes of each §4 preset
+PRESET_REPEATS = 1                  # timed passes of each §4 preset (3
+#                                     before the MoE / Mamba phases came)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float64": 67e12,    # fp64 (tensor core) peak, data sheet
               "float32": 67e12,    # fp32 outside the tensor cores
@@ -249,6 +276,10 @@ TOL_LEFT = {"float64": 1e-10, "float32": 1e-3}
 # 2,048 prompt tokens and 16 new tokens each, weights and prompts from SEED
 SERVING_MODELS = ("phi3-medium-14b", "rwkv6-1.6b")
 BATCH, PROMPT, NEW_TOKENS, SEED = 4, 2048, 16, 0
+# MoE serving at full width and depth (one 80 GB card holds its 61 GB of
+# bf16 weights), its float32 decode check's prompt, and jamba's reduced
+# prompt
+MOE_MODEL, DECODE_CHECK_TOKENS, JAMBA_PROMPT = "qwen3-moe-30b-a3b", 32, 256
 RAGGED_T = 2000                     # a multiple of none of K7's row tiles
 # K7 against its plain version, (rtol, atol): float32 at the 2e-5 of
 # tests/test_kernels.py; bfloat16 inside its 3e-2, at 1e-2 relative (about
@@ -577,6 +608,7 @@ def main() -> int:
                                            values[0], b)
     mesh_counts = mesh_phase(torch, np, kernels, A, an64, values[0], b, bst,
                              x64, xs, values)
+    repairs_phase(torch, np, kernels, A, an64, values[0], b)
     serving_counts = serving_solver_phase(torch, np, kernels, A, an64, C, anc)
 
     for rec in records:
@@ -596,6 +628,20 @@ def main() -> int:
                                        "mesh": mesh_counts[w],
                                        "serving": serving_counts[w]}
         rec["launches"] = sum(rec["launches_by_path"].values())
+    # the solver phases' device state goes before the models (qwen3-moe's
+    # 61 GB of weights need the card to themselves)
+    del bst, bst32, f, b_dev, eng64, eng_u
+    for an in (an64, an_u, an32, anc):
+        an.engine_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # from here, segments grow in place: a small tensor left in a freed
+    # model's segment no longer pins the segment (the 18 GiB expert stacks
+    # need contiguous room)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    emit({"phase": "free_solver",
+          "memory_allocated": torch.cuda.memory_allocated(),
+          "memory_reserved": torch.cuda.memory_reserved()})
     from repro_torch.configs import registry
 
     for name in SERVING_MODELS:
@@ -607,6 +653,13 @@ def main() -> int:
                         ("mesh", mesh_counts)):
             rec["launches_by_path"][path] = c[rec["name"]]
         records.append(rec)
+    flash_rec = next(r for r in records if r["name"] == "flash_attention")
+    for path, phase in ((MOE_MODEL, moe_serving_phase),
+                        ("jamba_reduced", jamba_reduced_phase)):
+        n, _ = phase(torch, np, kernels)
+        flash_rec["launches_by_path"][path] = n
+        flash_rec["launches"] += n
+    mamba_layer_phase(torch, np)
     emit({"kernels": records})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -854,8 +907,8 @@ def bf16_phase(torch, np, kernels, A, an64, values0, b):
           f"bf16: batched factors differ from the CPU's plain route: "
           f"{vs_cpu}")
     # x itself is not held: the refinement does not converge on either
-    # device and a bf16 substitution's scatter-adds run on the card's
-    # atomics (ROADMAP Queue C), so x carries no digits to compare
+    # device, so x carries no digits to compare (the bits of one bf16
+    # apply are held in the repairs phase)
     check(lc_cpu["same_pivots"] and lc_cpu["same_n_perturb"]
           and lc_cpu["held"]
           and lc_cpu["cpu_refine_failed"] == info1["refine_failed"],
@@ -893,9 +946,12 @@ def mesh_phase(torch, np, kernels, A, an64, values0, b, bst64, x64, xs,
     ``HyluOptions(mesh=["cuda:0", "cuda:0"])`` (two shards of 16 on one
     card, one engine) and ``mesh=1`` against the unsplit main step (x
     within 1e-10, equal pivots, perturbation and refinement counts), timed
-    in turns with the unsplit step (unsplit, split, split, unsplit; on one
-    card the shards run one after the other, so no gain is expected); K =
-    31 on the two shards (the second padded with system 0); one donating
+    in turns with the unsplit step (unsplit, split, split, unsplit; the
+    shards' factors and refinement iterations are queued together, but on
+    one card they share one stream, so no gain is expected: the ratio is
+    printed beside PR 25's, when each shard ran to its end before the
+    next began); K = 31 on the two shards (the second padded with system
+    0); one donating
     T = 3 pipeline (``solve_sequence``'s ``_run_pipeline``) on the split
     against the main phase's ``solve_sequence``.  Returns the launch
     counts of the split runs."""
@@ -978,6 +1034,9 @@ def mesh_phase(torch, np, kernels, A, an64, values0, b, bst64, x64, xs,
            "split_over_unsplit": {
                key: med("mesh_cuda0_x2", key) / med("unsplit", key)
                for key in ("factor_ms", "solve_ms")},
+           "split_over_unsplit_shards_one_after_the_other": {
+               "factor_ms": 2.21, "solve_ms": 2.12,
+               "source": "PERF.md, PR 25 review round"},
            "engines": len(an2.engine_cache),
            "pipeline_t3_donate": {"x_vs_solve_sequence_rel_err": err_seq,
                                   "s": t_pipe, "donate": info_s["donate"],
@@ -3826,12 +3885,13 @@ def layer_input(T, L, cfg, params, prompt, layer):
     the served models is one attention or one RWKV6 block): its input
     through ``ln1`` — what its attention or time-mix receives — and that
     layer's params."""
-    kind = cfg.layer_kinds()[0]
+    kind, fkind = cfg.layer_kinds()[0], cfg.ffn_kinds()[0]
     x = params["embed"][prompt]
     positions = torch_arange_like(prompt)
     for i in range(layer):
-        x, _ = T._sublayer_seq(cfg, kind, T.layer_slice(params["blocks"][0], i),
-                               x, positions, False, True)
+        x, _, _ = T._sublayer_seq(cfg, kind, fkind,
+                                  T.layer_slice(params["blocks"][0], i),
+                                  x, positions, False, True)
     sub = T.layer_slice(params["blocks"][0], layer)
     return L.rms_norm(x, sub["ln1"], cfg.norm_eps), sub
 
@@ -4066,27 +4126,39 @@ def wkv_record(torch, L, T, cfg, params, prompt):
     return rec
 
 
+def decode_vs_forward(torch, T, cfg, params, prompt):
+    """Greedy decode of NEW_TOKENS after the prompt against the
+    teacher-forced forward over the prompt and the generated tokens:
+    (max |decode logits - forward logits|, the sequence, the prefill's
+    logits)."""
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+
+    s = prompt.shape[1]
+    prefill = make_prefill_step(cfg, s_max=s + NEW_TOKENS)
+    decode = make_decode_step(cfg)
+    logits, cache = prefill(params, tokens=prompt)
+    steps, toks = [logits[:, -1]], [logits[:, -1].argmax(-1)]
+    for i in range(NEW_TOKENS - 1):
+        lg, cache = decode(params, toks[-1][:, None], cache, s + i)
+        steps.append(lg[:, -1])
+        toks.append(lg[:, -1].argmax(-1))
+    seq = torch.cat([prompt, torch.stack(toks[:-1], 1)], 1)
+    hidden, _, _ = T.forward(cfg, params, tokens=seq)
+    full = T.lm_logits(cfg, params, hidden[:, s - 1:])
+    return float((torch.stack(steps, 1) - full).abs().max()), seq, logits
+
+
 def f32_checks(torch, T, cfg, prompt):
     """decode ≡ teacher-forced forward, and the kernel route against
     ``use_kernels=False``, in float32 at full width and 2 layers."""
     import dataclasses
 
-    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+    from repro_torch.serve.serve_step import make_prefill_step
 
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     params = T.init_params(cfg2, seed=SEED, dtype=torch.float32)
-    prefill = make_prefill_step(cfg2, s_max=PROMPT + NEW_TOKENS)
-    decode = make_decode_step(cfg2)
-    logits, cache = prefill(params, tokens=prompt)
-    steps, toks = [logits[:, -1]], [logits[:, -1].argmax(-1)]
-    for i in range(NEW_TOKENS - 1):
-        lg, cache = decode(params, toks[-1][:, None], cache, PROMPT + i)
-        steps.append(lg[:, -1])
-        toks.append(lg[:, -1].argmax(-1))
-    seq = torch.cat([prompt, torch.stack(toks[:-1], 1)], 1)
-    hidden, _, _ = T.forward(cfg2, params, tokens=seq)
-    full = T.lm_logits(cfg2, params, hidden[:, PROMPT - 1:])
-    decode_err = float((torch.stack(steps, 1) - full).abs().max())
+    decode_err, seq, logits = decode_vs_forward(torch, T, cfg2, params,
+                                                prompt)
     plain, _ = make_prefill_step(cfg2, use_kernels=False)(params,
                                                           tokens=prompt)
     route_err = float((plain[:, -1] - logits[:, -1]).abs().max())
@@ -4248,6 +4320,475 @@ def serving_phase(torch, np, kernels, cfg):
                                "per_prefill": per_prefill[wrapper],
                                "decode": per_decode[wrapper]}
     return rec
+
+
+def repairs_phase(torch, np, kernels, A, an64, values0, b):
+    """Phase 9d: the repairs of the port's faults at fem2d_10k.
+
+    C1: bfloat16 with ``use_kernels=False`` on the card, where
+    ``torch.linalg.solve_triangular`` takes no bfloat16: the bucketed
+    schedule at K = 32 through ``factor_batched`` + ``solve_batched``
+    (every x within 1e-10 of ``spsolve`` after the float64 fallback, no
+    kernel launched, ms) with its first CPU_SYSTEMS factors held to the
+    CPU's plain bfloat16 route (equal pivots and counts, the values by
+    :func:`held_to_cpu`); the unrolled schedule's factor of CPU_SYSTEMS
+    value sets (its solve is the same level-scheduled one) with equal
+    pivots and counts to the CPU's, its differing entries printed: its
+    per-edge bf16 products round as cuBLAS sums, now and then on the
+    other side of a tie from the CPU's sum, and later edges carry that
+    ulp on.
+    C3: the one-system bfloat16 ``apply`` (level-scheduled, its row
+    scatters in ordered passes) twice on the card on one factor of the
+    kernel route, bit-identical to each other and to the CPU's ``apply``
+    on the same factor."""
+    import dataclasses
+
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from repro_torch.core import (analyze, factor_batched, solve_batched,
+                                  torch_repeated_engine)
+
+    t_all = time.perf_counter()
+    K = values0.shape[0]
+    rec = {"phase": "repairs", "matrix": "fem2d_10k", "k": K}
+    # ---- C1 ----------------------------------------------------------------
+    c1 = {}
+    for schedule in ("bucketed", "unrolled"):
+        an = analyze(A, dataclasses.replace(
+            an64.opts, factor_dtype="bfloat16", use_kernels=False,
+            factor_schedule=schedule), reuse=an64)
+        torch_repeated_engine(an)
+        run = {}
+        vals = values0 if schedule == "bucketed" else values0[:CPU_SYSTEMS]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        bst = factor_batched(an, A, vals)
+        t_f = time.perf_counter() - t0
+        if schedule == "bucketed":
+            t0 = time.perf_counter()
+            x, info = solve_batched(bst, b)
+            t_s = time.perf_counter() - t0
+            xr = np.stack([spla.spsolve(sp.csr_matrix(
+                (vals[k], A.indices, A.indptr),
+                shape=(A.n, A.n)).tocsc(), b[k]) for k in (0, K - 1)])
+            run.update({
+                "solve_batched_ms": t_s * 1e3,
+                "fallback_ms": info.get("fallback_time", 0.0) * 1e3,
+                "n_refine": info["n_refine"],
+                "n_fp64_fallback": info["n_fp64_fallback"],
+                "max_residual": float(info["residual"].max()),
+                "refine_failed": int(info["refine_failed"].sum()),
+                "scipy_rel_err": float(np.abs(x[[0, -1]] - xr).max()
+                                       / np.abs(xr).max())})
+        counts = kernels.launch_counts()
+        t0 = time.perf_counter()
+        f_cpu = torch_repeated_engine(an, device="cpu").refactor_batched(
+            torch.from_numpy(vals[:CPU_SYSTEMS]))
+        got = bst.vals[:CPU_SYSTEMS].cpu()
+        e_, u_, d_, o_ = bf16_err(torch, got, f_cpu.vals)
+        run.update({
+            "k": int(vals.shape[0]), "factor_batched_ms": t_f * 1e3,
+            "launches": {w: c for w, c in counts.items() if c},
+            "vs_cpu_plain": {
+                "systems": CPU_SYSTEMS,
+                "held": held_to_cpu(torch, got, f_cpu.vals, d_),
+                "same_pivots": bool(torch.equal(
+                    bst.inode_perm[:CPU_SYSTEMS].cpu(), f_cpu.inode_perm)),
+                "same_n_perturb": bool(np.array_equal(
+                    bst.n_perturb[:CPU_SYSTEMS], f_cpu.n_perturb.numpy())),
+                "max_abs_err": e_, "max_ulps_of_entry": u_,
+                "entries_differing": d_, "entries_over_2_ulps_of_entry": o_,
+                "entries": int(got.numel()),
+                "cpu_s": time.perf_counter() - t0}})
+        c1[schedule] = run
+        del bst, f_cpu, got
+    rec["c1_bf16_plain_route"] = c1
+    # ---- C3 ----------------------------------------------------------------
+    an_bf = analyze(A, dataclasses.replace(an64.opts,
+                                           factor_dtype="bfloat16"),
+                    reuse=an64)
+    eng = torch_repeated_engine(an_bf)
+    f = eng.refactor(torch.from_numpy(values0[0]).to(eng.device))
+    b0 = torch.from_numpy(b[0])
+    xs_card = [eng.apply(f.vals, f.inode_perm, b0.to(eng.device)).cpu()
+               for _ in range(2)]
+    t0 = time.perf_counter()
+    x_cpu = torch_repeated_engine(an_bf, device="cpu").apply(
+        f.vals.cpu(), f.inode_perm.cpu(), b0)
+
+    def same_bits(u, v):
+        return bool(torch.equal(u.view(torch.int16), v.view(torch.int16)))
+
+    rec["c3_bf16_apply"] = {
+        "x_dtype": str(x_cpu.dtype),
+        "card_runs_bit_identical": same_bits(xs_card[0], xs_card[1]),
+        "card_equals_cpu_bits": same_bits(xs_card[0], x_cpu),
+        "entries_differing_from_cpu": int((xs_card[0].view(torch.int16)
+                                           != x_cpu.view(torch.int16)).sum()),
+        "finite": bool(torch.isfinite(x_cpu.float()).all()),
+        "cpu_s": time.perf_counter() - t0}
+    rec["seconds"] = time.perf_counter() - t_all
+    emit(rec)
+    bk = c1["bucketed"]
+    check(bk["scipy_rel_err"] <= 1e-10 and bk["max_residual"] <= 1e-10
+          and bk["refine_failed"] == 0,
+          f"C1 bucketed: x off spsolve by {bk['scipy_rel_err']}, "
+          f"residual {bk['max_residual']}")
+    check(bk["vs_cpu_plain"]["held"], f"C1 bucketed: the card's plain "
+                                      f"bf16 factors differ from the CPU's: "
+                                      f"{bk['vs_cpu_plain']}")
+    for schedule, run in c1.items():
+        v = run["vs_cpu_plain"]
+        check(not run["launches"], f"C1 {schedule}: use_kernels=False "
+                                   f"launched {run['launches']}")
+        check(v["same_pivots"] and v["same_n_perturb"],
+              f"C1 {schedule}: the card's plain bf16 pivots differ from "
+              f"the CPU's: {v}")
+    c3 = rec["c3_bf16_apply"]
+    check(c3["card_runs_bit_identical"] and c3["card_equals_cpu_bits"],
+          f"C3: the one-system bf16 apply is not deterministic: {c3}")
+
+
+def moe_serving_phase(torch, np, kernels, name=MOE_MODEL):
+    """Phase 13: MoE serving at full width and depth.  qwen3-moe-30b-a3b
+    (48 layers, 128 experts top-8) in bfloat16, random weights from SEED,
+    BATCH requests of PROMPT random tokens, NEW_TOKENS new tokens, greedy,
+    after the earlier models are freed: K7 on layer 0's q/k/v held to its
+    plain version; ``greedy_generate`` timed, then one prefill and the
+    decode steps timed alone; peak memory of the serving calls; MoE's
+    share of the prefill's device time (CUDA events around every ``moe``
+    call against events around the prefill) and the device busy share of
+    one prefill and its top kernels (``profile_serve._profile``:
+    torch.profiler's kernel time over the unprofiled prefill time); K7 launched once per layer per prefill and never in decode;
+    finite logits.  Then decode ≡ forward in float32 at full width and 2
+    layers on a short prompt and one request, at capacity_factor 8.0
+    (printed with its dropped copies) and held at E / k, where no copy
+    can be dropped.
+    Returns (K7's launches by greedy_generate, the record)."""
+    import dataclasses
+
+    from repro_torch import profile_serve
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flashattn import ops as flash
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import (greedy_generate,
+                                              make_decode_step,
+                                              make_prefill_step)
+
+    t_all = time.perf_counter()
+    cfg = registry.get(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SEED, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in _leaves(params))
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (BATCH, PROMPT))).cuda()
+    # K7 on layer 0 against its plain version
+    h, sub = layer_input(T, L, cfg, params, prompt, 0)
+    q, k, v = (a.transpose(1, 2) for a in L.attention_qkv(
+        cfg, sub["attn"], h, torch_arange_like(prompt)))
+    got = flash.flash_attention(q, k, v).float()
+    ref = flash.attention_plain(q, k, v).float()
+    rtol, atol = TOL_MODEL["bfloat16"]
+    diff = (got - ref).abs()
+    k7 = {"shape": f"q {tuple(q.shape)} k, v {tuple(k.shape)}, causal",
+          "max_abs_err": float(diff.max()),
+          "max_err_over_limit": float((diff / (atol + rtol * ref.abs()))
+                                      .max()), "rtol_atol": [rtol, atol]}
+    del h, sub, q, k, v, got, ref, diff
+    # the serving path, its peak alone
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = greedy_generate(cfg, params, prompt, NEW_TOKENS)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    path_counts = kernels.launch_counts()
+    prefill = make_prefill_step(cfg, s_max=PROMPT + NEW_TOKENS)
+    decode = make_decode_step(cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, tokens=prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    per_prefill = kernels.launch_counts()
+    finite = [bool(torch.isfinite(logits).all())]
+    out, step_s = [logits[:, -1].argmax(-1)], []
+    kernels.reset_launch_counts()
+    for i in range(NEW_TOKENS - 1):
+        t0 = time.perf_counter()
+        lg, cache = decode(params, out[-1][:, None], cache, PROMPT + i)
+        out.append(lg[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        finite.append(bool(torch.isfinite(lg).all()))
+    per_decode = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stepped = torch.stack(out, 1)
+    del cache, lg, logits
+    # MoE's share of one prefill's device time, by CUDA events
+    marks, orig_moe = [], L.moe
+
+    def marked_moe(*a, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        res = orig_moe(*a, **kw)
+        e1.record()
+        marks.append((e0, e1))
+        return res
+
+    p0, p1, d0, d1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(4))
+    L.moe = marked_moe
+    try:
+        p0.record()
+        _, cache = prefill(params, tokens=prompt)
+        p1.record()
+        n_prefill = len(marks)
+        d0.record()
+        decode(params, out[0][:, None], cache, PROMPT)
+        d1.record()
+    finally:
+        L.moe = orig_moe
+    torch.cuda.synchronize()
+    del cache
+    moe_ms = sum(a.elapsed_time(b_) for a, b_ in marks[:n_prefill])
+    moe_dec_ms = sum(a.elapsed_time(b_) for a, b_ in marks[n_prefill:])
+    span_ms = p0.elapsed_time(p1)
+    dec_span_ms = d0.elapsed_time(d1)
+    busy = profile_serve._profile(
+        torch, lambda: prefill(params, tokens=prompt), prefill_s)
+    del params
+    torch.cuda.empty_cache()
+    # decode ≡ forward in float32, 2 layers: at capacity_factor 8.0 (the
+    # JAX test's) and at E / k, where every expert has a slot for every
+    # token, so that no copy can be dropped
+    dec = {}
+    no_drop = float(cfg.moe.n_experts / cfg.moe.top_k)
+    for cf in (8.0, no_drop):
+        cfg2 = dataclasses.replace(cfg, n_layers=2, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        params2 = T.init_params(cfg2, seed=SEED, dtype=torch.float32)
+        dropped, orig_route = [0], L.moe_route
+
+        def counted_route(*a, **kw):
+            r = orig_route(*a, **kw)
+            dropped[0] += int((~r[3]).sum())
+            return r
+
+        L.moe_route = counted_route
+        try:
+            err, _, _ = decode_vs_forward(torch, T, cfg2, params2,
+                                          prompt[:1, :DECODE_CHECK_TOKENS])
+        finally:
+            L.moe_route = orig_route
+        dec[cf] = {"capacity_factor": cf, "max_abs": err,
+                   "copies_dropped": dropped[0]}
+        del params2
+        torch.cuda.empty_cache()
+    dec_err, n_drop = dec[no_drop]["max_abs"], dec[no_drop]["copies_dropped"]
+    n_attn = cfg.n_layers
+    res = {"phase": "moe_serving", "model": name, "dtype": "bfloat16",
+           "batch": BATCH, "prompt_tokens": PROMPT, "new_tokens": NEW_TOKENS,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+           "params": n_params, "init_params_s": init_s,
+           "greedy_generate_s": generate_s, "prefill_ms": prefill_s * 1e3,
+           "prefill_tokens_per_s": BATCH * PROMPT / prefill_s,
+           "decode_ms_per_step": 1e3 * float(np.mean(step_s)),
+           "decode_ms_per_step_all": [x_ * 1e3 for x_ in step_s],
+           "max_memory_allocated": peak, "weight_bytes": n_params * 2,
+           "memory_allocated_before_init": held_before,
+           "prefill_device_span_ms": span_ms, "moe_device_ms": moe_ms,
+           "moe_share_of_prefill": moe_ms / span_ms,
+           "moe_calls_per_prefill": n_prefill,
+           "prefill_profile": busy,
+           "decode_step_device_span_ms": dec_span_ms,
+           "moe_decode_device_ms": moe_dec_ms,
+           "moe_share_of_decode_step": moe_dec_ms / dec_span_ms,
+           "launches_greedy_generate": path_counts["flash_attention"],
+           "launches_per_prefill": per_prefill["flash_attention"],
+           "launches_decode": per_decode["flash_attention"],
+           "all_logits_finite": all(finite),
+           "stepped_equals_greedy": bool(torch.equal(stepped, tokens)),
+           "k7_layer0_held": k7,
+           "f32_decode_vs_forward": {
+               "layers": 2, "requests": 1, "prompt_tokens":
+                   DECODE_CHECK_TOKENS, "runs": list(dec.values()),
+               "held_at_capacity_factor": no_drop,
+               "why": "decode equals the forward only where no copy is "
+                      "dropped; with random weights the attention output "
+                      "(a running mean of v) is common to the tokens, so "
+                      "the router sends most of them to the same experts "
+                      "and capacity_factor 8.0 drops copies in the forward; "
+                      "at E / k every expert has a slot for every token"},
+           "seconds": time.perf_counter() - t_all}
+    emit(res)
+    check(k7["max_err_over_limit"] <= 1.0,
+          f"{name}: K7 layer 0 off its plain version: {k7}")
+    check(res["all_logits_finite"], f"{name}: non-finite bf16 logits")
+    check(tokens.shape == (BATCH, NEW_TOKENS) and res["stepped_equals_greedy"],
+          f"{name}: greedy tokens {tuple(tokens.shape)}, stepped equal: "
+          f"{res['stepped_equals_greedy']}")
+    check(path_counts["flash_attention"] == per_prefill["flash_attention"]
+          == n_attn, f"{name}: K7 launched {path_counts['flash_attention']} "
+                     f"times by greedy_generate, expected {n_attn}")
+    check(not any(per_decode.values()),
+          f"{name}: decode launched kernels {per_decode}")
+    check(n_prefill == len(marks) - n_prefill == cfg.n_layers,
+          f"{name}: {n_prefill} MoE calls a prefill, "
+          f"{len(marks) - n_prefill} a decode step")
+    check(n_drop == 0 and dec_err < TOL_DECODE,
+          f"{name}: f32 decode vs forward {dec_err} at capacity_factor "
+          f"{no_drop} (dropped {n_drop} copies)")
+    return path_counts["flash_attention"], res
+
+
+def jamba_reduced_phase(torch, np, kernels):
+    """Phase 14: jamba-1.5-large-398b at ``.reduced()`` (1 attention + 7
+    Mamba sub-layers a period, MoE every second one, two periods) end to
+    end in float32 on the card, MoE capacity_factor 8.0: BATCH requests of
+    JAMBA_PROMPT tokens through ``greedy_generate`` (K7 on its two
+    attention layers, once each per prefill), K7 on layer 0 held to its
+    plain version, the kernel route's prefill logits against
+    ``use_kernels=False``'s, and decode ≡ forward, both within 2e-3.
+    Returns (K7's launches by greedy_generate, the record)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flashattn import ops as flash
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import greedy_generate, make_prefill_step
+
+    t_all = time.perf_counter()
+    red = registry.get("jamba-1.5-large-398b").reduced()
+    cfg = dataclasses.replace(red, moe=dataclasses.replace(
+        red.moe, capacity_factor=8.0))
+    params = T.init_params(cfg, seed=SEED, dtype=torch.float32)
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (BATCH, JAMBA_PROMPT))).cuda()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = greedy_generate(cfg, params, prompt, NEW_TOKENS)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    h, sub = layer_input(T, L, cfg, params, prompt, 0)
+    q, k, v = (a.transpose(1, 2) for a in L.attention_qkv(
+        cfg, sub["attn"], h, torch_arange_like(prompt)))
+    k7_ref = flash.attention_plain(q, k, v)
+    rtol, atol = TOL_MODEL["float32"]
+    k7_diff = (flash.flash_attention(q, k, v) - k7_ref).abs()
+    k7_err = float(k7_diff.max())
+    k7_over = float((k7_diff / (atol + rtol * k7_ref.abs())).max())
+    got, _ = make_prefill_step(cfg)(params, tokens=prompt)
+    ref, _ = make_prefill_step(cfg, use_kernels=False)(params, tokens=prompt)
+    route_err = float((got[:, -1] - ref[:, -1]).abs().max())
+    dec_err, _, _ = decode_vs_forward(torch, T, cfg, params, prompt)
+    n_attn = cfg.layer_kinds().count("attn") * cfg.n_periods
+    res = {"phase": "jamba_reduced", "model": cfg.name, "dtype": "float32",
+           "layers": cfg.n_layers, "kinds": cfg.layer_kinds(),
+           "ffn_kinds": cfg.ffn_kinds(), "batch": BATCH,
+           "prompt_tokens": JAMBA_PROMPT, "new_tokens": NEW_TOKENS,
+           "greedy_generate_s": generate_s,
+           "launches_greedy_generate": counts["flash_attention"],
+           "k7_layer0_max_abs_err": k7_err,
+           "k7_layer0_max_err_over_limit": k7_over,
+           "kernel_vs_plain_route_max_abs": route_err,
+           "decode_vs_forward_max_abs": dec_err,
+           "tokens_shape": list(tokens.shape),
+           "seconds": time.perf_counter() - t_all}
+    emit(res)
+    del params
+    torch.cuda.empty_cache()
+    check(counts["flash_attention"] == n_attn,
+          f"jamba reduced: K7 launched {counts['flash_attention']} times, "
+          f"expected {n_attn}")
+    check(k7_over <= 1.0, f"jamba reduced: K7 off its plain version by "
+                          f"{k7_err} ({k7_over} times the limit)")
+    check(route_err < TOL_DECODE and dec_err < TOL_DECODE,
+          f"jamba reduced: kernel vs plain {route_err}, decode vs forward "
+          f"{dec_err}")
+    return counts["flash_attention"], res
+
+
+def mamba_layer_phase(torch, np):
+    """Phase 15: one Mamba layer at jamba-1.5-large's full width (d 8,192,
+    DI 16,384, N 16, dt_rank 512, d_conv 4), BATCH × PROMPT tokens:
+    ``mamba_seq`` (the chunked scan, chunk 128) and NEW_TOKENS
+    ``mamba_step`` calls from its state, timed in float32 and bfloat16
+    (one warm-up call, then one timed); in float32 the steps' outputs
+    against ``mamba_seq`` over the extended sequence, within 2e-3; the
+    peak memory of each."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+
+    from repro_torch.core.options import resolve_device
+
+    t_all = time.perf_counter()
+    cfg = registry.get("jamba-1.5-large-398b")
+    dev = resolve_device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xf = torch.randn((BATCH, PROMPT + NEW_TOKENS, cfg.d_model),
+                     generator=gen, device=dev)
+    res = {"phase": "mamba_layer", "model": cfg.name,
+           "d_model": cfg.d_model, "d_inner": cfg.mamba.expand * cfg.d_model,
+           "d_state": cfg.mamba.d_state, "chunk": L.MAMBA_CHUNK,
+           "batch": BATCH, "prompt_tokens": PROMPT, "steps": NEW_TOKENS}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).replace("torch.", "")
+        p = L.init_mamba(cfg, gen, dt, dev)
+        x = xf.to(dt)
+
+        def run():
+            out, st = L.mamba_seq(cfg, p, x[:, :PROMPT], return_state=True)
+            outs = []
+            for i in range(NEW_TOKENS):
+                o, st = L.mamba_step(cfg, p, x[:, PROMPT + i:PROMPT + i + 1],
+                                     st)
+                outs.append(o)
+            return out, torch.cat(outs, 1)
+
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        _, st0 = L.mamba_seq(cfg, p, x[:, :PROMPT], return_state=True)
+        e[1].record()
+        for i in range(NEW_TOKENS):
+            _, st0 = L.mamba_step(cfg, p, x[:, PROMPT + i:PROMPT + i + 1],
+                                  st0)
+        e[2].record()
+        torch.cuda.synchronize()
+        r = {"mamba_seq_ms": e[0].elapsed_time(e[1]),
+             "mamba_step_ms": e[1].elapsed_time(e[2]) / NEW_TOKENS,
+             "peak_bytes": torch.cuda.max_memory_allocated()}
+        if dt == torch.float32:
+            _, steps = run()
+            full = L.mamba_seq(cfg, p, x)[:, PROMPT:]
+            r["step_vs_seq_max_abs"] = float((steps - full).abs().max())
+            r["seq_out_max_abs"] = float(full.abs().max())
+            r["finite"] = bool(torch.isfinite(full).all())
+        res[dname] = r
+        del p, x, st0
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_all
+    emit(res)
+    f32 = res["float32"]
+    check(f32["finite"] and f32["step_vs_seq_max_abs"] < TOL_DECODE,
+          f"mamba layer: steps vs sequence {f32['step_vs_seq_max_abs']}")
 
 
 def _leaves(tree):

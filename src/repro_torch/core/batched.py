@@ -19,7 +19,11 @@ right-hand sides by zeros (a padded system converges at iteration 0), and
 each contiguous shard is factored and solved on its device by its
 device's engine, as one unsplit batch each (``BatchedFactorState.shards``,
 one shard when K is not split);
-results are gathered and cut back to the caller's K.  Every system's
+results are gathered and cut back to the caller's K.  The shards run at
+once, as the JAX package's ``shard_map`` runs them: every shard's factor
+is queued before any perturbation count is read, and the refinement loops
+step together (``torch_engine.run_together``: one iteration of every live
+shard is queued, then their loop flags are read).  Every system's
 arithmetic is its own, so on the CPU the split is bit-identical to the
 unsplit run; the reported refinement count is the largest shard's, as the
 JAX package's ``pmax``.
@@ -35,7 +39,7 @@ import torch
 from .matrix import CSR
 from .analysis import Analysis, _sync, analyze, torch_repeated_engine
 from .options import HyluOptions, resolve_mesh, resolve_refine_tol
-from .torch_engine import on_device
+from .torch_engine import on_device, run_together
 
 
 @dataclasses.dataclass
@@ -213,7 +217,7 @@ def _batched_matvec(pattern: tuple, values_batch: np.ndarray,
 
 
 def _np_dtype(tdtype):
-    return torch.empty((), dtype=tdtype).numpy().dtype
+    return np.dtype(str(tdtype).rsplit(".", 1)[1])     # "torch.float64"
 
 
 def _stage_values(eng, values_batch):
@@ -269,24 +273,27 @@ def factor_batched(an: Analysis, a_pattern, values_batch) -> BatchedFactorState:
     elif values_batch.ndim == 1:
         values_batch = values_batch[None]
     k = int(values_batch.shape[0])
-    shards = [_factor_shard(an, piece, dev) for piece, dev
+    queued = [_factor_shard(an, piece, dev) for piece, dev
               in zip(_split_rows(values_batch, len(devices), "first"),
                      devices)]
+    shards = [FactorShard(n_perturb=npt.cpu().numpy(), **kw)  # waits for it
+              for npt, kw in queued]     # every shard queued before a read
     return BatchedFactorState(
         analysis=an, a_pattern=_pattern_of(a_pattern), shards=shards,
         n_perturb=np.concatenate([sh.n_perturb for sh in shards])[:k],
         timings={"factor_batched": time.perf_counter() - t0}, k=k)
 
 
-def _factor_shard(an, values_batch, device) -> FactorShard:
-    """One shard's batch factored on ``device`` (None: ``an.opts.device``)."""
+def _factor_shard(an, values_batch, device) -> tuple:
+    """One shard's batch factored on ``device`` (None: ``an.opts.device``),
+    queued only: its perturbation counts on the device and the rest of its
+    :class:`FactorShard`'s fields."""
     eng = torch_repeated_engine(an, device=device)
     values_dev, values_host, k = _stage_values(eng, values_batch)
     f = eng.refactor_batched(values_dev)
-    return FactorShard(values_dev=values_dev, vals=f.vals,
-                       inode_perm=f.inode_perm,
-                       n_perturb=f.n_perturb.cpu().numpy(),  # waits for it
-                       k=k, device=device, values_host=values_host)
+    return f.n_perturb, dict(values_dev=values_dev, vals=f.vals,
+                             inode_perm=f.inode_perm, k=k, device=device,
+                             values_host=values_host)
 
 
 def solve_batched(bst: BatchedFactorState, b_batch,
@@ -316,10 +323,10 @@ def solve_batched(bst: BatchedFactorState, b_batch,
             "this BatchedFactorState was consumed by a donating solve; "
             "refactor (factor_batched) before solving again")
     t0 = time.perf_counter()
-    outs = [_solve_shard(bst.analysis, bst.a_pattern, sh, piece, refine,
-                         donate)
-            for sh, piece in zip(bst.shards, _split_rhs(b_batch, bst.k,
-                                                        len(bst.shards)))]
+    outs = [finish() for finish in run_together([
+        _solve_shard(bst.analysis, bst.a_pattern, sh, piece, refine, donate)
+        for sh, piece in zip(bst.shards, _split_rhs(b_batch, bst.k,
+                                                    len(bst.shards)))])]
     if donate:
         bst.consumed = True
     info = _merge_info([o[1] for o in outs], bst.k)
@@ -329,8 +336,12 @@ def solve_batched(bst: BatchedFactorState, b_batch,
 
 
 def _solve_shard(an: Analysis, pattern, sh: FactorShard, b_batch, refine,
-                 donate: bool) -> tuple:
-    """:func:`solve_batched` on one shard: (x, info) for its k systems."""
+                 donate: bool):
+    """:func:`solve_batched` on one shard, a generator for
+    :func:`run_together`: its refined solve steps with the other shards'.
+    It returns ``finish()``, which reads the shard's results and runs its
+    fp64 fallback, after every shard's main solve has ended, and gives
+    (x, info) for its k systems."""
     opts = an.opts
     eng = _engine(an, sh)
     t0 = time.perf_counter()
@@ -343,32 +354,37 @@ def _solve_shard(an: Analysis, pattern, sh: FactorShard, b_batch, refine,
         _ = sh.values_batch      # the host copy, before the buffer goes
     b_dev = _stage_rhs(eng, b_batch, sh.k, copy=donate)
     b_src = b_dev.clone() if (donate and fallback_armed) else b_dev
-    solver = eng.refined_batched_solver(*pattern)
-    x, resid, n_iter, n_ref_sys, stalled, failed = solver(
+    solver = eng.refined_batched_steps(*pattern)
+    x, resid, n_iter, n_ref_sys, stalled, failed = yield from solver(
         sh.vals, sh.inode_perm, sh.values_dev, b_dev, max_iter,
         resolve_refine_tol(opts, eng.refine_dtype))
     if donate:
         sh.values_dev = None
-    x = x.cpu().numpy()
-    info = dict(residual=resid.cpu().numpy(), n_refine=int(n_iter),
-                n_refine_per_system=n_ref_sys.cpu().numpy(),
-                n_perturb=sh.n_perturb,
-                refine_stalled=stalled.cpu().numpy(),
-                refine_failed=failed.cpu().numpy(),
-                factor_dtype=str(eng.factor_dtype).replace("torch.", ""),
-                fallback_mask=np.zeros(sh.k, bool), n_fp64_fallback=0,
-                solve_time=time.perf_counter() - t0,
-                escalation=(["refine"] if max_iter > 0 else []))
-    if max_iter > 0:
-        # NaN compares False against tol: a non-finite residual or solution
-        # must still count as failed (batched.py:290–295 of the JAX package)
-        info["refine_failed"] = _nonfinite_failed(x, info)
-    if fallback_armed and info["refine_failed"].any():
-        x = _fp64_redo(an, pattern, sh, b_src, x, info)
-        info["escalation"].append("fp64_fallback")
-        info["refine_failed"] = _nonfinite_failed(x, info)
-        info["solve_time"] = time.perf_counter() - t0
-    return x, info
+
+    def finish():
+        x_h = x.cpu().numpy()
+        info = dict(residual=resid.cpu().numpy(), n_refine=int(n_iter),
+                    n_refine_per_system=n_ref_sys.cpu().numpy(),
+                    n_perturb=sh.n_perturb,
+                    refine_stalled=stalled.cpu().numpy(),
+                    refine_failed=failed.cpu().numpy(),
+                    factor_dtype=str(eng.factor_dtype).replace("torch.", ""),
+                    fallback_mask=np.zeros(sh.k, bool), n_fp64_fallback=0,
+                    solve_time=time.perf_counter() - t0,
+                    escalation=(["refine"] if max_iter > 0 else []))
+        if max_iter > 0:
+            # NaN compares False against tol: a non-finite residual or
+            # solution must still count as failed (batched.py:290–295 of
+            # the JAX package)
+            info["refine_failed"] = _nonfinite_failed(x_h, info)
+        if fallback_armed and info["refine_failed"].any():
+            x_h = _fp64_redo(an, pattern, sh, b_src, x_h, info)
+            info["escalation"].append("fp64_fallback")
+            info["refine_failed"] = _nonfinite_failed(x_h, info)
+            info["solve_time"] = time.perf_counter() - t0
+        return x_h, info
+
+    return finish
 
 
 def _nonfinite_failed(x: np.ndarray, info: dict) -> np.ndarray:
@@ -427,9 +443,12 @@ def _solve_batched_hostloop(bst: BatchedFactorState, b_batch,
     t0 = time.perf_counter()
     if isinstance(b_batch, torch.Tensor):
         b_batch = b_batch.detach().cpu().numpy()
-    outs = [_hostloop_shard(bst.analysis, bst.a_pattern, sh, piece, refine)
-            for sh, piece in zip(bst.shards, _split_rhs(b_batch, bst.k,
-                                                        len(bst.shards)))]
+    for sh in bst.shards:     # the residuals' host values, before any launch
+        _ = sh.values_batch
+    outs = run_together([
+        _hostloop_shard(bst.analysis, bst.a_pattern, sh, piece, refine)
+        for sh, piece in zip(bst.shards, _split_rhs(b_batch, bst.k,
+                                                    len(bst.shards)))])
     info = _merge_info([o[1] for o in outs], bst.k)
     info["n_perturb"] = bst.n_perturb
     info["solve_time"] = time.perf_counter() - t0
@@ -437,8 +456,10 @@ def _solve_batched_hostloop(bst: BatchedFactorState, b_batch,
 
 
 def _hostloop_shard(an: Analysis, pattern, sh: FactorShard, b_batch,
-                    refine) -> tuple:
-    """:func:`_solve_batched_hostloop` on one shard."""
+                    refine):
+    """:func:`_solve_batched_hostloop` on one shard, a generator for
+    :func:`run_together` (each substitution is yielded, so every shard's
+    is queued before any is read); returns (x, info)."""
     opts = an.opts
     eng = _engine(an, sh)
     t0 = time.perf_counter()
@@ -454,7 +475,7 @@ def _hostloop_shard(an: Analysis, pattern, sh: FactorShard, b_batch,
         rhs = torch.from_numpy(np.ascontiguousarray(r)).to(eng.device)
         # widened on the device (numpy has no bfloat16)
         return eng.apply_batched(sh.vals, sh.inode_perm,
-                                 rhs).to(eng.refine_dtype).cpu().numpy()
+                                 rhs).to(eng.refine_dtype)
 
     def residuals(x):
         r = b_batch - _batched_matvec(pattern, sh.values_batch, x)
@@ -462,7 +483,7 @@ def _hostloop_shard(an: Analysis, pattern, sh: FactorShard, b_batch,
 
     bnorm = np.abs(b_batch).sum(axis=1)          # (K,) or (K, m)
     bnorm = np.where(bnorm == 0.0, 1.0, bnorm)
-    x = apply(b_batch)
+    x = yield apply(b_batch)
     r, resid = residuals(x)
     n_ref = 0
     alive = np.ones(resid.shape, bool)
@@ -471,7 +492,7 @@ def _hostloop_shard(an: Analysis, pattern, sh: FactorShard, b_batch,
         need = alive & (resid > tol)
         if not need.any():
             break
-        x2 = x + apply(r)
+        x2 = x + (yield apply(r))
         r2, resid2 = residuals(x2)
         n_ref += 1
         improved = resid2 < resid
@@ -652,7 +673,7 @@ class _Shard:
 
     def __init__(self, an: Analysis, pattern, device, donate: bool):
         self.eng = torch_repeated_engine(an, device=device)
-        self.solver = self.eng.refined_batched_solver(*pattern)
+        self.solver = self.eng.refined_batched_steps(*pattern)
         self.vstage = _Staging(self.eng.device, self.eng.values_dtype, donate)
         self.bstage = _Staging(self.eng.device, self.eng.values_dtype, donate)
         self.prev, self.outs, self.n_pert = None, [], []
@@ -665,7 +686,7 @@ def _run_pipeline(an: Analysis, pattern, values_steps, b_steps) -> tuple:
     each step's K is padded and split as :func:`factor_batched` splits it,
     and every shard runs the pipeline on its device with its own staging
     buffers (all shards' refactors of a step are queued, then the next
-    step's copies, then the solves)."""
+    step's copies, then the solves, which step together)."""
     steps_v = _check_steps(values_steps, b_steps)
     n_steps = len(steps_v)
     per_step_b = isinstance(b_steps, (list, tuple))
@@ -709,11 +730,14 @@ def _run_pipeline(an: Analysis, pattern, values_steps, b_steps) -> tuple:
             fs.append(sh.eng.refactor_batched(
                 v_dev, out=sh.prev if donate else None))
         nxt = stage(t + 1) if t + 1 < n_steps else None
+        solves = []
         for sh, f, (v_dev, b_dev) in zip(shards, fs, cur):
             ks = v_dev.shape[0]
             b = b_dev if b_dev.ndim > 1 else b_dev.expand(ks, b_dev.shape[0])
-            sh.outs.append(sh.solver(f.vals, f.inode_perm, v_dev, b,
-                                     max_iter, tol))
+            solves.append(sh.solver(f.vals, f.inode_perm, v_dev, b,
+                                    max_iter, tol))
+        for sh, f, out in zip(shards, fs, run_together(solves)):
+            sh.outs.append(out)
             sh.vstage.release(t % 2)
             sh.bstage.release(t % 2)
             sh.n_pert.append(f.n_perturb)

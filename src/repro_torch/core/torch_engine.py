@@ -46,9 +46,15 @@ Queue C): the port's tests hold them to 1e-10, not to bit-identity.  The
 bucketed factor's scatter-adds in bfloat16 are the exception
 (:func:`scatter_passes`): there one last bit moves a pivot, so each slot's
 addends are summed in float32 from its value in source order, in passes of
-unique indices, and rounded once, on every device alike.  (A bfloat16
-substitution's last bits may still vary on the card; its result is
-refined in float64.)
+unique indices, and rounded once, on every device alike.  A bfloat16
+substitution's scatter-adds run in ordered passes too
+(:func:`row_passes`), each add rounded as the CPU's ``index_add_`` rounds
+it, so its x has the same bits on every device.
+
+The refined solve's loop is a generator (:meth:`RepeatedSolveEngine.
+refined_batched_steps`) that yields its loop flag to the host: under a
+split of K, :func:`run_together` queues one iteration of every shard
+before it reads any shard's flag.
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ from .structure import get_bucket_schedule, segment_levels
 from ..kernels.panel import ops as panel_ops
 from ..kernels.supsup import ops as supsup_ops
 from ..kernels.trisolve import ops as trisolve_ops
+from ..kernels.trisolve import ref as trisolve_ref
 
 IDENTITY_PIVOT = 1e30     # padded block diagonals (jax_engine.py:197–201)
 
@@ -92,6 +99,19 @@ def _index(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)
 
 
+def _ranks(inv: np.ndarray) -> list:
+    """Positions of a duplicate-index scatter, by pass: pass r holds the
+    addends that are the r-th, in source order, to reach their index
+    (``inv``: each addend's index), so no pass writes one index twice."""
+    order = np.argsort(inv, kind="stable")
+    starts = np.flatnonzero(np.r_[True, np.diff(inv[order]) != 0])
+    rank = np.empty(inv.size, np.int64)
+    rank[order] = np.arange(inv.size) - np.repeat(
+        starts, np.diff(np.r_[starts, inv.size]))
+    return [np.flatnonzero(rank == r)
+            for r in range(int(rank.max(initial=-1)) + 1)]
+
+
 def scatter_passes(write_idx, device, skip: int) -> tuple:
     """A scatter-add with duplicate indices as ``(targets, passes)``: the
     unique indices written, and per pass ``(positions, where)``, the
@@ -102,15 +122,47 @@ def scatter_passes(write_idx, device, skip: int) -> tuple:
     idx = np.asarray(write_idx, np.int64).reshape(-1)
     keep = np.flatnonzero(idx != skip)
     tgt, inv = np.unique(idx[keep], return_inverse=True)
-    order = np.argsort(inv, kind="stable")
-    starts = np.flatnonzero(np.r_[True, np.diff(inv[order]) != 0])
-    rank = np.empty(inv.size, np.int64)
-    rank[order] = np.arange(inv.size) - np.repeat(
-        starts, np.diff(np.r_[starts, inv.size]))
     passes = [(_index(keep[pos], device), _index(inv[pos], device))
-              for pos in (np.flatnonzero(rank == r)
-                          for r in range(int(rank.max(initial=-1)) + 1))]
+              for pos in _ranks(inv)]
     return _index(tgt, device), passes
+
+
+def row_passes(rowmap) -> tuple:
+    """A level substitution's duplicate-index row scatter as host arrays
+    ``(order, rows_0, rows_1, ...)``: the addends' positions in pass
+    order, then per pass of :func:`_ranks` its rows (unique within a
+    pass), the pass's addends being the next ``len(rows_r)`` of
+    ``order``.  :func:`add_rows` adds pass by pass, each add rounded once,
+    in source order — the bits of the CPU's ``index_add_``, which adds in
+    source order and rounds each add."""
+    idx = np.asarray(rowmap, np.int64)
+    passes = _ranks(idx)
+    order = np.concatenate(passes) if passes else np.zeros(0, np.int64)
+    return (order,) + tuple(idx[pos] for pos in passes)
+
+
+def add_rows(w: torch.Tensor, rowmap, upd: torch.Tensor) -> None:
+    """w[:, rowmap] += upd (K, L, m) in place: ``index_add_`` for an index
+    tensor, else pass by pass over :func:`row_passes`' passes (the
+    addends put in pass order once; a pass of one row is an add into
+    that row's view, a wider one a gather of its rows, an add and a
+    write-back: no atomics)."""
+    if isinstance(rowmap, torch.Tensor):
+        w.index_add_(1, rowmap, upd)
+        return
+    upd = upd.index_select(1, rowmap[0])
+    views, a = {}, 0                   # one-row passes: w's views made once
+    for rows in rowmap[1:]:
+        if isinstance(rows, int):
+            view = views.get(rows)
+            if view is None:
+                view = views[rows] = w.select(1, rows)
+            view.add_(upd.select(1, a))
+            a += 1
+            continue
+        b = a + rows.shape[0]
+        w.index_copy_(1, rows, w.index_select(1, rows).add_(upd[:, a:b]))
+        a = b
 
 
 def add_at(vals: torch.Tensor, write, w: torch.Tensor) -> None:
@@ -125,6 +177,28 @@ def add_at(vals: torch.Tensor, write, w: torch.Tensor) -> None:
     for pos, where in passes:
         acc.index_add_(1, where, w.index_select(1, pos).float())
     vals[:, tgt] = acc.to(vals.dtype)
+
+
+def run_together(gens: list) -> list:
+    """Run device programs written as generators side by side and return
+    their results in order.  Each yields a tensor whose host value it needs
+    and receives it as a numpy array.  A round runs every live program up
+    to its next yield, so all of them queue their launches, and only then
+    reads what they yielded: no host read falls between two programs'
+    launches of one round, and the shards of a split K run at once on
+    their devices."""
+    out, got, live = [None] * len(gens), [None] * len(gens), range(len(gens))
+    while live:
+        asks = {}
+        for i in live:
+            try:
+                asks[i] = gens[i].send(got[i])
+            except StopIteration as stop:
+                out[i] = stop.value
+        for i, t in asks.items():
+            got[i] = t.cpu().numpy()
+        live = list(asks)
+    return out
 
 
 def _index_views(arrays, device) -> list:
@@ -336,6 +410,21 @@ class RepeatedSolveEngine:
         self._blocks = [(nd.r0, nd.nr) + tuple(views[5 * i:5 * i + 5])
                         for i, nd in enumerate(blocks)]
 
+    def _row_passes(self, groups) -> list:
+        """:func:`row_passes` of every level's row map (a list of levels
+        per group) on the device: the index arrays as views of one
+        tensor, a pass of one row as its int."""
+        passes = [[row_passes(rm) for rm in g] for g in groups]
+
+        def one_row(j, a):
+            return j > 0 and a.size == 1
+
+        flat = iter(_index_views([a for g in passes for lv in g
+                                  for j, a in enumerate(lv)
+                                  if not one_row(j, a)], self.device))
+        return [[[int(a[0]) if one_row(j, a) else next(flat)
+                  for j, a in enumerate(lv)] for lv in g] for g in passes]
+
     def _tri(self, name: str) -> _TriLevels:
         """The device schedule of one of the solve structure's triangular
         substitutions ("l_fwd", "u_bwd", "ut_fwd", "lt_bwd"), uploaded on
@@ -357,7 +446,14 @@ class RepeatedSolveEngine:
             arrays.append((rows, rowmap, cols, slot, dpad[rows]))
         views = _index_views([a for group in arrays for a in group],
                              self.device)
-        groups = [tuple(views[5 * i:5 * i + 5]) for i in range(len(arrays))]
+        groups = [list(views[5 * i:5 * i + 5]) for i in range(len(arrays))]
+        if self.dtype == torch.bfloat16:      # ordered row scatters
+            passes = self._row_passes(
+                [[rm] if i < n_head else list(rm)
+                 for i, (_, rm, _, _, _) in enumerate(arrays)])
+            for i, (g, pg) in enumerate(zip(groups, passes)):
+                g[1] = pg[0] if i < n_head else pg
+        groups = [tuple(g) for g in groups]
         tri = _TriLevels(head=groups[:n_head], chunks=groups[n_head:],
                          upper=upper)
         self._tris[name] = tri
@@ -487,6 +583,11 @@ class RepeatedSolveEngine:
                         lts, Us.reshape(K * E, k, m).contiguous())
                     lts = lts.view(K, E, nr, k)
                     delta = delta.view(K, E, nr, m)
+                elif dt == torch.bfloat16:     # sup-sup, plain: no bf16
+                    lts = trisolve_ref.trsm_plain(   # solve_triangular
+                        U.reshape(K * E, k, k),
+                        X.reshape(K * E, nr, k)).view(K, E, nr, k)
+                    delta = torch.matmul(lts, Us)
                 else:                                      # sup-sup, plain
                     lts = torch.linalg.solve_triangular(U, X, upper=True,
                                                         left=False)
@@ -591,8 +692,9 @@ class RepeatedSolveEngine:
         """One level-scheduled triangular substitution (``_tri_solve_batched``
         :444–498) on w (K, n, m), factor dtype.  Per level, the dependencies'
         products go to their rows in one duplicate-index ``index_add_``
-        (``rows[seg]``), then an upper solve divides the level's rows by
-        their diagonal.  The narrow tail runs chunk by chunk, level by
+        (``rows[seg]``; for a bfloat16 factor in the ordered passes of
+        :func:`row_passes`), then an upper solve divides the level's rows
+        by their diagonal.  The narrow tail runs chunk by chunk, level by
         level, on w padded with the zero row n."""
         tri = self._tri(name)
         n = self.n
@@ -600,7 +702,7 @@ class RepeatedSolveEngine:
 
         def level(rows, rowmap, cols, slot, diag):
             if cols.numel():
-                w.index_add_(1, rowmap, -(vals[:, slot, None] * w[:, cols]))
+                add_rows(w, rowmap, -(vals[:, slot, None] * w[:, cols]))
             if tri.upper:
                 w[:, rows] = w[:, rows] / vals[:, diag, None]
 
@@ -668,7 +770,21 @@ class RepeatedSolveEngine:
         improve it; ``failed = (resid > tol) & (max_iter > 0)`` and
         ``stalled = failed & ~alive``.  b, the A values, x and the residual
         are carried in ``refine_dtype``; substitution runs in the factor
-        dtype."""
+        dtype.  It runs :meth:`refined_batched_steps` to its end."""
+        steps = self.refined_batched_steps(indptr, indices)
+
+        def solve_refined(*args):
+            return run_together([steps(*args)])[0]
+
+        return solve_refined
+
+    def refined_batched_steps(self, indptr, indices):
+        """:meth:`refined_batched_solver`'s solve as a generator function
+        of the same arguments: before each iteration it yields its loop
+        flag, ``any(alive & (resid > tol))`` on the device, and receives
+        the flag's host value; it returns the solver's tuple, on the
+        device.  :func:`run_together` runs several (the shards of a split
+        K) side by side."""
         indptr = np.asarray(indptr)
         indices = np.asarray(indices)
         key = (indptr.tobytes(), indices.tobytes())
@@ -679,7 +795,7 @@ class RepeatedSolveEngine:
         rdtype = self.refine_dtype
         apply_b = self.apply_batched
 
-        def solve_refined(vals, inode_perm, a_vals, b, max_iter, tol):
+        def solve_steps(vals, inode_perm, a_vals, b, max_iter, tol):
             multi = b.ndim == 3
             b = b.to(rdtype)
             a_vals = a_vals.to(rdtype)
@@ -698,8 +814,8 @@ class RepeatedSolveEngine:
             n_ref = torch.zeros(resid.shape, dtype=torch.int32,
                                 device=b.device)
             it = 0
-            # the loop test is a host sync per iteration (see module doc)
-            while it < max_iter + 1 and bool((alive & (resid > tol)).any()):
+            # the loop test is a host read per iteration (see module doc)
+            while it < max_iter + 1 and (yield (alive & (resid > tol)).any()):
                 need = alive & (resid > tol)
                 x2 = x + apply_b(vals, inode_perm, r).to(rdtype)
                 r2 = b - matvec(a_vals, x2)
@@ -720,4 +836,4 @@ class RepeatedSolveEngine:
             stalled = failed & ~alive
             return x, resid, n_iter, n_ref, stalled, failed
 
-        return solve_refined
+        return solve_steps

@@ -50,7 +50,9 @@ def node_edges_plain(vals: torch.Tensor, table, step, eps: torch.Tensor,
     * k == 1: a divide and a rank-1 update;
     * k > 1 and nr > 1: ``supsup_update_plain`` (the plain versions of K3
       and K5; in bfloat16 C − A·B rounded once, as the Pallas kernel) when
-      ``use_kernels``, else a triangular solve and a product;
+      ``use_kernels``, else a triangular solve and a product (in bfloat16,
+      which ``torch.linalg.solve_triangular`` does not take on either
+      device, ``trsm_plain``: the JAX package's ``_trsm_upper_jax``);
     * k > 1 and nr == 1: ``trsm_plain`` and a product, as the JAX package
       does there with or without Pallas (``_trsm_upper_jax``,
       ``jax_engine.py:53``): per column a dot over U[:j, j], then a
@@ -66,14 +68,14 @@ def node_edges_plain(vals: torch.Tensor, table, step, eps: torch.Tensor,
         if k == 1:                                     # row-row/sup-row
             lts = x[:, :, :1] / src[:, :, :1]
             xr = x[:, :, 1:] - lts * src[:, :, 1:]
-        elif nr == 1:                                  # sup-row
-            lts = trsm_plain(src[:, :, :k], x[:, :, :k])
-            xr = x[:, :, k:] - torch.matmul(lts, src[:, :, k:])
-        elif use_kernels:                              # sup-sup
+        elif nr > 1 and use_kernels:                   # sup-sup
             lts, xr = supsup_update_plain(x, src, k)
-        else:
-            lts = torch.linalg.solve_triangular(
-                src[:, :, :k], x[:, :, :k], upper=True, left=False)
+        else:                                # sup-row; sup-sup, plain
+            if nr == 1 or x.dtype == torch.bfloat16:
+                lts = trsm_plain(src[:, :, :k], x[:, :, :k])
+            else:
+                lts = torch.linalg.solve_triangular(
+                    src[:, :, :k], x[:, :, :k], upper=True, left=False)
             xr = x[:, :, k:] - torch.matmul(lts, src[:, :, k:])
         panel[:, :, cm] = torch.cat([lts, xr], dim=2)
     if n_edges is None and nr == 1:                    # perturb the pivot

@@ -5,9 +5,10 @@
 .init_params``), into the port's tree: the same dicts and lists with each
 leaf a tensor of the same shape and values.  Both trees lay weights out
 (in, out) with leaves stacked (n_periods, ...), so this is a copy, never
-a transpose; it works for every family of the slice (attention and RWKV6
-configs).  bfloat16 leaves (numpy's ``ml_dtypes.bfloat16``) come across
-bit for bit.
+a transpose; it works for every family of the registry (attention, MoE:
+router and (E, d, f) expert stacks; Mamba: projections, conv, dt and
+``a_log``; RWKV6).  bfloat16 leaves (numpy's ``ml_dtypes.bfloat16``) come
+across bit for bit.
 """
 from __future__ import annotations
 

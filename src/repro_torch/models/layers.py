@@ -1,5 +1,5 @@
 """Model-zoo layers on tensors: the counterpart of ``src/repro/models/layers.py``
-for the attention and RWKV6 families.
+for the attention, MoE, Mamba and RWKV6 families.
 
 Every layer comes in two execution forms, as in the JAX package:
   - sequence form (prefill): full (B, S, ...) tensors;
@@ -12,7 +12,8 @@ hand-written kernels on CUDA tensors: attention through K7
 On CPU tensors, or with ``use_kernels=False``, they run what the JAX
 ``forward`` runs: the chunked online-softmax attention and the scan.  The
 step forms are plain PyTorch, as they are plain XLA in the JAX package.
-MoE and Mamba layers are not ported yet (ROADMAP.md).
+So are the MoE and Mamba layers in both forms: the JAX package computes
+them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -21,12 +22,13 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, MambaCfg
 from ..kernels.flashattn.ops import flash_attention
 from ..kernels.wkv.ops import wkv, wkv_plain
 
 F32 = torch.float32
 ATTN_CHUNK_K = 1024          # KV chunk of the chunked attention (JAX default)
+MAMBA_CHUNK = 128            # time chunk of the selective scan (JAX default)
 
 
 # --------------------------------------------------------------------------
@@ -227,6 +229,194 @@ def mlp(cfg: ArchConfig, p, x):
     u = x @ p["w_up"]
     act = F.silu(g) if cfg.act == "swiglu" else gelu(g)
     return (act * u) @ p["w_down"]
+
+
+def init_moe(cfg: ArchConfig, gen, dtype, device, lead=()):
+    d, m = cfg.d_model, cfg.moe
+    e, f = m.n_experts, m.d_ff_expert
+    return dict(router=_dense(gen, (d, e), dtype, device, 0.02, lead),
+                w_gate=_dense(gen, (e, d, f), dtype, device, lead=lead),
+                w_up=_dense(gen, (e, d, f), dtype, device, lead=lead),
+                w_down=_dense(gen, (e, f, d), dtype, device, lead=lead))
+
+
+def moe_route(cfg: ArchConfig, logits):
+    """The router's decisions from its float32 logits (T, E): (probs,
+    gate (T, k) renormalised, experts (T·k,) token-major, keep (T·k,),
+    slot (T·k,), cap).  Copy i of the token-major list goes to slot
+    expert · cap + rank, its rank the count of earlier copies routed to
+    the same expert; a copy of rank cap or more is dropped (keep False,
+    slot E · cap)."""
+    m = cfg.moe
+    t, e, k = logits.shape[0], m.n_experts, m.top_k
+    probs = torch.softmax(logits, dim=-1)
+    gate, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, ids = gate[:, :k], ids[:, :k]                 # (T, k)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat_e = ids.reshape(t * k)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    pos_sorted = (torch.arange(t * k, device=logits.device)
+                  - torch.searchsorted(sorted_e, sorted_e))
+    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    cap = max(int(math.ceil(t * k / e * m.capacity_factor)), 1)
+    keep = pos < cap
+    slot = torch.where(keep, flat_e * cap + pos, e * cap)
+    return probs, gate, flat_e, keep, slot, cap
+
+
+def moe(cfg: ArchConfig, p, x):
+    """Sort-based, capacity-limited top-k dispatch (JAX ``layers.moe``).
+
+    The JAX layer splits the tokens into ``ctx_groups()`` groups, the
+    data-parallel shards of its mesh context, and ranks, caps and scatters
+    within each.  On one device that count is 1, and the port has no mesh
+    context: all T tokens are one group.  Ties in the router
+    probabilities go to the lower expert index, as ``lax.top_k`` breaks
+    them (a stable descending sort); each expert's tokens are ranked in
+    token order (a stable argsort); slots past the capacity ``cap`` are
+    dropped.  The expert products are plain batched matmuls.
+    Returns (out, {"moe_lb", "moe_z"})."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t, k, e = b * s, m.top_k, m.n_experts
+    xf = x.reshape(t, d)
+    logits = (xf @ p["router"]).float()                 # (T, E)
+    probs, gate, flat_e, keep, slot, cap = moe_route(cfg, logits)
+    # ---- dispatch: unique kept slots; every dropped copy goes to the
+    # overflow row e·cap, which is discarded ------------------------------
+    buf = x.new_zeros((e * cap + 1, d)).index_copy_(
+        0, slot, xf.repeat_interleave(k, dim=0))
+    buf = buf[:-1].view(e, cap, d)
+    g_ = torch.bmm(buf, p["w_gate"])
+    u_ = torch.bmm(buf, p["w_up"])
+    act = F.silu(g_) if cfg.act == "swiglu" else gelu(g_)
+    y = torch.bmm(act * u_, p["w_down"])                # (E, cap, d)
+    # ---- combine ---------------------------------------------------------
+    yflat = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
+    back = yflat[slot] * (keep * gate.reshape(t * k)).to(y.dtype)[:, None]
+    out = back.view(t, k, d).sum(dim=1).view(b, s, d)
+    # ---- aux losses (Switch load balance + router z-loss) ----------------
+    me = probs.mean(dim=0)
+    ce = torch.zeros(e, dtype=F32, device=x.device).index_add_(
+        0, flat_e, keep.float()) / max(t * k, 1)
+    lb = e * torch.sum(me * ce)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return out, dict(moe_lb=lb, moe_z=z)
+
+
+# --------------------------------------------------------------------------
+# Mamba (selective SSM, chunked scan)
+# --------------------------------------------------------------------------
+def init_mamba(cfg: ArchConfig, gen, dtype, device, lead=()):
+    d = cfg.d_model
+    m = cfg.mamba or MambaCfg()
+    di = m.expand * d
+    dtr = m.dt_rank or -(-d // 16)
+    u = torch.empty((*lead, di), dtype=F32, device=device).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen)
+    a_log = torch.log(torch.arange(1, m.d_state + 1, dtype=F32,
+                                   device=device)).expand(*lead, di, -1)
+    return dict(
+        in_proj=_dense(gen, (d, 2 * di), dtype, device, lead=lead),
+        conv_w=_dense(gen, (m.d_conv, di), dtype, device, 0.5, lead),
+        conv_b=torch.zeros((*lead, di), dtype=dtype, device=device),
+        x_proj=_dense(gen, (di, dtr + 2 * m.d_state), dtype, device,
+                      lead=lead),
+        dt_proj=_dense(gen, (dtr, di), dtype, device, lead=lead),
+        dt_bias=torch.log(torch.expm1(torch.exp(u))).to(dtype),
+        a_log=a_log.to(dtype).contiguous(),
+        d_skip=torch.ones((*lead, di), dtype=dtype, device=device),
+        out_proj=_dense(gen, (di, d), dtype, device, lead=lead))
+
+
+def _ssm_scan_chunk(a, bx, h0):
+    """h_t = a_t · h_{t-1} + bx_t along axis 1 (time) from h_{-1} = h0;
+    a / bx (B, L, DI, N), h0 (B, DI, N).  Returns the states h (B, L, DI,
+    N).  The JAX function reaches the same states by an associative scan
+    and also returns the running product of a, which ``mamba_seq`` does
+    not use; here a loop over the chunk's steps, one fused multiply-add
+    each, written into the states' tensor."""
+    hs = torch.empty_like(bx)
+    h = h0
+    for i in range(a.shape[1]):
+        h = torch.addcmul(bx[:, i], a[:, i], h, out=hs[:, i])
+    return hs
+
+
+def _conv_silu(p, xin):
+    """The causal depthwise convolution along time, then SiLU."""
+    s, kw = xin.shape[1], p["conv_w"].shape[0]
+    xpad = F.pad(xin, (0, 0, kw - 1, 0))
+    return F.silu(sum(xpad[:, i:i + s] * p["conv_w"][i] for i in range(kw))
+                  + p["conv_b"])
+
+
+def _ssm_inputs(p, xc, n):
+    """dt (softplus of its projection), B and C from the convolved x, and
+    A = −exp(a_log).  ``F.softplus`` returns x above its threshold of 20,
+    where ``jax.nn.softplus`` computes log1p(exp(x)): they differ there by
+    under 2e-9."""
+    dtr = p["dt_proj"].shape[0]
+    dt, bmat, cmat = torch.split(xc @ p["x_proj"], [dtr, n, n], dim=-1)
+    dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
+    return dt, bmat, cmat, -torch.exp(p["a_log"].float())
+
+
+def mamba_seq(cfg: ArchConfig, p, x, chunk=MAMBA_CHUNK, return_state=False):
+    """Sequence form. x: (B, S, d).  The selective scan runs chunk by chunk
+    (time padded to a multiple of ``chunk`` with dt = 0, so padded steps
+    are the identity), the state carried across chunks; one chunk's
+    (B, L, DI, N) float32 tensors are the largest the layer holds.
+    Returns out, or (out, (conv_buf (B, d_conv − 1, DI), h (B, DI, N)))
+    with ``return_state``."""
+    m = cfg.mamba or MambaCfg()
+    b, s, _ = x.shape
+    n = m.d_state
+    xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xc = _conv_silu(p, xin)
+    dt, bmat, cmat, a = _ssm_inputs(p, xc, n)
+    di = xc.shape[-1]
+    sp = -(-s // chunk) * chunk
+    dt_, b_, c_, xc_ = (F.pad(v, (0, 0, 0, sp - s))
+                        for v in (dt, bmat, cmat, xc))
+    h = torch.zeros((b, di, n), dtype=F32, device=x.device)
+    ys = []
+    for c0 in range(0, sp, chunk):
+        dtc, bc, cc, xcc = (v[:, c0:c0 + chunk] for v in (dt_, b_, c_, xc_))
+        abar = torch.exp(dtc.float()[..., None] * a)            # (B,L,DI,N)
+        bx = (dtc * xcc).float()[..., None] * bc.float()[:, :, None, :]
+        hs = _ssm_scan_chunk(abar, bx, h)
+        del abar, bx
+        ys.append(torch.einsum("blin,bln->bli", hs, cc.float()))
+        h = hs[:, -1].clone()
+        del hs
+    y = torch.cat(ys, dim=1)[:, :s]
+    y = (y + xc.float() * p["d_skip"].float()).to(x.dtype)
+    out = (y * F.silu(z)) @ p["out_proj"]
+    if return_state:
+        kw = p["conv_w"].shape[0]
+        conv_buf = F.pad(xin, (0, 0, kw - 1, 0))[:, s:s + kw - 1]
+        return out, (conv_buf.to(x.dtype).contiguous(), h)
+    return out
+
+
+def mamba_step(cfg: ArchConfig, p, x, state):
+    """Decode form. x: (B, 1, d); state = (conv_buf (B, d_conv − 1, DI),
+    h (B, DI, N)).  Returns (out (B, 1, d), new state)."""
+    m = cfg.mamba or MambaCfg()
+    conv_buf, h = state
+    xin, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)
+    window = torch.cat([conv_buf, xin[:, None, :]], dim=1)     # (B, kw, DI)
+    xc = F.silu(torch.einsum("bki,ki->bi", window, p["conv_w"])
+                + p["conv_b"])
+    dt, bvec, cvec, a = _ssm_inputs(p, xc, m.d_state)
+    abar = torch.exp(dt.float()[..., None] * a)                 # (B, DI, N)
+    bx = (dt * xc).float()[..., None] * bvec.float()[:, None, :]
+    h = abar * h + bx
+    y = torch.einsum("bin,bn->bi", h, cvec.float())
+    y = (y + xc.float() * p["d_skip"].float()).to(x.dtype)
+    return ((y * F.silu(z)) @ p["out_proj"])[:, None, :], (window[:, 1:], h)
 
 
 # --------------------------------------------------------------------------

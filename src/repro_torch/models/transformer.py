@@ -1,34 +1,28 @@
 """Unified decoder model over the arch-config family: the counterpart of
-``src/repro/models/transformer.py`` for the attention and RWKV6 families.
+``src/repro/models/transformer.py`` for every family of the registry
+(attention, MoE, hybrid attention + Mamba, RWKV6).
 
 Params tree (the JAX tree's layout, so weights carry across as copies):
   embed (V, d) [+ lm_head unless tied] · final_norm
   blocks: list over period positions, each a dict of leaves stacked
-  (n_periods, ...): {ln1, attn | rwkv, ln2, ffn}
+  (n_periods, ...): {ln1, attn | mamba | rwkv, ln2, ffn (mlp or moe)}
 
 The JAX package scans over ``n_periods``; here a Python loop over the
 periods takes each period's slice (a view) of the stacks.  No remat, no
 sharding constraint: one device.  ``use_kernels`` sends the prefill's
 attention through K7 and its WKV recurrence through K8 on CUDA tensors;
-decode runs no kernel.  Configs with MoE or Mamba layers raise
-``NotImplementedError`` (ROADMAP.md).
+MoE and Mamba layers and decode run no kernel, as the JAX package runs no
+Pallas kernel there.
 """
 from __future__ import annotations
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, MambaCfg
 from ..core.options import resolve_device
 from . import layers as L
 
 F32 = torch.float32
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    if cfg.moe is not None or "mamba" in cfg.layer_kinds():
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and Mamba layers are not ported yet "
-            "(ROADMAP.md, Queue A item 10)")
 
 
 def layer_slice(tree, i):
@@ -46,7 +40,6 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
     """Random weights with the JAX package's scales, drawn on ``device``
     from ``torch.Generator(device).manual_seed(seed)`` (not the JAX
     package's numbers: carry those across with ``models.convert``)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -61,15 +54,19 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
         params["lm_head"] = embed_like()
     lead = (cfg.n_periods,)
     blocks = []
-    for kind in cfg.layer_kinds():
+    for kind, fkind in zip(cfg.layer_kinds(), cfg.ffn_kinds()):
         sub = {"ln1": ones(lead)}
         if kind == "attn":
             sub["attn"] = L.init_attention(cfg, gen, dtype, dev, lead)
+        elif kind == "mamba":
+            sub["mamba"] = L.init_mamba(cfg, gen, dtype, dev, lead)
         else:
             sub["rwkv"] = L.init_rwkv(cfg, gen, dtype, dev, lead)
         if kind != "rwkv":           # rwkv carries its own channel mix
             sub["ln2"] = ones(lead)
-            if cfg.d_ff:
+            if fkind == "moe":
+                sub["ffn"] = L.init_moe(cfg, gen, dtype, dev, lead)
+            elif cfg.d_ff:
                 sub["ffn"] = L.init_mlp(cfg, gen, dtype, dev, lead)
         blocks.append(sub)
     params["blocks"] = blocks
@@ -79,13 +76,32 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
 # --------------------------------------------------------------------------
 # sub-layer application (sequence / step)
 # --------------------------------------------------------------------------
-def _sublayer_seq(cfg, kind, sub, x, positions, collect_cache, use_kernels):
-    cache = None
+def _ffn(cfg, fkind, sub, x, aux=None):
+    """The sub-layer's feed-forward on its normed input (MLP or MoE); the
+    MoE aux losses go into ``aux`` when one is given."""
+    h = L.rms_norm(x, sub["ln2"], cfg.norm_eps)
+    if fkind != "moe":
+        return L.mlp(cfg, sub["ffn"], h)
+    o, moe_aux = L.moe(cfg, sub["ffn"], h)
+    if aux is not None:
+        aux.update(moe_aux)
+    return o
+
+
+def _sublayer_seq(cfg, kind, fkind, sub, x, positions, collect_cache,
+                  use_kernels):
+    """One sub-layer over the sequence: (x, aux, cache)."""
+    aux, cache = {}, None
     h = L.rms_norm(x, sub["ln1"], cfg.norm_eps)
     if kind == "attn":
         o, kv = L.attention_seq(cfg, sub["attn"], h, positions, use_kernels)
         if collect_cache:
             cache = kv
+        x = x + o
+    elif kind == "mamba":
+        o = L.mamba_seq(cfg, sub["mamba"], h, return_state=collect_cache)
+        if collect_cache:
+            o, cache = o
         x = x + o
     else:
         o, st = L.rwkv_time_mix_seq(cfg, sub["rwkv"], h, collect_cache,
@@ -95,18 +111,23 @@ def _sublayer_seq(cfg, kind, sub, x, positions, collect_cache, use_kernels):
         x = x + L.rwkv_channel_mix(cfg, sub["rwkv"], h2)
         if collect_cache:
             cache = (st[0], st[1], h2[:, -1].clone())   # a copy: a view keeps h2 alive
-        return x, cache
+        return x, aux, cache
     if "ffn" in sub:
-        x = x + L.mlp(cfg, sub["ffn"], L.rms_norm(x, sub["ln2"], cfg.norm_eps))
-    return x, cache
+        x = x + _ffn(cfg, fkind, sub, x, aux)
+    return x, aux, cache
 
 
-def _sublayer_step(cfg, kind, sub, x, positions, state, pos):
+def _sublayer_step(cfg, kind, fkind, sub, x, positions, state, pos):
     """One token through one sub-layer; writes its new cache state into the
     ``state`` tensors in place."""
     h = L.rms_norm(x, sub["ln1"], cfg.norm_eps)
     if kind == "attn":
         o, _ = L.attention_step(cfg, sub["attn"], h, positions, state, pos)
+        x = x + o
+    elif kind == "mamba":
+        o, st = L.mamba_step(cfg, sub["mamba"], h, state)
+        for dst, src in zip(state, st):
+            dst.copy_(src)
         x = x + o
     else:
         o, st_t = L.rwkv_time_mix_step(cfg, sub["rwkv"], h, state[:2])
@@ -118,7 +139,7 @@ def _sublayer_step(cfg, kind, sub, x, positions, state, pos):
             dst.copy_(src)
         return x
     if "ffn" in sub:
-        x = x + L.mlp(cfg, sub["ffn"], L.rms_norm(x, sub["ln2"], cfg.norm_eps))
+        x = x + _ffn(cfg, fkind, sub, x)
     return x
 
 
@@ -135,30 +156,39 @@ def _embed(cfg, params, tokens, embeds):
 # --------------------------------------------------------------------------
 def forward(cfg: ArchConfig, params, tokens=None, embeds=None, positions=None,
             collect_cache=False, use_kernels=True):
-    """Returns (hidden (B,S,d), aux, caches|None); aux is empty (no MoE).
-    Logits via lm_logits().  caches: list over period positions, leaves
-    stacked (n_periods, B, ...)."""
-    check_supported(cfg)
+    """Returns (hidden (B,S,d), aux, caches|None).  Logits via
+    lm_logits().  aux holds the MoE layers' ``moe_lb`` and ``moe_z``, each
+    summed over the sub-layers of a period and then over the periods, as
+    the JAX scan sums them (empty without MoE).  caches: list over period
+    positions, leaves stacked (n_periods, B, ...)."""
     x = _embed(cfg, params, tokens, embeds)
     b, s = x.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         if cfg.rope_type == "mrope":
             positions = positions[None].expand(3, b, s)
-    kinds = cfg.layer_kinds()
+    kinds, fkinds = cfg.layer_kinds(), cfg.ffn_kinds()
     per_layer = [[] for _ in kinds]
+    period_aux = []
     for i in range(cfg.n_periods):
+        auxes = {}
         for pos, kind in enumerate(kinds):
             sub = layer_slice(params["blocks"][pos], i)
-            x, cache = _sublayer_seq(cfg, kind, sub, x, positions,
-                                     collect_cache, use_kernels)
+            x, aux, cache = _sublayer_seq(cfg, kind, fkinds[pos], sub, x,
+                                          positions, collect_cache,
+                                          use_kernels)
+            for k, v in aux.items():
+                auxes[k] = auxes.get(k, 0.0) + v
             per_layer[pos].append(cache)
+        period_aux.append(auxes)
+    aux = {k: torch.stack([a[k] for a in period_aux]).sum()
+           for k in period_aux[0]} if period_aux else {}
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     caches = None
     if collect_cache:
         caches = [tuple(torch.stack(leaves) for leaves in zip(*rows))
                   for rows in per_layer]
-    return x, {}, caches
+    return x, aux, caches
 
 
 def lm_logits(cfg: ArchConfig, params, hidden):
@@ -175,8 +205,9 @@ def cache_specs(cfg: ArchConfig, batch: int, s_max: int,
     sub-layer positions, leaves stacked over periods (n_periods, ...) — the
     layout ``forward(collect_cache=True)`` produces and ``decode_step``
     reads."""
-    check_supported(cfg)
     hd = cfg.resolved_head_dim
+    m = cfg.mamba or MambaCfg()
+    di = m.expand * cfg.d_model
     nh = cfg.d_model // cfg.rwkv_head_size if cfg.rwkv6 else 0
     np_ = cfg.n_periods
     out = []
@@ -184,6 +215,9 @@ def cache_specs(cfg: ArchConfig, batch: int, s_max: int,
         if kind == "attn":
             kv = ((np_, batch, s_max, cfg.n_kv_heads, hd), dtype)
             out.append((kv, kv))
+        elif kind == "mamba":
+            out.append((((np_, batch, m.d_conv - 1, di), dtype),
+                        ((np_, batch, di, m.d_state), F32)))
         else:
             xs = ((np_, batch, cfg.d_model), dtype)
             out.append((xs, ((np_, batch, nh, cfg.rwkv_head_size,
@@ -205,18 +239,18 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int, embeds=None,
     The cache is updated in place (the JAX function returns a new one).
     Decode runs no kernel on either route, as the JAX decode runs no
     Pallas kernel, so it takes no ``use_kernels``."""
-    check_supported(cfg)
     x = _embed(cfg, params, tokens, embeds)
     b = x.shape[0]
     if positions is None:
         positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
         if cfg.rope_type == "mrope":
             positions = positions[None].expand(3, b, 1)
-    kinds = cfg.layer_kinds()
+    kinds, fkinds = cfg.layer_kinds(), cfg.ffn_kinds()
     for i in range(cfg.n_periods):
         for posn, kind in enumerate(kinds):
             sub = layer_slice(params["blocks"][posn], i)
             state = tuple(leaf[i] for leaf in cache[posn])
-            x = _sublayer_step(cfg, kind, sub, x, positions, state, pos)
+            x = _sublayer_step(cfg, kind, fkinds[posn], sub, x, positions,
+                               state, pos)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(cfg, params, x), cache

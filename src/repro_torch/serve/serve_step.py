@@ -17,7 +17,9 @@ def make_prefill_step(cfg: ArchConfig, s_max: int | None = None,
                       use_kernels: bool = True):
     """prefill(params, tokens/embeds/positions) -> (last_logits, cache).
     The attention caches are padded to ``s_max`` rows (default: the prompt
-    length).  ``use_kernels`` runs K7 / K8 on CUDA tensors."""
+    length); the Mamba (conv_buf, h) and RWKV6 states have no sequence
+    axis and stay as they are.  ``use_kernels`` runs K7 / K8 on CUDA
+    tensors (MoE and Mamba layers run plain PyTorch either way)."""
 
     def prefill(params, tokens=None, embeds=None, positions=None):
         hidden, _, caches = T.forward(cfg, params, tokens=tokens,

@@ -180,3 +180,93 @@ def test_eps_in_clamps_underflow_as_jax(dtype, eps, positive):
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     want = float(np.asarray(jax_eps_in(jdt, eps)).astype(np.float32))
     assert float(got[0].float()) == want
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_bf16_plain_route_sup_sup_edges_match_jax(schedule, tmp_path,
+                                                  monkeypatch):
+    """``use_kernels=False`` on a supernodal plan whose sup-sup edges take
+    the plain triangular solve: torch has no bfloat16
+    ``solve_triangular``, so the port solves them by ``trsm_plain`` in
+    bfloat16, the column loop of the JAX package's ``_trsm_upper_jax``.
+    Against the JAX package with ``use_pallas=False``: equal pivots and
+    counts; the unrolled factors bit-equal (the same loop), the bucketed
+    ones (XLA's ``triangular_solve`` there, which rounds elsewhere) within
+    the file's 1.6e-2 of the largest magnitude (measured: 2.0e-4); x
+    within 1e-10 after the float64 fallback."""
+    aj, _, _, _ = scenario_system("denseish", n=30, seed=3)
+    at = CSR(aj.n, aj.indptr, aj.indices, aj.data)
+    kw = dict(factor_dtype="bfloat16", factor_schedule=schedule,
+              force_mode="supernodal", max_super=8, bulk_min_width=2)
+    an_j = jax_analyze(aj, JaxOptions(engine="jax", use_pallas=False, **kw))
+    with np.load(save_analysis(an_j, str(tmp_path / "plan.npz"))) as z:
+        an_t = analysis_from_arrays(z, z["meta"], HyluOptions(
+            device="cpu", use_kernels=False, **kw))
+    plan = torch_repeated_engine(an_t).plan
+    assert any(plan.nodes[e.src].nr > 1 and nd.nr > 1
+               for nd in plan.nodes for e in nd.edges)   # sup-sup edges
+    calls = []
+    solve_tri = torch.linalg.solve_triangular
+
+    def spy(*a, **k):
+        calls.append(a[0].dtype)
+        return solve_tri(*a, **k)
+
+    rng = np.random.default_rng(11)
+    vb = aj.data[None] * rng.uniform(0.8, 1.2, (K, aj.nnz))
+    b = rng.normal(size=(K, aj.n))
+    bst_j = jax_factor_batched(an_j, aj, vb)
+    x_j, info_j = jax_solve_batched(bst_j, b)
+    monkeypatch.setattr(torch.linalg, "solve_triangular", spy)
+    bst_t = factor_batched(an_t, at, vb)
+    monkeypatch.undo()
+    assert torch.bfloat16 not in calls
+    x_t, info_t = solve_batched(bst_t, b)
+    assert np.array_equal(bst_t.inode_perm.numpy(),
+                          np.asarray(bst_j.inode_perm))
+    assert np.array_equal(bst_t.n_perturb, np.asarray(bst_j.n_perturb))
+    vj, vt = _f32(bst_j.vals), bst_t.vals.float().numpy()
+    if schedule == "unrolled":
+        assert np.array_equal(vt, vj)
+    else:
+        assert np.abs(vt - vj).max() <= FACTOR_TOL * np.abs(vj).max()
+    assert np.array_equal(info_t["fallback_mask"],
+                          np.asarray(info_j["fallback_mask"]))
+    assert (np.abs(x_t - np.asarray(x_j)).max()
+            / np.abs(np.asarray(x_j)).max()) < X_TOL
+
+
+def test_bf16_substitution_passes_give_index_add_bits():
+    """The level substitution's ordered passes (``row_passes`` /
+    ``add_rows``) against the CPU's ``index_add_`` on bfloat16, which
+    adds in source order and rounds each add: bit-equal, on random
+    duplicate-heavy rows; and a whole bfloat16 one-system ``apply`` with
+    the passes against the same apply with ``index_add_`` scatters."""
+    from repro_torch.core import analyze as t_analyze
+    from repro_torch.core.torch_engine import _index, add_rows, row_passes
+    from repro_torch.matrices import fem2d, to_csr
+
+    rng = np.random.default_rng(7)
+    for _ in range(20):
+        rows = rng.integers(0, 9, 60)
+        upd = torch.from_numpy(rng.normal(size=(3, 60, 2))).bfloat16()
+        w = torch.from_numpy(rng.normal(size=(3, 10, 2))).bfloat16()
+        ref = w.clone().index_add_(1, _index(rows, "cpu"), upd)
+        got = w.clone()
+        add_rows(got, [_index(a, "cpu") for a in row_passes(rows)], upd)
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+    a = to_csr(fem2d(10, 10))
+    an = t_analyze(a, HyluOptions(device="cpu", factor_dtype="bfloat16"))
+    eng = torch_repeated_engine(an)
+    f = eng.refactor(torch.from_numpy(a.data))
+    b = torch.from_numpy(rng.normal(size=a.n))
+    x = eng.apply(f.vals, f.inode_perm, b)
+    eng._tris.clear()
+    eng.dtype = torch.float32           # build index_add_ schedules ...
+    for name in ("l_fwd", "u_bwd"):
+        eng._tri(name)
+    eng.dtype = torch.bfloat16          # ... and run them in bfloat16
+    assert isinstance(eng._tris["l_fwd"].head[0][1], torch.Tensor)
+    x_ref = eng.apply(f.vals, f.inode_perm, b)
+    assert x.dtype == torch.bfloat16
+    assert torch.equal(x.view(torch.int16), x_ref.view(torch.int16))

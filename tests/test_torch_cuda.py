@@ -1546,15 +1546,19 @@ def test_wkv_design_cases(case, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,wrapper", [("phi3-medium-14b",
-                                           "flash_attention"),
-                                          ("rwkv6-1.6b", "wkv")])
+@pytest.mark.parametrize("name,wrapper", [
+    ("phi3-medium-14b", "flash_attention"), ("rwkv6-1.6b", "wkv"),
+    ("qwen3-moe-30b-a3b", "flash_attention"),
+    ("grok-1-314b", "flash_attention"),
+    ("jamba-1.5-large-398b", "flash_attention")])
 def test_serving_on_card_matches_cpu(name, wrapper, cuda):
     """Prefill and greedy decode of a reduced model in float32 on the card
-    (K7 or K8 once per layer of the prefill, nothing in decode) against the
-    same weights on the CPU (the plain routes): logits within 1e-4, the
-    same tokens."""
+    (K7 or K8 once per attention or RWKV6 layer of the prefill, nothing in
+    decode; the MoE and Mamba layers are plain PyTorch) against the same
+    weights on the CPU (the plain routes): logits within 1e-4, the same
+    tokens."""
     cfg = registry.get(name).reduced()
+    n_kernel = cfg.n_periods * sum(k != "mamba" for k in cfg.layer_kinds())
     p_cpu = T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
 
     def to_card(tree):
@@ -1577,7 +1581,7 @@ def test_serving_on_card_matches_cpu(name, wrapper, cuda):
         gen = S.greedy_generate(cfg, params, toks.to(dev), 4)
         out[dev] = (logits.cpu(), gen.cpu(), per_prefill,
                     kernels.launch_counts()[wrapper])
-    assert out["cuda"][2:] == (cfg.n_layers, cfg.n_layers)
+    assert out["cuda"][2:] == (n_kernel, n_kernel)
     assert out["cpu"][2:] == (0, 0)
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
                                atol=1e-4)
@@ -2648,6 +2652,69 @@ def test_bf16_engine_on_card_matches_cpu(schedule, cuda):
     path = (("node_edges_inplace",) if schedule == "unrolled"
             else BATCHED_PATH)
     assert all(counts[w] > 0 for w in path), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["bucketed", "unrolled"])
+def test_bf16_plain_route_on_card_matches_cpu(schedule, cuda):
+    """bfloat16 factors with ``use_kernels=False`` on the card, where
+    ``torch.linalg.solve_triangular`` takes no bfloat16 (the sup-sup edges
+    take ``trsm_plain``): factor_batched + solve_batched on fem2d(12, 12)
+    against the same route on the CPU: equal pivots and counts, each
+    factor entry within two bf16 ulps of its own (:func:`_held_bf16`),
+    equal fallback masks, x within 1e-10, no kernel launched."""
+    A = to_csr(fem2d(12, 12, seed=1))
+    rng = np.random.default_rng(5)
+    vb = A.data[None] * rng.uniform(0.8, 1.2, (4, A.nnz))
+    bb = rng.normal(size=(4, A.n))
+    out = {}
+    kernels.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        an = analyze(A, HyluOptions(force_mode="supernodal",
+                                    bulk_min_width=2, device=dev,
+                                    factor_dtype="bfloat16",
+                                    factor_schedule=schedule,
+                                    use_kernels=False))
+        bst = factor_batched(an, A, vb)
+        out[dev] = (bst,) + solve_batched(bst, bb)
+    assert not any(kernels.launch_counts().values())
+    (bc, xc, ic), (bg, xg, ig) = out["cpu"], out["cuda"]
+    assert bg.vals.dtype == torch.bfloat16
+    assert np.array_equal(bg.n_perturb, bc.n_perturb)
+    assert torch.equal(bg.inode_perm.cpu(), bc.inode_perm)
+    _held_bf16(bg.vals.cpu(), bc.vals)
+    assert np.array_equal(ig["fallback_mask"], ic["fallback_mask"])
+    assert not ig["refine_failed"].any()
+    assert np.abs(xg - xc).max() / np.abs(xc).max() < 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernels_on", [True, False])
+def test_bf16_one_system_apply_is_deterministic_on_card(kernels_on, cuda):
+    """The one-system bfloat16 ``apply`` (level-scheduled; its row
+    scatters in ordered passes of unique rows) on one factor of the card:
+    two runs bit-identical, and bit-equal to the CPU's apply on the same
+    factor; the batched level-scheduled apply (``use_kernels=False``) too."""
+    A = to_csr(fem2d(12, 12, seed=1))
+    opts = HyluOptions(force_mode="supernodal", bulk_min_width=2,
+                       factor_dtype="bfloat16", use_kernels=kernels_on)
+    an = analyze(A, opts)
+    eng = torch_repeated_engine(an)
+    eng_c = torch_repeated_engine(an, device="cpu")
+    rng = np.random.default_rng(3)
+    f = eng.refactor(torch.from_numpy(A.data).to(cuda))
+    b = torch.from_numpy(rng.normal(size=(3, A.n)))
+    xs = [eng.apply(f.vals, f.inode_perm, b[0].to(cuda)).cpu()
+          for _ in range(2)]
+    x_c = eng_c.apply(f.vals.cpu(), f.inode_perm.cpu(), b[0])
+    bits = [x.view(torch.int16) for x in xs + [x_c]]
+    assert torch.equal(bits[0], bits[1]) and torch.equal(bits[0], bits[2])
+    if not kernels_on:
+        vals = f.vals[None].expand(3, -1)
+        inode = f.inode_perm[None].expand(3, -1)
+        xb = eng.apply_batched(vals, inode, b.to(cuda)).cpu()
+        xb_c = eng_c.apply_batched(vals.cpu(), inode.cpu(), b)
+        assert torch.equal(xb.view(torch.int16), xb_c.view(torch.int16))
 
 
 # ------------------------------------------------------------------ mesh

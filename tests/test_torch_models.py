@@ -3,15 +3,17 @@
 Inputs come from numpy seeds and go to both packages; the JAX package's
 own random weights (``init_params(cfg.reduced(), PRNGKey(·), float32)``)
 are carried across with ``repro_torch.models.convert``.  Every config of
-the registry without MoE or Mamba layers runs at ``.reduced()`` in
-float32.  Tolerances: 1e-5 for one layer, 1e-4 for a whole model
-(logits, caches, decode steps) — the two packages sum in another order,
-nothing else; the greedy tokens must be identical; decode against the
-teacher-forced forward keeps the JAX package's own 2e-3
-(``tests/test_archs.py``).  The JAX outputs are computed once per config
-(module-scoped fixtures).
+the registry runs at ``.reduced()`` in float32, the MoE and hybrid
+(attention + Mamba) ones among them.  Tolerances: 1e-5 for one layer,
+1e-4 for a whole model (logits, caches, decode steps, MoE aux losses) —
+the two packages sum in another order, nothing else; the greedy tokens
+must be identical; decode against the teacher-forced forward keeps the
+JAX package's own 2e-3, with MoE capacity_factor 8.0 so that no token is
+dropped (``tests/test_archs.py``).  The JAX outputs are computed once per
+config (module-scoped fixtures).
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -31,9 +33,7 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve import serve_step as S  # noqa: E402
 
-SLICE = sorted(n for n, c in jreg.ARCHS.items()
-               if c.moe is None and c.mamba is None)
-NOT_PORTED = sorted(set(jreg.ARCHS) - set(SLICE))
+SLICE = sorted(jreg.ARCHS)
 B, S_LEN, N_NEW = 2, 16, 3
 LAYER_TOL, MODEL_TOL, DECODE_TOL = 1e-5, 1e-4, 2e-3
 
@@ -88,19 +88,20 @@ def ref(request):
     params = JT.init_params(cfg, jax.random.PRNGKey(1), dtype=jnp.float32)
     toks, emb, pos = _inputs(cfg)
     s, n = S_LEN, S_LEN + N_NEW
-    hidden, _, _ = JT.forward(cfg, params, tokens=_tokens(cfg, toks,
-                                                          slice(0, s), False),
-                              remat=False, **_kw(cfg, emb, pos, slice(0, s),
-                                                 False))
+    hidden, aux, _ = JT.forward(cfg, params, tokens=_tokens(cfg, toks,
+                                                            slice(0, s), False),
+                                remat=False, **_kw(cfg, emb, pos, slice(0, s),
+                                                   False))
     logits = JT.lm_logits(cfg, params, hidden)
     prefill = JS.make_prefill_step(cfg, s_max=n)
     plog, cache = prefill(params, tokens=_tokens(cfg, toks, slice(0, s), False),
                           **_kw(cfg, emb, pos, slice(0, s), False))
     cache0 = _np(cache)
     steps = []
+    decode = jax.jit(functools.partial(JT.decode_step, cfg))  # one compile
     for p in range(s, n):
-        lg, cache = JT.decode_step(
-            cfg, params, _tokens(cfg, toks, slice(p, p + 1), False), cache,
+        lg, cache = decode(
+            params, _tokens(cfg, toks, slice(p, p + 1), False), cache,
             jnp.asarray(p, jnp.int32),
             **_kw(cfg, emb, pos, slice(p, p + 1), False))
         steps.append(np.asarray(lg))
@@ -108,6 +109,7 @@ def ref(request):
                                            jnp.asarray(toks[:, :s]), N_NEW))
     return dict(name=name, cfg=cfg, params=_np(params), inputs=(toks, emb, pos),
                 hidden=np.asarray(hidden), logits=np.asarray(logits),
+                aux={k: float(v) for k, v in aux.items()},
                 prefill_logits=np.asarray(plog), cache=cache0, steps=steps,
                 greedy=greedy)
 
@@ -126,15 +128,6 @@ def test_config_copy_matches(name):
     assert tc.param_count() == jc.param_count()
     assert tc.layer_kinds() == jc.layer_kinds()
     assert sorted(treg.ARCHS) == sorted(jreg.ARCHS)
-
-
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_moe_and_mamba_configs_raise(name):
-    cfg = treg.get(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward(cfg, {}, tokens=torch.zeros((1, 2), dtype=torch.long))
 
 
 # ---------------------------------------------------------------- weights
@@ -171,7 +164,10 @@ def test_forward_and_logits_match(ref):
     sl = slice(0, S_LEN)
     hidden, aux, _ = T.forward(cfg, params, tokens=_tokens(cfg, toks, sl, True),
                                **_kw(cfg, emb, pos, sl, True))
-    assert aux == {}
+    assert sorted(aux) == sorted(ref["aux"]) == (
+        ["moe_lb", "moe_z"] if cfg.moe else [])
+    for key, val in ref["aux"].items():
+        assert abs(float(aux[key]) - val) <= MODEL_TOL * max(1.0, abs(val))
     _close(hidden, ref["hidden"], MODEL_TOL)
     _close(T.lm_logits(cfg, params, hidden), ref["logits"], MODEL_TOL)
 
@@ -210,8 +206,11 @@ def test_greedy_generate_same_tokens(ref):
 @pytest.mark.parametrize("use_kernels", [True, False])
 def test_decode_matches_forward(ref, use_kernels):
     """The port's own decode ≡ teacher-forced forward (both routes; on the
-    CPU the kernel route runs the plain versions)."""
+    CPU the kernel route runs the plain versions); MoE without drops."""
     cfg, params = _port(ref)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
     toks, emb, pos = ref["inputs"]
     n = S_LEN + N_NEW
     full_sl = slice(0, n)
@@ -352,3 +351,148 @@ def test_rwkv_time_mix_step_and_channel_mix_match():
     _close(L.rwkv_channel_mix(tc, tb["rwkv"], _t(x[:, 1]), _t(x[:, 0])),
            JL.rwkv_channel_mix(jc, jb["rwkv"], jnp.asarray(x[:, 1]),
                                x_prev=jnp.asarray(x[:, 0])), LAYER_TOL)
+
+
+# ---------------------------------------------------------------- MoE
+def _moe_cfgs(name, capacity_factor=None):
+    """A reduced MoE config, JAX and port side, with its capacity factor
+    changed when one is given."""
+    jc, tc = jreg.get(name).reduced(), treg.get(name).reduced()
+    if capacity_factor is not None:
+        jc, tc = (dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=capacity_factor)) for c in (jc, tc))
+    return jc, tc
+
+
+def _moe_params(jc, key=3):
+    jp = JL.init_moe(jc, jax.random.PRNGKey(key), jnp.float32)
+    return jp, params_from_numpy(_np(jp), device="cpu")
+
+
+def _jax_keep(jc, jp, x):
+    """The keep mask of ``lax.top_k`` on the JAX router's probabilities,
+    each expert's copies ranked in token order and cut at the capacity:
+    the rule of the JAX ``moe``, stated in numpy."""
+    m = jc.moe
+    xf = jnp.asarray(x.reshape(-1, x.shape[-1]))
+    probs = jax.nn.softmax((xf @ jp["router"]).astype(jnp.float32), axis=-1)
+    ids = np.asarray(jax.lax.top_k(probs, m.top_k)[1]).reshape(-1)
+    rank = np.array([np.count_nonzero(ids[:i] == ids[i])
+                     for i in range(ids.size)])
+    cap = max(int(np.ceil(xf.shape[0] * m.top_k / m.n_experts
+                          * m.capacity_factor)), 1)
+    return ids, rank < cap
+
+
+@pytest.mark.parametrize("capacity_factor", [None, 0.25])
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "grok-1-314b"])
+def test_moe_matches(name, capacity_factor):
+    """swiglu and geglu experts, out and aux at 1e-5; at capacity_factor
+    0.25 copies are dropped, and the port keeps the copies the JAX rule
+    keeps."""
+    jc, tc = _moe_cfgs(name, capacity_factor)
+    jp, tp = _moe_params(jc)
+    x = _x(jc)
+    jo, jaux = JL.moe(jc, jp, jnp.asarray(x))
+    o, aux = L.moe(tc, tp, _t(x))
+    _close(o, jo, LAYER_TOL)
+    assert sorted(aux) == sorted(jaux) == ["moe_lb", "moe_z"]
+    for key in aux:
+        _close(aux[key], jaux[key], LAYER_TOL)
+    ids, keep = _jax_keep(jc, jp, x)
+    logits = (_t(x).reshape(-1, tc.d_model) @ tp["router"]).float()
+    _, _, t_ids, t_keep, _, _ = L.moe_route(tc, logits)
+    assert np.array_equal(t_ids.numpy(), ids)
+    assert np.array_equal(t_keep.numpy(), keep)
+    if capacity_factor is not None:
+        assert not keep.all()
+
+
+def test_moe_router_tie_goes_to_the_lower_expert():
+    """Experts 0, 1 and 2 get the same router column, so every token's
+    top three probabilities tie exactly; ``lax.top_k`` keeps experts 0
+    and 1, and so must the port (experts 1 and 2 differ, so the outputs
+    tell them apart)."""
+    jc, tc = _moe_cfgs("qwen3-moe-30b-a3b")
+    jp, _ = _moe_params(jc)
+    router = np.array(jp["router"])
+    router[:, 1] = router[:, 2] = router[:, 0] = np.abs(router[:, 0]) + 1.0
+    jp = dict(jp, router=jnp.asarray(router))
+    tp = params_from_numpy(_np(jp), device="cpu")
+    x = np.abs(_x(jc))
+    jo, _ = JL.moe(jc, jp, jnp.asarray(x))
+    o, _ = L.moe(tc, tp, _t(x))
+    _close(o, jo, LAYER_TOL)
+    logits = (_t(x).reshape(-1, tc.d_model) @ tp["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    assert torch.equal(probs[:, 0], probs[:, 2])
+    _, _, ids, _, _, _ = L.moe_route(tc, logits)
+    assert np.array_equal(ids.view(-1, 2).numpy(),
+                          np.tile([0, 1], (logits.shape[0], 1)))
+
+
+# ---------------------------------------------------------------- Mamba
+def _mamba_params(key=3):
+    jc = jreg.get("jamba-1.5-large-398b").reduced()
+    jp = JL.init_mamba(jc, jax.random.PRNGKey(key), jnp.float32)
+    return (jc, treg.get("jamba-1.5-large-398b").reduced(), jp,
+            params_from_numpy(_np(jp), device="cpu"))
+
+
+@pytest.mark.parametrize("chunk", [None, 4])
+@pytest.mark.parametrize("return_state", [False, True])
+def test_mamba_seq_matches(return_state, chunk):
+    """The chunked scan at the default chunk (one chunk here) and at 4
+    (the state carried across chunks, S = 18 padded to 20); with and
+    without the returned (conv_buf, h)."""
+    jc, tc, jp, tp = _mamba_params()
+    x = _x(jc, s=18)
+    kw = {} if chunk is None else {"chunk": chunk}
+    jout = JL.mamba_seq(jc, jp, jnp.asarray(x), return_state=return_state,
+                        **kw)
+    out = L.mamba_seq(tc, tp, _t(x), return_state=return_state, **kw)
+    if not return_state:
+        _close(out, jout, LAYER_TOL)
+        return
+    _close(out[0], jout[0], LAYER_TOL)
+    _close(out[1][0], jout[1][0], LAYER_TOL)
+    _close(out[1][1], jout[1][1], LAYER_TOL)
+
+
+def test_mamba_step_and_scan_match():
+    """One decode step from the state of a 15-step prefix, against the JAX
+    step; the scan of one chunk against ``_ssm_scan_chunk``'s states."""
+    jc, tc, jp, tp = _mamba_params()
+    x = _x(jc)
+    _, st = JL.mamba_seq(jc, jp, jnp.asarray(x[:, :-1]), return_state=True)
+    xs = x[:, -1:]
+    jo, (jbuf, jh) = JL.mamba_step(jc, jp, jnp.asarray(xs), st)
+    o, (tbuf, th) = L.mamba_step(tc, tp, _t(xs), (_t(st[0]), _t(st[1])))
+    _close(o, jo, LAYER_TOL)
+    _close(tbuf, jbuf, LAYER_TOL)
+    _close(th, jh, LAYER_TOL)
+    rng = np.random.default_rng(5)
+    a = rng.uniform(0.5, 1.0, (B, 6, 8, 4)).astype(np.float32)
+    bx = rng.normal(size=(B, 6, 8, 4)).astype(np.float32)
+    h0 = rng.normal(size=(B, 8, 4)).astype(np.float32)
+    jhs, _ = JL._ssm_scan_chunk(jnp.asarray(a), jnp.asarray(bx),
+                                jnp.asarray(h0))
+    _close(L._ssm_scan_chunk(_t(a), _t(bx), _t(h0)), jhs, LAYER_TOL)
+
+
+ARCH_MODULES = sorted(
+    m.name for m in __import__("pkgutil").iter_modules(
+        __import__("repro.configs", fromlist=["_"]).__path__)
+    if m.name not in ("base", "registry", "shapes"))
+
+
+@pytest.mark.parametrize("module", ARCH_MODULES)
+def test_config_module_copy_matches(module):
+    """Each one-line ``configs/<arch>.py`` of the port names the JAX
+    module's config."""
+    import importlib
+
+    jc = importlib.import_module(f"repro.configs.{module}").CONFIG
+    tc = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+    assert tc is treg.get(tc.name)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)

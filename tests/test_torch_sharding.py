@@ -311,3 +311,87 @@ def test_serve_cli_with_devices_matches_unsplit(capsys):
     assert r2["by_status"] == r0["by_status"]
     assert r2["lost"] == r0["lost"] == 0
     assert "K split over" in capsys.readouterr().out
+
+
+def _spy_launches_and_reads(monkeypatch) -> list:
+    """Record, in order, each shard's refactor and each substitution of a
+    refinement iteration (keyed by the factor tensor it reads and the
+    refactors seen so far), and every host read of a tensor."""
+    from repro_torch.core.torch_engine import RepeatedSolveEngine
+
+    ev = []
+    refactor = RepeatedSolveEngine.refactor_batched
+    apply_b = RepeatedSolveEngine.apply_batched
+
+    def spy_refactor(self, *a, **kw):
+        ev.append(("factor", None))
+        return refactor(self, *a, **kw)
+
+    def spy_apply(self, vals, *a, **kw):
+        n_fact = sum(e[0] == "factor" for e in ev)
+        ev.append(("apply", (vals.data_ptr(), n_fact)))
+        return apply_b(self, vals, *a, **kw)
+
+    monkeypatch.setattr(RepeatedSolveEngine, "refactor_batched", spy_refactor)
+    monkeypatch.setattr(RepeatedSolveEngine, "apply_batched", spy_apply)
+    for name in ("cpu", "numpy", "item", "tolist", "__bool__"):
+        def read(self, *a, _orig=getattr(torch.Tensor, name), **kw):
+            ev.append(("read", None))
+            return _orig(self, *a, **kw)
+        monkeypatch.setattr(torch.Tensor, name, read)
+    return ev
+
+
+def _no_read_between_shards(ev, n_shards):
+    """Every group of n_shards refactors, and every round of the shards'
+    substitutions (the i-th of each shard's loop), falls between two host
+    reads; returns the number of rounds in which more than one shard
+    substituted."""
+    reads = [i for i, e in enumerate(ev) if e[0] == "read"]
+
+    def clear(a, b):
+        return not any(a < r < b for r in reads)
+
+    facts = [i for i, e in enumerate(ev) if e[0] == "factor"]
+    assert facts and len(facts) % n_shards == 0
+    for j in range(0, len(facts), n_shards):
+        assert clear(facts[j], facts[j + n_shards - 1]), ev
+    seen, rounds = {}, {}
+    for i, (kind, key) in enumerate(ev):
+        if kind == "apply":
+            seen[key] = seen.get(key, -1) + 1
+            rounds.setdefault((key[1], seen[key]), []).append(i)
+    for pos in rounds.values():
+        assert clear(min(pos), max(pos)), ev
+    return sum(len(pos) > 1 for pos in rounds.values())
+
+
+@pytest.mark.parametrize("path", ["solve", "hostloop", "pipeline"])
+def test_split_shards_queue_before_any_host_read(path, monkeypatch):
+    """No host read falls between two shards' launches: every shard's
+    refactor is queued before a perturbation count is read, and each
+    refinement iteration (each host-loop substitution) of every live
+    shard is queued before any loop flag (any x) is read.  float32
+    factors refined in float64, so the loops run several iterations; the
+    results stay bit-identical to the unsplit run."""
+    _, at, vb, bb = _case("banded")
+    kw = dict(factor_dtype="float32", fp64_fallback=False)
+    an0 = analyze(at, _opts(**kw))
+    if path == "pipeline":
+        steps = [vb, vb * 1.01]
+        x0, i0 = solve_sequence(at, steps, bb, _opts(**kw))
+    else:
+        solve = solve_batched if path == "solve" else _solve_batched_hostloop
+        x0, i0 = solve(factor_batched(an0, at, vb), bb)
+    assert np.max(i0["n_refine"]) >= 1
+    mesh = ["cpu"] * 2
+    ev = _spy_launches_and_reads(monkeypatch)
+    if path == "pipeline":
+        x, info = solve_sequence(at, steps, bb, _opts(mesh=mesh, **kw))
+    else:
+        an = analyze(at, _opts(mesh=mesh, **kw), reuse=an0)
+        x, info = solve(factor_batched(an, at, vb), bb)
+    monkeypatch.undo()
+    assert _no_read_between_shards(ev, 2) >= 2
+    assert np.array_equal(x, x0)
+    assert np.array_equal(info["residual"], i0["residual"])

@@ -74,6 +74,8 @@ def timed_phases():
     make_solver = RepeatedSolveEngine.refined_batched_solver
     RepeatedSolveEngine.refined_batched_solver = (
         lambda self, *a: wrap(make_solver(self, *a), "solve"))
+    # the pipeline steps its shards' refined solves by run_together
+    batched.run_together = wrap(batched.run_together, "solve")
     batched._Staging.fill = wrap(batched._Staging.fill, "stage")
 
 
