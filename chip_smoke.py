@@ -202,6 +202,32 @@ Phases, each printing one JSON line:
             4 x 2,048 tokens: ``mamba_seq`` and 16 ``mamba_step`` calls
             timed in float32 and bfloat16, the steps within 2e-3 of the
             sequence form over the extended sequence in float32.
+16. train_musicgen  musicgen-medium at full width and depth (48 layers, d
+            1,536) trained in float32 through ``repro_torch.launch.train
+            .main``: B = 4, T = 1,024, seq_chunk 512, 4 steps, checkpoints
+            at steps 2 and 4 into a temporary directory; step 4's COMMIT
+            is removed (a crash before it) and a second ``main(...,
+            "--resume")`` runs steps 3-4 from step 2: finite losses, every
+            param leaf moved, the resumed losses equal to the first run's
+            within 1e-5 relative, no K7 / K8 launch; step ms, tokens/s,
+            peak memory, checkpoint and restore seconds;
+17. train_rwkv  rwkv6-1.6b at full width and depth (24 layers, d 2,048)
+            in float32 through ``main``: B = 2, T = 512, 2 steps (its
+            plain WKV loop under autograd): finite losses, params moved,
+            no K7 / K8 launch; step ms, peak memory;
+18. train_held  two ``train_step`` calls each of musicgen-medium and of
+            rwkv6-1.6b at full width and 2 layers in float32, B = 2, T =
+            256, on the card and on the CPU from the same params,
+            optimizer state and batches, no K7 / K8 launch: the first
+            step's loss within 1e-5 relative, the second's (taken at the
+            first step's params) within 1e-4; after the first step m and
+            v within 1e-4 of each leaf's largest entry, params: at least
+            99.9% of the entries within 1e-3 of lr and every entry within
+            0.5 lr (an entry whose gradient is noise near Adam's eps moves
+            by a sizeable part of lr: measured 0.057 lr on musicgen, 0.220
+            lr on rwkv6; the max printed); then ``forward(use_kernels=
+            True)`` under grad on the card raises (K7, K8 have no
+            backward) and launches nothing.
 
 Then one ``{"kernels": [...]}`` line (each record's ``launches_by_path``
 counts the batched, pipeline, autodiff, baselines, scalar, mesh and
@@ -281,6 +307,13 @@ BATCH, PROMPT, NEW_TOKENS, SEED = 4, 2048, 16, 0
 # prompt
 MOE_MODEL, DECODE_CHECK_TOKENS, JAMBA_PROMPT = "qwen3-moe-30b-a3b", 32, 256
 RAGGED_T = 2000                     # a multiple of none of K7's row tiles
+# the training phases: musicgen-medium at full width and depth, (B, T,
+# steps); rwkv6-1.6b likewise; the held models at full width and 2 layers,
+# (B, T), on the card against the CPU
+TRAIN_MUSICGEN, TRAIN_MUSICGEN_SHAPE = "musicgen-medium", (4, 1024, 4)
+TRAIN_RWKV_SHAPE, TRAIN_HELD_SHAPE = (2, 512, 2), (2, 256)
+# the held models and the kernel each one's refused route names
+TRAIN_HELD = (("musicgen-medium", "K7"), ("rwkv6-1.6b", "K8"))
 # K7 against its plain version, (rtol, atol): float32 at the 2e-5 of
 # tests/test_kernels.py; bfloat16 inside its 3e-2, at 1e-2 relative (about
 # one to two bf16 ulps of the output) plus 2e-3 for p rounded after another row
@@ -660,6 +693,11 @@ def main() -> int:
         flash_rec["launches_by_path"][path] = n
         flash_rec["launches"] += n
     mamba_layer_phase(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_musicgen_phase(torch, np)
+    train_rwkv_phase(torch, np)
+    train_held_phase(torch, np)
     emit({"kernels": records})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -4789,6 +4827,282 @@ def mamba_layer_phase(torch, np):
     f32 = res["float32"]
     check(f32["finite"] and f32["step_vs_seq_max_abs"] < TOL_DECODE,
           f"mamba layer: steps vs sequence {f32['step_vs_seq_max_abs']}")
+
+
+def _train_run(torch, argv):
+    """``repro_torch.launch.train.main(argv)`` with its peak memory,
+    seconds and kernel launches (the counts zeroed just before it); returns
+    the ``out`` dict (log, params, resumed, launches)."""
+    from repro_torch import kernels
+    from repro_torch.launch import train as launch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    check(launch.main(argv, out=out) == 0, f"train main {argv} failed")
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = kernels.launch_counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _moved(torch, cfg, params, seed):
+    """(leaves that moved, leaves) against a fresh draw of the initial
+    params from ``seed``."""
+    from repro_torch import tree as tr
+    from repro_torch.models import transformer as T
+
+    init = T.init_params(cfg, seed=seed, dtype=torch.float32)
+    pairs = list(zip(tr.leaves(init), tr.leaves(params)))
+    moved = sum(bool((a != b).any()) for a, b in pairs)
+    del init, pairs
+    torch.cuda.empty_cache()
+    return moved, len(tr.leaves(params))
+
+
+def _step_stats(log, tokens):
+    dts = [r["dt"] for r in log[1:]] or [r["dt"] for r in log]
+    ms = 1e3 * sorted(dts)[len(dts) // 2]
+    return {"step_ms": [1e3 * r["dt"] for r in log], "median_step_ms": ms,
+            "tokens_per_s": tokens / (ms / 1e3),
+            "losses": [r["loss"] for r in log]}
+
+
+def train_musicgen_phase(torch, np):
+    """Phase 16: musicgen-medium trained at full width and depth through
+    the launcher, then resumed from its step-2 checkpoint."""
+    import tempfile
+
+    from repro_torch.configs import registry
+
+    t_all = time.perf_counter()
+    cfg = registry.get(TRAIN_MUSICGEN)
+    b, t, steps = TRAIN_MUSICGEN_SHAPE
+    with tempfile.TemporaryDirectory(prefix="train_musicgen_") as ck:
+        argv = ["--arch", cfg.name, "--batch", str(b), "--seq", str(t),
+                "--steps", str(steps), "--ckpt-dir", ck, "--seed", str(SEED)]
+        first = _train_run(torch, argv + ["--ckpt-every", "2"])
+        moved, n_leaves = _moved(torch, cfg, first.pop("params"), SEED)
+        steps_saved = sorted(os.listdir(ck))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(ck) for f in fs)
+        # a crash before step 4's commit: the resume takes step 2
+        os.remove(os.path.join(ck, f"step_{steps:09d}", "COMMIT"))
+        t0 = time.perf_counter()
+        second = _train_run(torch, argv + ["--ckpt-every", str(steps + 1),
+                                           "--resume"])
+        second.pop("params")
+        resume_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    l1 = [r["loss"] for r in first["log"]]
+    l2 = [r["loss"] for r in second["log"]]
+    rel = [abs(a - b_) / abs(a) for a, b_ in zip(l1[2:], l2)]
+    res = {"phase": "train_musicgen", "model": cfg.name, "dtype": "float32",
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": cfg.param_count(), "batch": b, "seq": t,
+           "seq_chunk": min(512, t), "steps": steps,
+           **_step_stats(first["log"], b * t),
+           "first_run_s": first["seconds"],
+           "peak_bytes": first["peak_bytes"],
+           "checkpoints": steps_saved, "checkpoint_bytes_on_disk": ckpt_bytes,
+           "resumed_from": second["resumed"],
+           "resumed_steps": [r["step"] for r in second["log"]],
+           "resumed_losses": l2, "resume_rel_err": rel,
+           "resumed_run_s": resume_s,
+           "resumed_peak_bytes": second["peak_bytes"],
+           "leaves_moved": moved, "leaves": n_leaves,
+           "launches": first["launches"],
+           "resumed_launches": second["launches"],
+           "seconds": time.perf_counter() - t_all}
+    emit(res)
+    _check_no_kernel_launch("musicgen training", first["launches"])
+    _check_no_kernel_launch("musicgen resume", second["launches"])
+    check(all(math.isfinite(x) for x in l1 + l2),
+          f"musicgen training: a loss is not finite {l1} {l2}")
+    check(moved == n_leaves, f"musicgen training: {n_leaves - moved} param "
+                             "leaves did not move")
+    check(second["resumed"] == 2 and len(l2) == steps - 2
+          and max(rel) <= 1e-5,
+          f"musicgen resume from step 2: {second['resumed']}, losses {l2} "
+          f"against {l1[2:]} (rel {rel})")
+
+
+def train_rwkv_phase(torch, np):
+    """Phase 17: rwkv6-1.6b trained at full width and depth (the plain WKV
+    loop under autograd)."""
+    import tempfile
+
+    from repro_torch.configs import registry
+
+    t_all = time.perf_counter()
+    cfg = registry.get("rwkv6-1.6b")
+    b, t, steps = TRAIN_RWKV_SHAPE
+    with tempfile.TemporaryDirectory(prefix="train_rwkv_") as ck:
+        run = _train_run(torch, ["--arch", cfg.name, "--batch", str(b),
+                                 "--seq", str(t), "--steps", str(steps),
+                                 "--ckpt-dir", ck, "--ckpt-every", "1000",
+                                 "--seed", str(SEED)])
+    moved, n_leaves = _moved(torch, cfg, run.pop("params"), SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in run["log"]]
+    res = {"phase": "train_rwkv", "model": cfg.name, "dtype": "float32",
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": cfg.param_count(), "batch": b, "seq": t,
+           "steps": steps, **_step_stats(run["log"], b * t),
+           "run_s": run["seconds"], "peak_bytes": run["peak_bytes"],
+           "leaves_moved": moved, "leaves": n_leaves,
+           "launches": run["launches"],
+           "seconds": time.perf_counter() - t_all}
+    emit(res)
+    _check_no_kernel_launch("rwkv6 training", run["launches"])
+    check(all(math.isfinite(x) for x in losses),
+          f"rwkv6 training: a loss is not finite {losses}")
+    check(moved == n_leaves, f"rwkv6 training: {n_leaves - moved} param "
+                             "leaves did not move")
+
+
+def _check_no_kernel_launch(phase, counts):
+    """The training step takes the plain route: K7 and K8 launch nothing
+    (``counts`` read over the phase's own runs)."""
+    check(counts["flash_attention"] == 0 and counts["wkv"] == 0,
+          f"{phase}: K7 / K8 launched during training: {counts}")
+
+
+def _held_steps(torch, cfg, b, t, devices=("cuda", "cpu")):
+    """Two ``train_step`` calls of ``cfg`` on each of ``devices`` from the
+    same params, optimizer state and batches.  The params and m / v after
+    the first step are held (``devices[0]`` against ``devices[1]``); the
+    second step's loss is the loss at the first step's params, so its
+    rise from the first is printed beside the other route's.  Returns
+    (record, checks)."""
+    from repro_torch import kernels
+    from repro_torch import tree as tr
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    p0 = T.init_params(cfg, seed=SEED, dtype=torch.float32, device="cpu")
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=t, global_batch=b, seed=SEED)
+    batches = [data.batch(s) for s in range(2)]
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=4)
+    step = make_train_step(cfg, ocfg, seq_chunk=min(512, t))
+    out = []
+    kernels.reset_launch_counts()
+    for dev in devices:
+        params = tr.map_leaves(lambda p: p.to(dev, copy=True), p0)
+        st = adamw.init_state(params)
+        ms, secs = [], []
+        for s, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            params, st, _, m = step(params, st, None,
+                                    {k: torch.from_numpy(v).to(dev)
+                                     for k, v in batch.items()})
+            ms.append({k: float(v) for k, v in m.items()})
+            secs.append(time.perf_counter() - t0)
+            if s == 0:      # the step updates in place: copy the state
+                snap = tr.map_leaves(lambda x: x.to("cpu", copy=True),
+                                     (params, (st.m, st.v)))
+        out.append((snap, ms, secs))
+        del params, st
+    counts = kernels.launch_counts()
+    ((pa, sa), ma, ta), ((pb, sb), mb, tb) = out
+    lr = mb[0]["lr"]
+    far = n = 0
+    p_max = 0.0
+    for a, b_ in zip(tr.leaves(pa), tr.leaves(pb)):
+        d = (a - b_).abs() / lr
+        p_max = max(p_max, float(d.max()))
+        far, n = far + int((d > 1e-3).sum()), n + d.numel()
+    mv_rel = max(float((a - b_).abs().max()) / float(b_.abs().max())
+                 for a, b_ in zip(tr.leaves(sa), tr.leaves(sb)))
+    loss_rel = [abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                for x, y in zip(ma, mb)]
+    del p0, pa, pb, sa, sb, out
+    rec = {"model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": "float32", "batch": b, "seq": t,
+           "devices": list(devices),
+           "losses": {devices[0]: [x["loss"] for x in ma],
+                      devices[1]: [x["loss"] for x in mb]},
+           "loss_rel_err": loss_rel,
+           "metrics": {devices[0]: ma, devices[1]: mb},
+           "params_max_err_over_lr": p_max,
+           "params_share_beyond_1e-3_lr": far / n,
+           "moments_max_rel_err": mv_rel,
+           "step_s": {devices[0]: ta, devices[1]: tb},
+           "launches": counts}
+    checks = [
+        (loss_rel[0] <= 1e-5, f"{cfg.name}: step-1 loss {ma[0]['loss']} "
+                              f"against {mb[0]['loss']}"),
+        # the step-2 loss is taken at params that differ by the bounds
+        # below, so it is held at 1e-4
+        (loss_rel[1] <= 1e-4, f"{cfg.name}: step-2 loss {ma[1]['loss']} "
+                              f"against {mb[1]['loss']}"),
+        # an entry whose gradient is noise near Adam's eps moves by a
+        # sizeable part of lr when the summation order changes that noise
+        # (measured 0.057 lr on musicgen, 0.220 lr on rwkv6)
+        (p_max <= 0.5 and far <= 1e-3 * n,
+         f"{cfg.name}: params off by {p_max} lr, {far} of {n} entries "
+         "beyond 1e-3 lr"),
+        (mv_rel <= 1e-4, f"{cfg.name}: m / v off by {mv_rel}")]
+    return rec, checks
+
+
+def _refusal(torch, cfg, t):
+    """``forward(use_kernels=True)`` under grad on the card: returns the
+    error it raised (None if it ran) and the K7 / K8 launches it made."""
+    from repro_torch import kernels
+    from repro_torch import tree as tr
+    from repro_torch.models import transformer as T
+
+    params = tr.map_leaves(lambda p: p.requires_grad_(True),
+                           T.init_params(cfg, seed=SEED,
+                                         dtype=torch.float32))
+    toks = torch.zeros((1, t), dtype=torch.long, device="cuda")
+    kernels.reset_launch_counts()
+    refused = None
+    try:
+        T.forward(cfg, params, tokens=toks, use_kernels=True)
+    except RuntimeError as e:
+        refused = str(e)
+    c = kernels.launch_counts()
+    del params
+    torch.cuda.empty_cache()
+    return refused, c["flash_attention"] + c["wkv"]
+
+
+def train_held_phase(torch, np):
+    """Phase 18: two training steps of musicgen-medium and of rwkv6-1.6b
+    at full width and 2 layers on the card against the CPU, then the
+    kernel route's refusal under grad."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    b, t = TRAIN_HELD_SHAPE
+    for name, kernel in TRAIN_HELD:
+        t_all = time.perf_counter()
+        cfg = dataclasses.replace(registry.get(name), n_layers=2)
+        rec, checks = _held_steps(torch, cfg, b, t)
+        refused, refuse_launches = _refusal(torch, cfg, t)
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "train_held", **rec,
+              "kernel_route_under_grad": refused,
+              "kernel_route_launches": refuse_launches,
+              "seconds": time.perf_counter() - t_all})
+        for ok, what in checks:
+            check(ok, f"train_held: {what}")
+        _check_no_kernel_launch(f"train_held {name}", rec["launches"])
+        check(refused is not None and "use_kernels=False" in refused
+              and kernel in refused and refuse_launches == 0,
+              f"train_held {name}: the kernel route under grad did not "
+              f"raise ({refused}, {refuse_launches} launches)")
 
 
 def _leaves(tree):

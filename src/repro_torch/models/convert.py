@@ -8,7 +8,10 @@ leaf a tensor of the same shape and values.  Both trees lay weights out
 a transpose; it works for every family of the registry (attention, MoE:
 router and (E, d, f) expert stacks; Mamba: projections, conv, dt and
 ``a_log``; RWKV6).  bfloat16 leaves (numpy's ``ml_dtypes.bfloat16``) come
-across bit for bit.
+across bit for bit.  The training state carries across the same way:
+``opt_state_from_numpy`` turns the JAX ``AdamWState`` (as numpy) into the
+port's, and a compression error state, a tree of the params' layout, goes
+through ``params_from_numpy``.
 """
 from __future__ import annotations
 
@@ -40,3 +43,15 @@ def params_from_numpy(tree, device="cuda", dtype=None):
         return _tensor(node, dev, dtype)
 
     return conv(tree)
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The port's ``optim.adamw.AdamWState`` from the JAX one whose leaves
+    are numpy arrays (``jax.tree.map(np.asarray, opt_state)``): the int32
+    step and the float32 moment trees, on ``device``."""
+    from ..optim.adamw import AdamWState
+
+    step, m, v = state
+    return AdamWState(step=params_from_numpy(step, device),
+                      m=params_from_numpy(m, device),
+                      v=params_from_numpy(v, device))

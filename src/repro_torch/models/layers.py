@@ -13,7 +13,10 @@ On CPU tensors, or with ``use_kernels=False``, they run what the JAX
 ``forward`` runs: the chunked online-softmax attention and the scan.  The
 step forms are plain PyTorch, as they are plain XLA in the JAX package.
 So are the MoE and Mamba layers in both forms: the JAX package computes
-them outside any Pallas kernel.
+them outside any Pallas kernel.  K7 and K8 have no backward: under grad,
+with an input that requires grad, the kernel route raises instead of
+returning an output that carries no gradient to the projections (training
+passes ``use_kernels=False``, the route the JAX training step takes).
 """
 from __future__ import annotations
 
@@ -155,6 +158,24 @@ def _chunked_causal_attention(q, k, v):
     return out.transpose(1, 2)                          # (B, T, H, D)
 
 
+def grad_wanted(*tensors):
+    """A gradient is being taken through these tensors: grad is enabled and
+    one of them requires it (serving calls run with grad enabled on
+    tensors that require none)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_grad(kernel, *ops):
+    """Raise when a kernel without a backward would run under grad on an
+    operand that requires grad: its output would have no ``grad_fn``, and
+    the weights behind the operands would silently get no gradient."""
+    if grad_wanted(*ops):
+        raise RuntimeError(
+            f"{kernel} has no backward: under grad pass use_kernels=False "
+            "(the plain route, which the training step takes), or run the "
+            "kernel route under torch.no_grad()")
+
+
 def attention_qkv(cfg: ArchConfig, p, x, positions):
     """The projections of sequence-form attention, RoPE applied:
     q (B, S, H, D), k and v (B, S, Hkv, D) — the operands of K7."""
@@ -176,6 +197,7 @@ def attention_seq(cfg: ArchConfig, p, x, positions, use_kernels=True):
     b, s, _ = x.shape
     q, k, v = attention_qkv(cfg, p, x, positions)
     if use_kernels and x.is_cuda:
+        _refuse_grad("K7 (flash_attention)", q, k, v)
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2)).transpose(1, 2)
     else:
@@ -336,7 +358,14 @@ def _ssm_scan_chunk(a, bx, h0):
     N).  The JAX function reaches the same states by an associative scan
     and also returns the running product of a, which ``mamba_seq`` does
     not use; here a loop over the chunk's steps, one fused multiply-add
-    each, written into the states' tensor."""
+    each, written into the states' tensor; under grad (``out=`` has no
+    backward) the steps are stacked instead."""
+    if grad_wanted(a, bx, h0):
+        hs, h = [], h0
+        for i in range(a.shape[1]):
+            h = torch.addcmul(bx[:, i], a[:, i], h)
+            hs.append(h)
+        return torch.stack(hs, dim=1)
     hs = torch.empty_like(bx)
     h = h0
     for i in range(a.shape[1]):
@@ -487,6 +516,8 @@ def rwkv_time_mix_seq(cfg: ArchConfig, p, x, return_state=False,
     b, s, d = x.shape
     rh, kh, vh, wh, u, g = rwkv_wkv_inputs(cfg, p, x)
     fn = wkv if use_kernels and x.is_cuda else wkv_plain
+    if fn is wkv:
+        _refuse_grad("K8 (wkv)", rh, kh, vh, wh, u)
     y, st_fin = fn(*(a.transpose(1, 2) for a in (rh, kh, vh, wh)), u)
     y = y.transpose(1, 2).reshape(b, s, d)
     y = rms_norm(y.to(x.dtype), p["ln_x"], cfg.norm_eps)

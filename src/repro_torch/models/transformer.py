@@ -8,16 +8,23 @@ Params tree (the JAX tree's layout, so weights carry across as copies):
   (n_periods, ...): {ln1, attn | mamba | rwkv, ln2, ffn (mlp or moe)}
 
 The JAX package scans over ``n_periods``; here a Python loop over the
-periods takes each period's slice (a view) of the stacks.  No remat, no
-sharding constraint: one device.  ``use_kernels`` sends the prefill's
-attention through K7 and its WKV recurrence through K8 on CUDA tensors;
-MoE and Mamba layers and decode run no kernel, as the JAX package runs no
-Pallas kernel there.
+periods takes each period's slice (a view) of the stacks.  No sharding
+constraint: one device.  ``remat`` recomputes each sub-layer in backward
+(``torch.utils.checkpoint``, as the JAX ``jax.checkpoint`` with
+``nothing_saveable``), so only the sub-layers' inputs stay saved.
+``use_kernels`` sends the prefill's attention through K7 and its WKV
+recurrence through K8 on CUDA tensors; MoE and Mamba layers and decode run
+no kernel, as the JAX package runs no Pallas kernel there.  Neither kernel
+has a backward: a loss passes ``use_kernels=False`` (``train.train_step``),
+the plain route the JAX ``forward`` always takes.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from .. import tree as tr
 from ..configs.base import ArchConfig, MambaCfg
 from ..core.options import resolve_device
 from . import layers as L
@@ -155,12 +162,15 @@ def _embed(cfg, params, tokens, embeds):
 # forward (prefill)
 # --------------------------------------------------------------------------
 def forward(cfg: ArchConfig, params, tokens=None, embeds=None, positions=None,
-            collect_cache=False, use_kernels=True):
+            collect_cache=False, use_kernels=True, remat=None):
     """Returns (hidden (B,S,d), aux, caches|None).  Logits via
     lm_logits().  aux holds the MoE layers' ``moe_lb`` and ``moe_z``, each
     summed over the sub-layers of a period and then over the periods, as
     the JAX scan sums them (empty without MoE).  caches: list over period
-    positions, leaves stacked (n_periods, B, ...)."""
+    positions, leaves stacked (n_periods, B, ...).  ``remat`` (default
+    ``cfg.remat``) recomputes each sub-layer in backward when a gradient
+    is being taken; it changes no value."""
+    remat = cfg.remat if remat is None else remat
     x = _embed(cfg, params, tokens, embeds)
     b, s = x.shape[:2]
     if positions is None:
@@ -174,9 +184,13 @@ def forward(cfg: ArchConfig, params, tokens=None, embeds=None, positions=None,
         auxes = {}
         for pos, kind in enumerate(kinds):
             sub = layer_slice(params["blocks"][pos], i)
-            x, aux, cache = _sublayer_seq(cfg, kind, fkinds[pos], sub, x,
-                                          positions, collect_cache,
-                                          use_kernels)
+            args = (cfg, kind, fkinds[pos], sub, x, positions, collect_cache,
+                    use_kernels)
+            if remat and L.grad_wanted(x, *tr.leaves(sub)):
+                x, aux, cache = checkpoint(_sublayer_seq, *args,
+                                           use_reentrant=False)
+            else:
+                x, aux, cache = _sublayer_seq(*args)
             for k, v in aux.items():
                 auxes[k] = auxes.get(k, 0.0) + v
             per_layer[pos].append(cache)
@@ -194,6 +208,43 @@ def forward(cfg: ArchConfig, params, tokens=None, embeds=None, positions=None,
 def lm_logits(cfg: ArchConfig, params, hidden):
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return hidden @ head.T
+
+
+def _chunk_ce(hidden_c, labels_c, head):
+    """One chunk's summed cross-entropy and its count of valid labels:
+    logits in the params' dtype, then float32 reductions."""
+    logits = (hidden_c @ head.T).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels_c.clamp_min(0)[..., None])[..., 0]
+    valid = (labels_c >= 0).float()
+    return ((lse - tgt) * valid).sum(), valid.sum()
+
+
+def ce_loss_chunked(cfg: ArchConfig, params, hidden, labels, seq_chunk=512):
+    """Mean next-token cross-entropy over the labels that are >= 0, without
+    the (B, S, V) logits: the sequence is padded to whole chunks of
+    ``seq_chunk`` (labels with -1) and each chunk's (B, chunk, V) logits are
+    recomputed in backward (``checkpoint``, as the JAX function's
+    ``nothing_saveable``).  The chunks' sums run in order from 0, as the
+    JAX scan carries them."""
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    b, s, _ = hidden.shape
+    nch = -(-s // seq_chunk)
+    sp = nch * seq_chunk
+    labels = labels.long()
+    if sp != s:
+        hidden = F.pad(hidden, (0, 0, 0, sp - s))
+        labels = F.pad(labels, (0, sp - s), value=-1)
+    tot = torch.zeros((), dtype=F32, device=hidden.device)
+    cnt = torch.zeros((), dtype=F32, device=hidden.device)
+    grad = L.grad_wanted(hidden, head)
+    for c0 in range(0, sp, seq_chunk):
+        args = (hidden[:, c0:c0 + seq_chunk], labels[:, c0:c0 + seq_chunk],
+                head)
+        loss, n = (checkpoint(_chunk_ce, *args, use_reentrant=False)
+                   if grad else _chunk_ce(*args))
+        tot, cnt = tot + loss, cnt + n
+    return tot / cnt.clamp_min(1.0)
 
 
 # --------------------------------------------------------------------------

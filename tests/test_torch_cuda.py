@@ -1589,6 +1589,89 @@ def test_serving_on_card_matches_cpu(name, wrapper, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["phi3-medium-14b", "qwen3-moe-30b-a3b",
+                                  "jamba-1.5-large-398b", "rwkv6-1.6b"])
+def test_train_step_on_card_matches_cpu(name, cuda):
+    """One training step of a reduced model in float32 on the card against
+    the same params, optimizer state and batch on the CPU (the training
+    step takes the plain route on both: K7 and K8 launch nothing): loss
+    and metrics within 1e-5 relative; m and v (the gradient, scaled)
+    within 1e-4 of each leaf's largest entry; params: at least 99.9% of
+    the entries within 1e-3 of lr and every entry within 0.2 lr (an entry
+    whose gradient is noise near Adam's eps moves by a sizeable part of
+    lr when the summation order changes that noise: measured up to
+    0.063 lr at these sizes)."""
+    from repro_torch import tree as tr
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = registry.get(name).reduced()
+    p_cpu = T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(1)
+    batch = dict(tokens=torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))
+                                         .astype(np.int32)),
+                 labels=torch.from_numpy(rng.integers(-1, cfg.vocab, (2, 40))
+                                         .astype(np.int32)))
+    ocfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, ocfg, seq_chunk=16)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = tr.map_leaves(lambda p: p.to(dev).clone(), p_cpu)
+        st = adamw.init_state(params)
+        kernels.reset_launch_counts()
+        params, st, _, m = step(params, st, None,
+                                {k: v.to(dev) for k, v in batch.items()})
+        assert not any(kernels.launch_counts().values())
+        out[dev] = (tr.map_leaves(lambda x: x.cpu(), params),
+                    tr.map_leaves(lambda x: x.cpu(), st),
+                    {k: float(v) for k, v in m.items()})
+    (pg, sg, mg), (pc, sc, mc) = out["cuda"], out["cpu"]
+    for k in mc:
+        assert abs(mg[k] - mc[k]) <= 1e-5 * max(abs(mc[k]), 1.0), k
+    lr = mc["lr"]
+    far = n = 0
+    for a, b in zip(tr.leaves(pg), tr.leaves(pc)):
+        d = (a - b).abs() / lr
+        assert float(d.max()) <= 0.2
+        far, n = far + int((d > 1e-3).sum()), n + d.numel()
+    assert far <= 1e-3 * n, (far, n)
+    for a, b in zip(tr.leaves((sg.m, sg.v)), tr.leaves((sc.m, sc.v))):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,wrapper", [("phi3-medium-14b",
+                                           "flash_attention"),
+                                          ("rwkv6-1.6b", "wkv")])
+def test_kernel_route_refuses_grad(name, wrapper, cuda):
+    """K7 and K8 have no backward: ``forward(use_kernels=True)`` under grad
+    with params that require grad raises (and launches nothing) instead
+    of returning hidden states whose projections get no gradient; under
+    ``no_grad`` the kernel route runs and launches; ``use_kernels=False``
+    under grad gives every projection a gradient."""
+    cfg = registry.get(name).reduced()
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)), device=cuda)
+    leaf = params["blocks"][0]["attn" if wrapper == "flash_attention"
+                               else "rwkv"]["wq" if wrapper ==
+                                            "flash_attention" else "wr"]
+    leaf.requires_grad_(True)
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="use_kernels=False"):
+        T.forward(cfg, params, tokens=toks, remat=False)
+    with pytest.raises(RuntimeError, match="use_kernels=False"):
+        T.forward(cfg, params, tokens=toks, remat=True)
+    assert kernels.launch_counts()[wrapper] == 0
+    with torch.no_grad():
+        T.forward(cfg, params, tokens=toks)
+    assert kernels.launch_counts()[wrapper] == cfg.n_layers
+    h, _, _ = T.forward(cfg, params, tokens=toks, use_kernels=False)
+    (g,) = torch.autograd.grad(h.square().sum(), leaf)
+    assert torch.count_nonzero(g) > 0
+
+
+@pytest.mark.cuda
 def test_async_fault_storm_on_card(cuda):
     """A mixed-pattern stream laced with every fault kind through the async
     server on the card: one terminal result each, every status inside its

@@ -1,6 +1,7 @@
-"""The port's quickstart and mixed-pattern serving examples run on the CPU
-at a small size, as the JAX package's CI runs its examples: each exits 0
-and prints its last line.  The serving example splits every dispatch's K
+"""The port's quickstart, mixed-pattern serving and training examples run on
+the CPU at a small size, as the JAX package's CI runs its examples: each
+exits 0 and prints its last line; the training example's loss is printed,
+finite, and falls over its few steps.  The serving example splits every dispatch's K
 over two CPU shards (``--devices 2``) and checks its own windows: every
 request solved, the warm window analyzing nothing, the fresh service
 loading every plan from disk."""
@@ -8,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 pytest.importorskip("torch")
@@ -20,10 +22,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ("mixed_pattern_serving_torch.py",
      ["--requests", "9", "--batch-size", "4", "--devices", "2",
       "--device", "cpu", "--scale", "0.5"], "MIXED_PATTERN_SERVING_OK"),
+    ("train_lm_torch.py",
+     ["--device", "cpu", "--steps", "4"], "OK"),
 ])
 def test_torch_example_runs(script, args, last, tmp_path):
     if "--requests" in args:
         args = args + ["--cache-dir", str(tmp_path / "plans")]
+    if script.startswith("train_"):
+        args = args + ["--ckpt-dir", str(tmp_path / "ckpt")]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, os.path.join(ROOT, "examples",
                                                        script), *args],
@@ -31,3 +37,8 @@ def test_torch_example_runs(script, args, last, tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip().splitlines()[-1] == last
+    if script.startswith("train_"):                 # "loss: a → b over n"
+        line = next(ln for ln in out.stdout.splitlines()
+                    if ln.startswith("loss:"))
+        first, last_loss = (float(w) for w in line.split()[1:4:2])
+        assert np.isfinite([first, last_loss]).all() and last_loss < first

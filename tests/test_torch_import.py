@@ -195,7 +195,8 @@ def test_port_test_modules_define_each_top_level_name_once():
 
 @pytest.mark.parametrize("sub", ["configs", "models", "serve",
                                  "kernels.flashattn", "kernels.wkv", "core",
-                                 "launch"])
+                                 "launch", "optim", "train", "data",
+                                 "checkpoint"])
 def test_serving_subpackages_import_without_jax(sub):
     """The serving slice's subpackages, imported alone in a fresh
     interpreter, pull in neither jax nor repro."""
@@ -228,3 +229,32 @@ def test_model_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="cuda"):
         T.init_cache(cfg, 1, 4)
     assert T.init_params(cfg, device="cpu")["embed"].device.type == "cpu"
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """The Trainer, ``launch.train.main`` and ``examples/train_lm_torch.py``
+    run on the card unless the CPU is asked for: without one they raise."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = registry.get("phi3-medium-14b").reduced()
+    params = T.init_params(cfg, device="cpu")
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=8, global_batch=2)
+    tcfg = TrainerConfig(ckpt_dir=str(tmp_path / "ck"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(tcfg, cfg, params, data)
+    assert Trainer(tcfg, cfg, params, data, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch.main(["--arch", "phi3-medium-14b", "--reduced", "--steps", "1",
+                     "--ckpt-dir", str(tmp_path / "ck2")])
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples", "train_lm_torch.py"),
+         "--steps", "1", "--ckpt-dir", str(tmp_path / "ck3")],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode != 0 and "cuda" in out.stderr
