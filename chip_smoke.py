@@ -176,7 +176,8 @@ Phases, each printing one JSON line:
             forward and the kernel route against ``use_kernels=False`` in
             float32 at full width and 2 layers (2e-3); the two routes'
             bfloat16 logits and greedy tokens at full depth, printed; for
-            rwkv6 the two routes also in float32 at full depth (2e-3).
+            rwkv6 the two routes also in float32 at full width and 8
+            layers (2e-3).
             The peak memory is that of the serving calls alone.
 
 9d. repairs  C1: bfloat16 factors with ``use_kernels=False`` on the card
@@ -204,15 +205,21 @@ Phases, each printing one JSON line:
             sequence form over the extended sequence in float32.
 16. train_musicgen  musicgen-medium at full width and depth (48 layers, d
             1,536) trained in float32 through ``repro_torch.launch.train
-            .main``: B = 4, T = 1,024, seq_chunk 512, 4 steps, checkpoints
-            at steps 2 and 4 into a temporary directory; step 4's COMMIT
-            is removed (a crash before it) and a second ``main(...,
-            "--resume")`` runs steps 3-4 from step 2: finite losses, every
-            param leaf moved, the resumed losses equal to the first run's
-            within 1e-5 relative, no K7 / K8 launch; step ms, tokens/s,
-            peak memory, checkpoint and restore seconds;
-17. train_rwkv  rwkv6-1.6b at full width and depth (24 layers, d 2,048)
-            in float32 through ``main``: B = 2, T = 512, 2 steps (its
+            .main``: B = 4, T = 1,024, seq_chunk 512, 4 steps (finite
+            losses, every param leaf moved, no K7 / K8 launch; step ms,
+            tokens/s, peak memory), then phase 19's roofline of one more
+            step on its trainer; then, at full width and
+            TRAIN_RESUME_LAYERS (8) layers (``--layers``), 4 steps with
+            checkpoints at
+            steps 2 and 4 into a temporary directory, step 4's COMMIT
+            removed (a crash before it) and a second ``main(...,
+            "--resume")`` running steps 3-4 from step 2: the resumed
+            losses equal to the first run's within 1e-5 relative;
+            checkpoint and restore seconds;
+17. train_rwkv  rwkv6-1.6b at full width (d 2,048) and 8 layers
+            (TRAIN_RWKV_LAYERS, ``--layers``) in float32 through
+            ``main``: B = 2,
+            T = 512, 2 steps (its
             plain WKV loop under autograd): finite losses, params moved,
             no K7 / K8 launch; step ms, peak memory;
 18. train_held  two ``train_step`` calls each of musicgen-medium and of
@@ -228,10 +235,38 @@ Phases, each printing one JSON line:
             lr on rwkv6; the max printed); then ``forward(use_kernels=
             True)`` under grad on the card raises (K7, K8 have no
             backward) and launches nothing.
+19. roofline  inside the phases that already hold the models (no model
+            loaded again): phi3-medium-14b's prefill (4 x 2,048, K7) and
+            one decode step, rwkv6-1.6b's prefill (K8) and one
+            musicgen-medium float32 training step, each run once under
+            ``repro_torch.roofline.op_cost`` (FLOPs by dtype and bytes of
+            the ATen ops, the kernels' work by ``roofline.kernel_cost``):
+            two bounds at the card's peaks beside the phase's own timed
+            call, the eager one (the eager program's own traffic) and
+            the least-traffic one (arguments read, results written
+            once), each over measured, the device busy share in a
+            torch.profiler window of one more call, the kernel launches;
+            fails on a launch without a formula, on either bound over
+            measured above 1.05, or on no K7 / K8 launch in its prefill;
+            the
+            records again in one ``roofline_table`` line;
+20. solver_share  ``launch/solver_dryrun.py``'s per-device share on the
+            card (after serving_solver): n = 800, K = 16 (4,096 systems
+            over 256 devices), float32 factor and one unrefined solve,
+            under ``op_cost``, in the analysis's mode (row-row) and in
+            supernodal mode, which launches K1-K4; each x within 4 cond
+            eps32 of ``spsolve`` (condition up to about 4.5e4), its
+            backward error within n eps32, and within twice that of the
+            same share's CPU plain route; its record;
+21. dryrun  one full-size dry-run cell on the host, qwen3-moe-30b-a3b x
+            decode_32k x pod16x16 (expert sharding, the MoE groups), as
+            rank 0 of a fake process group of 256: its record and trace
+            seconds.
 
 Then one ``{"kernels": [...]}`` line (each record's ``launches_by_path``
-counts the batched, pipeline, autodiff, baselines, scalar, mesh and
-solver-serving phases, or the models' serving calls (K7's also
+counts the batched, pipeline, autodiff, baselines, scalar, mesh,
+solver-serving and solver-share phases, or the models' serving calls and
+their roofline calls (K7's also
 qwen3-moe's and reduced jamba's ``greedy_generate``); a bfloat16 record
 its entry point's launches in the bf16 phase), the nvidia-smi
 line, and, last,
@@ -311,7 +346,13 @@ RAGGED_T = 2000                     # a multiple of none of K7's row tiles
 # steps); rwkv6-1.6b likewise; the held models at full width and 2 layers,
 # (B, T), on the card against the CPU
 TRAIN_MUSICGEN, TRAIN_MUSICGEN_SHAPE = "musicgen-medium", (4, 1024, 4)
+ROOFLINE_LIMIT = 1.05     # bound / measured above this: a count is wrong
+TRAIN_RESUME_LAYERS = 8   # the checkpoint / resume check's depth (full
+#                           width; the timed steps keep all 48 layers)
 TRAIN_RWKV_SHAPE, TRAIN_HELD_SHAPE = (2, 512, 2), (2, 256)
+TRAIN_RWKV_LAYERS = 8     # train_rwkv's depth (full width)
+F32_ROUTE_LAYERS = 8      # rwkv6's float32 kernel-vs-plain route check's
+#                           depth (full width)
 # the held models and the kernel each one's refused route names
 TRAIN_HELD = (("musicgen-medium", "K7"), ("rwkv6-1.6b", "K8"))
 # K7 against its plain version, (rtol, atol): float32 at the 2e-5 of
@@ -324,11 +365,17 @@ WKV_TINY_DECAY = (1e-6, 0.05)       # K8 also held at decays drawn from here
 # the serving_solver phase: healthy requests on (fem2d_10k, circuit) and
 # the faults injected on each pattern (ill_conditioned stays off fem2d_10k:
 # every retry is a new fingerprint and so a full host analysis)
-SERVING_HEALTHY = (32, 16)
+SERVING_HEALTHY = (32, 16)    # healthy fem2d_10k / circuit requests
 SERVING_FAULTS = {"fem": ("nan_values", "inf_values", "nan_rhs",
                           "wrong_shape_rhs", "singular_values"),
                   "cir": ("singular_values", "ill_conditioned",
                           "tiny_deadline")}
+
+
+# ``repro_torch.roofline.kernel_cost``, imported by ``main`` once the
+# package is on the path: the work formulas the bound column and the
+# port's roofline share
+kc = None
 
 
 def emit(obj):
@@ -411,15 +458,6 @@ def lib_graph_ms(torch, calls):
         return None
 
 
-def lu_flops(np, npan, nr, c0, wlim):
-    """Operations of ``npan`` panel LUs of nr rows eliminated over the
-    columns [c0, wlim): a division per multiplier and a multiply-add per
-    updated entry."""
-    j = np.arange(nr)
-    return npan * float(np.sum((nr - j - 1)
-                               * (1 + 2 * np.maximum(wlim - c0 - j - 1, 0))))
-
-
 def main() -> int:
     import torch
 
@@ -432,6 +470,8 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    global kc
+    from repro_torch.roofline import kernel_cost as kc
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -643,6 +683,7 @@ def main() -> int:
                              x64, xs, values)
     repairs_phase(torch, np, kernels, A, an64, values[0], b)
     serving_counts = serving_solver_phase(torch, np, kernels, A, an64, C, anc)
+    share_counts = solver_share_phase(torch, np, kernels)
 
     for rec in records:
         w = rec.pop("wrapper")
@@ -659,7 +700,8 @@ def main() -> int:
                                        "baselines": baseline_counts[w],
                                        "scalar": scalar_counts[w],
                                        "mesh": mesh_counts[w],
-                                       "serving": serving_counts[w]}
+                                       "serving": serving_counts[w],
+                                       "solver_share": share_counts[w]}
         rec["launches"] = sum(rec["launches_by_path"].values())
     # the solver phases' device state goes before the models (qwen3-moe's
     # 61 GB of weights need the card to themselves)
@@ -680,6 +722,7 @@ def main() -> int:
     for name in SERVING_MODELS:
         rec = serving_phase(torch, np, kernels, registry.get(name))
         for path, c in (("serving", serving_counts),
+                        ("solver_share", share_counts),
                         ("baselines", baseline_counts),
                         ("pipeline", pipeline_counts),
                         ("autodiff", autodiff_counts),
@@ -695,9 +738,12 @@ def main() -> int:
     mamba_layer_phase(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
-    train_musicgen_phase(torch, np)
+    roof = [r_ for rec in records for r_ in rec.pop("roofline", [])]
+    roof.append(train_musicgen_phase(torch, np))
     train_rwkv_phase(torch, np)
     train_held_phase(torch, np)
+    dryrun_phase(torch)
+    emit({"phase": "roofline_table", "records": roof})
     emit({"kernels": records})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -756,9 +802,9 @@ def bf16_phase(torch, np, kernels, A, an64, values0, b):
     torch_repeated_engine(an_bf, dtype="float64", refine_dtype="float64")
     entries, orig = {}, _build.launch
 
-    def spy(name, *args):
+    def spy(name, *args, **kwargs):
         entries[name] = entries.get(name, 0) + 1
-        return orig(name, *args)
+        return orig(name, *args, **kwargs)
 
     def mats(vals):
         return [sp.csr_matrix((v, A.indices, A.indptr),
@@ -1333,18 +1379,6 @@ def suprow_operands(torch, eng_u, a_dev):
             for km, v in sorted(found.items())}
 
 
-def suprow_work(groups, elem):
-    """(operations, bytes) of K6 on every row of ``groups``: per row k^2 +
-    2 k m operations; x (k + m), U's upper triangle k (k + 1) / 2 and the
-    k x m rows past it read once, y (k) and xr (m) written once."""
-    flops = nbytes = 0.0
-    for (k, m), (x, _) in groups.items():
-        flops += x.shape[0] * float(k * k + 2 * k * m)
-        nbytes += x.shape[0] * elem * float(2 * (k + m) + k * (k + 1) // 2
-                                            + k * m)
-    return flops, nbytes
-
-
 def suprow_library(torch, x, src, k):
     """K6's function in two library calls: ``solve_triangular`` and
     ``baddbmm`` (the chip run's yardstick; the port never calls them)."""
@@ -1424,7 +1458,7 @@ def suprow_extra(torch, suprow_ops, groups, K):
         lib_ms, plain_ms = (lib_graph_ms(torch, fns * reps)
                             for fns in (lib, plain))
         bound = sum(max(fl / PEAK_FLOPS[dname], nb / HBM_BYTES_PER_S)
-                    for fl, nb in (suprow_work({km: v}, dt.itemsize)
+                    for fl, nb in (kc.suprow_work({km: v}, dt.itemsize)
                                    for km, v in groups.items())) * 1e3
         out.update({
             "groups_max_abs_err" + sfx: err,
@@ -1497,7 +1531,7 @@ def suprow_large(torch, suprow_ops, dev):
                                       atol=TOL[dname]))
                   for g, r in zip(got, ref)),
               f"suprow_update large {dname}: max |kernel - plain| = {err}")
-        flops, nbytes = suprow_work({(k, m): (xd, sd)}, dt.itemsize)
+        flops, nbytes = kc.suprow_work({(k, m): (xd, sd)}, dt.itemsize)
         run = [lambda: suprow_ops.suprow_update(xd, sd, k)] * 20
         out.update({
             "large_max_abs_err" + sfx: err,
@@ -1513,32 +1547,8 @@ def suprow_large(torch, suprow_ops, dev):
     return out
 
 
-def node_work(np, plan, t, elem, k_sys=1):
-    """(operations, bytes) of node t's step on ``k_sys`` systems: per
-    system and edge nr k^2 for the right solve and 2 nr k m for the
-    product; per system the panel's touched columns read and written once
-    per row, of each edge's source rows the part the function reads once
-    (U's upper triangle, k (k + 1) / 2, and the k x m rows past it) and,
-    for a width-1 node, its pivot and threshold; once, each edge's col_map
-    and descriptor."""
-    nodes = plan.nodes
-    nd = nodes[t]
-    flops = float(sum(nd.nr * (nodes[e.src].nr ** 2 + 2 * nodes[e.src].nr
-                               * (len(e.col_map) - nodes[e.src].nr))
-                      for e in nd.edges))
-    touched = (np.unique(np.concatenate([e.col_map for e in nd.edges])).size
-               if nd.edges else int(nd.nr == 1))
-    src_elems = sum(
-        k * (k + 1) // 2 + k * (len(e.col_map) - k)
-        for e in nd.edges for k in (nodes[e.src].nr,))
-    nbytes = (k_sys * (2 * nd.nr * touched * elem + src_elems * elem
-                       + (2 * elem + 4 if nd.nr == 1 else 0))
-              + sum(8 * (len(e.col_map) + 5) for e in nd.edges))
-    return k_sys * flops, nbytes
-
-
 def node_bound_ms(np, plan, t, dname):
-    flops, nbytes = node_work(np, plan, t, 8 if dname == "float64" else 4)
+    flops, nbytes = kc.node_work(plan, t, 8 if dname == "float64" else 4)
     return max(flops / PEAK_FLOPS[dname], nbytes / HBM_BYTES_PER_S) * 1e3
 
 
@@ -1714,7 +1724,7 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     unodes = plan_u.nodes
     node_ts = {
         "most_work": max(range(len(unodes)),
-                         key=lambda t_: node_work(np, plan_u, t_, 8)[0]),
+                         key=lambda t_: kc.node_work(plan_u, t_, 8)[0]),
         "most_edges": max(range(len(unodes)),
                           key=lambda t_: len(unodes[t_].edges)),
         "width1_most_edges": max(
@@ -1773,7 +1783,7 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
         g6 = [(c(x_), c(s_), k_) for (k_, _), (x_, s_) in G6.items()]
         t6 = (suprow_ops.suprow_groups(g6) if dt != torch.bfloat16
               else None)                       # K6 takes no bfloat16
-        f6, b6 = suprow_work(G6, sz(dt))
+        f6, b6 = kc.suprow_work(G6, sz(dt))
         vn, en = node_base[t_n]
         base_n, eps_n = c(vn), en.to(dt)
         pan_n = base_n[:, lo_n:hi_n].clone()
@@ -1788,11 +1798,11 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
                 fn(work, eng_u._edges, step_n, eps_n, nper)
                 return work[:, lo_n:hi_n], nper.to(dt)
             return run
-        fn_, bn_ = node_work(np, plan_u, t_n, sz(dt))
+        fn_, bn_ = kc.node_work(plan_u, t_n, sz(dt))
         e1, e2 = eps1.to(dt), eps2.to(dt)
         s = sz(dt)
         lower = torch.tril(blk, -1) + torch.eye(nrb, dtype=dt, device=dev)
-        f1, n1 = bucket_work(np, C1.lay, K, s)
+        f1, n1 = bucket_work(C1.lay, K, s)
         return [
             ("panel_lu_bucketed", "panel_lu_bucket_inplace",
              "src/repro/kernels/panel/kernel.py:59", "src/repro_torch/csrc/panel_lu.cu",
@@ -1809,7 +1819,7 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
              f"({K}, {nd.nr}, {nd.width}) lsize={nd.lsize}",
              lambda: panel_ops.panel_lu(p2, nd.nr, nd.lsize, e2),
              lambda: panel_ops.panel_lu_plain(p2, nd.lsize, nd.width, e2),
-             None, lu_flops(np, K, nd.nr, nd.lsize, nd.width),
+             None, kc.lu_flops(K, nd.nr, nd.lsize, nd.width),
              (2 * p2.numel() + e2.numel()) * s + K * (nd.nr + 1) * 4, TOL,
              (lambda: panel_ops.panel_lu(p2s, nd.nr, nd.lsize, e2),
               lambda: panel_ops.panel_lu_plain(p2s, nd.lsize, nd.width, e2))),
@@ -2661,7 +2671,7 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
                               f"c0={lsize})", got, ref, tol)
             err, moved, perturbed = max(err, e_), moved + mv, perturbed + pt
             del got, ref
-            bnd, nb = bound_of(P, lu_flops(np, P.shape[0], nr_, lsize, w),
+            bnd, nb = bound_of(P, kc.lu_flops(P.shape[0], nr_, lsize, w),
                                dname)
             bound, nbytes, steps = bound + bnd, nbytes + nb, steps + nr_
             kern.append(lambda P=P, l_=lsize, e=e:
@@ -2733,7 +2743,7 @@ def panel_extra(torch, np, eng, eng_u, a_dev):
                                              device=gp.device)).sum())
             perturbed += int(gn.sum())
             del g, r, gr, rr
-            f_, nb = bucket_work(np, c.lay, b_.shape[0], b_.element_size())
+            f_, nb = bucket_work(c.lay, b_.shape[0], b_.element_size())
             flops, nbytes = flops + f_, nbytes + nb
             bounds.append(max(nb / HBM_BYTES_PER_S, f_ / PEAK_FLOPS[dname]))
             bound += bounds[-1]
@@ -2943,17 +2953,10 @@ class Compact:
                                "float32": int((starts % 4 != 0).sum())}
 
 
-def bucket_work(np, lay, k, elem):
-    """(operations, bytes) of one K1 call on ``k`` systems of a bucket:
-    its members' real pivot steps over their real windows, their real
-    slots read and written once, the thresholds, the descriptors and the
-    perm and counts of every padded row."""
-    desc = lay.desc.cpu().numpy().astype(np.int64)
-    flops = sum(lu_flops(np, k, int(nr), 0, int(nr + us))
-                for _, nr, _, _, us in desc)
-    nbytes = (2 * k * int((desc[:, 1] * desc[:, 2]).sum()) * elem + k * elem
-              + 4 * k * len(desc) * (lay.nr + 1) + 4 * desc.size)
-    return flops, nbytes
+def bucket_work(lay, k, elem):
+    """``kernel_cost.bucket_work`` of one K1 call on ``k`` systems of the
+    bucket ``lay`` (its descriptors read back from the card)."""
+    return kc.bucket_work(lay.desc.cpu().numpy(), lay.nr, k, elem)
 
 
 def parent_bucket(panel_ops, vals, lay, eps):
@@ -3431,7 +3434,7 @@ def wide_node_record(torch, np, eng_u, a_dev):
     K = a_dev.shape[0]
     wide = [t for t, (_, st) in enumerate(eng_u._nodes)
             if st.kmax > supsup_ops.WIDE_K]
-    t = max(wide, key=lambda t_: node_work(np, plan, t_, 8)[0])
+    t = max(wide, key=lambda t_: kc.node_work(plan, t_, 8)[0])
     _, step = eng_u._nodes[t]
     base, eps = eng_u.refactor_batched(a_dev, stop=(t, 0))
     lo, hi = step.off, step.off + step.nr * step.w
@@ -3459,7 +3462,7 @@ def wide_node_record(torch, np, eng_u, a_dev):
         g[:, lo:hi].copy_(pan)
 
     r_ms = bench_ms(torch, restore)
-    flops, nbytes = node_work(np, plan, t, 8, K)
+    flops, nbytes = kc.node_work(plan, t, 8, K)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float64"]
     nd = nodes[t]
     rec = {"name": "node_edges_wide", "route": "cuda",
@@ -3596,7 +3599,7 @@ def wide_records(torch, np, eng, values0):
               f"panel_lu_wide{sfx}: max |kernel - plain| = {err}")
         t_bytes = ((2 * P.numel() + K) * 8 + K * (nr + 1) * 4) \
             / HBM_BYTES_PER_S
-        t_ops = lu_flops(np, K, nr, ls, w) / PEAK_FLOPS["float64"]
+        t_ops = kc.lu_flops(K, nr, ls, w) / PEAK_FLOPS["float64"]
         k2.update({
             "shape" + sfx: f"({K}, {nr}, {w}) lsize={ls}",
             "max_abs_err" + sfx: err, "tol" + sfx: TOL["float64"],
@@ -3637,7 +3640,7 @@ def wide_records(torch, np, eng, values0):
         check(bool(torch.allclose(v_k[:, :n_real], v_p[:, :n_real],
                                   rtol=TOL["float64"], atol=TOL["float64"])),
               f"panel_lu_bucket_wide{sfx}: max |kernel - plain| = {err}")
-        flops, nbytes = bucket_work(np, lay, K, 8)
+        flops, nbytes = bucket_work(lay, K, 8)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[
             "float64"]
         k1.update({
@@ -3996,9 +3999,8 @@ def flash_record(torch, L, T, cfg, params, prompt):
                 del got, ref, diff
             del lops
         ops = [a.to(dt) for a in (q, k, v)]
-        pairs = tq * (tq + 1) / 2                  # causal (row, col) pairs
-        flops = 4.0 * d * pairs * b * hq
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * ops[0].element_size()
+        flops, nbytes = kc.flash(b, hq, k.shape[1], tq, tq, d,
+                                 ops[0].element_size())
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
         rec.update({
             "rtol_atol" + sfx: TOL_MODEL[dname],
@@ -4043,8 +4045,8 @@ def gemma_case(torch, F, flash):
     check(ratio <= 1.0, f"flash_attention bfloat16 (gemma-7b shape): |kernel "
                         f"- plain| up to {ratio} times the limit (max {err})")
     del got, ref, diff
-    flops = 4.0 * 256 * PROMPT * (PROMPT + 1) / 2 * BATCH * 16
-    nbytes = 4 * q.numel() * q.element_size()
+    flops, nbytes = kc.flash(BATCH, 16, 16, PROMPT, PROMPT, 256,
+                             q.element_size())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
     out = {"gemma_shape": f"q, k, v ({BATCH}, 16, {PROMPT}, 256), causal, "
                           "gemma-7b attention, random",
@@ -4138,10 +4140,8 @@ def wkv_record(torch, L, T, cfg, params, prompt):
     # the least operations of the function, per step and head: k v^T, the
     # S update and y's sum over rows (5 hs^2), the bonus sum_k r u k and its
     # product with v (5 hs); the plain form r . (S + u k v^T) takes 7 hs^2
-    steps = tq * b * nh
-    flops = (5.0 * hs * hs + 5.0 * hs) * steps
-    flops_plain = 7.0 * hs * hs * steps
-    nbytes = 4 * (5 * ops[0].numel() + u.numel() + b * nh * hs * hs)
+    flops, nbytes = kc.wkv(b, nh, tq, hs, u.numel())
+    flops_plain = 7.0 * hs * hs * tq * b * nh
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]
     rec.update({"tol": TOL_WKV, "ragged_t": RAGGED_T, "steps": tq,
                 "tiny_decay_range": WKV_TINY_DECAY,
@@ -4209,12 +4209,16 @@ def f32_checks(torch, T, cfg, prompt):
             "teacher_forced_tokens": int(seq.shape[1])}
 
 
-def f32_full_depth_routes(torch, T, cfg, prompt):
-    """rwkv6 at full depth in float32: the kernel route's prefill logits
-    against ``use_kernels=False``'s, where only the order of the WKV sums
-    differs, to set beside the bfloat16 routes' difference."""
+def f32_routes(torch, T, cfg, prompt):
+    """rwkv6 at full width and F32_ROUTE_LAYERS layers in float32: the
+    kernel route's prefill logits against ``use_kernels=False``'s, where
+    only the order of the WKV sums differs, to set beside the bfloat16
+    routes' difference."""
+    import dataclasses
+
     from repro_torch.serve.serve_step import greedy_generate, make_prefill_step
 
+    cfg = dataclasses.replace(cfg, n_layers=F32_ROUTE_LAYERS)
     params = T.init_params(cfg, seed=SEED, dtype=torch.float32)
     got, _ = make_prefill_step(cfg)(params, tokens=prompt)
     ref, _ = make_prefill_step(cfg, use_kernels=False)(params, tokens=prompt)
@@ -4290,6 +4294,20 @@ def serving_phase(torch, np, kernels, cfg):
     per_decode = kernels.launch_counts()
     stepped = torch.stack(out, 1)
     peak = torch.cuda.max_memory_allocated()
+    # the roofline of the timed calls (phase 19): one more prefill, and for
+    # the attention model one decode step into the cache's last row
+    kernels.reset_launch_counts()
+    roof = [roofline_record(
+        torch, f"{cfg.name} prefill ({BATCH} x {PROMPT}, bfloat16)",
+        lambda: prefill(params, tokens=prompt), prefill_s * 1e3,
+        expect=(f"hylu_{'flash_attn' if attn else 'wkv'}_",))]
+    if attn:
+        roof.append(roofline_record(
+            torch, f"{cfg.name} decode step ({BATCH} x 1, bfloat16)",
+            lambda: decode(params, out[-1][:, None], cache,
+                           PROMPT + NEW_TOKENS - 1),
+            1e3 * float(np.mean(step_s))))
+    roof_counts = kernels.launch_counts()
     del cache, lg, logits
     # the plain route at full depth in bfloat16, beside the kernel route
     kernels.reset_launch_counts()
@@ -4309,11 +4327,12 @@ def serving_phase(torch, np, kernels, cfg):
     f32 = f32_checks(torch, T, cfg, prompt)
     torch.cuda.empty_cache()
     if not attn:
-        f32["full_depth"] = f32_full_depth_routes(torch, T, cfg, prompt)
+        f32["routes"] = f32_routes(torch, T, cfg, prompt)
         torch.cuda.empty_cache()
-        err = f32["full_depth"]["last_logits_max_abs"]
-        check(err < TOL_DECODE, f"{cfg.name} f32 full depth: kernel vs "
-                                f"plain route {err} >= {TOL_DECODE}")
+        err = f32["routes"]["last_logits_max_abs"]
+        check(err < TOL_DECODE, f"{cfg.name} f32, {F32_ROUTE_LAYERS} "
+                                f"layers: kernel vs plain route {err} >= "
+                                f"{TOL_DECODE}")
     n_kernel_layers = cfg.n_layers          # every layer is attn or rwkv
     decode_ms = 1e3 * float(np.mean(step_s))
     res = {"phase": "transformer", "model": cfg.name, "dtype": "bfloat16",
@@ -4356,7 +4375,9 @@ def serving_phase(torch, np, kernels, cfg):
     rec["launches"] = path_counts[wrapper]
     rec["launches_by_path"] = {"greedy_generate": path_counts[wrapper],
                                "per_prefill": per_prefill[wrapper],
-                               "decode": per_decode[wrapper]}
+                               "decode": per_decode[wrapper],
+                               "roofline": roof_counts[wrapper]}
+    rec["roofline"] = roof
     return rec
 
 
@@ -4829,6 +4850,157 @@ def mamba_layer_phase(torch, np):
           f"mamba layer: steps vs sequence {f32['step_vs_seq_max_abs']}")
 
 
+def roofline_record(torch, name, fn, measured_ms, expect=()):
+    """Phase 19, one call: ``fn()`` once under ``roofline.op_cost`` (the
+    FLOPs by dtype and the bytes of its ATen ops, the hand-written
+    kernels' work by their formulas), its two bounds at the card's peaks
+    beside ``measured_ms`` (the phase's own timed call) and the device's
+    busy share in a torch.profiler window of one more call (its kernels'
+    device time over the window's wall time).  The eager bound takes the
+    eager program's own traffic (every intermediate written and read
+    again), the least-traffic bound the call's arguments read and its
+    results written once (``OpCost.min_bytes``), both with the same
+    FLOPs.  Fails when a launch has no formula, when either bound over
+    measured exceeds ROOFLINE_LIMIT (no card beats its roofline: the
+    count would be wrong) or when an entry point of ``expect`` was not
+    launched."""
+    from repro_torch import profile_serve
+    from repro_torch.roofline import analysis as RA
+    from repro_torch.roofline.op_cost import OpCost
+
+    t = time.perf_counter()
+    torch.cuda.synchronize()
+    with OpCost() as cost:
+        res = fn()
+        torch.cuda.synchronize()
+    min_bytes = cost.min_bytes(res)
+    del res
+    terms, bott = RA.terms(cost.flops, cost.bytes)
+    least, least_bott = RA.terms(cost.flops, min_bytes)
+    bound_ms = max(terms["compute"], terms["memory"]) * 1e3
+    min_bound_ms = max(least["compute"], least["memory"]) * 1e3
+    prof = profile_serve._profile(torch, fn, measured_ms / 1e3)
+    rec = {"name": name, "flops_by_dtype": dict(cost.flops),
+           "flops": cost.total_flops, "bytes": cost.bytes,
+           "min_bytes": min_bytes, "t_compute": terms["compute"],
+           "t_memory": terms["memory"], "min_t_memory": least["memory"],
+           "bottleneck": bott, "min_bottleneck": least_bott,
+           "eager_bound_ms": bound_ms, "min_bound_ms": min_bound_ms,
+           "ms": measured_ms,
+           "bound_over_measured": bound_ms / measured_ms,
+           "min_bound_over_measured": min_bound_ms / measured_ms,
+           "busy": prof["device_busy_share_profiled"],
+           "device_kernel_ms": prof["device_kernel_s"] * 1e3,
+           "kernels": {k: v["launches"] for k, v in cost.kernels.items()},
+           "uncounted": dict(cost.uncounted), "aten_ops": cost.n_ops,
+           "top_bytes": sorted(([k, v[2]] for k, v in cost.by_op.items()),
+                               key=lambda kv: -kv[1])[:6]}
+    emit({"phase": "roofline", **rec, "seconds": time.perf_counter() - t})
+    check(not cost.uncounted, f"roofline {name}: launches without a work "
+                              f"formula {dict(cost.uncounted)}")
+    for key in ("bound_over_measured", "min_bound_over_measured"):
+        check(rec[key] <= ROOFLINE_LIMIT,
+              f"roofline {name}: {key} {rec[key]} (measured {measured_ms} "
+              f"ms) exceeds {ROOFLINE_LIMIT}")
+    for entry in expect:
+        check(any(k.startswith(entry) for k in cost.kernels),
+              f"roofline {name}: no {entry}* launch ({cost.kernels})")
+    return rec
+
+
+def solver_share_phase(torch, np, kernels):
+    """Phase 20: ``launch/solver_dryrun.py``'s per-device share on the card
+    (n = 800, K = 4,096 / 256 = 16, float32 factor and one unrefined
+    float32 solve, the JAX dry run's program) under ``op_cost``, in the
+    mode the analysis chooses (row-row) and in supernodal mode, which
+    runs K1-K4.  An unrefined float32 solve of these systems (condition
+    up to about 4.5e4) is as accurate as float32 and the condition allow:
+    each x is held to ``spsolve`` within 4 cond eps32 of its largest
+    entry and its normwise backward error to n eps32, and to the same
+    share's CPU plain route within twice the first bound (both sit within
+    it).  Returns the supernodal share's launch counts."""
+    import scipy.sparse.linalg as spla
+
+    from repro_torch.launch import solver_dryrun as SD
+
+    t = time.perf_counter()
+    eps = float(np.finfo(np.float32).eps)
+    out, refs = {}, []
+    for mode in (None, "supernodal"):
+        kernels.reset_launch_counts()
+        rec, x, (a, values, b), _ = SD.share(device="cuda", mode=mode)
+        counts = kernels.launch_counts()
+        _, x_cpu, _, _ = SD.share(device="cpu", mode=mode)
+        worst = {"forward_over_bound": 0.0, "backward_over_bound": 0.0,
+                 "card_vs_cpu_over_bound": 0.0}
+        for k in range(x.shape[0]):
+            ak = a.copy()
+            ak.data = values[k]
+            if len(refs) <= k:            # the same systems in both modes
+                xr = spla.spsolve(ak.tocsc(), b[k])
+                refs.append((xr, 4 * np.linalg.cond(ak.toarray(), np.inf)
+                             * eps * np.abs(xr).max()))
+            xr, bound = refs[k]
+            r = ak @ x[k].astype(np.float64) - b[k]
+            bwd = np.abs(r).max() / (abs(ak).sum(axis=1).max()
+                                     * np.abs(x[k]).max()
+                                     + np.abs(b[k]).max())
+            for key, val in (
+                    ("forward_over_bound", np.abs(x[k] - xr).max() / bound),
+                    ("backward_over_bound", bwd / (x.shape[1] * eps)),
+                    ("card_vs_cpu_over_bound",
+                     np.abs(x[k] - x_cpu[k]).max() / (2 * bound))):
+                worst[key] = max(worst[key], float(val))
+        bound_ms = max(rec["t_compute"], rec["t_memory"]) * 1e3
+        rec.update(launches=counts, ms=rec["t_run_s"] * 1e3,
+                   bound_ms=bound_ms,
+                   bound_over_measured=bound_ms / (rec["t_run_s"] * 1e3),
+                   card_vs_cpu_rel=float(np.abs(x - x_cpu).max()
+                                         / np.abs(x_cpu).max()), **worst)
+        emit({"phase": "solver_share", "forced_mode": mode, "record": rec})
+        check(np.isfinite(x).all() and max(worst.values()) <= 1.0,
+              f"solver share ({mode}): x against spsolve and the CPU route "
+              f"{worst} (1 = the float32 bound)")
+        check(not rec["uncounted"], f"solver share ({mode}): launches "
+                                    f"without a formula {rec['uncounted']}")
+        out[mode] = counts
+    for w in ("panel_lu_bucket_inplace", "panel_lu", "trsm_batched",
+              "trsm_left_unit_lower_batched", "trsm_left_upper_batched",
+              "gemm_batched"):
+        check(out["supernodal"][w] > 0,
+              f"solver share (supernodal): {w} was not launched")
+    emit({"phase": "solver_share_done",
+          "seconds": time.perf_counter() - t})
+    return out["supernodal"]
+
+
+def dryrun_phase(torch):
+    """Phase 21: one full-size dry-run cell on the host,
+    qwen3-moe-30b-a3b x decode_32k x pod16x16 (expert sharding and the
+    MoE groups), traced on fake tensors as rank 0 of a fake group of 256;
+    the group is torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+
+    t = time.perf_counter()
+    try:
+        mesh = make_production_mesh(multi_pod=False)
+        rec, cost = D.trace_cell(registry.get(MOE_MODEL),
+                                 SHAPES["decode_32k"], mesh, "pod16x16")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit({"phase": "dryrun", "record": rec,
+          "seconds": time.perf_counter() - t})
+    check(rec["status"] == "ok" and rec["flops_per_device"] > 0
+          and rec["coll_bytes_per_device"] > 0 and not cost.uncounted,
+          f"dryrun {MOE_MODEL} x decode_32k: {rec}")
+
+
 def _train_run(torch, argv):
     """``repro_torch.launch.train.main(argv)`` with its peak memory,
     seconds and kernel launches (the counts zeroed just before it); returns
@@ -4873,7 +5045,9 @@ def _step_stats(log, tokens):
 
 def train_musicgen_phase(torch, np):
     """Phase 16: musicgen-medium trained at full width and depth through
-    the launcher, then resumed from its step-2 checkpoint."""
+    the launcher (its timed steps and, on its trainer, the roofline of
+    one step), then the checkpoint and resume check at full width and
+    TRAIN_RESUME_LAYERS layers."""
     import tempfile
 
     from repro_torch.configs import registry
@@ -4881,33 +5055,58 @@ def train_musicgen_phase(torch, np):
     t_all = time.perf_counter()
     cfg = registry.get(TRAIN_MUSICGEN)
     b, t, steps = TRAIN_MUSICGEN_SHAPE
+    argv = ["--arch", cfg.name, "--batch", str(b), "--seq", str(t),
+            "--steps", str(steps), "--seed", str(SEED)]
     with tempfile.TemporaryDirectory(prefix="train_musicgen_") as ck:
-        argv = ["--arch", cfg.name, "--batch", str(b), "--seq", str(t),
-                "--steps", str(steps), "--ckpt-dir", ck, "--seed", str(SEED)]
-        first = _train_run(torch, argv + ["--ckpt-every", "2"])
-        moved, n_leaves = _moved(torch, cfg, first.pop("params"), SEED)
+        first = _train_run(torch, argv + ["--ckpt-dir", ck, "--ckpt-every",
+                                          str(steps + 1)])
+    moved, n_leaves = _moved(torch, cfg, first.pop("params"), SEED)
+    stats = _step_stats(first["log"], b * t)
+    trainer = first.pop("trainer")
+    batch = trainer._batch(trainer.step)
+    roof = roofline_record(
+        torch, f"{cfg.name} train step (B {b}, T {t}, float32)",
+        lambda: trainer._step_fn(trainer.params, trainer.opt_state,
+                                 trainer.err_state, batch),
+        stats["median_step_ms"])
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the checkpoint and resume check, at a cut depth (two checkpoints of
+    # the 48-layer model were 16.4 GB each on disk)
+    argv += ["--layers", str(TRAIN_RESUME_LAYERS)]
+    with tempfile.TemporaryDirectory(prefix="train_musicgen_") as ck:
+        cut = _train_run(torch, argv + ["--ckpt-dir", ck,
+                                        "--ckpt-every", "2"])
+        cut.pop("params")
+        cut.pop("trainer")
         steps_saved = sorted(os.listdir(ck))
         ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
                          for d, _, fs in os.walk(ck) for f in fs)
         # a crash before step 4's commit: the resume takes step 2
         os.remove(os.path.join(ck, f"step_{steps:09d}", "COMMIT"))
         t0 = time.perf_counter()
-        second = _train_run(torch, argv + ["--ckpt-every", str(steps + 1),
-                                           "--resume"])
+        second = _train_run(torch, argv + ["--ckpt-dir", ck,
+                                           "--ckpt-every",
+                                           str(steps + 1), "--resume"])
         second.pop("params")
+        second.pop("trainer")
         resume_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     l1 = [r["loss"] for r in first["log"]]
+    lc = [r["loss"] for r in cut["log"]]
     l2 = [r["loss"] for r in second["log"]]
-    rel = [abs(a - b_) / abs(a) for a, b_ in zip(l1[2:], l2)]
+    rel = [abs(a - b_) / abs(a) for a, b_ in zip(lc[2:], l2)]
     res = {"phase": "train_musicgen", "model": cfg.name, "dtype": "float32",
            "layers": cfg.n_layers, "d_model": cfg.d_model,
            "params": cfg.param_count(), "batch": b, "seq": t,
-           "seq_chunk": min(512, t), "steps": steps,
-           **_step_stats(first["log"], b * t),
+           "seq_chunk": min(512, t), "steps": steps, **stats,
            "first_run_s": first["seconds"],
            "peak_bytes": first["peak_bytes"],
+           "roofline_bound_over_measured": roof["bound_over_measured"],
+           "resume_layers": TRAIN_RESUME_LAYERS,
+           "resume_cut_losses": lc, "resume_cut_run_s": cut["seconds"],
            "checkpoints": steps_saved, "checkpoint_bytes_on_disk": ckpt_bytes,
            "resumed_from": second["resumed"],
            "resumed_steps": [r["step"] for r in second["log"]],
@@ -4921,31 +5120,36 @@ def train_musicgen_phase(torch, np):
     emit(res)
     _check_no_kernel_launch("musicgen training", first["launches"])
     _check_no_kernel_launch("musicgen resume", second["launches"])
-    check(all(math.isfinite(x) for x in l1 + l2),
-          f"musicgen training: a loss is not finite {l1} {l2}")
+    check(all(math.isfinite(x) for x in l1 + lc + l2),
+          f"musicgen training: a loss is not finite {l1} {lc} {l2}")
     check(moved == n_leaves, f"musicgen training: {n_leaves - moved} param "
                              "leaves did not move")
     check(second["resumed"] == 2 and len(l2) == steps - 2
           and max(rel) <= 1e-5,
           f"musicgen resume from step 2: {second['resumed']}, losses {l2} "
-          f"against {l1[2:]} (rel {rel})")
+          f"against {lc[2:]} (rel {rel})")
+    return roof
 
 
 def train_rwkv_phase(torch, np):
-    """Phase 17: rwkv6-1.6b trained at full width and depth (the plain WKV
-    loop under autograd)."""
+    """Phase 17: rwkv6-1.6b trained at full width and TRAIN_RWKV_LAYERS
+    layers (the plain WKV loop under autograd)."""
+    import dataclasses
     import tempfile
 
     from repro_torch.configs import registry
 
     t_all = time.perf_counter()
-    cfg = registry.get("rwkv6-1.6b")
+    cfg = dataclasses.replace(registry.get("rwkv6-1.6b"),
+                              n_layers=TRAIN_RWKV_LAYERS)
     b, t, steps = TRAIN_RWKV_SHAPE
     with tempfile.TemporaryDirectory(prefix="train_rwkv_") as ck:
         run = _train_run(torch, ["--arch", cfg.name, "--batch", str(b),
                                  "--seq", str(t), "--steps", str(steps),
+                                 "--layers", str(TRAIN_RWKV_LAYERS),
                                  "--ckpt-dir", ck, "--ckpt-every", "1000",
                                  "--seed", str(SEED)])
+    run.pop("trainer")
     moved, n_leaves = _moved(torch, cfg, run.pop("params"), SEED)
     gc.collect()
     torch.cuda.empty_cache()

@@ -187,8 +187,18 @@ def library():
         return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call one C entry point and raise if the launch was refused."""
+#: called as ``launch_observer(name, work)`` at every launch while set
+#: (``roofline.op_cost.OpCost`` sets it)
+launch_observer = None
+
+
+def launch(name: str, *args, work=None) -> None:
+    """Call one C entry point and raise if the launch was refused.
+    ``work`` is a function that returns the launch's ({dtype name:
+    operations}, bytes) (``roofline.kernel_cost``), called only for the
+    launch observer; a launch without one is reported as uncounted."""
+    if launch_observer is not None:
+        launch_observer(name, work)
     lib = _lib if _lib is not None else library()
     rc = getattr(lib, name)(*args)
     if rc != 0:

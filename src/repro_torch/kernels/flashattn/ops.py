@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ...roofline import kernel_cost as kc
 from .. import _build
 from .ref import attention_plain
 
@@ -65,7 +66,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           _build.ptr(q), _build.ptr(k), _build.ptr(v),
                           _build.ptr(out), b, hq, hkv, t, s, d, int(causal),
                           1.0 / d ** 0.5, *q.stride()[:3], *k.stride()[:3],
-                          *o.stride()[:3], _build.stream_of(q))
+                          *o.stride()[:3], _build.stream_of(q),
+                          work=lambda: kc.as_work(
+                              q.element_size(),
+                              kc.flash(b, hq, hkv, t, s, d, q.element_size(),
+                                       causal),
+                              tensor_cores=q.dtype == torch.bfloat16))
         flash_attention.launches += 1
     return o
 

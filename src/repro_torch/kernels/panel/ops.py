@@ -33,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...roofline import kernel_cost as kc
 from .. import _build
 from .ref import panel_lu_bucket_plain, panel_lu_plain
 
@@ -172,7 +173,11 @@ def _launch(panels, c0, wlim, eps):
         _build.launch(f"hylu_panel_lu_{_build.suffix(panels)}",
                       _build.ptr(panels), sb, _build.ptr(out),
                       _build.ptr(perm), _build.ptr(nper), _build.ptr(eps), b,
-                      nr, wt, c0, wlim, _build.stream_of(panels))
+                      nr, wt, c0, wlim, _build.stream_of(panels),
+                      work=lambda: kc.as_work(panels.element_size(),
+                                              kc.panel_work(b, nr, wt, c0,
+                                                            wlim,
+                                                            panels.element_size())))
     return out, perm, nper
 
 
@@ -213,7 +218,9 @@ def _launch_node(p3, lsize, eps):
                       _build.ptr(p3), sb, _build.ptr(out), _build.ptr(perm),
                       _build.ptr(nper), _build.ptr(eps),
                       None if scratch is None else _build.ptr(scratch), b,
-                      nr, w, lsize, _build.stream_of(p3))
+                      nr, w, lsize, _build.stream_of(p3),
+                      work=lambda: kc.as_work(p3.element_size(), kc.panel_work(
+                          b, nr, w, lsize, w, p3.element_size())))
     return out, perm, nper
 
 
@@ -233,7 +240,10 @@ def _launch_batched(panels, wu, eps):
                       _build.ptr(panels), _build.ptr(out), _build.ptr(perm),
                       _build.ptr(nper), _build.ptr(eps),
                       None if scratch is None else _build.ptr(scratch), b,
-                      nr, wt, wu, _build.stream_of(panels))
+                      nr, wt, wu, _build.stream_of(panels),
+                      work=lambda: kc.as_work(panels.element_size(),
+                                              kc.panel_work(b, nr, wt, 0, wu,
+                                                            panels.element_size())))
     return out, perm, nper
 
 
@@ -263,7 +273,12 @@ def _launch_bucket(vals, lay, eps):
                       _build.ptr(perm), _build.ptr(nper), _build.ptr(eps),
                       None if scratch is None else _build.ptr(scratch), k, b,
                       lay.nr, lay.wu, lay.wt - lay.wu, lay.zero_slot,
-                      lay.one_slot, _build.stream_of(vals))
+                      lay.one_slot, _build.stream_of(vals),
+                      work=lambda: kc.as_work(vals.element_size(),
+                                              kc.bucket_work(
+                                                  lay.desc.cpu().numpy(),
+                                                  lay.nr, k,
+                                                  vals.element_size())))
     return perm, nper
 
 

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...roofline import kernel_cost as kc
 from .. import _build
 from .ref import suprow_update_grouped_plain, suprow_update_plain
 
@@ -67,7 +68,9 @@ def suprow_update(x: torch.Tensor, src: torch.Tensor, k: int):
         with _build.on_device(x):
             _build.launch(f"hylu_suprow_{_suffix(x)}", _build.ptr(x),
                           _build.ptr(src), _build.ptr(y), _build.ptr(xr), e,
-                          k, w - k, _build.stream_of(x))
+                          k, w - k, _build.stream_of(x),
+                          work=lambda: kc.as_work(x.element_size(), kc.suprow(
+                              e, k, w - k, x.element_size())))
         suprow_update.launches += 1
     return y, xr
 
@@ -139,7 +142,12 @@ def suprow_update_grouped(groups):
             _build.launch(f"hylu_suprow_grouped_{_suffix(x0)}",
                           _build.ptr(groups.table), len(groups.groups),
                           groups.blocks, groups.k_max, groups.warps,
-                          _build.stream_of(x0))
+                          _build.stream_of(x0),
+                          work=lambda: kc.as_work(x0.element_size(), [
+                              sum(w) for w in zip(*(
+                                  kc.suprow(x.shape[0], k, x.shape[1] - k,
+                                            x0.element_size())
+                                  for x, _, k in groups.groups))]))
         suprow_update_grouped.launches += 1
     return groups.out
 

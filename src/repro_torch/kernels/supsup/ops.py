@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...roofline import kernel_cost as kc
 from .. import _build
 from ..trisolve import ops as trisolve_ops
 from .ref import (gemm_batched_plain, gemm_update_plain, node_edges_plain,
@@ -147,6 +148,13 @@ def node_edges_wide(vals: torch.Tensor, table: EdgeTable, step: NodeStep,
     return None
 
 
+def _node_step_work(step, table, e0, e1, vals):
+    """K5's node step's (operations, bytes) over edges [e0, e1) of the
+    table (``kernel_cost``), on the rows of ``vals``."""
+    edges = [(k, cm.cpu().numpy()) for _, k, _, _, cm in table.edges[e0:e1]]
+    return kc.node_step(step.nr, edges, vals.element_size(), vals.shape[0])
+
+
 def _launch_node_edges(names, vals, table, step, eps, nper, n_edges,
                        extra=()) -> bool:
     """Check the operands and launch one node step on CUDA tensors; False
@@ -183,7 +191,11 @@ def _launch_node_edges(names, vals, table, step, eps, nper, n_edges,
                       table.desc.data_ptr(), table.col_map.data_ptr(),
                       step.e0, e1, eps.data_ptr(), nper.data_ptr(),
                       int(perturb), vals.shape[0], *extra,
-                      _build.stream_of(vals))
+                      _build.stream_of(vals),
+                      work=lambda: kc.as_work(vals.element_size(),
+                                              _node_step_work(
+                                                  step, table, step.e0, e1,
+                                                  vals)))
     return True
 
 
@@ -215,7 +227,11 @@ def gemm_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if e and nr:
         with _build.on_device(a):
             _build.launch(name, a.data_ptr(), b.data_ptr(), c.data_ptr(), e,
-                          nr, k, m, _build.stream_of(a))
+                          nr, k, m, _build.stream_of(a),
+                          work=lambda: kc.as_work(
+                              a.element_size(),
+                              kc.bmm(e, nr, k, m, a.element_size()),
+                              tensor_cores=True))
         gemm_batched.launches += 1
     return c
 
@@ -245,7 +261,11 @@ def gemm_update(c: torch.Tensor, a: torch.Tensor,
             _build.launch(f"hylu_gemm_update_{_build.suffix(c)}",
                           _build.ptr(c), *sc, _build.ptr(a), *sa,
                           _build.ptr(b), *sb, _build.ptr(out), *sc, e, nr, k,
-                          m, _build.stream_of(c))
+                          m, _build.stream_of(c),
+                          work=lambda: kc.as_work(c.element_size(),
+                                                  kc.gemm_update(
+                                                      e, nr, k, m,
+                                                      c.element_size())))
         gemm_update.launches += 1
     return out
 

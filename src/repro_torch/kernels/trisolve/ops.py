@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ...roofline import kernel_cost as kc
 from .. import _build
 from .ref import (trsm_plain, trsm_left_unit_lower_plain,
                   trsm_left_upper_plain)
@@ -90,7 +91,11 @@ def _right(u, x, unit_diag, s0=None):
             _build.launch(f"hylu_trsm_right_{_build.suffix(x)}",
                           _build.ptr(u), _build.ptr(x), _build.ptr(y), b, nr,
                           k, int(unit_diag), su_b, su_r, *_carry(x, s0),
-                          _build.stream_of(x))
+                          _build.stream_of(x),
+                          work=lambda: kc.as_work(x.element_size(),
+                                                  kc.trsm_right(
+                                                      b, nr, k,
+                                                      x.element_size())))
     return y
 
 
@@ -107,7 +112,11 @@ def _update(c, a, b):
         _build.launch(f"hylu_gemm_update_{_build.suffix(c)}", _build.ptr(c),
                       *sc, _build.ptr(a), *sa, _build.ptr(b), *sb,
                       _build.ptr(c), *sc, nb, rows, kd, cols,
-                      _build.stream_of(c))
+                      _build.stream_of(c),
+                      work=lambda: kc.as_work(c.element_size(),
+                                              kc.gemm_update(
+                                                  nb, rows, kd, cols,
+                                                  c.element_size())))
 
 
 def trsm_batched(u: torch.Tensor, x: torch.Tensor,
@@ -171,7 +180,11 @@ def _left(name, blk, b, s0=None):
         with _build.on_device(b):
             _build.launch(f"hylu_{name}_{_build.suffix(b)}", _build.ptr(blk),
                           _build.ptr(b), _build.ptr(w), nb, k, m,
-                          *_carry(b, s0), _build.stream_of(b))
+                          *_carry(b, s0), _build.stream_of(b),
+                          work=lambda: kc.as_work(b.element_size(),
+                                                  kc.trsm_left(
+                                                      "lower" in name, nb, k,
+                                                      m, b.element_size())))
     return w
 
 

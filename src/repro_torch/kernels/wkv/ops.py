@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ...roofline import kernel_cost as kc
 from .. import _build
 from .ref import wkv_plain
 
@@ -52,7 +53,9 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         with _build.on_device(r):
             _build.launch("hylu_wkv_f32", *map(_build.ptr, (*ops, u3, y, s)),
                           b, nh, t, hs, *r.stride()[:3], *u3.stride()[:2],
-                          *y.stride()[:3], _build.stream_of(r))
+                          *y.stride()[:3], _build.stream_of(r),
+                          work=lambda: kc.as_work(4, kc.wkv(b, nh, t, hs,
+                                                            u.numel())))
         wkv.launches += 1
     elif s.numel():
         s.zero_()

@@ -12,6 +12,7 @@ batches are the JAX pipeline's (``SyntheticLM``), bit for bit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -29,6 +30,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="phi3-medium-14b")
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (CPU-sized)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep only the first N layers, at full width "
+                         "(a quick run of a large arch)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -47,12 +51,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, out=None):
     """Run the CLI; returns 0.  When ``out`` is a dict it receives the
-    trainer's log (``log``), its final params (``params``) and the step it
-    resumed from (``resumed``)."""
+    trainer's log (``log``), its final params (``params``), the step it
+    resumed from (``resumed``) and the ``Trainer`` itself (``trainer``)."""
     args = build_parser().parse_args(argv)
     cfg = registry.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = T.init_params(cfg, seed=args.seed, dtype=torch.float32,
                            device=args.device)
     n_params = sum(p.numel() for p in tr.leaves(params))
@@ -84,7 +90,8 @@ def main(argv=None, out=None):
               f"(first {log[0]['loss']:.4f}); "
               f"stragglers={trainer.n_stragglers}")
     if out is not None:
-        out.update(log=log, params=trainer.params, resumed=r)
+        out.update(log=log, params=trainer.params, resumed=r,
+                   trainer=trainer)
     return 0
 
 

@@ -27,7 +27,12 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig, MambaCfg
 from ..kernels.flashattn.ops import flash_attention
-from ..kernels.wkv.ops import wkv, wkv_plain
+from ..kernels.wkv.ops import wkv
+from .recurrence import ssm_scan as _ssm_scan_chunk
+from .recurrence import wkv_scan
+from .sharding import (ctx_by_heads, ctx_constrain, ctx_gather_model,
+                       ctx_groups, ctx_local, ctx_model_last, ctx_seq_split,
+                       ctx_split_heads, ctx_write_row, data_local)
 
 F32 = torch.float32
 ATTN_CHUNK_K = 1024          # KV chunk of the chunked attention (JAX default)
@@ -179,16 +184,15 @@ def _refuse_grad(kernel, *ops):
 def attention_qkv(cfg: ArchConfig, p, x, positions):
     """The projections of sequence-form attention, RoPE applied:
     q (B, S, H, D), k and v (B, S, Hkv, D) — the operands of K7."""
-    b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = _rope(cfg, q.reshape(b, s, cfg.n_heads, hd), positions)
-    k = _rope(cfg, k.reshape(b, s, cfg.n_kv_heads, hd), positions)
-    return q, k, v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = _rope(cfg, ctx_split_heads(q, cfg.n_heads, hd), positions)
+    k = _rope(cfg, ctx_split_heads(k, cfg.n_kv_heads, hd), positions)
+    return q, k, ctx_split_heads(v, cfg.n_kv_heads, hd)
 
 
 def attention_seq(cfg: ArchConfig, p, x, positions, use_kernels=True):
@@ -201,8 +205,41 @@ def attention_seq(cfg: ArchConfig, p, x, positions, use_kernels=True):
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2)).transpose(1, 2)
     else:
-        o = _chunked_causal_attention(q, k, v)
-    return o.reshape(b, s, -1) @ p["wo"], (k, v)
+        o = ctx_by_heads(_chunked_causal_attention, q, k, v)
+    return ctx_model_last(o.reshape(b, s, -1)) @ p["wo"], (k, v)
+
+
+def _cache_logits(q, ck, pos, row0):
+    """The masked logits (B, H, 1, S') of q (B, 1, H, D) against the cache
+    rows ck (B, S', Hkv, D), global rows row0.. (rows past pos masked):
+    all the rows in :func:`_cache_attention`, one shard's in
+    ``sharding.ctx_seq_split``."""
+    g = q.shape[2] // ck.shape[2]
+    logit = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                         ck.repeat_interleave(g, dim=2).float())
+    logit = logit / math.sqrt(q.shape[3])
+    rows = row0 + torch.arange(ck.shape[1], device=q.device)
+    return torch.where(rows[None, None, None, :] <= pos, logit,
+                       torch.tensor(-1e30, dtype=F32, device=q.device))
+
+
+def _cache_weighted(logit, cv, m):
+    """Against the global max m (B, H, 1, 1): the sum of exp(logit − m)
+    (B, H, 1, 1) and the exp-weighted values (B, H, 1, D) of one shard's
+    rows."""
+    g = logit.shape[1] // cv.shape[2]
+    w = torch.exp(logit - m)
+    return w.sum(dim=-1, keepdim=True), torch.einsum(
+        "bhqk,bkhd->bhqd", w, cv.repeat_interleave(g, dim=2).float())
+
+
+def _cache_attention(q, ck, cv, pos):
+    """One query row per sequence, q (B, 1, H, D), over the cache rows
+    0..pos of ck, cv (B, S_max, Hkv, D): (B, 1, H, D)."""
+    g = q.shape[2] // ck.shape[2]
+    w = torch.softmax(_cache_logits(q, ck, pos, 0), dim=-1)
+    vv = cv.repeat_interleave(g, dim=2)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(vv.dtype), vv)
 
 
 def attention_step(cfg: ArchConfig, p, x, positions, cache_kv, pos):
@@ -215,19 +252,14 @@ def attention_step(cfg: ArchConfig, p, x, positions, cache_kv, pos):
     h, hkv = cfg.n_heads, cfg.n_kv_heads
     q, k, v = attention_qkv(cfg, p, x, positions)
     ck, cv = cache_kv
-    ck[:, pos] = k[:, 0].to(ck.dtype)
-    cv[:, pos] = v[:, 0].to(cv.dtype)
-    g = h // hkv
-    s_max = ck.shape[1]
-    kk = ck.repeat_interleave(g, dim=2)
-    vv = cv.repeat_interleave(g, dim=2)
-    logit = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float())
-    logit = logit / math.sqrt(hd)
-    valid = torch.arange(s_max, device=x.device)[None, None, None, :] <= pos
-    logit = torch.where(valid, logit, torch.tensor(-1e30, dtype=F32,
-                                                   device=x.device))
-    w = torch.softmax(logit, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", w.to(vv.dtype), vv)
+    ctx_write_row(ck, pos, k[:, 0])
+    ctx_write_row(cv, pos, v[:, 0])
+    split = ctx_seq_split(_cache_logits, _cache_weighted, q, ck, cv, pos)
+    if split is None:
+        o = ctx_by_heads(_cache_attention, q, ck, cv, pos)
+    else:                        # the cache's rows split over a mesh axis
+        l, acc = split
+        o = (acc / l).transpose(1, 2).to(cv.dtype)
     return o.reshape(b, 1, h * hd) @ p["wo"], (ck, cv)
 
 
@@ -262,66 +294,124 @@ def init_moe(cfg: ArchConfig, gen, dtype, device, lead=()):
                 w_down=_dense(gen, (e, f, d), dtype, device, lead=lead))
 
 
-def moe_route(cfg: ArchConfig, logits):
-    """The router's decisions from its float32 logits (T, E): (probs,
-    gate (T, k) renormalised, experts (T·k,) token-major, keep (T·k,),
-    slot (T·k,), cap).  Copy i of the token-major list goes to slot
-    expert · cap + rank, its rank the count of earlier copies routed to
-    the same expert; a copy of rank cap or more is dropped (keep False,
-    slot E · cap)."""
+def moe_route(cfg: ArchConfig, logits, groups: int = 1):
+    """The router's decisions from its float32 logits (T, E), the T tokens
+    split into ``groups`` groups of consecutive tokens: (probs, gate
+    (T, k) renormalised, experts (T·k,) token-major, keep (T·k,), slot
+    (T·k,), cap).  Within each group, copy i of the token-major list goes
+    to slot expert · cap + rank, its rank the count of the group's earlier
+    copies routed to the same expert; a copy of rank cap or more is
+    dropped (keep False, slot E · cap).  ``cap`` is one group's
+    capacity."""
     m = cfg.moe
     t, e, k = logits.shape[0], m.n_experts, m.top_k
+    tl = t // groups
     probs = torch.softmax(logits, dim=-1)
     gate, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, ids = gate[:, :k], ids[:, :k]                 # (T, k)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    flat_e = ids.reshape(t * k)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    pos_sorted = (torch.arange(t * k, device=logits.device)
+    flat_e = ids.reshape(groups, tl * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    pos_sorted = (torch.arange(tl * k, device=logits.device)
                   - torch.searchsorted(sorted_e, sorted_e))
-    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
-    cap = max(int(math.ceil(t * k / e * m.capacity_factor)), 1)
+    pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+    cap = max(int(math.ceil(tl * k / e * m.capacity_factor)), 1)
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos, e * cap)
-    return probs, gate, flat_e, keep, slot, cap
+    return (probs, gate, flat_e.reshape(t * k), keep.reshape(t * k),
+            slot.reshape(t * k), cap)
+
+
+def _moe_dispatch(cfg, tl, xf, logits):
+    """Route and scatter one data shard's tokens xf (T, d), ``tl`` tokens
+    a group: (buf (G, E, cap, d), probs (T, E), the combine weights keep ·
+    gate (T·k,), the rows of the groups' flat buffers the copies went to
+    (T·k,), the kept copies per expert (E,)).  Every dropped copy goes to
+    its group's overflow row E · cap, which is discarded; the kept slots
+    are unique, so the scatter is a copy."""
+    m = cfg.moe
+    t, d = xf.shape
+    k, e = m.top_k, m.n_experts
+    g = t // tl
+    probs, gate, flat_e, keep, slot, cap = moe_route(cfg, logits, g)
+    if g > 1:                          # group j's rows start at j (E·cap+1)
+        slot = slot + (torch.arange(g, device=xf.device)
+                       * (e * cap + 1)).repeat_interleave(tl * k)
+    buf = xf.new_zeros((g * (e * cap + 1), d)).index_copy_(
+        0, slot, xf.repeat_interleave(k, dim=0))
+    buf = buf.view(g, e * cap + 1, d)[:, :-1].reshape(g, e, cap, d)
+    counts = torch.zeros(e, dtype=F32, device=xf.device).index_add_(
+        0, flat_e, keep.float())
+    return buf, probs, keep * gate.reshape(t * k), slot, counts
+
+
+def _moe_combine(cfg, y, weight, slot):
+    """Gather every copy's expert output from its group's rows of y (G, E,
+    cap, d), weight it and sum each token's k copies: (T, d)."""
+    g, e, cap, d = y.shape
+    yflat = torch.cat([y.reshape(g, e * cap, d), y.new_zeros((g, 1, d))],
+                      dim=1).reshape(g * (e * cap + 1), d)
+    back = yflat[slot] * weight.to(y.dtype)[:, None]
+    return back.view(-1, cfg.moe.top_k, d).sum(dim=1)
 
 
 def moe(cfg: ArchConfig, p, x):
-    """Sort-based, capacity-limited top-k dispatch (JAX ``layers.moe``).
+    """Group-local, sort-based, capacity-limited top-k dispatch (JAX
+    ``layers.moe``).
 
-    The JAX layer splits the tokens into ``ctx_groups()`` groups, the
-    data-parallel shards of its mesh context, and ranks, caps and scatters
-    within each.  On one device that count is 1, and the port has no mesh
-    context: all T tokens are one group.  Ties in the router
-    probabilities go to the lower expert index, as ``lax.top_k`` breaks
-    them (a stable descending sort); each expert's tokens are ranked in
-    token order (a stable argsort); slots past the capacity ``cap`` are
-    dropped.  The expert products are plain batched matmuls.
+    The tokens are split into ``ctx_groups()`` groups of consecutive
+    tokens, the data-parallel shards of the mesh context (one group
+    without a context, or when the groups do not divide T, as in JAX);
+    ranking, capacity and scatter are within each group.  Ties in the
+    router probabilities go to the lower expert index, as ``lax.top_k``
+    breaks them (a stable descending sort); each expert's tokens are
+    ranked in token order (a stable argsort); slots past the capacity
+    ``cap`` are dropped.  The expert products are batched matmuls over
+    the experts.  On a mesh the dispatch and the combine run on each data
+    shard's local tokens (``sharding.data_local``, the JAX layer's vmap
+    over groups), and the expert-parallel reshard is an explicit
+    redistribute (``ctx_constrain``) where the JAX layer constrains.
     Returns (out, {"moe_lb", "moe_z"})."""
     m = cfg.moe
     b, s, d = x.shape
     t, k, e = b * s, m.top_k, m.n_experts
+    grp = ctx_groups()
+    if t % grp:
+        grp = 1
+    dp = "dp" if grp > 1 else None
     xf = x.reshape(t, d)
     logits = (xf @ p["router"]).float()                 # (T, E)
-    probs, gate, flat_e, keep, slot, cap = moe_route(cfg, logits)
-    # ---- dispatch: unique kept slots; every dropped copy goes to the
-    # overflow row e·cap, which is discarded ------------------------------
-    buf = x.new_zeros((e * cap + 1, d)).index_copy_(
-        0, slot, xf.repeat_interleave(k, dim=0))
-    buf = buf[:-1].view(e, cap, d)
-    g_ = torch.bmm(buf, p["w_gate"])
-    u_ = torch.bmm(buf, p["w_up"])
-    act = F.silu(g_) if cfg.act == "swiglu" else gelu(g_)
-    y = torch.bmm(act * u_, p["w_down"])                # (E, cap, d)
-    # ---- combine ---------------------------------------------------------
-    yflat = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
-    back = yflat[slot] * (keep * gate.reshape(t * k)).to(y.dtype)[:, None]
-    out = back.view(t, k, d).sum(dim=1).view(b, s, d)
+    buf, probs, weight, slot, counts = data_local(
+        lambda xl, ll: _moe_dispatch(cfg, t // grp, xl, ll),
+        [(dp, None, None, None), (dp, None), (dp,), (dp,), "partial"],
+        [(dp, None), (dp, None)], xf, logits)
+    buf = ctx_constrain(buf, dp, None, None, None)
+    # the expert-parallel reshard (the JAX layer's all-to-all)
+    espec_in = (dp, "model" if m.shard == "expert" else None, None, None)
+    buf = ctx_constrain(buf, *espec_in)
+    # the expert products' layout on (E, G·cap, f): the JAX layer's
+    # (dp, model, ., .) on (G, E, cap, f) for expert shards, f on 'model'
+    # for ffn shards
+    espec_f = ("model", dp, None) if m.shard == "expert" \
+        else (None, dp, "model")
+    g_, cap = buf.shape[0], buf.shape[2]
+    h = buf.transpose(0, 1).reshape(e, g_ * cap, d)    # (E, G·cap, d)
+    g_out = ctx_constrain(torch.bmm(h, p["w_gate"]), *espec_f)
+    u_out = ctx_constrain(torch.bmm(h, p["w_up"]), *espec_f)
+    act = F.silu(g_out) if cfg.act == "swiglu" else gelu(g_out)
+    y = torch.bmm(act * u_out, p["w_down"])             # (E, G·cap, d)
+    y = y.reshape(e, g_, cap, d).transpose(0, 1)        # (G, E, cap, d)
+    y = ctx_constrain(y, *espec_in)
+    # back to data-local before the combine gather
+    y = ctx_constrain(y, dp, None, None, None)
+    out = data_local(lambda yl, wl, sl: _moe_combine(cfg, yl, wl, sl),
+                     [(dp, None)], [(dp, None, None, None), (dp,), (dp,)],
+                     y, weight, slot)
+    out = out.view(b, s, d)
     # ---- aux losses (Switch load balance + router z-loss) ----------------
     me = probs.mean(dim=0)
-    ce = torch.zeros(e, dtype=F32, device=x.device).index_add_(
-        0, flat_e, keep.float()) / max(t * k, 1)
+    ce = counts / max(t * k, 1)
     lb = e * torch.sum(me * ce)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return out, dict(moe_lb=lb, moe_z=z)
@@ -352,27 +442,6 @@ def init_mamba(cfg: ArchConfig, gen, dtype, device, lead=()):
         out_proj=_dense(gen, (di, d), dtype, device, lead=lead))
 
 
-def _ssm_scan_chunk(a, bx, h0):
-    """h_t = a_t · h_{t-1} + bx_t along axis 1 (time) from h_{-1} = h0;
-    a / bx (B, L, DI, N), h0 (B, DI, N).  Returns the states h (B, L, DI,
-    N).  The JAX function reaches the same states by an associative scan
-    and also returns the running product of a, which ``mamba_seq`` does
-    not use; here a loop over the chunk's steps, one fused multiply-add
-    each, written into the states' tensor; under grad (``out=`` has no
-    backward) the steps are stacked instead."""
-    if grad_wanted(a, bx, h0):
-        hs, h = [], h0
-        for i in range(a.shape[1]):
-            h = torch.addcmul(bx[:, i], a[:, i], h)
-            hs.append(h)
-        return torch.stack(hs, dim=1)
-    hs = torch.empty_like(bx)
-    h = h0
-    for i in range(a.shape[1]):
-        h = torch.addcmul(bx[:, i], a[:, i], h, out=hs[:, i])
-    return hs
-
-
 def _conv_silu(p, xin):
     """The causal depthwise convolution along time, then SiLU."""
     s, kw = xin.shape[1], p["conv_w"].shape[0]
@@ -396,26 +465,35 @@ def mamba_seq(cfg: ArchConfig, p, x, chunk=MAMBA_CHUNK, return_state=False):
     """Sequence form. x: (B, S, d).  The selective scan runs chunk by chunk
     (time padded to a multiple of ``chunk`` with dt = 0, so padded steps
     are the identity), the state carried across chunks; one chunk's
-    (B, L, DI, N) float32 tensors are the largest the layer holds.
+    (B, L, DI, N) float32 tensors are the largest the layer holds.  On a
+    mesh the d_inner dim of x, z, the convolved x and each chunk's scan
+    operands is pinned to 'model' (``ctx_constrain``), as in JAX.
     Returns out, or (out, (conv_buf (B, d_conv − 1, DI), h (B, DI, N)))
     with ``return_state``."""
     m = cfg.mamba or MambaCfg()
     b, s, _ = x.shape
     n = m.d_state
     xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)
-    xc = _conv_silu(p, xin)
+    xin = ctx_constrain(xin, "dp", None, "model")   # d_inner on 'model'
+    z = ctx_constrain(z, "dp", None, "model")       # the gate, held across
+    xc = ctx_constrain(_conv_silu(p, xin), "dp", None, "model")
     dt, bmat, cmat, a = _ssm_inputs(p, xc, n)
     di = xc.shape[-1]
     sp = -(-s // chunk) * chunk
     dt_, b_, c_, xc_ = (F.pad(v, (0, 0, 0, sp - s))
                         for v in (dt, bmat, cmat, xc))
-    h = torch.zeros((b, di, n), dtype=F32, device=x.device)
+    h = None
     ys = []
     for c0 in range(0, sp, chunk):
         dtc, bc, cc, xcc = (v[:, c0:c0 + chunk] for v in (dt_, b_, c_, xc_))
         abar = torch.exp(dtc.float()[..., None] * a)            # (B,L,DI,N)
         bx = (dtc * xcc).float()[..., None] * bc.float()[:, :, None, :]
-        hs = _ssm_scan_chunk(abar, bx, h)
+        abar = ctx_constrain(abar, "dp", None, "model", None)
+        bx = ctx_constrain(bx, "dp", None, "model", None)
+        if h is None:                         # (B, DI, N) float32 zeros
+            h = torch.zeros_like(bx[:, 0])
+        # elementwise over (B, DI, N): on a mesh each shard's own states
+        hs = ctx_local(_ssm_scan_chunk, 0, abar, bx, h)
         del abar, bx
         ys.append(torch.einsum("blin,bln->bli", hs, cc.float()))
         h = hs[:, -1].clone()
@@ -487,9 +565,24 @@ def _shift(x):
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
+def _decay_local(xw, w_base, w1, w2):
+    return torch.exp(-torch.exp((w_base + torch.tanh(xw @ w1) @ w2)
+                                .float()))
+
+
 def _decay(p, xw):
-    return torch.exp(-torch.exp((p["w_base"] + torch.tanh(xw @ p["w1"])
-                                 @ p["w2"]).float()))
+    """The data-dependent decay exp(−exp(w_base + tanh(xw w1) w2)).  On a
+    mesh each shard computes its own columns from its rows of xw (the
+    low-rank product is replicated, w2's columns split over 'model'),
+    in one local step: ``DTensor`` cannot fold the gradient its own
+    layout would give the first product."""
+    # rows split over the data axes where they divide (a batch of 1 does
+    # not: DTensor's local step cannot place an uneven split)
+    lead = ("dp" if xw.shape[0] % ctx_groups() == 0 else None,) \
+        + (None,) * (xw.ndim - 2)
+    return data_local(_decay_local, [lead + ("model",)],
+                      [lead + (None,), ("model",), (None, None),
+                       (None, "model")], xw, p["w_base"], p["w1"], p["w2"])
 
 
 def rwkv_wkv_inputs(cfg: ArchConfig, p, x):
@@ -515,16 +608,26 @@ def rwkv_time_mix_seq(cfg: ArchConfig, p, x, return_state=False,
     state = (x[:, -1], S_final) when ``return_state``, else None."""
     b, s, d = x.shape
     rh, kh, vh, wh, u, g = rwkv_wkv_inputs(cfg, p, x)
-    fn = wkv if use_kernels and x.is_cuda else wkv_plain
+    fn = wkv if use_kernels and x.is_cuda else wkv_scan
     if fn is wkv:
         _refuse_grad("K8 (wkv)", rh, kh, vh, wh, u)
-    y, st_fin = fn(*(a.transpose(1, 2) for a in (rh, kh, vh, wh)), u)
+    # per head: on a mesh each shard's local heads
+    y, st_fin = ctx_local(fn, [0, 0], *(a.transpose(1, 2)
+                                        for a in (rh, kh, vh, wh)), u)
     y = y.transpose(1, 2).reshape(b, s, d)
     y = rms_norm(y.to(x.dtype), p["ln_x"], cfg.norm_eps)
     out = (y * g) @ p["wo"]
     if return_state:
         return out, (x[:, -1].clone(), st_fin)   # a copy: a view keeps x alive
     return out, None
+
+
+def _wkv_step(rt, kt, vt, wt, u, st):
+    """One WKV step of every head: r, k, v, w (B, nh, hs), u (nh, hs), the
+    state (B, nh, hs, hs).  Returns (y (B, nh, hs), the new state)."""
+    kv = kt[..., :, None] * vt[..., None, :]
+    y = torch.einsum("bhk,bhkv->bhv", rt, st + u[..., None] * kv)
+    return y, wt[..., None] * st + kv
 
 
 def rwkv_time_mix_step(cfg: ArchConfig, p, x, state):
@@ -540,10 +643,7 @@ def rwkv_time_mix_step(cfg: ArchConfig, p, x, state):
     g = F.silu(_rwkv_mix(xt, xprev, p["mix_g"]) @ p["wg"])
     wt = _decay(p, _rwkv_mix(xt, xprev, p["mix_w"])).reshape(b, nh, hs)
     rt, kt, vt = (a.reshape(b, nh, hs).float() for a in (r, k, v))
-    u = p["u"].float()
-    kv = kt[..., :, None] * vt[..., None, :]
-    y = torch.einsum("bhk,bhkv->bhv", rt, st + u[..., None] * kv)
-    st = wt[..., None] * st + kv
+    y, st = ctx_local(_wkv_step, [0, 5], rt, kt, vt, wt, p["u"].float(), st)
     y = rms_norm(y.reshape(b, d).to(x.dtype), p["ln_x"], cfg.norm_eps)
     return ((y * g) @ p["wo"])[:, None, :], (xt, st)
 
@@ -553,4 +653,7 @@ def rwkv_channel_mix(cfg: ArchConfig, p, x, x_prev=None):
     xprev = _shift(x) if x.ndim == 3 else x_prev
     k = torch.square(torch.relu(_rwkv_mix(x, xprev, p["cmix_k"]) @ p["ck"]))
     r = torch.sigmoid(_rwkv_mix(x, xprev, p["cmix_r"]) @ p["cr"])
-    return r * (k @ p["cv"])
+    # on a mesh r is whole over 'model' and k @ cv a partial sum over it:
+    # sum it first (DTensor would split the product's rows instead, and
+    # then cannot fold the gradient into cr's product)
+    return r * ctx_gather_model(k @ p["cv"])

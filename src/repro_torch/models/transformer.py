@@ -8,8 +8,10 @@ Params tree (the JAX tree's layout, so weights carry across as copies):
   (n_periods, ...): {ln1, attn | mamba | rwkv, ln2, ffn (mlp or moe)}
 
 The JAX package scans over ``n_periods``; here a Python loop over the
-periods takes each period's slice (a view) of the stacks.  No sharding
-constraint: one device.  ``remat`` recomputes each sub-layer in backward
+periods takes each period's slice (a view) of the stacks.  ``forward``'s
+``constrain`` pins the residual stream's layout on a mesh at the JAX
+forward's places (``models.sharding.activation_constrainer``); without
+one it is the identity.  ``remat`` recomputes each sub-layer in backward
 (``torch.utils.checkpoint``, as the JAX ``jax.checkpoint`` with
 ``nothing_saveable``), so only the sub-layers' inputs stay saved.
 ``use_kernels`` sends the prefill's attention through K7 and its WKV
@@ -28,6 +30,8 @@ from .. import tree as tr
 from ..configs.base import ArchConfig, MambaCfg
 from ..core.options import resolve_device
 from . import layers as L
+from .sharding import (ctx_embed, ctx_gather_data, ctx_gather_model,
+                       ctx_like, ctx_take_last)
 
 F32 = torch.float32
 
@@ -86,7 +90,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.bfloat16,
 def _ffn(cfg, fkind, sub, x, aux=None):
     """The sub-layer's feed-forward on its normed input (MLP or MoE); the
     MoE aux losses go into ``aux`` when one is given."""
-    h = L.rms_norm(x, sub["ln2"], cfg.norm_eps)
+    h = ctx_gather_model(L.rms_norm(x, sub["ln2"], cfg.norm_eps))
     if fkind != "moe":
         return L.mlp(cfg, sub["ffn"], h)
     o, moe_aux = L.moe(cfg, sub["ffn"], h)
@@ -99,62 +103,67 @@ def _sublayer_seq(cfg, kind, fkind, sub, x, positions, collect_cache,
                   use_kernels):
     """One sub-layer over the sequence: (x, aux, cache)."""
     aux, cache = {}, None
-    h = L.rms_norm(x, sub["ln1"], cfg.norm_eps)
+    h = ctx_gather_model(L.rms_norm(x, sub["ln1"], cfg.norm_eps))
     if kind == "attn":
         o, kv = L.attention_seq(cfg, sub["attn"], h, positions, use_kernels)
         if collect_cache:
             cache = kv
-        x = x + o
+        x = x + ctx_like(o, x)
     elif kind == "mamba":
         o = L.mamba_seq(cfg, sub["mamba"], h, return_state=collect_cache)
         if collect_cache:
             o, cache = o
-        x = x + o
+        x = x + ctx_like(o, x)
     else:
         o, st = L.rwkv_time_mix_seq(cfg, sub["rwkv"], h, collect_cache,
                                     use_kernels)
-        x = x + o
-        h2 = L.rms_norm(x, sub["rwkv"]["ln_cm"], cfg.norm_eps)
-        x = x + L.rwkv_channel_mix(cfg, sub["rwkv"], h2)
+        x = x + ctx_like(o, x)
+        h2 = ctx_gather_model(L.rms_norm(x, sub["rwkv"]["ln_cm"],
+                                         cfg.norm_eps))
+        x = x + ctx_like(L.rwkv_channel_mix(cfg, sub["rwkv"], h2), x)
         if collect_cache:
             cache = (st[0], st[1], h2[:, -1].clone())   # a copy: a view keeps h2 alive
         return x, aux, cache
     if "ffn" in sub:
-        x = x + _ffn(cfg, fkind, sub, x, aux)
+        x = x + ctx_like(_ffn(cfg, fkind, sub, x, aux), x)
     return x, aux, cache
 
 
 def _sublayer_step(cfg, kind, fkind, sub, x, positions, state, pos):
     """One token through one sub-layer; writes its new cache state into the
-    ``state`` tensors in place."""
-    h = L.rms_norm(x, sub["ln1"], cfg.norm_eps)
+    ``state`` tensors in place.  On a mesh the residual keeps its layout
+    (replicated over 'model'): each sub-layer's input is gathered over
+    'model' and its output, a partial sum, reduced to the residual's
+    layout before the add."""
+    h = ctx_gather_model(L.rms_norm(x, sub["ln1"], cfg.norm_eps))
     if kind == "attn":
         o, _ = L.attention_step(cfg, sub["attn"], h, positions, state, pos)
-        x = x + o
+        x = x + ctx_like(o, x)
     elif kind == "mamba":
         o, st = L.mamba_step(cfg, sub["mamba"], h, state)
         for dst, src in zip(state, st):
             dst.copy_(src)
-        x = x + o
+        x = x + ctx_like(o, x)
     else:
         o, st_t = L.rwkv_time_mix_step(cfg, sub["rwkv"], h, state[:2])
-        x = x + o
-        h2 = L.rms_norm(x, sub["rwkv"]["ln_cm"], cfg.norm_eps)
-        x = x + L.rwkv_channel_mix(cfg, sub["rwkv"], h2[:, 0],
-                                   x_prev=state[2])[:, None, :]
+        x = x + ctx_like(o, x)
+        h2 = ctx_gather_model(L.rms_norm(x, sub["rwkv"]["ln_cm"],
+                                         cfg.norm_eps))
+        x = x + ctx_like(L.rwkv_channel_mix(
+            cfg, sub["rwkv"], h2[:, 0], x_prev=state[2])[:, None, :], x)
         for dst, src in zip(state, (st_t[0], st_t[1], h2[:, 0])):
             dst.copy_(src)
         return x
     if "ffn" in sub:
-        x = x + _ffn(cfg, fkind, sub, x)
+        x = x + ctx_like(_ffn(cfg, fkind, sub, x), x)
     return x
 
 
 def _embed(cfg, params, tokens, embeds):
     if embeds is None:
-        return params["embed"][tokens]
+        return ctx_embed(params["embed"], tokens)
     if tokens is not None:       # mixed stub: tokens embedded + added
-        return embeds + params["embed"][tokens].to(embeds.dtype)
+        return embeds + ctx_embed(params["embed"], tokens).to(embeds.dtype)
     return embeds
 
 
@@ -162,15 +171,19 @@ def _embed(cfg, params, tokens, embeds):
 # forward (prefill)
 # --------------------------------------------------------------------------
 def forward(cfg: ArchConfig, params, tokens=None, embeds=None, positions=None,
-            collect_cache=False, use_kernels=True, remat=None):
+            collect_cache=False, use_kernels=True, remat=None,
+            constrain=None):
     """Returns (hidden (B,S,d), aux, caches|None).  Logits via
     lm_logits().  aux holds the MoE layers' ``moe_lb`` and ``moe_z``, each
     summed over the sub-layers of a period and then over the periods, as
     the JAX scan sums them (empty without MoE).  caches: list over period
     positions, leaves stacked (n_periods, B, ...).  ``remat`` (default
     ``cfg.remat``) recomputes each sub-layer in backward when a gradient
-    is being taken; it changes no value."""
+    is being taken; it changes no value.  ``constrain`` (a function of
+    x) is applied to the residual stream before every sub-layer and after
+    each period, as the JAX forward applies it."""
     remat = cfg.remat if remat is None else remat
+    constrain = constrain or (lambda v: v)
     x = _embed(cfg, params, tokens, embeds)
     b, s = x.shape[:2]
     if positions is None:
@@ -183,7 +196,8 @@ def forward(cfg: ArchConfig, params, tokens=None, embeds=None, positions=None,
     for i in range(cfg.n_periods):
         auxes = {}
         for pos, kind in enumerate(kinds):
-            sub = layer_slice(params["blocks"][pos], i)
+            x = constrain(x)
+            sub = ctx_gather_data(layer_slice(params["blocks"][pos], i))
             args = (cfg, kind, fkinds[pos], sub, x, positions, collect_cache,
                     use_kernels)
             if remat and L.grad_wanted(x, *tr.leaves(sub)):
@@ -194,6 +208,7 @@ def forward(cfg: ArchConfig, params, tokens=None, embeds=None, positions=None,
             for k, v in aux.items():
                 auxes[k] = auxes.get(k, 0.0) + v
             per_layer[pos].append(cache)
+        x = constrain(x)
         period_aux.append(auxes)
     aux = {k: torch.stack([a[k] for a in period_aux]).sum()
            for k in period_aux[0]} if period_aux else {}
@@ -206,16 +221,18 @@ def forward(cfg: ArchConfig, params, tokens=None, embeds=None, positions=None,
 
 
 def lm_logits(cfg: ArchConfig, params, hidden):
+    """(B, S, V) logits; on a mesh split over 'model' by vocab, as the
+    head is (the hidden state replicated over 'model' first)."""
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return hidden @ head.T
+    return ctx_gather_model(hidden) @ head.T
 
 
 def _chunk_ce(hidden_c, labels_c, head):
     """One chunk's summed cross-entropy and its count of valid labels:
     logits in the params' dtype, then float32 reductions."""
-    logits = (hidden_c @ head.T).float()
+    logits = (ctx_gather_model(hidden_c) @ head.T).float()
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, labels_c.clamp_min(0)[..., None])[..., 0]
+    tgt = ctx_take_last(logits, labels_c.clamp_min(0))
     valid = (labels_c >= 0).float()
     return ((lse - tgt) * valid).sum(), valid.sum()
 
@@ -299,7 +316,7 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int, embeds=None,
     kinds, fkinds = cfg.layer_kinds(), cfg.ffn_kinds()
     for i in range(cfg.n_periods):
         for posn, kind in enumerate(kinds):
-            sub = layer_slice(params["blocks"][posn], i)
+            sub = ctx_gather_data(layer_slice(params["blocks"][posn], i))
             state = tuple(leaf[i] for leaf in cache[posn])
             x = _sublayer_step(cfg, kind, fkinds[posn], sub, x, positions,
                                state, pos)

@@ -4,9 +4,9 @@
 ``loss_fn`` is next-token cross-entropy (``ce_loss_chunked``) plus the MoE
 aux terms.  The forward takes the plain route, ``use_kernels=False``: K7 and
 K8 have no backward (the kernel route under grad raises), and the JAX
-``forward`` never reaches its Pallas kernels either.  The JAX step's
-``constrain`` (a sharding constraint on the residual stream) has no
-counterpart on one device and is not taken.
+``forward`` never reaches its Pallas kernels either.  ``constrain``, as
+in the JAX step, pins the residual stream's layout on a mesh
+(``models.sharding.activation_constrainer``); it is None on one device.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ def _long(x):
     return None if x is None else x.long()
 
 
-def loss_fn(cfg: ArchConfig, params, batch, seq_chunk=512):
+def loss_fn(cfg: ArchConfig, params, batch, seq_chunk=512, constrain=None):
     """(total loss, metrics): metrics hold ``ce`` and, for MoE configs, the
     summed ``moe_lb`` and ``moe_z`` before their coefficients."""
     hidden, aux, _ = T.forward(
@@ -37,6 +37,7 @@ def loss_fn(cfg: ArchConfig, params, batch, seq_chunk=512):
         embeds=batch.get("embeds"),
         positions=_long(batch.get("positions")),
         use_kernels=False,
+        constrain=constrain,
     )
     loss = T.ce_loss_chunked(cfg, params, hidden, batch["labels"],
                              seq_chunk=seq_chunk)
@@ -47,7 +48,8 @@ def loss_fn(cfg: ArchConfig, params, batch, seq_chunk=512):
     return total, dict(ce=loss, **aux)
 
 
-def value_and_grad(cfg: ArchConfig, params, batch, seq_chunk=512):
+def value_and_grad(cfg: ArchConfig, params, batch, seq_chunk=512,
+                   constrain=None):
     """(loss, metrics, grads): the gradient of ``loss_fn`` with respect to
     every leaf of ``params`` (zeros for a leaf the loss does not reach, as
     ``jax.value_and_grad`` gives them), each in its leaf's dtype."""
@@ -55,7 +57,7 @@ def value_and_grad(cfg: ArchConfig, params, batch, seq_chunk=512):
     with torch.enable_grad():
         req = [p.detach().requires_grad_(True) for p in flat]
         loss, metrics = loss_fn(cfg, tr.unflatten(params, req), batch,
-                                seq_chunk)
+                                seq_chunk, constrain)
         grads = torch.autograd.grad(loss, req, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
@@ -74,7 +76,8 @@ def _split(x, microbatch, i):
 
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                     comp_cfg: CompressionConfig | None = None,
-                    microbatch: int = 1, seq_chunk: int = 512):
+                    microbatch: int = 1, seq_chunk: int = 512,
+                    constrain=None):
     """Returns step(params, opt_state, err_state, batch) ->
     (params, opt_state, err_state, metrics).  The params and the optimizer
     state are updated in place (the JAX step returns new trees and the
@@ -91,7 +94,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
             lsum = 0.0
             for i in range(microbatch):
                 mb = {k: _split(v, microbatch, i) for k, v in batch.items()}
-                l, metrics, g = value_and_grad(cfg, params, mb, seq_chunk)
+                l, metrics, g = value_and_grad(cfg, params, mb, seq_chunk,
+                                               constrain)
                 for a, gi in zip(g_acc, tr.leaves(g)):
                     a.add_(gi)
                 del g
@@ -100,7 +104,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
             del g_acc
             loss = lsum / microbatch
         else:
-            loss, metrics, g = value_and_grad(cfg, params, batch, seq_chunk)
+            loss, metrics, g = value_and_grad(cfg, params, batch, seq_chunk,
+                                              constrain)
 
         g, err_state = compress_grads(comp_cfg, g, err_state)
         params, opt_state, opt_m = adamw.apply_updates(

@@ -47,6 +47,16 @@ def test_import_pulls_in_neither_jax_nor_repro():
     assert len(_modules()) >= 20
 
 
+def test_parallelism_and_roofline_modules_are_ported():
+    """Every module of the JAX package's parallelism layer, dry runs and
+    roofline has its counterpart, walked by the no-jax import above."""
+    for name in ("models.sharding", "launch.mesh", "launch.dryrun",
+                 "launch.solver_dryrun", "roofline.op_cost",
+                 "roofline.kernel_cost", "roofline.analysis",
+                 "roofline.report"):
+        assert "repro_torch." + name in _modules(), name
+
+
 def _imports(path):
     tree = ast.parse(open(path).read(), filename=path)
     for node in ast.walk(tree):

@@ -336,3 +336,19 @@ def test_launch_train_resumes(tmp_path, capsys):
                                [r["loss"] for r in first["log"][2:]],
                                rtol=1e-3)
     assert "resumed from step 2" in capsys.readouterr().out
+
+
+def test_launch_train_cuts_depth(tmp_path):
+    """``--layers N`` trains the arch's first N layers at full width."""
+    from repro_torch.launch import train as launch
+
+    out = {}
+    assert launch.main(["--arch", "phi3-medium-14b", "--reduced",
+                        "--layers", "1", "--device", "cpu", "--batch", "2",
+                        "--seq", "16", "--steps", "1", "--ckpt-dir",
+                        str(tmp_path), "--ckpt-every", "5"], out=out) == 0
+    full = treg.get("phi3-medium-14b").reduced()
+    cfg = out["trainer"].arch
+    assert (cfg.n_layers, cfg.d_model) == (1, full.d_model) != (
+        full.n_layers, full.d_model)
+    assert np.isfinite(out["log"][0]["loss"])
