@@ -92,7 +92,7 @@ Phases, each printing one JSON line:
             phase's values and right-hand sides: the ``hylu`` (the main
             phase's analysis), ``pardiso_like`` (supernodal only, relax
             32, supernodes up to 256 rows: its 150-row root runs K2's
-            wide path, its 150-row node block K3's blocked left solves)
+            wide path, its 150-row node block K3's wide left solves)
             and ``klu_like`` (row-row only) presets through
             ``factor_batched`` + ``solve_batched``, once (launches per
             wrapper counted) and PRESET_REPEATS more times (median and range of
@@ -102,16 +102,17 @@ Phases, each printing one JSON line:
             (one refinement) beside the fused one (x within 1e-10, equal
             refinement counts and failure masks); ``pardiso_like`` on a
             200-row system with a 140-row supernode, the wide paths
-            fem2d_10k does not reach (K1's, K3's blocked right solve),
+            fem2d_10k does not reach (K1's, K3's wide right solve),
             also under the unrolled schedule (K5's wide node step,
             ``node_edges_wide``: against ``spsolve`` and the bucketed
             factors), with that node step's kernel record;
             and the wide paths' kernel records, float64: K2 on the root's
             32 panels and at 256 and 300 rows, K1 on buckets padded to 256
-            and 512 rows, K3's blocked right solve at k = 140 and 256 and
-            its blocked left solves at k = 150, each held to its plain
-            version beside the library's ``solve_triangular`` (K3) and
-            the bound;
+            and 512 rows, K3's wide right solve at k = 140, 256 and 600
+            and its wide left solves at k = 150 (each one launch, by a
+            spy on the launches, timed also by CUDA-graph replay), each
+            held to its plain version beside the library's
+            ``solve_triangular`` (K3) and the bound;
 8. scalar   the one-system lifecycle ``factor`` -> ``refactor`` (new
             values) -> ``solve`` on fem2d_10k under the bucketed and the
             unrolled schedule in float64, and bucketed with float32
@@ -209,14 +210,14 @@ Phases, each printing one JSON line:
             losses, every param leaf moved, no K7 / K8 launch; step ms,
             tokens/s, peak memory), then phase 19's roofline of one more
             step on its trainer; then, at full width and
-            TRAIN_RESUME_LAYERS (8) layers (``--layers``), 4 steps with
+            TRAIN_RESUME_LAYERS (4) layers (``--layers``), 4 steps with
             checkpoints at
             steps 2 and 4 into a temporary directory, step 4's COMMIT
             removed (a crash before it) and a second ``main(...,
             "--resume")`` running steps 3-4 from step 2: the resumed
             losses equal to the first run's within 1e-5 relative;
             checkpoint and restore seconds;
-17. train_rwkv  rwkv6-1.6b at full width (d 2,048) and 8 layers
+17. train_rwkv  rwkv6-1.6b at full width (d 2,048) and 4 layers
             (TRAIN_RWKV_LAYERS, ``--layers``) in float32 through
             ``main``: B = 2,
             T = 512, 2 steps (its
@@ -347,11 +348,11 @@ RAGGED_T = 2000                     # a multiple of none of K7's row tiles
 # (B, T), on the card against the CPU
 TRAIN_MUSICGEN, TRAIN_MUSICGEN_SHAPE = "musicgen-medium", (4, 1024, 4)
 ROOFLINE_LIMIT = 1.05     # bound / measured above this: a count is wrong
-TRAIN_RESUME_LAYERS = 8   # the checkpoint / resume check's depth (full
+TRAIN_RESUME_LAYERS = 4   # the checkpoint / resume check's depth (full
 #                           width; the timed steps keep all 48 layers)
 TRAIN_RWKV_SHAPE, TRAIN_HELD_SHAPE = (2, 512, 2), (2, 256)
-TRAIN_RWKV_LAYERS = 8     # train_rwkv's depth (full width)
-F32_ROUTE_LAYERS = 8      # rwkv6's float32 kernel-vs-plain route check's
+TRAIN_RWKV_LAYERS = 4     # train_rwkv's depth (full width)
+F32_ROUTE_LAYERS = 4      # rwkv6's float32 kernel-vs-plain route check's
 #                           depth (full width)
 # the held models and the kernel each one's refused route names
 TRAIN_HELD = (("musicgen-medium", "K7"), ("rwkv6-1.6b", "K8"))
@@ -2377,6 +2378,25 @@ def trsm_extra(torch, trisolve_ops, eng, a_dev, table):
     return out
 
 
+def launched_entries(fn):
+    """The kernel entry points one call of ``fn`` asks ``_build.launch``
+    for, in order."""
+    from repro_torch.kernels import _build
+
+    names, launch = [], _build.launch
+
+    def spy(name, *args, **kwargs):
+        names.append(name)
+        return launch(name, *args, **kwargs)
+
+    _build.launch = spy
+    try:
+        fn()
+    finally:
+        _build.launch = launch
+    return names
+
+
 def _record_calls(obj, attr, run, keep):
     """Run ``run()`` with ``obj.attr`` replaced by a spy that records
     ``keep(args, result)`` for every call; returns the records."""
@@ -3260,8 +3280,8 @@ def baselines_phase(torch, np, kernels, A, an64, values0, b):
         check(presets[name]["max_residual"] <= 1e-10,
               f"{name}: residual {presets[name]['max_residual']} > 1e-10")
         check(max(err) <= 1e-10, f"{name}: spsolve disagreement {err}")
-    for w in ("panel_lu_wide", "trsm_left_unit_lower_blocked",
-              "trsm_left_upper_blocked"):
+    for w in ("panel_lu_wide", "trsm_left_unit_lower_wide",
+              "trsm_left_upper_wide"):
         check(presets["pardiso_like"]["launches"].get(w, 0) >= 1,
               f"pardiso_like: the wide path {w} was not launched")
     # the host-loop solve (warm) beside the fused one's median over the
@@ -3340,8 +3360,8 @@ def wide_plan_run(torch, np, kernels, analyze, baselines, factor_batched,
     """``pardiso_like`` (natural ordering, bulk_min_width 2) on
     ``wide_source_matrix`` at K = 8 through ``analyze``,
     ``factor_batched`` and ``solve_batched``: the wide paths fem2d_10k
-    does not reach, K1's (``panel_lu_bucket_wide``) and K3's blocked right
-    solve (``trsm_right_blocked``), run in the engine and are checked
+    does not reach, K1's (``panel_lu_bucket_wide``) and K3's wide right
+    solve (``trsm_right_wide``), run in the engine and are checked
     against ``spsolve``; then the same plan under the unrolled schedule,
     whose node steps with the 140-row source run K5's wide instance
     (``node_edges_wide``): against ``spsolve`` and the bucketed run's
@@ -3407,7 +3427,7 @@ def wide_plan_run(torch, np, kernels, analyze, baselines, factor_batched,
                               f"{info_u['residual'].max()}, spsolve {err_u}")
     check(vals_err <= 1e-10 and all(same.values()),
           f"wide plan unrolled vs bucketed: vals {vals_err}, {same}")
-    for w in ("panel_lu_bucket_wide", "trsm_right_blocked",
+    for w in ("panel_lu_bucket_wide", "trsm_right_wide",
               "node_edges_wide"):
         check(counts[w] >= 1, f"wide plan: the wide path {w} was not "
                               "launched")
@@ -3552,10 +3572,12 @@ def wide_records(torch, np, eng, values0):
     ``panel_lu_kernel``) on dominant random panels; K1's
     (``panel_lu_bucket_wide``) on buckets of two members padded to 256
     and 512 rows (in place; gather, ``panel_lu_kernel``, write-back);
-    K3's blocked right solve at k = 140 and 256 on 256 rows of X, and its
-    blocked left solves at k = 150 on the root's diagonal block of the
+    K3's wide right solve at k = 140, 256 and 600 on 256 rows of X, and
+    its wide left solves at k = 150 on the root's diagonal block of the
     finished factors, m = 1 — each held to its plain version, with its
-    time, the plain version's, the library's and the bound."""
+    time, the plain version's, the library's and the bound (K3's also
+    its launches per call, which must be the one wide kernel, and its
+    and the library's device time by CUDA-graph replay)."""
     from repro_torch.kernels.panel import ops as panel_ops
     from repro_torch.kernels.trisolve import ops as trisolve_ops
 
@@ -3658,40 +3680,51 @@ def wide_records(torch, np, eng, values0):
             "library_ms" + sfx: None})
         del v0, v_k, v_p
     k1["library_none_because"] = k2["library_none_because"]
-    # K3's blocked right solve at k = 140 and 256, 256 rows of X
-    k3r = {"name": "trsm_right_blocked", "route": "cuda",
+    # K3's wide right solve at k = 140, 256 and 600, 256 rows of X
+    k3r = {"name": "trsm_right_wide", "route": "cuda",
            "source": "src/repro_torch/csrc/trsm.cu",
            "replaces": "src/repro/kernels/trisolve/kernel.py:21",
-           "wrapper": "trsm_right_blocked"}
-    nrx = 256
-    for sfx, k in (("", 140), ("_k256", 256)):
+           "wrapper": "trsm_right_wide"}
+    nrx, reps = 256, 20
+    for sfx, k in (("", 140), ("_k256", 256), ("_k600", 600)):
         u = torch.from_numpy(rng.normal(size=(K, k, k))
                              + 16 * np.eye(k)).to(dev)
         x = torch.from_numpy(rng.normal(size=(K, nrx, k))).to(dev)
-        got = trisolve_ops.trsm_batched(u, x)
-        want = trisolve_ops.trsm_plain(u, x)
+
+        def call():
+            return trisolve_ops.trsm_batched(u, x)
+
+        def lib():
+            return torch.linalg.solve_triangular(u, x, upper=True,
+                                                 left=False)
+
+        entries = launched_entries(call)
+        check(entries == ["hylu_trsm_right_wide_f64"],
+              f"trsm_right_wide{sfx}: one call launched {entries}")
+        got, want = call(), trisolve_ops.trsm_plain(u, x)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(bool(torch.allclose(got, want, rtol=TOL["float64"],
                                   atol=TOL["float64"])),
-              f"trsm_right_blocked{sfx}: max |kernel - plain| = {err}")
+              f"trsm_right_wide{sfx}: max |kernel - plain| = {err}")
         t_bytes = (K * k * (k + 1) // 2 + 2 * x.numel()) * 8 \
             / HBM_BYTES_PER_S
         t_ops = float(K * nrx * k * k) / PEAK_FLOPS["float64"]
+        lib_dev = lib_graph_ms(torch, [lib] * reps)
         k3r.update({
-            "shape" + sfx: f"u ({K}, {k}, {k}) x ({K}, {nrx}, {k}), blocks "
-                           f"of {trisolve_ops.BLOCK_K}",
+            "shape" + sfx: f"u ({K}, {k}, {k}) x ({K}, {nrx}, {k})",
+            "launches_per_call" + sfx: len(entries),
             "max_abs_err" + sfx: err, "tol" + sfx: TOL["float64"],
-            "ms" + sfx: bench_ms(torch, lambda: trisolve_ops.trsm_batched(
-                u, x)),
+            "ms" + sfx: bench_ms(torch, call),
+            "device_ms" + sfx: graph_ms(torch, [call] * reps) / reps,
             "plain_ms" + sfx: bench_ms(torch, lambda: trisolve_ops.trsm_plain(
                 u, x)),
             "bound_ms" + sfx: max(t_bytes, t_ops) * 1e3,
             "bound_by" + sfx: "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms" + sfx: bench_ms(
-                torch, lambda: torch.linalg.solve_triangular(
-                    u, x, upper=True, left=False))})
-    # K3's blocked left solves on the root's diagonal block
+            "library_ms" + sfx: bench_ms(torch, lib),
+            "library_device_ms" + sfx: (None if lib_dev is None
+                                        else lib_dev / reps)})
+    # K3's wide left solves on the root's diagonal block
     f = eng.refactor_batched(a_dev)
     blk_slots = next(b_[-1] for b_ in eng._blocks if b_[1] == nd.nr)
     blk = f.vals[:, blk_slots].contiguous()
@@ -3700,16 +3733,19 @@ def wide_records(torch, np, eng, values0):
     lower = torch.tril(blk, -1) + torch.eye(k, dtype=blk.dtype, device=dev)
     out = [k2, k1, k3r]
     for name, fn, plain, lib, flops, tri in (
-            ("trsm_left_unit_lower_blocked",
+            ("trsm_left_unit_lower_wide",
              trisolve_ops.trsm_left_unit_lower_batched,
              trisolve_ops.trsm_left_unit_lower_plain,
              lambda: torch.linalg.solve_triangular(
                  lower, rhs, upper=False, unitriangular=True),
              float(K * k * (k - 1)), K * k * (k - 1) // 2),
-            ("trsm_left_upper_blocked", trisolve_ops.trsm_left_upper_batched,
+            ("trsm_left_upper_wide", trisolve_ops.trsm_left_upper_batched,
              trisolve_ops.trsm_left_upper_plain,
              lambda: torch.linalg.solve_triangular(blk, rhs, upper=True),
              float(K * k * k), K * k * (k + 1) // 2)):
+        entries = launched_entries(lambda: fn(blk, rhs))
+        check(entries == [f"hylu_{name}_f64"],
+              f"{name}: one call launched {entries}")
         got, want = fn(blk, rhs), plain(blk, rhs)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -3718,19 +3754,23 @@ def wide_records(torch, np, eng, values0):
               f"{name}: max |kernel - plain| = {err}")
         t_bytes = (tri + 2 * rhs.numel()) * 8 / HBM_BYTES_PER_S
         t_ops = flops / PEAK_FLOPS["float64"]
+        lib_dev = lib_graph_ms(torch, [lib] * reps)
         out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/trsm.cu",
             "replaces": "src/repro/kernels/trisolve/kernel.py:21",
             "wrapper": name,
-            "shape": f"blk ({K}, {k}, {k}) b ({K}, {k}, 1), blocks of "
-                     f"{trisolve_ops.BLOCK_K}",
+            "shape": f"blk ({K}, {k}, {k}) b ({K}, {k}, 1)",
+            "launches_per_call": len(entries),
             "max_abs_err": err, "tol": TOL_LEFT["float64"],
             "ms": bench_ms(torch, lambda: fn(blk, rhs)),
+            "device_ms": graph_ms(torch, [lambda: fn(blk, rhs)] * reps)
+            / reps,
             "plain_ms": bench_ms(torch, lambda: plain(blk, rhs)),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": bench_ms(torch, lib)})
+            "library_ms": bench_ms(torch, lib),
+            "library_device_ms": None if lib_dev is None else lib_dev / reps})
     del vals, f
     return out
 

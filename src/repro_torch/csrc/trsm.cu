@@ -15,16 +15,15 @@
 //   hylu_trsm_left_upper_*        U w = b with U = triu(blk).
 // The left solves read the diagonal block of the panel buffer in place:
 // none of the triu / swapaxes / flip copies of trisolve/ops.py:69-90 is
-// made, and k is not padded to a multiple of 8.  A solve kernel takes any
+// made, and k is not padded to a multiple of 8.  These kernels take any
 // k <= 128 (the default supernode cap).  Supernodes may have up to
-// max_super rows, which the options do not bound, so the wrappers
-// (kernels/trisolve/ops.py) solve a larger k by blocks of 128: solve the
-// leading (trailing, for U w = b) diagonal block with the solve kernel,
-// subtract its product from the columns (right solve) or rows (left
-// solves) still to be solved, and repeat.  That product, C -= A B in
-// place on strided views, is K5's tiled GEMM update
-// (csrc/gemm_update.cu, hylu_gemm_update_*); it is not tuned, since only
-// supernodes above the default cap reach it.
+// max_super rows, which the options do not bound, so each entry has a wide
+// instance for any k, in float64 and float32 (hylu_trsm_right_wide_*,
+// hylu_trsm_left_unit_lower_wide_*, hylu_trsm_left_upper_wide_*): one
+// launch per call, as the Pallas kernel makes one call for any k (below,
+// "Wide solves").  In bfloat16 the wrappers (kernels/trisolve/ops.py)
+// still solve a larger k by blocks of 128, with K5's GEMM update
+// (csrc/gemm_update.cu) between them.
 //
 // What bounds it on the card: neither bytes (k = 128 f64 is 64 KB of a
 // triangle read once) nor operations, but the latency of the k-step
@@ -60,6 +59,33 @@
 // still to update applies the block's columns to its own rows: k / 32 + 1
 // barriers per sweep (5 at k = 128).
 //
+// Wide solves (k > 128).  The Pallas kernel keeps U resident for any k; at k =
+// 256 the float64 triangle alone is 263 KB, past the 227 KB of shared memory a
+// block may have, so here it streams.  Right: the design above, with U read
+// through a cp.async ring of two tiles of kB rows by 128 columns, in the order
+// the sweep reads them (column block J's rows, from column Jb on, 128 columns
+// at a time; chunks wholly below the diagonal are not copied).  A barrier per
+// tile, one more after each diagonal block; the next tile's copy, issued by
+// the warps that do not solve the diagonal block, runs under the current one's
+// work.  The tile of Y stays in shared memory with 32, 16 or 8 rows of X per
+// block, the most that fit (with fewer 8-row blocks than warps the warps split
+// the update's columns); past k of some 2,400 in float64 even 8 do not, and a
+// tile of 32 rows lives in a device-memory scratch that the wrapper allocates
+// (L2-resident at such sizes).  float64 blocks have 256 threads, so that eight
+// warps share the DMMA update: by graph replay at k = 140 / 256 / 600 on 32 x
+// 256 rows of X, 0.030 / 0.069 / 0.43 ms, against 0.032 / 0.079 / 0.61 with
+// 128 threads and 0.044 / 0.10 / 0.40 with 512 (tools/time_trsm_wide.py on an
+// H100); a ring of three tiles left one block per SM at k = 256 (0.10). 
+// float32 keeps 128 threads (its FMA tile takes 168 registers a thread). 
+// Left: nt = min(k rounded up to 32, 256) threads, thread i owning rows i, i +
+// nt, ... (rounds of nt rows); w is kept in shared memory, or in W itself
+// where k x MC values do not fit beside the ring.  The triangle streams
+// through a ring of two tiles of nt rows by 32 columns: for column block J the
+// round holding the diagonal block first, whose warp solves the block by
+// __shfl_sync as above, then the other rounds still to be updated.  A barrier
+// per tile and one per column block.  The shared-memory limit of each wide
+// kernel is raised to the device's opt-in maximum once per device.
+//
 // bfloat16 (hylu_trsm_*_bf16).  The plain version's arithmetic in bfloat16
 // (trisolve/ref.py, as PyTorch runs it): per unknown j the dot of the
 // solved unknowns with their coefficients is summed in float32 and rounded
@@ -80,7 +106,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 #include "div_fast.cuh"
 
@@ -527,6 +555,32 @@ int launch_right_v(const T* U, long long su_b, long long su_r, const T* X,
   return (int)cudaGetLastError();
 }
 
+// The widest copy (elements, at most 16 bytes) that every row start of U
+// and of X allows.
+template <typename T>
+int right_vec(const void* U, const void* X, int k, long long su_b,
+              long long su_r) {
+  auto fits = [&](int v) {
+    const uintptr_t bytes = (uintptr_t)v * sizeof(T);
+    return k % v == 0 && su_r % v == 0 && su_b % v == 0 &&
+           (reinterpret_cast<uintptr_t>(U) | reinterpret_cast<uintptr_t>(X)) %
+                   bytes == 0;
+  };
+  for (int v = 16 / (int)sizeof(T); v > 1; v /= 2)
+    if (fits(v)) return v;
+  return 1;
+}
+
+// f(std::integral_constant<int, v>{}): v as a constant of the instances
+// a T has (4, 2, 1 for float32; 2, 1 for float64)
+template <typename T, typename F>
+int with_vec(int v, F&& f) {
+  if constexpr (sizeof(T) == 4)
+    if (v == 4) return f(std::integral_constant<int, 4>{});
+  if (v == 2) return f(std::integral_constant<int, 2>{});
+  return f(std::integral_constant<int, 1>{});
+}
+
 template <typename T>
 int launch_right(const void* U, const void* X, void* Y, int batch, int nr,
                  int k, int unit_diag, long long su_b, long long su_r,
@@ -535,31 +589,11 @@ int launch_right(const void* U, const void* X, void* Y, int batch, int nr,
     return (int)cudaErrorInvalidValue;
   if ((long long)batch * ((nr + kRows - 1) / kRows) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const T* u = static_cast<const T*>(U);
-  const T* x = static_cast<const T*>(X);
-  T* y = static_cast<T*>(Y);
-  cudaStream_t st = (cudaStream_t)stream;
-  // the widest copy that every row start of U and of X allows
-  auto fits = [&](int v) {
-    const uintptr_t bytes = (uintptr_t)v * sizeof(T);
-    return k % v == 0 && su_r % v == 0 && su_b % v == 0 &&
-           (reinterpret_cast<uintptr_t>(U) | reinterpret_cast<uintptr_t>(X)) %
-                   bytes == 0;
-  };
-  if constexpr (sizeof(T) == 8) {
-    if (fits(2))
-      return launch_right_v<T, 2>(u, su_b, su_r, x, y, batch, nr, k,
-                                  unit_diag, st);
-  } else {
-    if (fits(4))
-      return launch_right_v<T, 4>(u, su_b, su_r, x, y, batch, nr, k,
-                                  unit_diag, st);
-    if (fits(2))
-      return launch_right_v<T, 2>(u, su_b, su_r, x, y, batch, nr, k,
-                                  unit_diag, st);
-  }
-  return launch_right_v<T, 1>(u, su_b, su_r, x, y, batch, nr, k, unit_diag,
-                              st);
+  return with_vec<T>(right_vec<T>(U, X, k, su_b, su_r), [&](auto v) {
+    return launch_right_v<T, decltype(v)::value>(
+        static_cast<const T*>(U), su_b, su_r, static_cast<const T*>(X),
+        static_cast<T*>(Y), batch, nr, k, unit_diag, (cudaStream_t)stream);
+  });
 }
 
 template <typename T, bool UPPER, int MC, int V>
@@ -599,6 +633,472 @@ int launch_left(const void* blk, const void* B, void* W, int batch, int k,
   cudaStream_t st = (cudaStream_t)stream;
   return m == 1 ? launch_left_mc<T, UPPER, 1>(a, b, w, batch, k, m, st)
                 : launch_left_mc<T, UPPER, 4>(a, b, w, batch, k, m, st);
+}
+
+// ------------------------------------------------------------ wide solves
+// (k > 128, any k; the header comment says how they differ from the above)
+constexpr int kWideC = 128;                   // columns of a streamed U tile
+constexpr int kWideLdt = right_ld(kWideC);    // its shared-memory row length
+constexpr int kWideSlots = 2;                 // tiles of U in the ring
+constexpr int kLeftT = 256;                   // most threads of a left solve
+
+// threads of a wide right solve's block
+template <typename T>
+__host__ __device__ constexpr int wide_threads() {
+  return sizeof(T) == 8 ? 256 : 128;
+}
+
+// The current device's shared-memory opt-in limit per block, read once.
+int smem_optin() {
+  static std::atomic<int> cache[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev >= 0 && dev < 64 && cache[dev].load() > 0) return cache[dev].load();
+  int v = 0;
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (dev >= 0 && dev < 64) cache[dev].store(v);
+  return v;
+}
+
+__host__ __device__ constexpr size_t round16(size_t b) {
+  return (b + 15) / 16 * 16;
+}
+
+// the ring of the right solve: kWideSlots tiles of kB rows of U by kWideC
+// columns
+template <typename T>
+__host__ __device__ constexpr size_t right_ring_bytes() {
+  return kWideSlots * (size_t)kB * kWideLdt * sizeof(T);
+}
+
+// the right solve's working tile: R rows of Y (row length right_ld(k)),
+// then U's diagonal's reciprocals (double) and the diagonal (T)
+template <typename T>
+__host__ __device__ constexpr size_t right_tile_bytes(int k, int R) {
+  return round16(((size_t)R * right_ld(k) + k) * sizeof(T) + (size_t)k * 8);
+}
+
+// Rows of X per block of a wide right solve: the most of 32, 16, 8 whose
+// tile fits shared memory beside the ring; 0 when none does (the tile of 32
+// rows then lives in a device-memory scratch).
+template <typename T>
+int right_wide_rows(int k, int optin) {
+  for (int R = kRows; R >= 8; R /= 2)
+    if (right_ring_bytes<T>() + right_tile_bytes<T>(k, R) <= (size_t)optin)
+      return R;
+  return 0;
+}
+
+// Trailing update of the wide right solve on the columns [t0, t1) of one
+// streamed tile, Ut pointing at U[Jb][t0] (row length kWideLdt):
+// Y[:, t0:t1] -= Y[:, Jb:Jb+kB] U[Jb:Jb+kB, t0:t1].  Work items are (8-row
+// block, part of the columns): with fewer than four 8-row blocks the warps
+// split the columns, so that a tile of 8 or 16 rows idles no warp.
+// float64 on the fp64 tensor cores, as right_update.
+__device__ __forceinline__ void wide_update(double* Ys, int ldy,
+                                            const double* Ut, int Jb, int t0,
+                                            int t1, int rows, int tid) {
+  const int warp = tid / 32, lane = tid % 32, nw = blockDim.x / 32;
+  const int nrb = (rows + 7) / 8, parts = nrb >= nw ? 1 : nw / nrb;
+  const int nct = (t1 - t0 + 7) / 8;
+  for (int it = warp; it < nrb * parts; it += nw) {
+    const int rb = it % nrb, p = it / nrb;
+    const double* Ar = Ys + (rb * 8 + lane / 4) * ldy + Jb + lane % 4;
+    double a[kB / 4];
+#pragma unroll
+    for (int s = 0; s < kB / 4; ++s) a[s] = -Ar[4 * s];
+    double* Cr = Ys + (rb * 8 + lane / 4) * ldy + t0 + 2 * (lane % 4);
+    const double* Br = Ut + (lane % 4) * kWideLdt + lane / 4;
+#pragma unroll 4
+    for (int cb = p; cb < nct; cb += parts) {
+      double2 c2 = *reinterpret_cast<double2*>(Cr + 8 * cb);
+      double d[2] = {c2.x, c2.y};
+#pragma unroll
+      for (int s = 0; s < kB / 4; ++s)
+        dmma(d, a[s], Br[4 * s * kWideLdt + 8 * cb]);
+      *reinterpret_cast<double2*>(Cr + 8 * cb) = make_double2(d[0], d[1]);
+    }
+  }
+}
+
+// float32 on an 8 x 4 FMA register tile, as right_update: columns
+// t0 + lane + 32 j of the part's j.
+__device__ __forceinline__ void wide_update(float* Ys, int ldy,
+                                            const float* Ut, int Jb, int t0,
+                                            int t1, int rows, int tid) {
+  const int warp = tid / 32, lane = tid % 32, nw = blockDim.x / 32;
+  const int nrb = (rows + 7) / 8, parts = nrb >= nw ? 1 : nw / nrb;
+  for (int it = warp; it < nrb * parts; it += nw) {
+    const int rb = it % nrb, p = it / nrb;
+    float* Yr = Ys + rb * 8 * ldy;
+    bool on[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      on[j] = j % parts == p && t0 + lane + 32 * j < t1;
+    float acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[i][j] = on[j] ? Yr[i * ldy + t0 + lane + 32 * j] : 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kB; ++kk) {
+      float u[4], y[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        u[j] = on[j] ? Ut[kk * kWideLdt + lane + 32 * j] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) y[i] = Yr[i * ldy + Jb + kk];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(-y[i], u[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (on[j]) Yr[i * ldy + t0 + lane + 32 * j] = acc[i][j];
+  }
+}
+
+// Y U = X for any k: one block of wide_threads<T>() threads per (batch
+// member, tile of R rows of X).  The tile of Y (and U's diagonal with its
+// reciprocals) is in shared memory, or, with scratch non-null, in the
+// block's share of it.  U streams through a ring of kWideSlots tiles in
+// the order the sweep reads it:
+// for column block J (kB wide), its kB rows by kWideC columns from Jb on,
+// then the next kWideC, and so on; only chunks that reach the diagonal are
+// copied.
+template <typename T, int V>
+__global__ void __launch_bounds__(wide_threads<T>())
+trsm_right_wide_kernel(const T* __restrict__ U, long long su_b,
+                       long long su_r, const T* __restrict__ X,
+                       T* __restrict__ Y, int nr, int k, int unit_diag,
+                       int tiles, int R, unsigned char* scratch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NT = wide_threads<T>();
+  constexpr int D = kWideSlots;
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  constexpr int kSlot = kB * kWideLdt;
+  const int ldy = right_ld(k);
+  unsigned char* work =
+      scratch == nullptr
+          ? smem_raw + right_ring_bytes<T>()
+          : scratch + (long long)blockIdx.x * right_tile_bytes<T>(k, R);
+  T* Ys = reinterpret_cast<T*>(work);                   // R x ldy
+  double* Rd = reinterpret_cast<double*>(Ys + (size_t)R * ldy);  // k
+  T* Dg = reinterpret_cast<T*>(Rd + k);                 // k
+  const long long e = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x % tiles) * R;
+  const int rows = min(R, nr - r0);
+  const int tid = threadIdx.x;
+  const T* Ue = U + e * su_b;
+  const T* Xe = X + (e * nr + r0) * k;
+  const int nb = (k + kB - 1) / kB;
+  constexpr int S = (int)sizeof(T);
+
+  // the X tile: cp.async into shared memory (in the first tile's group),
+  // or copied into the scratch
+  if (scratch == nullptr) {
+    const int nch = (k + V - 1) / V;
+    for (int i = tid; i < rows * nch; i += NT) {
+      const int r = i / nch, c = (i % nch) * V;
+      cp_async<V * S>(Ys + r * ldy + c, Xe + (long long)r * k + c,
+                      min(V, k - c) * S);
+    }
+  } else {
+    for (long long i = tid; i < (long long)rows * k; i += NT)
+      Ys[(i / k) * ldy + i % k] = Xe[i];
+  }
+  // tile (J, q): U's rows Jb.. of block J, columns from Jb + q kWideC, by
+  // the threads from `lo` on
+  auto issue = [&](int J, int q, T* slot, int lo) {
+    if (tid < lo) return;
+    const int Jb = J * kB, cs = Jb + q * kWideC;
+    const int nrow = min(kB, k - Jb), nch = (min(kWideC, k - cs) + V - 1) / V;
+    for (int i = tid - lo; i < nrow * nch; i += NT - lo) {
+      const int r = i / nch, c = cs + (i % nch) * V;
+      if (c + V > Jb + r)
+        cp_async<V * S>(slot + r * kWideLdt + (c - cs),
+                        Ue + (long long)(Jb + r) * su_r + c,
+                        min(V, k - c) * S);
+    }
+  };
+  int pJ = 0, pq = 0;                 // the next tile to issue
+  auto advance = [&]() {
+    if (++pq * kWideC >= k - pJ * kB) {
+      ++pJ;
+      pq = 0;
+    }
+  };
+  for (int t = 0; t < D - 1; ++t) {   // the first D - 1 tiles, a group each
+    if (pJ < nb) {
+      issue(pJ, pq, ring + t * kSlot, 0);
+      advance();
+    }
+    cp_commit();
+  }
+  for (int t = tid; t < k; t += NT) {
+    const T d = unit_diag ? T(1) : Ue[(long long)t * su_r + t];
+    Dg[t] = d;
+    Rd[t] = recip(d);
+  }
+
+  int tile = 0;                       // the tile being consumed
+  for (int J = 0; J < nb; ++J) {
+    const int Jb = J * kB, bj = min(kB, k - Jb);
+    for (int q = 0; q * kWideC < k - Jb; ++q, ++tile) {
+      cp_wait(D - 2);
+      __syncthreads();                // tile landed; the previous one done
+      // the next tile into the previous one's slot, by the warps that do
+      // not solve the diagonal block
+      if (pJ < nb) {
+        issue(pJ, pq, ring + ((tile + D - 1) % D) * kSlot, 32);
+        advance();
+      }
+      cp_commit();
+      const T* Ut = ring + (tile % D) * kSlot;
+      const int cs = Jb + q * kWideC, t1 = min(cs + kWideC, k);
+      int t0 = cs;
+      if (q == 0) {
+        if (tid < rows) {
+          T* yr = Ys + tid * ldy + Jb;
+          if (bj == kB)
+            right_diag<true>(yr, Ut, Dg + Jb, Rd + Jb, kWideLdt, bj);
+          else
+            right_diag<false>(yr, Ut, Dg + Jb, Rd + Jb, kWideLdt, bj);
+        }
+        t0 = Jb + kB;
+        __syncthreads();              // block J of every row is final
+      }
+      if (t0 < t1) wide_update(Ys, ldy, Ut + (t0 - cs), Jb, t0, t1, rows, tid);
+    }
+  }
+  __syncthreads();
+
+  T* Ye = Y + (e * nr + r0) * k;
+  for (long long i = tid; i < (long long)rows * k; i += NT)
+    Ye[i] = Ys[(i / k) * ldy + i % k];
+}
+
+// L w = b or U w = b for any k: one block of nt = min(k rounded up to 32,
+// kLeftT) threads per (batch member, MC right-hand-side columns); thread i
+// owns rows i, i + nt, ... (rounds of nt rows).  w is kept in shared
+// memory, or in W itself (row stride m) where k x MC does not fit beside
+// the ring.  The triangle streams through a ring of two tiles of nt rows by
+// 32 columns, in the order the sweep reads it: for column block J, the
+// round holding the diagonal block first, then the rounds below it (above
+// it, for U w = b); only chunks that reach the triangle are copied.
+template <typename T, bool UPPER, int MC, int V>
+__global__ void __launch_bounds__(kLeftT)
+trsm_left_wide_kernel(const T* __restrict__ blk, const T* __restrict__ B,
+                      T* W, int k, int m, int tiles, int w_in_smem) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int ldt = left_ld<T>(kLeftB);
+  constexpr int S = (int)sizeof(T);
+  const int nt = blockDim.x;
+  const int slot = nt * ldt;
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const long long e = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x % tiles) * MC;
+  const int mc = min(MC, m - c0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nb = (k + kLeftB - 1) / kLeftB, rounds = (k + nt - 1) / nt;
+  const T* Ae = blk + e * k * k;
+  const T* Be = B + e * k * m + c0;
+  T* We = W + e * k * m + c0;
+  T* wv = w_in_smem ? ring + 2 * slot : We;
+  const long long ws = w_in_smem ? MC : m;
+
+  for (int r = tid; r < k; r += nt)
+#pragma unroll
+    for (int c = 0; c < MC; ++c)
+      if (c < mc) wv[r * ws + c] = Be[(long long)r * m + c];
+
+  auto block_of = [&](int s) { return UPPER ? nb - 1 - s : s; };
+  // tile (s, q): column block J = block_of(s), round iJ -+ q, where iJ
+  // holds the diagonal block
+  auto issue = [&](int s, int q, T* dst) {
+    const int Jb = block_of(s) * kLeftB, iJ = Jb / nt;
+    const int i = UPPER ? iJ - q : iJ + q;
+    const int lo = UPPER ? i * nt : max(i * nt, Jb + 1);
+    const int hi = min(UPPER ? min((i + 1) * nt, Jb + kLeftB) : (i + 1) * nt,
+                       k);
+    constexpr int NCH = kLeftB / V;
+    for (int x = tid; x < (hi - lo) * NCH; x += nt) {
+      const int r = lo + x / NCH, c = Jb + (x % NCH) * V;
+      if (c < k && (UPPER ? c + V > r : c < r))
+        cp_async<V * S>(dst + (r - i * nt) * ldt + (c - Jb),
+                        Ae + (long long)r * k + c, min(V, k - c) * S);
+    }
+  };
+  auto count = [&](int s) {
+    const int iJ = block_of(s) * kLeftB / nt;
+    return UPPER ? iJ + 1 : rounds - iJ;
+  };
+  int ps = 0, pq = 0;                 // the next tile to issue
+  auto advance = [&]() {
+    if (++pq == count(ps)) {
+      ++ps;
+      pq = 0;
+    }
+  };
+  issue(0, 0, ring);
+  cp_commit();
+  advance();
+
+  int tile = 0;                       // the tile being consumed
+  for (int s = 0; s < nb; ++s) {
+    const int Jb = block_of(s) * kLeftB, bj = min(kLeftB, k - Jb);
+    const int iJ = Jb / nt;
+    for (int q = 0; q < count(s); ++q, ++tile) {
+      cp_wait(0);
+      __syncthreads();                // tile landed; the previous one done
+      if (ps < nb) {
+        issue(ps, pq, ring + ((tile + 1) & 1) * slot);
+        advance();
+      }
+      cp_commit();
+      const T* At = ring + (tile & 1) * slot;
+      const int i = UPPER ? iJ - q : iJ + q;
+      if (q == 0) {
+        if (warp == (Jb - iJ * nt) / kLeftB) {
+          // the diagonal block: lane l holds row Jb + l, the thread that
+          // owns it in every round
+          const int row = Jb + lane;
+          const T* Ar = At + tid * ldt;           // from column Jb
+          T w[MC];
+#pragma unroll
+          for (int c = 0; c < MC; ++c)
+            w[c] = lane < bj && c < mc ? wv[row * ws + c] : T(0);
+          if (!UPPER) {
+            lower_diag(w, Ar, lane, bj);
+          } else {
+            const T d = lane < bj ? Ar[lane] : T(1);
+            const double rd = lane < bj ? recip(d) : 1.0;
+            T w0[MC];
+#pragma unroll
+            for (int c = 0; c < MC; ++c) w0[c] = w[c];
+            if (!__all_sync(0xffffffffu,
+                            upper_diag<false>(w, Ar, d, rd, lane, bj))) {
+#pragma unroll
+              for (int c = 0; c < MC; ++c) w[c] = w0[c];
+              upper_diag<true>(w, Ar, d, rd, lane, bj);
+            }
+          }
+          if (lane < bj) {
+#pragma unroll
+            for (int c = 0; c < MC; ++c)
+              if (c < mc) wv[row * ws + c] = w[c];
+          }
+        }
+        __syncthreads();              // block J's w is published
+      }
+      // this round's rows still to be solved take block J's columns
+      const int row = i * nt + tid;
+      if (UPPER ? row < Jb : (row >= Jb + kLeftB && row < k)) {
+        const T* Ar = At + tid * ldt;
+        T acc[MC];
+#pragma unroll
+        for (int c = 0; c < MC; ++c) acc[c] = c < mc ? wv[row * ws + c] : T(0);
+        for (int j = 0; j < bj; ++j) {
+          const T a = Ar[j];
+#pragma unroll
+          for (int c = 0; c < MC; ++c)
+            if (c < mc) acc[c] -= a * wv[(Jb + j) * ws + c];
+        }
+#pragma unroll
+        for (int c = 0; c < MC; ++c)
+          if (c < mc) wv[row * ws + c] = acc[c];
+      }
+    }
+  }
+
+  if (w_in_smem) {
+    __syncthreads();
+    for (int r = tid; r < k; r += nt)
+#pragma unroll
+      for (int c = 0; c < MC; ++c)
+        if (c < mc) We[(long long)r * m + c] = wv[r * ws + c];
+  }
+}
+
+template <typename T>
+long long right_wide_scratch(int batch, int nr, int k) {
+  if (right_wide_rows<T>(k, smem_optin()) > 0) return 0;
+  return (long long)batch * ((nr + kRows - 1) / kRows) *
+         (long long)right_tile_bytes<T>(k, kRows);
+}
+
+template <typename T>
+int launch_right_wide(const void* U, const void* X, void* Y, int batch,
+                      int nr, int k, int unit_diag, long long su_b,
+                      long long su_r, void* scratch, void* stream) {
+  if (batch < 1 || nr < 1 || k < 1 || su_r < k)
+    return (int)cudaErrorInvalidValue;
+  const int optin = smem_optin();
+  int R = right_wide_rows<T>(k, optin);
+  if (R == 0) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    R = kRows;
+  } else {
+    scratch = nullptr;
+  }
+  const long long tiles = (nr + R - 1) / R;
+  if ((long long)batch * tiles > 0x7fffffffLL ||
+      (long long)R * right_ld(k) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      right_ring_bytes<T>() + (scratch ? 0 : right_tile_bytes<T>(k, R));
+  return with_vec<T>(right_vec<T>(U, X, k, su_b, su_r), [&](auto v) {
+    auto kern = trsm_right_wide_kernel<T, decltype(v)::value>;
+    static bool sized[64] = {};
+    cudaError_t err = allow_smem(kern, optin, sized);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<(unsigned)(batch * tiles), wide_threads<T>(), smem,
+           (cudaStream_t)stream>>>(
+        static_cast<const T*>(U), su_b, su_r, static_cast<const T*>(X),
+        static_cast<T*>(Y), nr, k, unit_diag, (int)tiles, R,
+        static_cast<unsigned char*>(scratch));
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T, bool UPPER, int MC>
+int launch_left_wide_mc(const T* blk, const T* B, T* W, int batch, int k,
+                        int m, cudaStream_t stream) {
+  const long long tiles = (m + MC - 1) / MC;
+  if ((long long)batch * tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  int nt = (k + kLeftB - 1) / kLeftB * kLeftB;
+  if (nt > kLeftT) nt = kLeftT;
+  const int optin = smem_optin();
+  const size_t ring = 2 * (size_t)nt * left_ld<T>(kLeftB) * sizeof(T);
+  const size_t wbytes = (size_t)k * MC * sizeof(T);
+  const bool w_smem = ring + wbytes <= (size_t)optin;
+  constexpr int V16 = 16 / sizeof(T);
+  const bool vec = k % V16 == 0 && reinterpret_cast<uintptr_t>(blk) % 16 == 0;
+  auto kern = vec ? trsm_left_wide_kernel<T, UPPER, MC, V16>
+                  : trsm_left_wide_kernel<T, UPPER, MC, 1>;
+  static bool sized[2][64] = {};
+  cudaError_t err = allow_smem(kern, optin, sized[vec]);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)(batch * tiles), nt, ring + (w_smem ? wbytes : 0),
+         stream>>>(blk, B, W, k, m, (int)tiles, (int)w_smem);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool UPPER>
+int launch_left_wide(const void* blk, const void* B, void* W, int batch,
+                     int k, int m, void* stream) {
+  if (batch < 1 || m < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  const T* a = static_cast<const T*>(blk);
+  const T* b = static_cast<const T*>(B);
+  T* w = static_cast<T*>(W);
+  cudaStream_t st = (cudaStream_t)stream;
+  return m == 1 ? launch_left_wide_mc<T, UPPER, 1>(a, b, w, batch, k, m, st)
+                : launch_left_wide_mc<T, UPPER, 4>(a, b, w, batch, k, m, st);
 }
 
 // ------------------------------------------------------------- bfloat16
@@ -833,4 +1333,58 @@ extern "C" int hylu_trsm_left_upper_f32(const void* blk, const void* B,
                                         void* W, int batch, int k, int m,
                                         void* stream) {
   return launch_left<float, true>(blk, B, W, batch, k, m, stream);
+}
+
+// Wide solves (k > 128, any k): the arguments of the entries above; the
+// right solve also takes a device-memory scratch of
+// hylu_trsm_right_wide_scratch(batch, nr, k, elem_bytes) bytes (null when
+// that is 0: its tile then fits shared memory).
+extern "C" long long hylu_trsm_right_wide_scratch(int batch, int nr, int k,
+                                                  int elem_bytes) {
+  return elem_bytes == 8 ? right_wide_scratch<double>(batch, nr, k)
+                         : right_wide_scratch<float>(batch, nr, k);
+}
+
+extern "C" int hylu_trsm_right_wide_f64(const void* U, const void* X,
+                                        void* Y, int batch, int nr, int k,
+                                        int unit_diag, long long su_b,
+                                        long long su_r, void* scratch,
+                                        void* stream) {
+  return launch_right_wide<double>(U, X, Y, batch, nr, k, unit_diag, su_b,
+                                   su_r, scratch, stream);
+}
+
+extern "C" int hylu_trsm_right_wide_f32(const void* U, const void* X,
+                                        void* Y, int batch, int nr, int k,
+                                        int unit_diag, long long su_b,
+                                        long long su_r, void* scratch,
+                                        void* stream) {
+  return launch_right_wide<float>(U, X, Y, batch, nr, k, unit_diag, su_b,
+                                  su_r, scratch, stream);
+}
+
+extern "C" int hylu_trsm_left_unit_lower_wide_f64(const void* blk,
+                                                  const void* B, void* W,
+                                                  int batch, int k, int m,
+                                                  void* stream) {
+  return launch_left_wide<double, false>(blk, B, W, batch, k, m, stream);
+}
+
+extern "C" int hylu_trsm_left_unit_lower_wide_f32(const void* blk,
+                                                  const void* B, void* W,
+                                                  int batch, int k, int m,
+                                                  void* stream) {
+  return launch_left_wide<float, false>(blk, B, W, batch, k, m, stream);
+}
+
+extern "C" int hylu_trsm_left_upper_wide_f64(const void* blk, const void* B,
+                                             void* W, int batch, int k,
+                                             int m, void* stream) {
+  return launch_left_wide<double, true>(blk, B, W, batch, k, m, stream);
+}
+
+extern "C" int hylu_trsm_left_upper_wide_f32(const void* blk, const void* B,
+                                             void* W, int batch, int k,
+                                             int m, void* stream) {
+  return launch_left_wide<float, true>(blk, B, W, batch, k, m, stream);
 }

@@ -17,7 +17,7 @@ from .wkv import ops as wkv_ops
 #: and ``suprow_update_grouped`` have no caller on an engine path, as in
 #: the JAX package;
 #: ``panel_lu_batched`` none in the engine, which runs K1 in place;
-#: the ``*_wide`` and ``*_blocked`` entries are K1's, K2's and K3's paths
+#: the ``*_wide`` entries are K1's, K2's and K3's paths
 #: for supernodes of more than 128 rows, which the engine reaches through
 #: the entry above each;
 #: ``gemm_update`` none since the unrolled schedule runs K5 as one
@@ -31,12 +31,11 @@ WRAPPERS = {
     "panel_lu": panel_ops.panel_lu,
     "panel_lu_wide": panel_ops.panel_lu_wide,
     "trsm_batched": trisolve_ops.trsm_batched,
-    "trsm_right_blocked": trisolve_ops.trsm_right_blocked,
+    "trsm_right_wide": trisolve_ops.trsm_right_wide,
     "trsm_left_unit_lower_batched": trisolve_ops.trsm_left_unit_lower_batched,
-    "trsm_left_unit_lower_blocked":
-        trisolve_ops.trsm_left_unit_lower_blocked,
+    "trsm_left_unit_lower_wide": trisolve_ops.trsm_left_unit_lower_wide,
     "trsm_left_upper_batched": trisolve_ops.trsm_left_upper_batched,
-    "trsm_left_upper_blocked": trisolve_ops.trsm_left_upper_blocked,
+    "trsm_left_upper_wide": trisolve_ops.trsm_left_upper_wide,
     "gemm_batched": supsup_ops.gemm_batched,
     "gemm_update": supsup_ops.gemm_update,
     "node_edges_inplace": supsup_ops.node_edges_inplace,

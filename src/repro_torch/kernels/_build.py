@@ -46,6 +46,8 @@ _LEFT = [_P, _P, _P, _I, _I, _I, _P]
 # bfloat16 solves also take the float32 sums they start from (or null)
 _RIGHT_BF16 = _RIGHT[:-1] + [_P, _P]
 _LEFT_BF16 = _LEFT[:-1] + [_P, _P]
+# the wide right solve also takes its device-memory scratch (or null)
+_RIGHT_WIDE = _RIGHT[:-1] + [_P, _P]
 _BMM = [_P, _P, _P, _I, _I, _I, _I, _P]
 _GEMM_UPDATE = [_P, _L, _L] * 4 + [_I, _I, _I, _I, _P]
 _NODE_EDGES = [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
@@ -65,6 +67,9 @@ SIGNATURES = {
     **{f"hylu_trsm_right_{s}": _RIGHT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_unit_lower_{s}": _LEFT for s in ("f64", "f32")},
     **{f"hylu_trsm_left_upper_{s}": _LEFT for s in ("f64", "f32")},
+    **{f"hylu_trsm_right_wide_{s}": _RIGHT_WIDE for s in ("f64", "f32")},
+    **{f"hylu_trsm_left_unit_lower_wide_{s}": _LEFT for s in ("f64", "f32")},
+    **{f"hylu_trsm_left_upper_wide_{s}": _LEFT for s in ("f64", "f32")},
     "hylu_trsm_right_bf16": _RIGHT_BF16,
     "hylu_trsm_left_unit_lower_bf16": _LEFT_BF16,
     "hylu_trsm_left_upper_bf16": _LEFT_BF16,
@@ -179,6 +184,8 @@ def library():
                 fn.restype = ctypes.c_int
             lib.hylu_panel_lu_scratch.argtypes = [_I] * 5
             lib.hylu_panel_lu_scratch.restype = ctypes.c_longlong
+            lib.hylu_trsm_right_wide_scratch.argtypes = [_I] * 4
+            lib.hylu_trsm_right_wide_scratch.restype = ctypes.c_longlong
             lib.hylu_suprow_warps.argtypes = [_I, _I]
             lib.hylu_suprow_warps.restype = ctypes.c_int
             lib.hylu_error_string.argtypes = [ctypes.c_int]

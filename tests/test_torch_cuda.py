@@ -70,7 +70,7 @@ def _wide_block(rng, b, k):
     """(b, k, k) dense diagonal blocks whose unit-lower and upper triangles
     both stay well conditioned at k > 128 (strict upper part scaled by
     1/sqrt(k), strict lower part by 1/k, diagonal 3 plus noise), so that
-    float32 holds its tolerance through the blocked solves."""
+    float32 holds its tolerance through the wide solves."""
     return (np.triu(rng.normal(size=(b, k, k)), 1) / np.sqrt(k)
             + np.tril(rng.normal(size=(b, k, k)), -1) / k
             + (3 + 0.1 * rng.random((b, k, 1))) * np.eye(k))
@@ -179,7 +179,7 @@ def _cases(rng, tdt, dev):
         return tuple(t for pair in fn(groups) for t in pair)
 
     # the wide paths: K2 at 150 rows (window kernel), K1 padded to 256 rows
-    # (window in device memory), K3 at k = 150 (blocked)
+    # (window in device memory), K3 at k = 150 (the wide kernel)
     pw = rng.normal(size=(2, 150, 200))
     pw[:, :, 40:190] += 16 * np.eye(150)
     pw = t(pw)
@@ -223,12 +223,12 @@ def _cases(rng, tdt, dev):
             lambda: in_place_wide(panel.panel_lu_bucket_plain)),
         "trsm_batched": (lambda: tri.trsm_batched(u, x),
                          lambda: tri.trsm_plain(u, x)),
-        "trsm_right_blocked": (lambda: tri.trsm_batched(uw, xw),
-                               lambda: tri.trsm_plain(uw, xw)),
-        "trsm_left_unit_lower_blocked": (
+        "trsm_right_wide": (lambda: tri.trsm_batched(uw, xw),
+                            lambda: tri.trsm_plain(uw, xw)),
+        "trsm_left_unit_lower_wide": (
             lambda: tri.trsm_left_unit_lower_batched(uw[:2], bw),
             lambda: tri.trsm_left_unit_lower_plain(uw[:2], bw)),
-        "trsm_left_upper_blocked": (
+        "trsm_left_upper_wide": (
             lambda: tri.trsm_left_upper_batched(uw[:2], bw),
             lambda: tri.trsm_left_upper_plain(uw[:2], bw)),
         "trsm_left_unit_lower_batched": (
@@ -1745,7 +1745,8 @@ def test_plan_cache_round_trip_on_card(cuda, tmp_path):
 # ------------------------------------------ supernodes over 128 rows
 # K2 and K1 at nr > 128: the window kernel up to 256 rows (its window in
 # shared memory where it fits, else in device memory), panel_lu_kernel
-# beyond; K3 blocked over k > 128; K4 on 256-row edge buckets.
+# beyond; K3 past 128 columns by one launch of its wide kernel; K4 on
+# 256-row edge buckets.
 WIDE_NODE = [(129, 0, 0), (150, 2370, 0), (150, 40, 30), (256, 10, 4),
              (300, 20, 16)]
 
@@ -1839,29 +1840,49 @@ def test_wide_bucket_panel_lu(bucket, k, dt, cuda):
     assert (perm != torch.arange(nrp, device=cuda)).any()
 
 
+def _launch_spy(monkeypatch):
+    """The entry points ``_build.launch`` is asked for, in order."""
+    from repro_torch.kernels import _build
+
+    names, launch = [], _build.launch
+
+    def spy(name, *args, **kwargs):
+        names.append(name)
+        return launch(name, *args, **kwargs)
+
+    monkeypatch.setattr(_build, "launch", spy)
+    return names
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", sorted(TOLS))
-@pytest.mark.parametrize("k", [129, 150, 256])
-def test_trsm_blocked(k, dt, cuda):
-    """K3's three entries at k > 128, blocked over k: the right solve on a
-    strided view of source rows with NaN below U's diagonal (nr 40 and
-    300, unit diagonal too), the left solves on blocks with NaN in the
-    triangle they do not read, m = 1 and 3; each one count of its
-    ``*_blocked`` wrapper and none of the k <= 128 one; values within the
-    plain versions' tolerance."""
+@pytest.mark.parametrize("k", [129, 150, 256, 600, 1100, 3000])
+def test_trsm_wide(k, dt, cuda, monkeypatch):
+    """K3's three entries at k > 128, one launch of the wide kernel each:
+    the right solve on a strided view of source rows with NaN below U's
+    diagonal (nr 40 and 300, unit diagonal too), the left solves on blocks
+    with NaN in the triangle they do not read, m = 1 and 3; each one count
+    of its ``*_wide`` wrapper and none of the k <= 128 one, exactly one
+    ``hylu_trsm_*_wide_*`` launch and no GEMM update; values within the
+    plain versions' tolerance.  At k = 3000 in float64 the right solve's
+    tiles live in its device-memory scratch and the left solves' w (m = 3)
+    in W itself."""
     tdt, tol, ltol = TOLS[dt]
+    sfx = {torch.float64: "f64", torch.float32: "f32"}[tdt]
+    names = _launch_spy(monkeypatch)
     rng = np.random.default_rng(k)
     for nr in (40, 300):
         src = _src_rows(rng, 3, k, 7, tdt, cuda)
         x = torch.tensor(rng.normal(size=(3, nr, k)), dtype=tdt,
                          device=cuda)
         for unit in (False, True):
-            before = kernels.launch_counts()
-            got = tri.trsm_batched(src[..., :k], x, unit_diag=unit)
             ref = tri.trsm_plain(src[..., :k], x, unit_diag=unit)
+            before = kernels.launch_counts()
+            del names[:]
+            got = tri.trsm_batched(src[..., :k], x, unit_diag=unit)
             after = kernels.launch_counts()
-            assert after["trsm_right_blocked"] == (
-                before["trsm_right_blocked"] + 1)
+            assert names == [f"hylu_trsm_right_wide_{sfx}"], names
+            assert after["trsm_right_wide"] == before["trsm_right_wide"] + 1
             assert after["trsm_batched"] == before["trsm_batched"]
             torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
     blk = _wide_block(rng, 2, k)
@@ -1877,11 +1898,43 @@ def test_trsm_blocked(k, dt, cuda):
             poisoned = blk.copy()
             poisoned[:, other[0], other[1]] = np.nan
             before = kernels.launch_counts()
+            del names[:]
             got = fn(torch.tensor(poisoned, dtype=tdt, device=cuda), b)
             after = kernels.launch_counts()
-            assert after[name + "_blocked"] == before[name + "_blocked"] + 1
+            assert names == [f"hylu_{name}_wide_{sfx}"], names
+            assert after[name + "_wide"] == before[name + "_wide"] + 1
             assert after[name + "_batched"] == before[name + "_batched"]
             torch.testing.assert_close(got, ref, rtol=ltol, atol=ltol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [150, 256])
+def test_trsm_wide_bf16_stays_blocked(k, cuda, monkeypatch):
+    """In bfloat16 the wide wrappers still block over k: per call one
+    count of the ``*_wide`` wrapper, a bfloat16 solve launch per block of
+    at most 128 and a float32 GEMM update between blocks (the values are
+    held by ``test_bf16_k3``)."""
+    names = _launch_spy(monkeypatch)
+    rng = np.random.default_rng(k)
+    blk = _bf16_tensor(_wide_block(rng, 2, k), cuda)
+    x = _bf16_tensor(rng.normal(size=(2, 40, k)), cuda)
+    b = _bf16_tensor(rng.normal(size=(2, k, 1)), cuda)
+    nblk = -(-k // tri.BLOCK_K)
+    for name, call in (("trsm_right", lambda: tri.trsm_batched(blk, x)),
+                       ("trsm_left_unit_lower",
+                        lambda: tri.trsm_left_unit_lower_batched(blk, b)),
+                       ("trsm_left_upper",
+                        lambda: tri.trsm_left_upper_batched(blk, b))):
+        before = kernels.launch_counts()
+        del names[:]
+        call()
+        after = kernels.launch_counts()
+        wrapper = name + "_wide"
+        assert after[wrapper] == before[wrapper] + 1
+        assert names.count(f"hylu_{name}_bf16") == nblk, names
+        assert names.count("hylu_gemm_update_f32") == nblk - 1, names
+        assert len(names) == 2 * nblk - 1, names
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -1949,12 +2002,12 @@ def test_pardiso_like_on_card_matches_cpu(name, cuda):
     if name == "wide_source":
         a, kw = _card_wide_source(), dict(orderings=("natural",),
                                           bulk_min_width=2)
-        wide = ("panel_lu_bucket_wide", "trsm_right_blocked",
-                "trsm_left_unit_lower_blocked", "trsm_left_upper_blocked")
+        wide = ("panel_lu_bucket_wide", "trsm_right_wide",
+                "trsm_left_unit_lower_wide", "trsm_left_upper_wide")
     else:
         a, kw = _card_wide_root(), {}
-        wide = ("panel_lu_wide", "trsm_left_unit_lower_blocked",
-                "trsm_left_upper_blocked")
+        wide = ("panel_lu_wide", "trsm_left_unit_lower_wide",
+                "trsm_left_upper_wide")
     A = to_csr(a)
     rng = np.random.default_rng(3)
     vb = A.data[None] * rng.uniform(0.8, 1.2, (4, A.nnz))

@@ -44,8 +44,12 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 DTYPES = {"float64": (jnp.float64, torch.float64, 1e-10, 1e-10),
           "float32": (jnp.float32, torch.float32, 1e-4, 1e-3)}
-TRISOLVE_SHAPES = [(1, 3), (5, 8), (17, 13), (40, 32), (3, 1)]
-LEFT_SHAPES = [(1, 5, 1), (4, 13, 3), (3, 8, 6), (2, 2, 1)]
+# past k = 128 the CUDA wrappers take their wide path (one launch of the
+# wide kernel)
+TRISOLVE_SHAPES = [(1, 3), (5, 8), (17, 13), (40, 32), (3, 1), (40, 150),
+                   (7, 256), (3, 129)]
+LEFT_SHAPES = [(1, 5, 1), (4, 13, 3), (3, 8, 6), (2, 2, 1), (2, 150, 1),
+               (2, 150, 3), (1, 256, 3), (3, 129, 1)]
 SUPSUP_SHAPES = [(5, 3, 7), (16, 8, 40), (33, 13, 5), (2, 1, 3), (8, 8, 128)]
 # nr, k, m: not multiples of 8 (the JAX wrapper pads them), m >= 128 (it
 # pads m to a multiple of 128), and k = nr = 128, m = 100 (the largest
@@ -64,6 +68,20 @@ def _close(got, ref, tol):
 
 def _tri(rng, b, k):
     return np.triu(rng.normal(size=(b, k, k))) + 3 * np.eye(k)
+
+
+def _solve_block(rng, b, k):
+    """A block for the triangular solves: ``_tri``'s upper triangle and
+    O(1) garbage below it (the right solve must not read it; the unit-lower
+    solve reads it as L).  Past 128 columns both triangles are scaled by
+    1/sqrt(k), as ``_src_block``'s: with O(1) entries the solutions of a
+    150- or 256-wide random triangle reach 1e18 to 1e32 and float32
+    rounding in any summation order differs by more than 1e-3."""
+    if k <= tri.BLOCK_K:
+        return _tri(rng, b, k) + np.tril(rng.normal(size=(b, k, k)), -1)
+    return (np.triu(rng.normal(size=(b, k, k)))
+            + np.tril(rng.normal(size=(b, k, k)), -1)) / np.sqrt(k) \
+        + 3 * np.eye(k)
 
 
 def _src_block(rng, b, k):
@@ -202,7 +220,7 @@ def test_trsm_batched(nr, k, dt):
     jdt, tdt, tol, _ = DTYPES[dt]
     rng = np.random.default_rng(nr * 7 + k)
     # the lower triangle holds garbage: only U's upper triangle is read
-    u = _tri(rng, 3, k) + np.tril(rng.normal(size=(3, k, k)), -1)
+    u = _solve_block(rng, 3, k)
     x = rng.normal(size=(3, nr, k))
     for unit in (False, True):
         y = tri.trsm_batched(torch.tensor(u, dtype=tdt),
@@ -243,7 +261,7 @@ def test_trsm_batched_strided_u(nr, k, dt):
 def test_trsm_left_solves(kb, k, m, dt):
     jdt, tdt, _, tol = DTYPES[dt]
     rng = np.random.default_rng(kb * 31 + k)
-    blk = _tri(rng, kb, k) + np.tril(rng.normal(size=(kb, k, k)), -1)
+    blk = _solve_block(rng, kb, k)
     b = rng.normal(size=(kb, k, m))
     tb, tr = torch.tensor(blk, dtype=tdt), torch.tensor(b, dtype=tdt)
     jb, jr = jnp.asarray(blk, jdt), jnp.asarray(b, jdt)

@@ -175,6 +175,44 @@ def test_kernel_formulas_of_k1_and_k5():
         + 8 * (4 + 5) + 8 * (2 + 5)
 
 
+def _blocked_pieces(solve, n, nr, k, m, elem):
+    """The work of K3's former blocked route past 128 columns, summed over
+    its launches: the k <= 128 solve on each diagonal block of at most 128
+    and K5's GEMM update of the columns (right solve) or rows (left
+    solves) still to be solved."""
+    flops = nbytes = 0.0
+    for s in range(0, k, 128):
+        e = min(s + 128, k)
+        if solve == "right":
+            pieces = (kc.trsm_right(n, nr, e - s, elem),
+                      kc.gemm_update(n, nr, e - s, k - e, elem))
+        else:
+            rest = s if solve == "upper" else k - e
+            pieces = (kc.trsm_left(solve == "lower", n, e - s, m, elem),
+                      kc.gemm_update(n, rest, e - s, m, elem))
+        for f, b in pieces:
+            flops, nbytes = flops + f, nbytes + b
+    return flops, nbytes
+
+
+@pytest.mark.parametrize("k", [150, 256])
+@pytest.mark.parametrize("solve", ["right", "lower", "upper"])
+def test_wide_trsm_work_is_the_blocked_route_summed(solve, k):
+    """One wide K3 launch counts the operations of the blocked route's
+    pieces summed, at the wide records' shapes; its bytes are the
+    function's (each input read once, the output written once), at most
+    the pieces' sum, which re-reads and re-writes the columns or rows
+    still to be solved between blocks."""
+    n, nr, m, elem = 32, 256, 1, 8
+    wide = (kc.trsm_right(n, nr, k, elem) if solve == "right" else
+            kc.trsm_left(solve == "lower", n, k, m, elem))
+    flops, nbytes = _blocked_pieces(solve, n, nr, k, m, elem)
+    assert wide[0] == flops
+    assert wide[1] <= nbytes
+    if solve == "right":
+        assert wide[1] == (n * k * (k + 1) // 2 + 2 * n * nr * k) * elem
+
+
 def test_h100_constants_and_terms():
     assert RA.PEAK_FLOPS == {"bfloat16": 989e12, "float32": 67e12,
                              "float64": 67e12}
