@@ -43,9 +43,11 @@ Phases, each printing one JSON line:
             threshold, where NaN and inf positions must match; K4 (and
             ``torch.bmm``) also per launch by CUDA-graph replay, on 2,048
             products of its bucket's shape, and summed over all 516
-            sup-sup buckets of the bucketed schedule; K3 beside
+            sup-sup buckets of the bucketed schedule (in bfloat16 per
+            launch at the table's shape); K3 beside
             ``torch.linalg.solve_triangular`` per launch by CUDA-graph
-            replay at the table's shapes, the right solve summed over the
+            replay at the table's shapes (bfloat16 too, alone), the right
+            solve summed over the
             516 sup-sup buckets (U a strided view of the source rows, as
             the engine passes it) and both left solves over the 502 node
             blocks of the node-block apply, each held to its plain version
@@ -105,14 +107,18 @@ Phases, each printing one JSON line:
             fem2d_10k does not reach (K1's, K3's wide right solve),
             also under the unrolled schedule (K5's wide node step,
             ``node_edges_wide``: against ``spsolve`` and the bucketed
-            factors), with that node step's kernel record;
+            factors), with that node step's kernel record, and in
+            bfloat16 factors (K3's wide bfloat16 solves, each launched,
+            no per-edge K5; x against ``spsolve``);
             and the wide paths' kernel records, float64: K2 on the root's
             32 panels and at 256 and 300 rows, K1 on buckets padded to 256
             and 512 rows, K3's wide right solve at k = 140, 256 and 600
             and its wide left solves at k = 150 (each one launch, by a
             spy on the launches, timed also by CUDA-graph replay), each
             held to its plain version beside the library's
-            ``solve_triangular`` (K3) and the bound;
+            ``solve_triangular`` (K3) and the bound; and K3's wide
+            bfloat16 solves at the same shapes (records ``..._wide_bf16``,
+            one launch each, within BF16_ULPS of the plain version);
 8. scalar   the one-system lifecycle ``factor`` -> ``refactor`` (new
             values) -> ``solve`` on fem2d_10k under the bucketed and the
             unrolled schedule in float64, and bucketed with float32
@@ -130,7 +136,8 @@ Phases, each printing one JSON line:
             float64 step (every x within 1e-10 of ``spsolve``, all-clear
             ``refine_failed``, ``n_fp64_fallback``, ms, peak memory,
             factor storage; the bf16 entry points launched, counted by a
-            spy on ``_build.launch``), then the one-system unrolled
+            spy on ``_build.launch``, and none of the per-edge K5), then
+            the one-system unrolled
             lifecycle in bfloat16 (times, launches, every node step of
             one refactor held to its plain version; its host refinement
             reported as it ends, there being no fallback on that path);
@@ -327,9 +334,9 @@ BF16_ENTRY = {"panel_lu_bucketed": "hylu_bucket_panel_lu_bf16",
               "node_edges": "hylu_node_edges_bf16"}
 BF16_PTXAS = {"panel_lu_bucketed": ("panel_lu_window_kernel", "bf16r"),
               "panel_lu": ("panel_lu_window_kernel", "bf16r"),
-              "trsm_right": ("trsm_right_bf16_kernel",),
-              "trsm_left_unit_lower": ("trsm_left_bf16_kernel",),
-              "trsm_left_upper": ("trsm_left_bf16_kernel",),
+              "trsm_right": ("trsm_right_kernel", "nv_bfloat16"),
+              "trsm_left_unit_lower": ("trsm_left_kernel", "nv_bfloat16Lb0"),
+              "trsm_left_upper": ("trsm_left_kernel", "nv_bfloat16Lb1"),
               "bmm": ("bmm_kernel", "bfloat16"),
               "gemm_update": ("gemm_update_kernel", "bfloat16"),
               "node_edges": ("node_edges_kernel", "bfloat16")}
@@ -691,8 +698,9 @@ def main() -> int:
         if rec.get("dtype") == "bfloat16":
             # the bfloat16 instance's own launches on the bfloat16 path
             # (its wrapper also counts the float64 fallback's)
-            rec["launches_by_path"] = {"bf16": bf16_entries.get(
-                rec["entry"], 0)}
+            rec["launches_by_path"] = {
+                **rec.get("launches_by_path", {}),
+                "bf16": bf16_entries.get(rec["entry"], 0)}
             rec["wrapper_launches_bf16_phase"] = bf16_counts[w]
         else:
             rec["launches_by_path"] = {"batched": counts[w],
@@ -1011,6 +1019,10 @@ def bf16_phase(torch, np, kernels, A, an64, values0, b):
               "trsm_left_unit_lower_batched", "trsm_left_upper_batched",
               "gemm_batched", "node_edges_inplace"):
         check(total[w] > 0, f"bf16: wrapper {w} was not launched")
+    per_edge = [n for n in batched_entries
+                if n.startswith("hylu_gemm_update_")]
+    check(not per_edge, f"bf16: the per-edge K5 ran on the bfloat16 path: "
+                        f"{per_edge}")
     check(scalar["launches_per_refactor"].get("node_edges_inplace", 0)
           == n_steps and scalar["launches_per_refactor"].get("panel_lu", 0)
           == n_wide, f"bf16 unrolled refactor: launches "
@@ -2057,7 +2069,9 @@ def kernel_phase(torch, np, kernels, eng, vals0, eng_u):
     records["suprow_update"].update(suprow_large(torch, suprow_ops, dev))
     records["suprow_update_grouped"].update(suprow_extra(torch, suprow_ops,
                                                          G6, K))
-    records["bmm"].update(bmm_extra(torch, np, supsup_ops, sched, LTS, Us, K))
+    k4, k4_bf16 = bmm_extra(torch, np, supsup_ops, sched, LTS, Us, K)
+    records["bmm"].update(k4)
+    records["bmm_bf16"].update(k4_bf16)
     for name, extra in trsm_extra(torch, trisolve_ops, eng, a_dev,
                                   (U, X, BLK, RHS)).items():
         records[name].update(extra)
@@ -2165,7 +2179,9 @@ def bmm_extra(torch, np, supsup_ops, sched, lts, us, K):
     of each bucket's shape), in float64 and float32.  Times per launch by
     back-to-back calls (``bench_ms``, host cost included) and device times
     by CUDA-graph replay (``graph_ms``); K4 held to its plain version on
-    the 2,048 products."""
+    the 2,048 products.  Returns those, and the bfloat16 instance's device
+    time and ``torch.bmm``'s in bfloat16 by replay of 200 launches at the
+    record's shape (the largest sup-sup bucket)."""
     out = {}
     dev = lts.device
     buckets = [e for s_ in sched.steps for e in s_.edges if e.k > 1]
@@ -2226,10 +2242,16 @@ def bmm_extra(torch, np, supsup_ops, sched, lts, us, K):
                 torch, lambda: [fn() for fn in lib], min_ms=200.0)})
         del a, b, x1, y1, pa, pb, ops, kern, lib
         torch.cuda.empty_cache()
+    a16, b16 = (t_.to(torch.bfloat16).contiguous() for t_ in (lts, us))
+    out_bf16 = {
+        "device_ms": graph_ms(
+            torch, [lambda: supsup_ops.gemm_batched(a16, b16)] * 200) / 200,
+        "library_device_ms": graph_ms(
+            torch, [lambda: torch.bmm(a16, b16)] * 200) / 200}
     # each stream graph_ms ran torch.bmm on keeps a cuBLAS workspace
     # allocated; drop them, so the main path's peak memory is its own
     torch._C._cuda_clearCublasWorkspaces()
-    return out
+    return out, out_bf16
 
 
 def trsm_extra(torch, trisolve_ops, eng, a_dev, table):
@@ -2245,8 +2267,13 @@ def trsm_extra(torch, trisolve_ops, eng, a_dev, table):
     included), the summed bound, and each kernel held to its plain version
     on every bucket and block.  Also the per-launch device times at the
     table's shapes (``table``: U, X, BLK, RHS in float64), by replay of 200
-    launches.  A library call that a CUDA graph cannot capture keeps its
-    loop time only (its device time is then None)."""
+    launches, in float64, float32 and (records ``..._bf16``) bfloat16, the
+    bfloat16 kernels also bit-equal to the plain versions summed in their
+    order (``ref.*_bf16_ordered``).  A library call that a CUDA graph
+    cannot capture keeps its loop time only (its device time is then
+    None); none takes bfloat16."""
+    from repro_torch.kernels.trisolve import ref as trisolve_ref
+
     dev = a_dev.device
     K = a_dev.shape[0]
     buckets = [e for s_ in eng.sched.steps for e in s_.edges if e.k > 1]
@@ -2372,7 +2399,27 @@ def trsm_extra(torch, trisolve_ops, eng, a_dev, table):
                 None if lib_ms is None else lib_ms / 200)
         del u, x, blk, rhs, lower
         torch.cuda.empty_cache()
-    del f
+    u, x, blk, rhs = (t_.to(torch.bfloat16).contiguous() for t_ in table)
+    for name, kf, ordered in (
+            ("trsm_right", lambda: trisolve_ops.trsm_batched(u, x),
+             lambda: trisolve_ref.trsm_bf16_ordered(u, x)),
+            ("trsm_left_unit_lower",
+             lambda: trisolve_ops.trsm_left_unit_lower_batched(blk, rhs),
+             lambda: trisolve_ref.trsm_left_unit_lower_bf16_ordered(blk,
+                                                                    rhs)),
+            ("trsm_left_upper",
+             lambda: trisolve_ops.trsm_left_upper_batched(blk, rhs),
+             lambda: trisolve_ref.trsm_left_upper_bf16_ordered(blk, rhs))):
+        got, seq = kf(), ordered()
+        torch.cuda.synchronize()
+        _, _, n_ord, n_over = bf16_err(torch, got, seq, exact=True)
+        check(n_over == 0, f"{name} bfloat16: {n_ord} entries differ from "
+              "the plain version summed in the kernel's order")
+        out[name + "_bf16"] = {
+            "entries_differing_ordered": n_ord,
+            "device_ms": graph_ms(torch, [kf] * 200) / 200,
+            "library_device_ms": None}
+    del f, u, x, blk, rhs
     torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     return out
@@ -3322,6 +3369,11 @@ def baselines_phase(torch, np, kernels, A, an64, values0, b):
     for w, c in wide_plan.pop("counts").items():
         total[w] += c
     records = wide_records(torch, np, states["pardiso_like"][1], values0)
+    bf16_entries = wide_plan.pop("bf16_entries")
+    for rec in records:
+        if rec.get("dtype") == "bfloat16":
+            rec["launches_by_path"] = {
+                "bf16_wide_plan": bf16_entries.get(rec["entry"], 0)}
     records.append(wide_plan.pop("node_edges_wide"))
     emit({"phase": "baselines", "matrix": "fem2d_10k", "k": K_MAIN,
           "presets": presets, "hostloop": hostloop, "wide_plan": wide_plan,
@@ -3366,13 +3418,22 @@ def wide_plan_run(torch, np, kernels, analyze, baselines, factor_batched,
     whose node steps with the 140-row source run K5's wide instance
     (``node_edges_wide``): against ``spsolve`` and the bucketed run's
     factors (1e-10, equal pivots and perturbation counts), and that wide
-    node step's kernel record (``wide_node_record``).  Returns the record,
-    its launch counts under ``counts`` and the kernel record under
-    ``node_edges_wide``."""
+    node step's kernel record (``wide_node_record``); then the bucketed
+    plan in bfloat16 factors (``factor_dtype="bfloat16"``), whose sup-sup
+    edges from the 140-row source and whose substitution on its 140-row
+    block run K3's wide bfloat16 solves: x against ``spsolve`` (1e-10,
+    after the float64 refinement and fallback), its launches by entry
+    point (a spy on ``_build.launch``), none of the per-edge K5.  Returns
+    the record, its launch counts under ``counts`` (the float64 runs'),
+    the kernel record under ``node_edges_wide`` and the bfloat16 run's
+    launches by entry point under ``bf16_entries``."""
+    import dataclasses
+
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
     from repro_torch.core import torch_repeated_engine
+    from repro_torch.kernels import _build
     from repro_torch.matrices import to_csr
 
     t = time.perf_counter()
@@ -3434,6 +3495,38 @@ def wide_plan_run(torch, np, kernels, analyze, baselines, factor_batched,
     rec["node_edges_wide"] = wide_node_record(
         torch, np, torch_repeated_engine(an_u),
         torch.from_numpy(vb).to(bst.vals.device))
+    an_bf = analyze(A, dataclasses.replace(an.opts, factor_dtype="bfloat16"),
+                    reuse=an)
+    torch_repeated_engine(an_bf)
+    entries, launch = {}, _build.launch
+
+    def spy(name, *args, **kwargs):
+        entries[name] = entries.get(name, 0) + 1
+        return launch(name, *args, **kwargs)
+
+    _build.launch = spy
+    try:
+        x_bf, info_bf = solve_batched(factor_batched(an_bf, A, vb), bb)
+    finally:
+        _build.launch = launch
+    err_bf = err_of(x_bf)
+    rec["bfloat16"] = {"max_residual": float(info_bf["residual"].max()),
+                       "scipy_rel_err": err_bf,
+                       "n_fp64_fallback": info_bf["n_fp64_fallback"],
+                       "refine_failed": int(info_bf["refine_failed"].sum()),
+                       "entry_points": dict(entries)}
+    check(np.isfinite(x_bf).all() and err_bf <= 1e-10
+          and rec["bfloat16"]["refine_failed"] == 0,
+          f"wide plan bf16: spsolve disagreement {err_bf}, "
+          f"{rec['bfloat16']['refine_failed']} failed")
+    for name in ("hylu_trsm_right_wide_bf16",
+                 "hylu_trsm_left_unit_lower_wide_bf16",
+                 "hylu_trsm_left_upper_wide_bf16"):
+        check(entries.get(name, 0) >= 1,
+              f"wide plan bf16: {name} was not launched")
+    per_edge = [n for n in entries if n.startswith("hylu_gemm_update_")]
+    check(not per_edge, f"wide plan bf16: the per-edge K5 ran: {per_edge}")
+    rec["bf16_entries"] = entries
     rec["seconds"] = time.perf_counter() - t
     return rec
 
@@ -3577,9 +3670,18 @@ def wide_records(torch, np, eng, values0):
     finished factors, m = 1 — each held to its plain version, with its
     time, the plain version's, the library's and the bound (K3's also
     its launches per call, which must be the one wide kernel, and its
-    and the library's device time by CUDA-graph replay)."""
+    and the library's device time by CUDA-graph replay).  Then K3's wide
+    bfloat16 instances on the same operands rounded to bfloat16 (records
+    ``..._wide_bf16``): bit-equal to the plain version summed in the
+    kernels' order (``ref.*_bf16_ordered``), their difference from the
+    plain version itself reported (:func:`bf16_err`: where x - bf16(S)
+    cancels, one ulp of S from cuBLAS's summation order is many ulps of
+    the entry), one launch a call, no library call (``solve_triangular``
+    takes no bfloat16 on the card), the ptxas lines of their kernels."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.panel import ops as panel_ops
     from repro_torch.kernels.trisolve import ops as trisolve_ops
+    from repro_torch.kernels.trisolve import ref as trisolve_ref
 
     dev, plan, sched = eng.device, eng.plan, eng.sched
     nodes = plan.nodes
@@ -3686,10 +3788,12 @@ def wide_records(torch, np, eng, values0):
            "replaces": "src/repro/kernels/trisolve/kernel.py:21",
            "wrapper": "trsm_right_wide"}
     nrx, reps = 256, 20
+    right_ops = {}
     for sfx, k in (("", 140), ("_k256", 256), ("_k600", 600)):
         u = torch.from_numpy(rng.normal(size=(K, k, k))
                              + 16 * np.eye(k)).to(dev)
         x = torch.from_numpy(rng.normal(size=(K, nrx, k))).to(dev)
+        right_ops[sfx] = (u, x)
 
         def call():
             return trisolve_ops.trsm_batched(u, x)
@@ -3771,7 +3875,87 @@ def wide_records(torch, np, eng, values0):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": bench_ms(torch, lib),
             "library_device_ms": None if lib_dev is None else lib_dev / reps})
-    del vals, f
+    # the bfloat16 instances on the same operands
+    bf = torch.bfloat16
+    log = _build.last_build["log"]
+    ptx = {"trsm_right": ("trsm_right_wide_kernel", "nv_bfloat16"),
+           "trsm_left_unit_lower": ("trsm_left_wide_kernel",
+                                    "nv_bfloat16Lb0"),
+           "trsm_left_upper": ("trsm_left_wide_kernel", "nv_bfloat16Lb1")}
+    bf_recs = {}
+    for name, (needle, *more) in ptx.items():
+        bf_recs[name] = {
+            "name": f"{name}_wide_bf16", "route": "cuda",
+            "source": "src/repro_torch/csrc/trsm.cu",
+            "replaces": "src/repro/kernels/trisolve/kernel.py:21",
+            "wrapper": f"{name}_wide", "dtype": "bfloat16",
+            "entry": f"hylu_{name}_wide_bf16",
+            "tol": "bit-equal to the plain version summed in the kernel's "
+                   "order (ref.*_bf16_ordered); against the plain version "
+                   "itself reported, not held",
+            "library_note": "no library call: solve_triangular is not "
+                            "implemented for bfloat16 on CUDA",
+            "ptxas": [ln for ln in ptxas_of(log, needle)
+                      if all(m in ln for m in more)]}
+
+    def bf16_case(rec, sfx, shape, entry, call, plain, ordered, flops,
+                  elems):
+        entries = launched_entries(call)
+        check(entries == [entry], f"{rec['name']}{sfx}: one call launched "
+                                  f"{entries}")
+        got, want, seq = call(), plain(), ordered()
+        torch.cuda.synchronize()
+        _, _, n_ord, n_over = bf16_err(torch, got, seq, exact=True)
+        check(n_over == 0, f"{rec['name']}{sfx}: {n_ord} entries differ "
+              "from the plain version summed in the kernel's order")
+        e_, ulps, n_diff, n_far = bf16_err(torch, got, want)
+        t_bytes = elems * 2 / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS["float32"]
+        rec.update({
+            "shape" + sfx: shape, "launches_per_call" + sfx: len(entries),
+            "entries_differing_ordered" + sfx: n_ord,
+            "max_abs_err" + sfx: e_, "max_ulps_of_entry" + sfx: ulps,
+            "entries_differing" + sfx: n_diff,
+            "entries_over_bf16_ulps" + sfx: n_far,
+            "entries" + sfx: int(want.numel()),
+            "ms" + sfx: bench_ms(torch, call),
+            "device_ms" + sfx: graph_ms(torch, [call] * reps) / reps,
+            "plain_ms" + sfx: bench_ms(torch, plain),
+            "bound_ms" + sfx: max(t_bytes, t_ops) * 1e3,
+            "bound_by" + sfx: "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms" + sfx: None})
+
+    for sfx, (u, x) in right_ops.items():
+        u16, x16 = u.to(bf), x.to(bf)
+        k = u.shape[-1]
+        bf16_case(bf_recs["trsm_right"], sfx,
+                  f"u ({K}, {k}, {k}) x ({K}, {nrx}, {k})",
+                  "hylu_trsm_right_wide_bf16",
+                  lambda: trisolve_ops.trsm_batched(u16, x16),
+                  lambda: trisolve_ops.trsm_plain(u16, x16),
+                  lambda: trisolve_ref.trsm_bf16_ordered(u16, x16),
+                  float(K * nrx * k * k),
+                  K * k * (k + 1) // 2 + 2 * x16.numel())
+    blk16, rhs16 = blk.to(bf), rhs.to(bf)
+    k = nd.nr
+    for name, fn, plain, ordered, flops, tri in (
+            ("trsm_left_unit_lower",
+             trisolve_ops.trsm_left_unit_lower_batched,
+             trisolve_ops.trsm_left_unit_lower_plain,
+             trisolve_ref.trsm_left_unit_lower_bf16_ordered,
+             float(K * k * (k - 1)), K * k * (k - 1) // 2),
+            ("trsm_left_upper", trisolve_ops.trsm_left_upper_batched,
+             trisolve_ops.trsm_left_upper_plain,
+             trisolve_ref.trsm_left_upper_bf16_ordered, float(K * k * k),
+             K * k * (k + 1) // 2)):
+        bf16_case(bf_recs[name], "", f"blk ({K}, {k}, {k}) b ({K}, {k}, 1)",
+                  f"hylu_{name}_wide_bf16",
+                  lambda fn=fn: fn(blk16, rhs16),
+                  lambda plain=plain: plain(blk16, rhs16),
+                  lambda ordered=ordered: ordered(blk16, rhs16), flops,
+                  tri + 2 * rhs16.numel())
+    out.extend(bf_recs.values())
+    del vals, f, right_ops
     return out
 
 

@@ -57,19 +57,18 @@
 // edge ahead (the first design) 13% slower over a refactor.
 //
 // hylu_gemm_update_* (the parent design of the node step, kept as
-// chip_smoke.py's yardstick for it, and the float32 trailing update of K3's
-// bfloat16 solves blocked over k > 128, kernels/trisolve/ops.py): OUT[e] =
-// C[e] - A[e] @ B[e] over a batch, C and OUT (batch, nr, m), A (batch, nr, k),
-// B (batch, k, m), each row-major with its own batch and row stride (views),
-// OUT either its own buffer or C itself (in place: each entry is read and then
-// written by one thread).  It sums A @ B with fused multiply-adds in the input
-// type and then subtracts it from C, as the Pallas kernel does for its one
-// k-tile (k <= 128; any k here).  The JAX wrapper pads nr, k and m to
+// chip_smoke.py's yardstick for it; no path of the system launches it): OUT[e]
+// = C[e] - A[e] @ B[e] over a batch, C and OUT (batch, nr, m), A (batch, nr,
+// k), B (batch, k, m), each row-major with its own batch and row stride
+// (views), OUT either its own buffer or C itself (in place: each entry is read
+// and then written by one thread).  It sums A @ B with fused multiply-adds in
+// the input type and then subtracts it from C, as the Pallas kernel does for
+// its one k-tile (k <= 128; any k here).  The JAX wrapper pads nr, k and m to
 // multiples of 8 or 128 with exact zeros; this kernel masks the ragged tile
 // edges instead.  One edge is at most nr = k = 128, m ~ 100 (at fem2d_10k):
 // bound by bytes, and at one system per launch by launch latency.  A plain
-// shared-memory tiled GEMM: a 64x64 tile of OUT per block, 16x16 threads with
-// a 4x4 register tile each, 16-deep slabs of A and B staged through shared
+// shared-memory tiled GEMM: a 64x64 tile of OUT per block, 16x16 threads with a
+// 4x4 register tile each, 16-deep slabs of A and B staged through shared
 // memory; it is not tuned.
 //
 // bfloat16 (hylu_gemm_update_bf16, hylu_node_edges[_wide]_bf16): values

@@ -18,12 +18,11 @@
 // made, and k is not padded to a multiple of 8.  These kernels take any
 // k <= 128 (the default supernode cap).  Supernodes may have up to
 // max_super rows, which the options do not bound, so each entry has a wide
-// instance for any k, in float64 and float32 (hylu_trsm_right_wide_*,
+// instance for any k (hylu_trsm_right_wide_*,
 // hylu_trsm_left_unit_lower_wide_*, hylu_trsm_left_upper_wide_*): one
 // launch per call, as the Pallas kernel makes one call for any k (below,
-// "Wide solves").  In bfloat16 the wrappers (kernels/trisolve/ops.py)
-// still solve a larger k by blocks of 128, with K5's GEMM update
-// (csrc/gemm_update.cu) between them.
+// "Wide solves").  Every kernel has float64, float32 and bfloat16
+// instances (below, "bfloat16").
 //
 // What bounds it on the card: neither bytes (k = 128 f64 is 64 KB of a
 // triangle read once) nor operations, but the latency of the k-step
@@ -86,23 +85,25 @@
 // per tile and one per column block.  The shared-memory limit of each wide
 // kernel is raised to the device's opt-in maximum once per device.
 //
-// bfloat16 (hylu_trsm_*_bf16).  The plain version's arithmetic in bfloat16
-// (trisolve/ref.py, as PyTorch runs it): per unknown j the dot of the
-// solved unknowns with their coefficients is summed in float32 and rounded
-// to bfloat16 once, the difference from the right-hand side is rounded, and
-// so is the division by the diagonal (none for a unit diagonal); nothing is
-// upcast past that.  A separate, simple kernel: one warp solves one vector
-// of k <= 128 unknowns, lane l owning unknowns l + 32 s, right-looking: the
-// owner of unknown j computes it, __shfl_sync broadcasts it, and every lane
-// adds its products to the float32 dots of its own unknowns still to solve,
-// reading the triangle (staged once per block in shared memory, as
-// bfloat16) along a row (right solve) or a column (left solves).  Its chain
-// is k steps of a shuffle and a few operations; the right solve's block
-// stages U once for 32 rows of X, four warps taking eight rows each.  Over
-// k > 128 (blocked, kernels/trisolve/ops.py) each block's dots start from
-// the float32 sums of the blocks before it (S0, summed by the float32 GEMM
-// update), so each unknown still rounds one dot over all the unknowns
-// before it.
+// bfloat16 (hylu_trsm_*_bf16, hylu_trsm_*_wide_bf16).  The plain version's
+// arithmetic in bfloat16 (trisolve/ref.py, as PyTorch runs it): storage is
+// bfloat16, arithmetic float32.  For unknown j, S_j is the float32 sum of
+// the products of the unknowns already solved with their coefficients
+// (each product of two bfloat16 values is exact in float32), then
+//     v = bf16(x_j - bf16(S_j)),   y_j = bf16(v / d_j)   (y_j = v for a
+// unit diagonal; the quotient div_fast's, a true division's bits), and
+// nothing is upcast past that.  Each bfloat16 kernel is the instance of the
+// float32 design above on a bfloat16 storage type: the triangle and X (or
+// b) are staged as bfloat16 by the same cp.async groups and rings, the
+// float32 sums live beside them (a float32 tile of S next to the bfloat16
+// tile of X in the right solves, registers or shared memory in the left
+// ones), the diagonal blocks round as above, and the trailing updates are
+// the float32 FMA updates on bfloat16 coefficients widened as they are
+// read.  Every S_j is summed in the sweep's order (ascending j, descending
+// for U w = b), one fma a product, so the results are those of a
+// sequential solve that rounds at those points.  The right solves' tile of
+// S holds, for each unknown already solved, -y_j, so that the float32
+// update's Y[:, t] -= Y[:, J] U[J, t] adds y_j u to the sums.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -130,9 +131,42 @@ __host__ __device__ constexpr int right_ld(int k) {
 // the left solves: rows 16-byte aligned for 16-byte copies, and 16 bytes
 // past a multiple of 32, so that a column read across a warp's lanes (lane
 // i owns row i) meets 8 distinct banks or bank pairs: 4 wavefronts, not 32
+// (also the row length of the bfloat16 triangle and X of the right solves)
 template <typename T>
 __host__ __device__ constexpr int left_ld(int k) {
-  return sizeof(T) == 8 ? (k + 3) / 4 * 4 + 2 : (k + 7) / 8 * 8 + 4;
+  return sizeof(T) == 8   ? (k + 3) / 4 * 4 + 2
+         : sizeof(T) == 4 ? (k + 7) / 8 * 8 + 4
+                          : (k + 15) / 16 * 16 + 8;
+}
+
+// bfloat16 instances: storage T, arithmetic arith_t<T> (float32); the
+// float64 and float32 instances compute in their own type
+using bf16 = __nv_bfloat16;
+template <typename T>
+constexpr bool kBf = std::is_same_v<T, bf16>;
+template <typename T>
+using arith_t = std::conditional_t<kBf<T>, float, T>;
+
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+
+template <typename T>
+__device__ __forceinline__ T narrow(arith_t<T> v) {
+  if constexpr (kBf<T>)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+
+__device__ __forceinline__ float bf_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// a bfloat16 unknown before its division: bf16(x - bf16(S)), S its float32
+// sum of products
+__device__ __forceinline__ float bf_minus(float x, float S) {
+  return bf_round(__fsub_rn(x, bf_round(S)));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -140,11 +174,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // cp.async of `size` bytes, of which the first `src_bytes` are read and the
-// rest zero-filled.
+// rest zero-filled.  A 2-byte copy (bfloat16 rows that are not 4-byte
+// aligned) has no cp.async and is a plain load and store.
 template <int size>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          int src_bytes) {
-  if constexpr (size == 16)
+  if constexpr (size == 2)
+    *static_cast<uint16_t*>(dst) =
+        src_bytes ? *static_cast<const uint16_t*>(src) : uint16_t(0);
+  else if constexpr (size == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                      smem_u32(dst)),
                  "l"(src), "r"(src_bytes)
@@ -189,9 +227,11 @@ __device__ __forceinline__ void dmma(double* d, double a, double b) {
 // by whole 8-row blocks.  float64: warp w takes 8-row blocks w, w+4, ...;
 // DMMA fragments A[l/4][l%4], B[l%4][l/4], C[l/4][2(l%4) + {0,1}], A negated
 // so the product subtracts.  Columns past k (up to the next multiple of 8)
-// only carry garbage within themselves and are never stored.
-__device__ __forceinline__ void right_update(double* Ys, const double* Us,
-                                             int ld, int Jb, int t0, int k,
+// only carry garbage within themselves and are never stored.  U's rows are
+// ld apart, as Y's.
+__device__ __forceinline__ void right_update(double* Ys, int ld,
+                                             const double* Us, int,
+                                             int Jb, int t0, int k,
                                              int rows, int tid) {
   const int warp = tid / 32, lane = tid % 32;
   const int nct = (k - t0 + 7) / 8;
@@ -213,11 +253,13 @@ __device__ __forceinline__ void right_update(double* Ys, const double* Us,
   }
 }
 
-// float32: thread (lane, warp) owns rows 8 rb + (0..7) of its 8-row blocks
-// and columns t0 + lane + 32 j, j < 4; per depth step 8 broadcast loads of
-// Y and 4 consecutive loads of U feed 32 FMAs.
-__device__ __forceinline__ void right_update(float* Ys, const float* Us,
-                                             int ld, int Jb, int t0, int k,
+// float32 (U float32, or bfloat16 widened as it is read, rows ldu apart):
+// thread (lane, warp) owns rows 8 rb + (0..7) of its 8-row blocks and
+// columns t0 + lane + 32 j, j < 4; per depth step 8 broadcast loads of Y
+// and 4 consecutive loads of U feed 32 FMAs.
+template <typename TU>
+__device__ __forceinline__ void right_update(float* Ys, int ld, const TU* Us,
+                                             int ldu, int Jb, int t0, int k,
                                              int rows, int tid) {
   const int warp = tid / 32, lane = tid % 32;
   for (int rb = warp; rb * 8 < rows; rb += kThreads / 32) {
@@ -236,7 +278,7 @@ __device__ __forceinline__ void right_update(float* Ys, const float* Us,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = t0 + lane + 32 * j;
-        u[j] = c < k ? Us[(Jb + kk) * ld + c] : 0.f;
+        u[j] = c < k ? widen(Us[(Jb + kk) * ldu + c]) : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 8; ++i) y[i] = Yr[i * ld + Jb + kk];
@@ -291,17 +333,84 @@ __device__ __forceinline__ void right_diag(T* yr, const T* Ud, const T* Dg,
   }
 }
 
+// The bfloat16 diagonal block, as right_diag: sr holds this row's float32
+// sums S of the block's unknowns and gets -y back (the tile's convention),
+// xr the row's bfloat16 X; U's block is bfloat16, rows ld apart.
+template <bool FULL>
+__device__ __forceinline__ void right_diag_bf(float* sr, const bf16* xr,
+                                              const bf16* Ud, const float* Dg,
+                                              const double* Rd, int ld,
+                                              int bj) {
+  float s[kB], x[kB];
+  bool ok = true;
+#pragma unroll
+  for (int q = 0; q < kB; ++q)
+    if (FULL || q < bj) {
+      s[q] = sr[q];
+      x[q] = widen(xr[q]);
+    }
+#pragma unroll
+  for (int j = 0; j < kB; ++j) {
+    if (FULL || j < bj) {
+      const float y = bf_round(div_fast(bf_minus(x[j], s[j]), Dg[j], Rd[j],
+                                        ok));
+      s[j] = -y;
+#pragma unroll
+      for (int q = j + 1; q < kB; ++q)
+        if (FULL || q < bj) s[q] = fmaf(y, widen(Ud[j * ld + q]), s[q]);
+    }
+  }
+  if (ok) {
+#pragma unroll
+    for (int q = 0; q < kB; ++q)
+      if (FULL || q < bj) sr[q] = s[q];
+  } else {
+    for (int j = 0; j < bj; ++j) {
+      const float y = bf_round(true_div(bf_minus(widen(xr[j]), sr[j]),
+                                        Dg[j]));
+      sr[j] = -y;
+      for (int q = j + 1; q < bj; ++q)
+        sr[q] = fmaf(y, widen(Ud[j * ld + q]), sr[q]);
+    }
+  }
+}
+
+// Shared memory of the right solve: U's triangle (k x ldu of T), the tile
+// of Y (kRows x right_ld(k) of the arithmetic type; bfloat16: the float32
+// sums), bfloat16 only the tile of X (kRows x ldu), U's diagonal's
+// reciprocals (k double) and the diagonal (k).  ldu is right_ld(k) but in
+// bfloat16, whose rows must be 16-byte aligned for 16-byte copies.
+template <typename T>
+__host__ __device__ constexpr int right_ldu(int k) {
+  return kBf<T> ? left_ld<T>(k) : right_ld(k);
+}
+
+template <typename T>
+constexpr size_t right_smem(int k) {
+  using A = arith_t<T>;
+  return (size_t)k * right_ldu<T>(k) * sizeof(T) +
+         (size_t)kRows * right_ld(k) * sizeof(A) +
+         (kBf<T> ? (size_t)kRows * right_ldu<T>(k) * sizeof(T) : 0) +
+         (size_t)k * (8 + sizeof(A));
+}
+
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 trsm_right_kernel(const T* __restrict__ U, long long su_b, long long su_r,
                   const T* __restrict__ X, T* __restrict__ Y, int nr, int k,
                   int unit_diag, int tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = right_ld(k);
-  T* Us = reinterpret_cast<T*>(smem_raw);      // k x ld, upper triangle
-  T* Ys = Us + k * ld;                          // kRows x ld
-  double* Rd = reinterpret_cast<double*>(Ys + kRows * ld);  // k
-  T* Dg = reinterpret_cast<T*>(Rd + k);         // U's diagonal, k
+  using A = arith_t<T>;
+  const int ld = right_ld(k), ldu = right_ldu<T>(k);
+  T* Us = reinterpret_cast<T*>(smem_raw);      // k x ldu, upper triangle
+  A* Ys = reinterpret_cast<A*>(Us + k * ldu);   // kRows x ld
+  T* Xs = kBf<T> ? reinterpret_cast<T*>(Ys + kRows * ld)   // kRows x ldu
+                 : reinterpret_cast<T*>(Ys);
+  double* Rd = reinterpret_cast<double*>(
+      kBf<T> ? static_cast<void*>(Xs + kRows * ldu)
+             : static_cast<void*>(Ys + kRows * ld));        // k
+  A* Dg = reinterpret_cast<A*>(Rd + k);         // U's diagonal, k
+  const int ldx = kBf<T> ? ldu : ld;
   const long long e = blockIdx.x / tiles;
   const int r0 = (blockIdx.x % tiles) * kRows;
   const int rows = min(kRows, nr - r0);
@@ -316,7 +425,7 @@ trsm_right_kernel(const T* __restrict__ U, long long su_b, long long su_r,
   // Chunks wholly left of the diagonal are not copied.
   for (int i = tid; i < rows * nch; i += kThreads) {
     const int r = i / nch, c = (i % nch) * V;
-    cp_async<V * S>(Ys + r * ld + c, Xe + (long long)r * k + c,
+    cp_async<V * S>(Xs + r * ldx + c, Xe + (long long)r * k + c,
                     min(V, k - c) * S);
   }
   for (int J = 0; J < nb; ++J) {
@@ -324,15 +433,17 @@ trsm_right_kernel(const T* __restrict__ U, long long su_b, long long su_r,
     for (int i = tid; i < nrow * nch; i += kThreads) {
       const int r = Jb + i / nch, c = (i % nch) * V;
       if (c + V > r)
-        cp_async<V * S>(Us + r * ld + c, Ue + r * su_r + c,
+        cp_async<V * S>(Us + r * ldu + c, Ue + r * su_r + c,
                         min(V, k - c) * S);
     }
     cp_commit();
   }
+  if constexpr (kBf<T>)           // the sums start at zero
+    for (int i = tid; i < rows * ld; i += kThreads) Ys[i] = 0.f;
   // the diagonal and its reciprocals (ones for a unit diagonal), read apart
   // from the copies and visible after the first barrier
   for (int t = tid; t < k; t += kThreads) {
-    const T d = unit_diag ? T(1) : Ue[t * su_r + t];
+    const A d = unit_diag ? A(1) : widen(Ue[t * su_r + t]);
     Dg[t] = d;
     Rd[t] = recip(d);
   }
@@ -342,23 +453,33 @@ trsm_right_kernel(const T* __restrict__ U, long long su_b, long long su_r,
     cp_wait(nb - 1 - J);          // block J's rows of U (and X) have landed
     __syncthreads();              // for every thread; last update done
     if (tid < rows) {
-      T* yr = Ys + tid * ld + Jb;
-      const T* Ud = Us + Jb * ld + Jb;
-      if (bj == kB)
-        right_diag<true>(yr, Ud, Dg + Jb, Rd + Jb, ld, bj);
-      else
-        right_diag<false>(yr, Ud, Dg + Jb, Rd + Jb, ld, bj);
+      A* yr = Ys + tid * ld + Jb;
+      const T* Ud = Us + Jb * ldu + Jb;
+      if constexpr (kBf<T>) {
+        const T* xr = Xs + tid * ldx + Jb;
+        if (bj == kB)
+          right_diag_bf<true>(yr, xr, Ud, Dg + Jb, Rd + Jb, ldu, bj);
+        else
+          right_diag_bf<false>(yr, xr, Ud, Dg + Jb, Rd + Jb, ldu, bj);
+      } else {
+        if (bj == kB)
+          right_diag<true>(yr, Ud, Dg + Jb, Rd + Jb, ld, bj);
+        else
+          right_diag<false>(yr, Ud, Dg + Jb, Rd + Jb, ld, bj);
+      }
     }
     if (J + 1 < nb) {
       __syncthreads();            // block J of every row is final
-      right_update(Ys, Us, ld, Jb, Jb + kB, k, rows, tid);
+      right_update(Ys, ld, Us, ldu, Jb, Jb + kB, k, rows, tid);
     }
   }
   __syncthreads();
 
   T* Ye = Y + (e * nr + r0) * k;
-  for (int i = tid; i < rows * k; i += kThreads)
-    Ye[i] = Ys[(i / k) * ld + i % k];
+  for (int i = tid; i < rows * k; i += kThreads) {
+    const A y = Ys[(i / k) * ld + i % k];
+    Ye[i] = narrow<T>(kBf<T> ? -y : y);
+  }
 }
 
 // ------------------------------------------------------------- left solves
@@ -416,6 +537,62 @@ __device__ __forceinline__ bool upper_diag(T (&w)[MC], const T* Ar, T d,
   return ok;
 }
 
+// The bfloat16 diagonal blocks, as lower_diag and upper_diag: w holds lane
+// i's float32 sums S and comes back holding its y, x its right-hand side;
+// lane j's unknown is rounded from them (bf_minus) when its step comes.
+template <int MC>
+__device__ __forceinline__ void lower_diag_bf(float (&w)[MC],
+                                              const float (&x)[MC],
+                                              const bf16* Ar, int lane,
+                                              int bj) {
+#pragma unroll
+  for (int j = 0; j < kLeftB - 1; ++j) {
+    const bool upd = lane > j && lane < bj;
+    const float l = upd ? widen(Ar[j]) : 0.f;
+#pragma unroll
+    for (int c = 0; c < MC; ++c) {
+      const float yj = __shfl_sync(0xffffffffu, bf_minus(x[c], w[c]), j);
+      if (upd) w[c] = fmaf(l, yj, w[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < MC; ++c) w[c] = bf_minus(x[c], w[c]);
+}
+
+template <bool EXACT, int MC>
+__device__ __forceinline__ bool upper_diag_bf(float (&w)[MC],
+                                              const float (&x)[MC],
+                                              const bf16* Ar, float d,
+                                              double rd, int lane, int bj) {
+  bool ok = true;
+#pragma unroll
+  for (int j = kLeftB - 1; j >= 0; --j) {
+    if (EXACT) {
+      if (lane == j) {
+#pragma unroll
+        for (int c = 0; c < MC; ++c)
+          w[c] = bf_round(true_div(bf_minus(x[c], w[c]), d));
+      }
+    } else {
+      bool okj = true;
+#pragma unroll
+      for (int c = 0; c < MC; ++c) {
+        const float q = bf_round(div_fast(bf_minus(x[c], w[c]), d, rd, okj));
+        if (lane == j) w[c] = q;
+      }
+      ok &= lane != j || okj;
+    }
+    const bool upd = lane < j && j < bj;
+    const float u = upd ? widen(Ar[j]) : 0.f;
+#pragma unroll
+    for (int c = 0; c < MC; ++c) {
+      const float wj = __shfl_sync(0xffffffffu, w[c], j);
+      if (upd) w[c] = fmaf(u, wj, w[c]);
+    }
+  }
+  return ok;
+}
+
 // MC right-hand-side columns per block: 1 on the solver's path (m = 1), 4
 // otherwise; V elements per copy.
 template <typename T, bool UPPER, int MC, int V>
@@ -423,9 +600,10 @@ __global__ void __launch_bounds__(kMaxK)
 trsm_left_kernel(const T* __restrict__ blk, const T* __restrict__ B,
                  T* __restrict__ W, int k, int m, int tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  using A = arith_t<T>;
   const int lda = left_ld<T>(k);
   T* As = reinterpret_cast<T*>(smem_raw);      // k x lda, one triangle
-  T* Ws = As + k * lda;                         // published w, kMaxK x MC
+  A* Ws = reinterpret_cast<A*>(As + k * lda);   // published w, kMaxK x MC
   const long long e = blockIdx.x / tiles;
   const int c0 = (blockIdx.x % tiles) * MC;
   const int mc = min(MC, m - c0);
@@ -452,15 +630,17 @@ trsm_left_kernel(const T* __restrict__ blk, const T* __restrict__ B,
     }
     cp_commit();
   }
-  T w[MC] = {};
-  T d = T(1);                         // this row's diagonal
+  // w: the right-hand side, then the solution; bfloat16: the float32 sums,
+  // then the solution, the right-hand side in x
+  A w[MC] = {}, x[MC] = {};
+  A d = A(1);                         // this row's diagonal
   double rd = 1.0;                    // and its reciprocal
   if (row < k) {
 #pragma unroll
     for (int c = 0; c < MC; ++c)
-      if (c < mc) w[c] = Be[(long long)row * m + c];
+      if (c < mc) (kBf<T> ? x[c] : w[c]) = widen(Be[(long long)row * m + c]);
     if (UPPER) {
-      d = Ae[(long long)row * k + row];
+      d = widen(Ae[(long long)row * k + row]);
       rd = recip(d);
     }
   }
@@ -474,16 +654,26 @@ trsm_left_kernel(const T* __restrict__ blk, const T* __restrict__ B,
     if (warp == J) {
       // the diagonal block: lane i holds row Jb + i
       if (!UPPER) {
-        lower_diag(w, Ar + Jb, lane, bj);
+        if constexpr (kBf<T>)
+          lower_diag_bf(w, x, Ar + Jb, lane, bj);
+        else
+          lower_diag(w, Ar + Jb, lane, bj);
       } else {
-        T w0[MC];
+        A w0[MC];
 #pragma unroll
         for (int c = 0; c < MC; ++c) w0[c] = w[c];
-        if (!__all_sync(0xffffffffu, upper_diag<false>(w, Ar + Jb, d, rd,
-                                                       lane, bj))) {
+        bool ok;
+        if constexpr (kBf<T>)
+          ok = upper_diag_bf<false>(w, x, Ar + Jb, d, rd, lane, bj);
+        else
+          ok = upper_diag<false>(w, Ar + Jb, d, rd, lane, bj);
+        if (!__all_sync(0xffffffffu, ok)) {
 #pragma unroll
           for (int c = 0; c < MC; ++c) w[c] = w0[c];
-          upper_diag<true>(w, Ar + Jb, d, rd, lane, bj);
+          if constexpr (kBf<T>)
+            upper_diag_bf<true>(w, x, Ar + Jb, d, rd, lane, bj);
+          else
+            upper_diag<true>(w, Ar + Jb, d, rd, lane, bj);
         }
       }
       if (lane < bj) {
@@ -496,11 +686,20 @@ trsm_left_kernel(const T* __restrict__ blk, const T* __restrict__ B,
       __syncthreads();            // and block J's w is published
       // the rows still to be solved take block J's columns
       if (UPPER ? warp < J : (warp > J && row < k)) {
-        const T* Wj = Ws + Jb * MC;
-        for (int j = 0; j < bj; ++j) {
-          const T a = Ar[Jb + j];
+        const A* Wj = Ws + Jb * MC;
+        if constexpr (kBf<T>) {   // into the sums, in the sweep's order
+          for (int i = 0; i < bj; ++i) {
+            const int j = UPPER ? bj - 1 - i : i;
+            const float a = widen(Ar[Jb + j]);
 #pragma unroll
-          for (int c = 0; c < MC; ++c) w[c] -= a * Wj[j * MC + c];
+            for (int c = 0; c < MC; ++c) w[c] = fmaf(a, Wj[j * MC + c], w[c]);
+          }
+        } else {
+          for (int j = 0; j < bj; ++j) {
+            const T a = Ar[Jb + j];
+#pragma unroll
+            for (int c = 0; c < MC; ++c) w[c] -= a * Wj[j * MC + c];
+          }
         }
       }
     }
@@ -510,7 +709,7 @@ trsm_left_kernel(const T* __restrict__ blk, const T* __restrict__ B,
     T* We = W + e * k * m + c0;
 #pragma unroll
     for (int c = 0; c < MC; ++c)
-      if (c < mc) We[(long long)row * m + c] = w[c];
+      if (c < mc) We[(long long)row * m + c] = narrow<T>(w[c]);
   }
 }
 
@@ -531,13 +730,9 @@ cudaError_t allow_smem(K kernel, size_t smem, bool* sized) {
 }
 
 template <typename T>
-constexpr size_t right_smem(int k) {
-  return ((size_t)(k + kRows) * right_ld(k) + k) * sizeof(T) + k * 8;
-}
-
-template <typename T>
 constexpr size_t left_smem(int k, int mc) {
-  return ((size_t)k * left_ld<T>(k) + (size_t)kMaxK * mc) * sizeof(T);
+  return (size_t)k * left_ld<T>(k) * sizeof(T) +
+         (size_t)kMaxK * mc * sizeof(arith_t<T>);
 }
 
 template <typename T, int V>
@@ -572,10 +767,12 @@ int right_vec(const void* U, const void* X, int k, long long su_b,
 }
 
 // f(std::integral_constant<int, v>{}): v as a constant of the instances
-// a T has (4, 2, 1 for float32; 2, 1 for float64)
+// a T has (8, 4, 2, 1 for bfloat16; 4, 2, 1 for float32; 2, 1 for float64)
 template <typename T, typename F>
 int with_vec(int v, F&& f) {
-  if constexpr (sizeof(T) == 4)
+  if constexpr (sizeof(T) == 2)
+    if (v == 8) return f(std::integral_constant<int, 8>{});
+  if constexpr (sizeof(T) <= 4)
     if (v == 4) return f(std::integral_constant<int, 4>{});
   if (v == 2) return f(std::integral_constant<int, 2>{});
   return f(std::integral_constant<int, 1>{});
@@ -664,18 +861,29 @@ __host__ __device__ constexpr size_t round16(size_t b) {
   return (b + 15) / 16 * 16;
 }
 
+// the row length of a streamed U tile (bfloat16 rows 16-byte aligned)
+template <typename T>
+__host__ __device__ constexpr int wide_ldt() {
+  return kBf<T> ? left_ld<T>(kWideC) : kWideLdt;
+}
+
 // the ring of the right solve: kWideSlots tiles of kB rows of U by kWideC
 // columns
 template <typename T>
 __host__ __device__ constexpr size_t right_ring_bytes() {
-  return kWideSlots * (size_t)kB * kWideLdt * sizeof(T);
+  return kWideSlots * (size_t)kB * wide_ldt<T>() * sizeof(T);
 }
 
-// the right solve's working tile: R rows of Y (row length right_ld(k)),
-// then U's diagonal's reciprocals (double) and the diagonal (T)
+// the right solve's working tile: R rows of Y (row length right_ld(k), the
+// arithmetic type: in bfloat16 the float32 sums), bfloat16 only R rows of X
+// (row length right_ldu(k)), then U's diagonal's reciprocals (double) and
+// the diagonal: k (4 + 2) bytes a row in bfloat16
 template <typename T>
 __host__ __device__ constexpr size_t right_tile_bytes(int k, int R) {
-  return round16(((size_t)R * right_ld(k) + k) * sizeof(T) + (size_t)k * 8);
+  using A = arith_t<T>;
+  return round16(((size_t)R * right_ld(k) + k) * sizeof(A) +
+                 (kBf<T> ? (size_t)R * right_ldu<T>(k) * sizeof(T) : 0) +
+                 (size_t)k * 8);
 }
 
 // Rows of X per block of a wide right solve: the most of 32, 16, 8 whose
@@ -694,7 +902,8 @@ int right_wide_rows(int k, int optin) {
 // Y[:, t0:t1] -= Y[:, Jb:Jb+kB] U[Jb:Jb+kB, t0:t1].  Work items are (8-row
 // block, part of the columns): with fewer than four 8-row blocks the warps
 // split the columns, so that a tile of 8 or 16 rows idles no warp.
-// float64 on the fp64 tensor cores, as right_update.
+// float64 on the fp64 tensor cores, as right_update (LDT = kWideLdt).
+template <int LDT>
 __device__ __forceinline__ void wide_update(double* Ys, int ldy,
                                             const double* Ut, int Jb, int t0,
                                             int t1, int rows, int tid) {
@@ -708,23 +917,25 @@ __device__ __forceinline__ void wide_update(double* Ys, int ldy,
 #pragma unroll
     for (int s = 0; s < kB / 4; ++s) a[s] = -Ar[4 * s];
     double* Cr = Ys + (rb * 8 + lane / 4) * ldy + t0 + 2 * (lane % 4);
-    const double* Br = Ut + (lane % 4) * kWideLdt + lane / 4;
+    const double* Br = Ut + (lane % 4) * LDT + lane / 4;
 #pragma unroll 4
     for (int cb = p; cb < nct; cb += parts) {
       double2 c2 = *reinterpret_cast<double2*>(Cr + 8 * cb);
       double d[2] = {c2.x, c2.y};
 #pragma unroll
       for (int s = 0; s < kB / 4; ++s)
-        dmma(d, a[s], Br[4 * s * kWideLdt + 8 * cb]);
+        dmma(d, a[s], Br[4 * s * LDT + 8 * cb]);
       *reinterpret_cast<double2*>(Cr + 8 * cb) = make_double2(d[0], d[1]);
     }
   }
 }
 
-// float32 on an 8 x 4 FMA register tile, as right_update: columns
+// float32 on an 8 x 4 FMA register tile, as right_update (U float32, or
+// bfloat16 widened as it is read; LDT its tile's row length): columns
 // t0 + lane + 32 j of the part's j.
+template <int LDT, typename TU>
 __device__ __forceinline__ void wide_update(float* Ys, int ldy,
-                                            const float* Ut, int Jb, int t0,
+                                            const TU* Ut, int Jb, int t0,
                                             int t1, int rows, int tid) {
   const int warp = tid / 32, lane = tid % 32, nw = blockDim.x / 32;
   const int nrb = (rows + 7) / 8, parts = nrb >= nw ? 1 : nw / nrb;
@@ -746,7 +957,7 @@ __device__ __forceinline__ void wide_update(float* Ys, int ldy,
       float u[4], y[8];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        u[j] = on[j] ? Ut[kk * kWideLdt + lane + 32 * j] : 0.f;
+        u[j] = on[j] ? widen(Ut[kk * LDT + lane + 32 * j]) : 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) y[i] = Yr[i * ldy + Jb + kk];
 #pragma unroll
@@ -777,18 +988,26 @@ trsm_right_wide_kernel(const T* __restrict__ U, long long su_b,
                        T* __restrict__ Y, int nr, int k, int unit_diag,
                        int tiles, int R, unsigned char* scratch) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  using A = arith_t<T>;
   constexpr int NT = wide_threads<T>();
   constexpr int D = kWideSlots;
+  constexpr int LDT = wide_ldt<T>();
   T* ring = reinterpret_cast<T*>(smem_raw);
-  constexpr int kSlot = kB * kWideLdt;
+  constexpr int kSlot = kB * LDT;
   const int ldy = right_ld(k);
   unsigned char* work =
       scratch == nullptr
           ? smem_raw + right_ring_bytes<T>()
           : scratch + (long long)blockIdx.x * right_tile_bytes<T>(k, R);
-  T* Ys = reinterpret_cast<T*>(work);                   // R x ldy
-  double* Rd = reinterpret_cast<double*>(Ys + (size_t)R * ldy);  // k
-  T* Dg = reinterpret_cast<T*>(Rd + k);                 // k
+  A* Ys = reinterpret_cast<A*>(work);                   // R x ldy
+  // bfloat16: X apart from the sums, R x ldx; else X is staged into Ys
+  const int ldx = kBf<T> ? right_ldu<T>(k) : ldy;
+  T* Xs = kBf<T> ? reinterpret_cast<T*>(Ys + (size_t)R * ldy)
+                 : reinterpret_cast<T*>(Ys);
+  double* Rd = reinterpret_cast<double*>(
+      kBf<T> ? static_cast<void*>(Xs + (size_t)R * ldx)
+             : static_cast<void*>(Ys + (size_t)R * ldy));  // k
+  A* Dg = reinterpret_cast<A*>(Rd + k);                 // k
   const long long e = blockIdx.x / tiles;
   const int r0 = (blockIdx.x % tiles) * R;
   const int rows = min(R, nr - r0);
@@ -804,13 +1023,15 @@ trsm_right_wide_kernel(const T* __restrict__ U, long long su_b,
     const int nch = (k + V - 1) / V;
     for (int i = tid; i < rows * nch; i += NT) {
       const int r = i / nch, c = (i % nch) * V;
-      cp_async<V * S>(Ys + r * ldy + c, Xe + (long long)r * k + c,
+      cp_async<V * S>(Xs + r * ldx + c, Xe + (long long)r * k + c,
                       min(V, k - c) * S);
     }
   } else {
     for (long long i = tid; i < (long long)rows * k; i += NT)
-      Ys[(i / k) * ldy + i % k] = Xe[i];
+      Xs[(i / k) * ldx + i % k] = Xe[i];
   }
+  if constexpr (kBf<T>)               // the sums start at zero
+    for (long long i = tid; i < (long long)rows * ldy; i += NT) Ys[i] = 0.f;
   // tile (J, q): U's rows Jb.. of block J, columns from Jb + q kWideC, by
   // the threads from `lo` on
   auto issue = [&](int J, int q, T* slot, int lo) {
@@ -820,7 +1041,7 @@ trsm_right_wide_kernel(const T* __restrict__ U, long long su_b,
     for (int i = tid - lo; i < nrow * nch; i += NT - lo) {
       const int r = i / nch, c = cs + (i % nch) * V;
       if (c + V > Jb + r)
-        cp_async<V * S>(slot + r * kWideLdt + (c - cs),
+        cp_async<V * S>(slot + r * LDT + (c - cs),
                         Ue + (long long)(Jb + r) * su_r + c,
                         min(V, k - c) * S);
     }
@@ -840,7 +1061,7 @@ trsm_right_wide_kernel(const T* __restrict__ U, long long su_b,
     cp_commit();
   }
   for (int t = tid; t < k; t += NT) {
-    const T d = unit_diag ? T(1) : Ue[(long long)t * su_r + t];
+    const A d = unit_diag ? A(1) : widen(Ue[(long long)t * su_r + t]);
     Dg[t] = d;
     Rd[t] = recip(d);
   }
@@ -863,38 +1084,53 @@ trsm_right_wide_kernel(const T* __restrict__ U, long long su_b,
       int t0 = cs;
       if (q == 0) {
         if (tid < rows) {
-          T* yr = Ys + tid * ldy + Jb;
-          if (bj == kB)
-            right_diag<true>(yr, Ut, Dg + Jb, Rd + Jb, kWideLdt, bj);
-          else
-            right_diag<false>(yr, Ut, Dg + Jb, Rd + Jb, kWideLdt, bj);
+          A* yr = Ys + tid * ldy + Jb;
+          if constexpr (kBf<T>) {
+            const T* xr = Xs + tid * ldx + Jb;
+            if (bj == kB)
+              right_diag_bf<true>(yr, xr, Ut, Dg + Jb, Rd + Jb, LDT, bj);
+            else
+              right_diag_bf<false>(yr, xr, Ut, Dg + Jb, Rd + Jb, LDT, bj);
+          } else {
+            if (bj == kB)
+              right_diag<true>(yr, Ut, Dg + Jb, Rd + Jb, kWideLdt, bj);
+            else
+              right_diag<false>(yr, Ut, Dg + Jb, Rd + Jb, kWideLdt, bj);
+          }
         }
         t0 = Jb + kB;
         __syncthreads();              // block J of every row is final
       }
-      if (t0 < t1) wide_update(Ys, ldy, Ut + (t0 - cs), Jb, t0, t1, rows, tid);
+      if (t0 < t1)
+        wide_update<LDT>(Ys, ldy, Ut + (t0 - cs), Jb, t0, t1, rows, tid);
     }
   }
   __syncthreads();
 
   T* Ye = Y + (e * nr + r0) * k;
-  for (long long i = tid; i < (long long)rows * k; i += NT)
-    Ye[i] = Ys[(i / k) * ldy + i % k];
+  for (long long i = tid; i < (long long)rows * k; i += NT) {
+    const A y = Ys[(i / k) * ldy + i % k];
+    Ye[i] = narrow<T>(kBf<T> ? -y : y);
+  }
 }
 
 // L w = b or U w = b for any k: one block of nt = min(k rounded up to 32,
 // kLeftT) threads per (batch member, MC right-hand-side columns); thread i
 // owns rows i, i + nt, ... (rounds of nt rows).  w is kept in shared
 // memory, or in W itself (row stride m) where k x MC does not fit beside
-// the ring.  The triangle streams through a ring of two tiles of nt rows by
-// 32 columns, in the order the sweep reads it: for column block J, the
-// round holding the diagonal block first, then the rounds below it (above
-// it, for U w = b); only chunks that reach the triangle are copied.
+// the ring; in bfloat16 wv holds the float32 sums, then the solution, in
+// shared memory or in `sums` (float32, W's layout).  The triangle streams
+// through a ring of two tiles of nt rows by 32 columns, in the order the
+// sweep reads it: for column block J, the round holding the diagonal block
+// first, then the rounds below it (above it, for U w = b); only chunks
+// that reach the triangle are copied.
 template <typename T, bool UPPER, int MC, int V>
 __global__ void __launch_bounds__(kLeftT)
 trsm_left_wide_kernel(const T* __restrict__ blk, const T* __restrict__ B,
-                      T* W, int k, int m, int tiles, int w_in_smem) {
+                      T* W, int k, int m, int tiles, int w_in_smem,
+                      arith_t<T>* sums) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  using A = arith_t<T>;
   constexpr int ldt = left_ld<T>(kLeftB);
   constexpr int S = (int)sizeof(T);
   const int nt = blockDim.x;
@@ -908,13 +1144,16 @@ trsm_left_wide_kernel(const T* __restrict__ blk, const T* __restrict__ B,
   const T* Ae = blk + e * k * k;
   const T* Be = B + e * k * m + c0;
   T* We = W + e * k * m + c0;
-  T* wv = w_in_smem ? ring + 2 * slot : We;
+  A* wv = w_in_smem ? reinterpret_cast<A*>(ring + 2 * slot)
+                    : kBf<T> ? sums + e * k * m + c0
+                             : reinterpret_cast<A*>(We);
   const long long ws = w_in_smem ? MC : m;
 
   for (int r = tid; r < k; r += nt)
 #pragma unroll
     for (int c = 0; c < MC; ++c)
-      if (c < mc) wv[r * ws + c] = Be[(long long)r * m + c];
+      if (c < mc)
+        wv[r * ws + c] = kBf<T> ? A(0) : widen(Be[(long long)r * m + c]);
 
   auto block_of = [&](int s) { return UPPER ? nb - 1 - s : s; };
   // tile (s, q): column block J = block_of(s), round iJ -+ q, where iJ
@@ -968,23 +1207,37 @@ trsm_left_wide_kernel(const T* __restrict__ blk, const T* __restrict__ B,
           // owns it in every round
           const int row = Jb + lane;
           const T* Ar = At + tid * ldt;           // from column Jb
-          T w[MC];
+          A w[MC], x[MC];
 #pragma unroll
-          for (int c = 0; c < MC; ++c)
-            w[c] = lane < bj && c < mc ? wv[row * ws + c] : T(0);
+          for (int c = 0; c < MC; ++c) {
+            const bool in = lane < bj && c < mc;
+            w[c] = in ? wv[row * ws + c] : A(0);
+            if constexpr (kBf<T>)
+              x[c] = in ? widen(Be[(long long)row * m + c]) : 0.f;
+          }
           if (!UPPER) {
-            lower_diag(w, Ar, lane, bj);
+            if constexpr (kBf<T>)
+              lower_diag_bf(w, x, Ar, lane, bj);
+            else
+              lower_diag(w, Ar, lane, bj);
           } else {
-            const T d = lane < bj ? Ar[lane] : T(1);
+            const A d = lane < bj ? widen(Ar[lane]) : A(1);
             const double rd = lane < bj ? recip(d) : 1.0;
-            T w0[MC];
+            A w0[MC];
 #pragma unroll
             for (int c = 0; c < MC; ++c) w0[c] = w[c];
-            if (!__all_sync(0xffffffffu,
-                            upper_diag<false>(w, Ar, d, rd, lane, bj))) {
+            bool ok;
+            if constexpr (kBf<T>)
+              ok = upper_diag_bf<false>(w, x, Ar, d, rd, lane, bj);
+            else
+              ok = upper_diag<false>(w, Ar, d, rd, lane, bj);
+            if (!__all_sync(0xffffffffu, ok)) {
 #pragma unroll
               for (int c = 0; c < MC; ++c) w[c] = w0[c];
-              upper_diag<true>(w, Ar, d, rd, lane, bj);
+              if constexpr (kBf<T>)
+                upper_diag_bf<true>(w, x, Ar, d, rd, lane, bj);
+              else
+                upper_diag<true>(w, Ar, d, rd, lane, bj);
             }
           }
           if (lane < bj) {
@@ -999,14 +1252,24 @@ trsm_left_wide_kernel(const T* __restrict__ blk, const T* __restrict__ B,
       const int row = i * nt + tid;
       if (UPPER ? row < Jb : (row >= Jb + kLeftB && row < k)) {
         const T* Ar = At + tid * ldt;
-        T acc[MC];
+        A acc[MC];
 #pragma unroll
-        for (int c = 0; c < MC; ++c) acc[c] = c < mc ? wv[row * ws + c] : T(0);
-        for (int j = 0; j < bj; ++j) {
-          const T a = Ar[j];
+        for (int c = 0; c < MC; ++c) acc[c] = c < mc ? wv[row * ws + c] : A(0);
+        if constexpr (kBf<T>) {       // into the sums, in the sweep's order
+          for (int i2 = 0; i2 < bj; ++i2) {
+            const int j = UPPER ? bj - 1 - i2 : i2;
+            const float a = widen(Ar[j]);
 #pragma unroll
-          for (int c = 0; c < MC; ++c)
-            if (c < mc) acc[c] -= a * wv[(Jb + j) * ws + c];
+            for (int c = 0; c < MC; ++c)
+              if (c < mc) acc[c] = fmaf(a, wv[(Jb + j) * ws + c], acc[c]);
+          }
+        } else {
+          for (int j = 0; j < bj; ++j) {
+            const T a = Ar[j];
+#pragma unroll
+            for (int c = 0; c < MC; ++c)
+              if (c < mc) acc[c] -= a * wv[(Jb + j) * ws + c];
+          }
         }
 #pragma unroll
         for (int c = 0; c < MC; ++c)
@@ -1015,12 +1278,12 @@ trsm_left_wide_kernel(const T* __restrict__ blk, const T* __restrict__ B,
     }
   }
 
-  if (w_in_smem) {
+  if (w_in_smem || kBf<T>) {
     __syncthreads();
     for (int r = tid; r < k; r += nt)
 #pragma unroll
       for (int c = 0; c < MC; ++c)
-        if (c < mc) We[(long long)r * m + c] = wv[r * ws + c];
+        if (c < mc) We[(long long)r * m + c] = narrow<T>(wv[r * ws + c]);
   }
 }
 
@@ -1065,18 +1328,36 @@ int launch_right_wide(const void* U, const void* X, void* Y, int batch,
   });
 }
 
+// threads of a wide left solve's block, its ring's bytes, and whether the
+// k x MC values of w fit shared memory beside the ring
+int left_wide_threads(int k) {
+  const int nt = (k + kLeftB - 1) / kLeftB * kLeftB;
+  return nt > kLeftT ? kLeftT : nt;
+}
+
+template <typename T>
+size_t left_wide_ring_bytes(int k) {
+  return 2 * (size_t)left_wide_threads(k) * left_ld<T>(kLeftB) * sizeof(T);
+}
+
+template <typename T>
+bool left_wide_w_smem(int k, int mc, int optin) {
+  return left_wide_ring_bytes<T>(k) + (size_t)k * mc * sizeof(arith_t<T>) <=
+         (size_t)optin;
+}
+
 template <typename T, bool UPPER, int MC>
 int launch_left_wide_mc(const T* blk, const T* B, T* W, int batch, int k,
-                        int m, cudaStream_t stream) {
+                        int m, arith_t<T>* sums, cudaStream_t stream) {
   const long long tiles = (m + MC - 1) / MC;
   if ((long long)batch * tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  int nt = (k + kLeftB - 1) / kLeftB * kLeftB;
-  if (nt > kLeftT) nt = kLeftT;
+  const int nt = left_wide_threads(k);
   const int optin = smem_optin();
-  const size_t ring = 2 * (size_t)nt * left_ld<T>(kLeftB) * sizeof(T);
-  const size_t wbytes = (size_t)k * MC * sizeof(T);
-  const bool w_smem = ring + wbytes <= (size_t)optin;
+  const size_t ring = left_wide_ring_bytes<T>(k);
+  const size_t wbytes = (size_t)k * MC * sizeof(arith_t<T>);
+  const bool w_smem = left_wide_w_smem<T>(k, MC, optin);
+  if (kBf<T> && !w_smem && sums == nullptr) return (int)cudaErrorInvalidValue;
   constexpr int V16 = 16 / sizeof(T);
   const bool vec = k % V16 == 0 && reinterpret_cast<uintptr_t>(blk) % 16 == 0;
   auto kern = vec ? trsm_left_wide_kernel<T, UPPER, MC, V16>
@@ -1085,306 +1366,121 @@ int launch_left_wide_mc(const T* blk, const T* B, T* W, int batch, int k,
   cudaError_t err = allow_smem(kern, optin, sized[vec]);
   if (err != cudaSuccess) return (int)err;
   kern<<<(unsigned)(batch * tiles), nt, ring + (w_smem ? wbytes : 0),
-         stream>>>(blk, B, W, k, m, (int)tiles, (int)w_smem);
+         stream>>>(blk, B, W, k, m, (int)tiles, (int)w_smem, sums);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool UPPER>
 int launch_left_wide(const void* blk, const void* B, void* W, int batch,
-                     int k, int m, void* stream) {
+                     int k, int m, void* sums, void* stream) {
   if (batch < 1 || m < 1 || k < 1) return (int)cudaErrorInvalidValue;
   const T* a = static_cast<const T*>(blk);
   const T* b = static_cast<const T*>(B);
   T* w = static_cast<T*>(W);
+  auto* s = static_cast<arith_t<T>*>(sums);
   cudaStream_t st = (cudaStream_t)stream;
-  return m == 1 ? launch_left_wide_mc<T, UPPER, 1>(a, b, w, batch, k, m, st)
-                : launch_left_wide_mc<T, UPPER, 4>(a, b, w, batch, k, m, st);
+  return m == 1
+             ? launch_left_wide_mc<T, UPPER, 1>(a, b, w, batch, k, m, s, st)
+             : launch_left_wide_mc<T, UPPER, 4>(a, b, w, batch, k, m, s, st);
 }
 
-// ------------------------------------------------------------- bfloat16
-__device__ __forceinline__ float bf_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// One solve of k <= 128 unknowns by one warp: x holds lane l's entries
-// l + 32 s of the right-hand side and comes back holding the solution; acc
-// holds the float32 sums of products each equation starts from (those of
-// the unknowns of earlier blocks, or 0).  Unknowns go in ascending order
-// (descending for UP); coef(i, j) is the coefficient of unknown j in the
-// equation of unknown i, diag(j) the divisor of unknown j (read only with
-// DIV).
-template <bool UP, bool DIV, typename Coef, typename Diag>
-__device__ __forceinline__ void solve_vec_bf16(float (&x)[kMaxK / 32],
-                                               float (&acc)[kMaxK / 32],
-                                               int k, int lane, Coef coef,
-                                               Diag diag) {
-  constexpr int NS = kMaxK / 32;
-  for (int step = 0; step < k; ++step) {
-    const int j = UP ? k - 1 - step : step;
-    const int js = j >> 5, jl = j & 31;
-    float xo = x[0], ao = acc[0];
-#pragma unroll
-    for (int s = 1; s < NS; ++s)
-      if (js == s) {
-        xo = x[s];
-        ao = acc[s];
-      }
-    // every lane computes; lane jl's value is unknown j's
-    float v = bf_round(__fsub_rn(xo, bf_round(ao)));
-    if (DIV) v = bf_round(__fdiv_rn(v, diag(j)));
-    v = __shfl_sync(0xffffffffu, v, jl);
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const int i = lane + 32 * s;
-      if (i == j)
-        x[s] = v;
-      else if (UP ? i < j : (i > j && i < k))
-        acc[s] = fmaf(v, coef(i, j), acc[s]);
-    }
-  }
-}
-
-// Y U = X: one block per (batch member, 32 rows of X), U's upper triangle
-// staged with rows k + 1 apart.  S0 (X's layout, float32; null for none)
-// holds minus the sums of products of the unknowns of the blocks before
-// (the blocked path over k > 128), so that every unknown rounds one float32
-// sum over all the unknowns before it, as the plain version does.
-__global__ void __launch_bounds__(kThreads)
-trsm_right_bf16_kernel(const __nv_bfloat16* __restrict__ U, long long su_b,
-                       long long su_r, const __nv_bfloat16* __restrict__ X,
-                       __nv_bfloat16* __restrict__ Y, int nr, int k,
-                       int unit_diag, int tiles,
-                       const float* __restrict__ S0) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int ld = k + 1;
-  const long long e = blockIdx.x / tiles;
-  const int r0 = (blockIdx.x % tiles) * kRows;
-  const int rows = min(kRows, nr - r0);
-  const __nv_bfloat16* Ue = U + e * su_b;
-  for (int i = threadIdx.x; i < k * k; i += blockDim.x) {
-    const int r = i / k, c = i % k;
-    if (c >= r) Us[r * ld + c] = Ue[r * su_r + c];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  auto coef = [&](int i, int j) { return __bfloat162float(Us[j * ld + i]); };
-  auto diag = [&](int j) { return __bfloat162float(Us[j * ld + j]); };
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    const long long row = (e * nr + r0 + r) * (long long)k;
-    float x[kMaxK / 32], acc[kMaxK / 32];
-#pragma unroll
-    for (int s = 0; s < kMaxK / 32; ++s) {
-      const int c = lane + 32 * s;
-      x[s] = c < k ? __bfloat162float(X[row + c]) : 0.f;
-      acc[s] = S0 != nullptr && c < k ? -S0[row + c] : 0.f;
-    }
-    if (unit_diag)
-      solve_vec_bf16<false, false>(x, acc, k, lane, coef, diag);
-    else
-      solve_vec_bf16<false, true>(x, acc, k, lane, coef, diag);
-#pragma unroll
-    for (int s = 0; s < kMaxK / 32; ++s) {
-      const int c = lane + 32 * s;
-      if (c < k) Y[row + c] = __float2bfloat16_rn(x[s]);
-    }
-  }
-}
-
-// L w = b (unit lower) or U w = b (UPPER): one block per (batch member, 4
-// right-hand-side columns), a warp a column; the triangle that is read
-// staged with rows k + 1 apart.  S0 (B's layout, float32; null for none)
-// as in trsm_right_bf16_kernel.
-template <bool UPPER>
-__global__ void __launch_bounds__(kThreads)
-trsm_left_bf16_kernel(const __nv_bfloat16* __restrict__ blk,
-                      const __nv_bfloat16* __restrict__ B,
-                      __nv_bfloat16* __restrict__ W, int k, int m,
-                      int tiles, const float* __restrict__ S0) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int ld = k + 1;
-  const long long e = blockIdx.x / tiles;
-  const __nv_bfloat16* Ae = blk + e * k * k;
-  for (int i = threadIdx.x; i < k * k; i += blockDim.x) {
-    const int r = i / k, c = i % k;
-    if (UPPER ? c >= r : c < r) As[r * ld + c] = Ae[i];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col = (blockIdx.x % tiles) * 4 + warp;
-  if (col >= m) return;
-  const long long base = e * k * m + col;
-  float x[kMaxK / 32], acc[kMaxK / 32];
-#pragma unroll
-  for (int s = 0; s < kMaxK / 32; ++s) {
-    const int i = lane + 32 * s;
-    x[s] = i < k ? __bfloat162float(B[base + (long long)i * m]) : 0.f;
-    acc[s] = S0 != nullptr && i < k ? -S0[base + (long long)i * m] : 0.f;
-  }
-  auto coef = [&](int i, int j) { return __bfloat162float(As[i * ld + j]); };
-  auto diag = [&](int j) { return __bfloat162float(As[j * ld + j]); };
-  if (UPPER)
-    solve_vec_bf16<true, true>(x, acc, k, lane, coef, diag);
-  else
-    solve_vec_bf16<false, false>(x, acc, k, lane, coef, diag);
-#pragma unroll
-  for (int s = 0; s < kMaxK / 32; ++s) {
-    const int i = lane + 32 * s;
-    if (i < k) W[base + (long long)i * m] = __float2bfloat16_rn(x[s]);
-  }
-}
-
-int launch_right_bf16(const void* U, const void* X, void* Y, int batch,
-                      int nr, int k, int unit_diag, long long su_b,
-                      long long su_r, const void* S0, void* stream) {
-  if (batch < 1 || nr < 1 || k < 1 || k > kMaxK || su_r < k)
-    return (int)cudaErrorInvalidValue;
-  const long long tiles = (nr + kRows - 1) / kRows;
-  if ((long long)batch * tiles > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)k * (k + 1) * sizeof(__nv_bfloat16);
-  trsm_right_bf16_kernel<<<(unsigned)(batch * tiles), kThreads, smem,
-                           (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(U), su_b, su_r,
-      static_cast<const __nv_bfloat16*>(X), static_cast<__nv_bfloat16*>(Y),
-      nr, k, unit_diag, (int)tiles, static_cast<const float*>(S0));
-  return (int)cudaGetLastError();
-}
-
-template <bool UPPER>
-int launch_left_bf16(const void* blk, const void* B, void* W, int batch,
-                     int k, int m, const void* S0, void* stream) {
-  if (batch < 1 || m < 1 || k < 1 || k > kMaxK)
-    return (int)cudaErrorInvalidValue;
-  const long long tiles = (m + 3) / 4;
-  if ((long long)batch * tiles > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)k * (k + 1) * sizeof(__nv_bfloat16);
-  const int threads = 32 * (m < 4 ? m : 4);     // a warp a column
-  trsm_left_bf16_kernel<UPPER><<<(unsigned)(batch * tiles), threads, smem,
-                                 (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(blk),
-      static_cast<const __nv_bfloat16*>(B), static_cast<__nv_bfloat16*>(W),
-      k, m, (int)tiles, static_cast<const float*>(S0));
-  return (int)cudaGetLastError();
+// bytes of the float32 sums a bfloat16 wide left solve keeps in device
+// memory (W's layout) where they do not fit shared memory, else 0
+long long left_wide_sums_bytes(int batch, int k, int m) {
+  if (left_wide_w_smem<bf16>(k, m == 1 ? 1 : 4, smem_optin())) return 0;
+  return (long long)batch * k * m * (long long)sizeof(float);
 }
 
 }  // namespace
 
-// The bfloat16 entries take S0 (float32, the layout of X or B; null for
-// none): minus the sums of products each unknown's equation starts from.
-extern "C" int hylu_trsm_right_bf16(const void* U, const void* X, void* Y,
-                                    int batch, int nr, int k, int unit_diag,
-                                    long long su_b, long long su_r,
-                                    const void* S0, void* stream) {
-  return launch_right_bf16(U, X, Y, batch, nr, k, unit_diag, su_b, su_r, S0,
-                           stream);
-}
+// The entries of each solve: _f64, _f32 and _bf16 instances of one design.
+#define HYLU_TRSM_ENTRIES(sfx, T)                                            \
+  extern "C" int hylu_trsm_right_##sfx(                                      \
+      const void* U, const void* X, void* Y, int batch, int nr, int k,       \
+      int unit_diag, long long su_b, long long su_r, void* stream) {         \
+    return launch_right<T>(U, X, Y, batch, nr, k, unit_diag, su_b, su_r,     \
+                           stream);                                          \
+  }                                                                          \
+  extern "C" int hylu_trsm_left_unit_lower_##sfx(                            \
+      const void* blk, const void* B, void* W, int batch, int k, int m,      \
+      void* stream) {                                                        \
+    return launch_left<T, false>(blk, B, W, batch, k, m, stream);            \
+  }                                                                          \
+  extern "C" int hylu_trsm_left_upper_##sfx(                                 \
+      const void* blk, const void* B, void* W, int batch, int k, int m,      \
+      void* stream) {                                                        \
+    return launch_left<T, true>(blk, B, W, batch, k, m, stream);             \
+  }                                                                          \
+  extern "C" int hylu_trsm_right_wide_##sfx(                                 \
+      const void* U, const void* X, void* Y, int batch, int nr, int k,       \
+      int unit_diag, long long su_b, long long su_r, void* scratch,          \
+      void* stream) {                                                        \
+    return launch_right_wide<T>(U, X, Y, batch, nr, k, unit_diag, su_b,      \
+                                su_r, scratch, stream);                      \
+  }
 
-extern "C" int hylu_trsm_left_unit_lower_bf16(const void* blk, const void* B,
-                                              void* W, int batch, int k,
-                                              int m, const void* S0,
-                                              void* stream) {
-  return launch_left_bf16<false>(blk, B, W, batch, k, m, S0, stream);
-}
+HYLU_TRSM_ENTRIES(f64, double)
+HYLU_TRSM_ENTRIES(f32, float)
+HYLU_TRSM_ENTRIES(bf16, bf16)
+#undef HYLU_TRSM_ENTRIES
 
-extern "C" int hylu_trsm_left_upper_bf16(const void* blk, const void* B,
-                                         void* W, int batch, int k, int m,
-                                         const void* S0, void* stream) {
-  return launch_left_bf16<true>(blk, B, W, batch, k, m, S0, stream);
-}
-
-extern "C" int hylu_trsm_right_f64(const void* U, const void* X, void* Y,
-                                   int batch, int nr, int k, int unit_diag,
-                                   long long su_b, long long su_r,
-                                   void* stream) {
-  return launch_right<double>(U, X, Y, batch, nr, k, unit_diag, su_b, su_r,
-                              stream);
-}
-
-extern "C" int hylu_trsm_right_f32(const void* U, const void* X, void* Y,
-                                   int batch, int nr, int k, int unit_diag,
-                                   long long su_b, long long su_r,
-                                   void* stream) {
-  return launch_right<float>(U, X, Y, batch, nr, k, unit_diag, su_b, su_r,
-                             stream);
-}
-
-extern "C" int hylu_trsm_left_unit_lower_f64(const void* blk, const void* B,
-                                             void* W, int batch, int k, int m,
-                                             void* stream) {
-  return launch_left<double, false>(blk, B, W, batch, k, m, stream);
-}
-
-extern "C" int hylu_trsm_left_unit_lower_f32(const void* blk, const void* B,
-                                             void* W, int batch, int k, int m,
-                                             void* stream) {
-  return launch_left<float, false>(blk, B, W, batch, k, m, stream);
-}
-
-extern "C" int hylu_trsm_left_upper_f64(const void* blk, const void* B,
-                                        void* W, int batch, int k, int m,
-                                        void* stream) {
-  return launch_left<double, true>(blk, B, W, batch, k, m, stream);
-}
-
-extern "C" int hylu_trsm_left_upper_f32(const void* blk, const void* B,
-                                        void* W, int batch, int k, int m,
-                                        void* stream) {
-  return launch_left<float, true>(blk, B, W, batch, k, m, stream);
-}
-
-// Wide solves (k > 128, any k): the arguments of the entries above; the
-// right solve also takes a device-memory scratch of
+// Wide solves (k > 128, any k) take the arguments of the entries above;
+// the right solve also takes a device-memory scratch of
 // hylu_trsm_right_wide_scratch(batch, nr, k, elem_bytes) bytes (null when
-// that is 0: its tile then fits shared memory).
+// that is 0: its tile then fits shared memory), and the bfloat16 left
+// solves one of hylu_trsm_left_wide_scratch(batch, k, m) bytes for their
+// float32 sums (null when that is 0).
 extern "C" long long hylu_trsm_right_wide_scratch(int batch, int nr, int k,
                                                   int elem_bytes) {
-  return elem_bytes == 8 ? right_wide_scratch<double>(batch, nr, k)
-                         : right_wide_scratch<float>(batch, nr, k);
+  return elem_bytes == 8   ? right_wide_scratch<double>(batch, nr, k)
+         : elem_bytes == 4 ? right_wide_scratch<float>(batch, nr, k)
+                           : right_wide_scratch<bf16>(batch, nr, k);
 }
 
-extern "C" int hylu_trsm_right_wide_f64(const void* U, const void* X,
-                                        void* Y, int batch, int nr, int k,
-                                        int unit_diag, long long su_b,
-                                        long long su_r, void* scratch,
-                                        void* stream) {
-  return launch_right_wide<double>(U, X, Y, batch, nr, k, unit_diag, su_b,
-                                   su_r, scratch, stream);
-}
-
-extern "C" int hylu_trsm_right_wide_f32(const void* U, const void* X,
-                                        void* Y, int batch, int nr, int k,
-                                        int unit_diag, long long su_b,
-                                        long long su_r, void* scratch,
-                                        void* stream) {
-  return launch_right_wide<float>(U, X, Y, batch, nr, k, unit_diag, su_b,
-                                  su_r, scratch, stream);
+extern "C" long long hylu_trsm_left_wide_scratch(int batch, int k, int m) {
+  return left_wide_sums_bytes(batch, k, m);
 }
 
 extern "C" int hylu_trsm_left_unit_lower_wide_f64(const void* blk,
                                                   const void* B, void* W,
                                                   int batch, int k, int m,
                                                   void* stream) {
-  return launch_left_wide<double, false>(blk, B, W, batch, k, m, stream);
+  return launch_left_wide<double, false>(blk, B, W, batch, k, m, nullptr,
+                                         stream);
 }
 
 extern "C" int hylu_trsm_left_unit_lower_wide_f32(const void* blk,
                                                   const void* B, void* W,
                                                   int batch, int k, int m,
                                                   void* stream) {
-  return launch_left_wide<float, false>(blk, B, W, batch, k, m, stream);
+  return launch_left_wide<float, false>(blk, B, W, batch, k, m, nullptr,
+                                        stream);
+}
+
+extern "C" int hylu_trsm_left_unit_lower_wide_bf16(const void* blk,
+                                                   const void* B, void* W,
+                                                   int batch, int k, int m,
+                                                   void* sums, void* stream) {
+  return launch_left_wide<bf16, false>(blk, B, W, batch, k, m, sums, stream);
 }
 
 extern "C" int hylu_trsm_left_upper_wide_f64(const void* blk, const void* B,
                                              void* W, int batch, int k,
                                              int m, void* stream) {
-  return launch_left_wide<double, true>(blk, B, W, batch, k, m, stream);
+  return launch_left_wide<double, true>(blk, B, W, batch, k, m, nullptr,
+                                        stream);
 }
 
 extern "C" int hylu_trsm_left_upper_wide_f32(const void* blk, const void* B,
                                              void* W, int batch, int k,
                                              int m, void* stream) {
-  return launch_left_wide<float, true>(blk, B, W, batch, k, m, stream);
+  return launch_left_wide<float, true>(blk, B, W, batch, k, m, nullptr,
+                                       stream);
+}
+
+extern "C" int hylu_trsm_left_upper_wide_bf16(const void* blk, const void* B,
+                                              void* W, int batch, int k,
+                                              int m, void* sums,
+                                              void* stream) {
+  return launch_left_wide<bf16, true>(blk, B, W, batch, k, m, sums, stream);
 }

@@ -7,9 +7,7 @@ place; a node with an edge source of more than 128 rows goes to
 and the parent design ``gemm_update``, C − A·B per edge, under
 ``supsup_update`` (K3's right solve, then ``gemm_update``), which no engine
 path calls any more.  Its kernel (``hylu_gemm_update_*``) takes strided
-views and may write C in place: K3's bfloat16 solves blocked over
-k > 128 run their trailing updates through it
-(``kernels/trisolve/ops.py``).
+views and may write C in place; no path of the system launches it.
 
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version of :mod:`.ref`.  Every launch adds one to

@@ -12,14 +12,11 @@ version of :mod:`.ref`.  Every launch adds one to the wrapper's
 The solve kernels above take k <= ``BLOCK_K`` (128, the default supernode
 cap).  A supernode may have up to ``max_super`` rows, so a larger k goes
 to the wide path (``trsm_right_wide``, ``trsm_left_unit_lower_wide``,
-``trsm_left_upper_wide``, each counting its calls).  In float64 and
-float32 that is one launch of the wide kernel (``hylu_trsm_*_wide_*``),
-which streams the triangle through shared memory and takes any k.  In
-bfloat16 it is blocked over k: the solve kernel on each diagonal block of
-at most 128, and between blocks the trailing update C −= A·B on the
-columns (right solve) or rows (left solves) still to be solved, in place
-on float32 sums by K5's GEMM update (``csrc/gemm_update.cu``,
-``hylu_gemm_update_*``).
+``trsm_left_upper_wide``, each counting its calls): one launch of the wide
+kernel (``hylu_trsm_*_wide_*``), which streams the triangle through shared
+memory and takes any k.  Every kernel has float64, float32 and bfloat16
+instances; the bfloat16 ones keep their sums in float32 and round where
+the plain version does (``csrc/trsm.cu``, "bfloat16").
 """
 from __future__ import annotations
 
@@ -41,10 +38,6 @@ __all__ = ["trsm_batched", "trsm_left_unit_lower_batched",
 BLOCK_K = 128
 
 
-def _blocks(k):
-    return [(s, min(s + BLOCK_K, k)) for s in range(0, k, BLOCK_K)]
-
-
 def _check_right(u, x):
     if u.ndim != 3 or x.ndim != 3 or u.shape[0] != x.shape[0] \
             or u.shape[1] != u.shape[2] or x.shape[2] != u.shape[2]:
@@ -59,21 +52,7 @@ def _check_left(blk, b):
                          f"{tuple(blk.shape)} and {tuple(b.shape)}")
 
 
-def _carry(t, s0):
-    """A bfloat16 solve's extra argument: the float32 sums its unknowns
-    start from (``s0``, X's or B's layout, contiguous; minus the sums, as
-    the GEMM update leaves them), or null; nothing for other dtypes."""
-    if t.dtype != torch.bfloat16:
-        return ()
-    return (None if s0 is None else _build.ptr(s0),)
-
-
-def _as(t, like):
-    """t in like's dtype (itself when it is already)."""
-    return t if t.dtype == like.dtype else t.to(like.dtype)
-
-
-def _right(u, x, unit_diag, s0=None, wide=False):
+def _right(u, x, unit_diag, wide=False):
     """One launch of the right solve: the k <= 128 kernel, or with
     ``wide`` the wide one (any k); u's rows contiguous, x contiguous.
     Returns y (nothing launched for an empty batch)."""
@@ -95,11 +74,12 @@ def _right(u, x, unit_diag, s0=None, wide=False):
     if b and nr:
         with _build.on_device(x):
             if wide:
-                scratch = _wide_scratch(b, nr, k, x)
+                scratch = _scratch("hylu_trsm_right_wide_scratch",
+                                   (b, nr, k, x.element_size()), x)
                 name, extra = "hylu_trsm_right_wide", (
                     None if scratch is None else _build.ptr(scratch),)
             else:
-                name, extra = "hylu_trsm_right", _carry(x, s0)
+                name, extra = "hylu_trsm_right", ()
             _build.launch(f"{name}_{_build.suffix(x)}",
                           _build.ptr(u), _build.ptr(x), _build.ptr(y), b, nr,
                           k, int(unit_diag), su_b, su_r, *extra,
@@ -112,38 +92,20 @@ def _right(u, x, unit_diag, s0=None, wide=False):
 
 
 @functools.lru_cache(maxsize=256)
-def _scratch_bytes(b, nr, k, elem, device):
-    """Bytes of the wide right solve's scratch, read once per shape and
-    device (the kernel's shared-memory limit is the current device's)."""
-    return _build.library().hylu_trsm_right_wide_scratch(b, nr, k, elem)
+def _scratch_bytes(entry, shape, device):
+    """Bytes of a wide solve's device-memory scratch by its size query
+    ``entry`` on ``shape``, read once per shape and device (the kernel's
+    shared-memory limit is the current device's)."""
+    return getattr(_build.library(), entry)(*shape)
 
 
-def _wide_scratch(b, nr, k, x):
-    """The wide right solve's device-memory scratch for its tiles of Y:
-    None when a tile fits shared memory (up to k of some 2,400 in float64
-    on an H100)."""
-    n = _scratch_bytes(b, nr, k, x.element_size(), x.get_device())
-    return torch.empty(n, dtype=torch.uint8, device=x.device) if n else None
-
-
-def _update(c, a, b):
-    """c −= a @ b in place by K5's GEMM update (``hylu_gemm_update_*``,
-    its output c itself): c (B, R, N), a (B, R, Kd), b (B, Kd, N), views
-    of one dtype on one device whose rows are dense."""
-    nb, rows, cols = c.shape
-    kd = a.shape[2]
-    if not (nb and rows and cols and kd):
-        return
-    sc, sa, sb = (_build.row_strides("trsm update", t) for t in (c, a, b))
-    with _build.on_device(c):
-        _build.launch(f"hylu_gemm_update_{_build.suffix(c)}", _build.ptr(c),
-                      *sc, _build.ptr(a), *sa, _build.ptr(b), *sb,
-                      _build.ptr(c), *sc, nb, rows, kd, cols,
-                      _build.stream_of(c),
-                      work=lambda: kc.as_work(c.element_size(),
-                                              kc.gemm_update(
-                                                  nb, rows, kd, cols,
-                                                  c.element_size())))
+def _scratch(entry, shape, like):
+    """A wide solve's scratch on like's device, or None when it needs
+    none: the right solve's tiles of Y past k of some 2,400 in float64
+    on an H100, a bfloat16 left solve's float32 sums past what fits
+    shared memory."""
+    n = _scratch_bytes(entry, shape, like.get_device())
+    return torch.empty(n, dtype=torch.uint8, device=like.device) if n else None
 
 
 def trsm_batched(u: torch.Tensor, x: torch.Tensor,
@@ -170,91 +132,40 @@ def trsm_right_wide(u: torch.Tensor, x: torch.Tensor,
                     unit_diag: bool = False) -> torch.Tensor:
     """K3's right solve past 128 columns (the wide path of
     :func:`trsm_batched`; same arguments and result, any k): one launch
-    of the wide kernel in float64 and float32, blocked over k in
-    bfloat16 (:func:`_right_blocked_bf16`)."""
+    of the wide kernel."""
     _check_right(u, x)
     if x.device.type == "cpu":
         return trsm_plain(u, x, unit_diag=unit_diag)
     b, nr, _ = x.shape
-    if x.dtype == torch.bfloat16:
-        y = _right_blocked_bf16(u, x, unit_diag)
-    else:
-        y = _right(u, x, unit_diag, wide=True)
+    y = _right(u, x, unit_diag, wide=True)
     if b and nr:
         trsm_right_wide.launches += 1
     return y
 
 
-def _right_blocked_bf16(u, x, unit_diag):
-    """The bfloat16 right solve over k > 128: per column block J of at
-    most 128, Y_J = X_J U_JJ⁻¹ by the solve kernel, starting from the
-    float32 sums acc[:, J] of the blocks before it; then acc[:, later] −=
-    Y_J U[J, later] by K5's float32 GEMM update.  Each unknown then rounds
-    one dot, as the plain version."""
-    b, nr, k = x.shape
-    _build.check_cuda("trsm_batched", x)
-    y = torch.empty_like(x)
-    if not (b and nr):
-        return y
-    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for s, e in _blocks(k):
-        yb = _right(u[:, s:e, s:e], x[:, :, s:e].contiguous(), unit_diag,
-                    acc[:, :, s:e].contiguous())
-        y[:, :, s:e] = yb
-        if e < k:
-            _update(acc[:, :, e:], _as(yb, acc), _as(u[:, s:e, e:], acc))
-    return y
-
-
-def _left(name, blk, b, s0=None, wide=False):
+def _left(name, blk, b, wide=False):
     """One launch of a left solve: the k <= 128 kernel, or with ``wide``
-    the wide one (any k); blk and b contiguous."""
+    the wide one (any k; in bfloat16 with a device-memory scratch for its
+    float32 sums where they do not fit shared memory); blk and b
+    contiguous."""
     nb, k, m = b.shape
     _build.check_cuda(name, blk, b)
     w = torch.empty_like(b)
     if nb and m:
         entry = f"hylu_{name}_wide" if wide else f"hylu_{name}"
         with _build.on_device(b):
+            extra = ()
+            if wide and b.dtype == torch.bfloat16:
+                sums = _scratch("hylu_trsm_left_wide_scratch", (nb, k, m), b)
+                extra = (None if sums is None else _build.ptr(sums),)
             _build.launch(f"{entry}_{_build.suffix(b)}", _build.ptr(blk),
-                          _build.ptr(b), _build.ptr(w), nb, k, m,
-                          *_carry(b, s0), _build.stream_of(b),
+                          _build.ptr(b), _build.ptr(w), nb, k, m, *extra,
+                          _build.stream_of(b),
                           work=lambda: kc.as_work(b.element_size(),
                                                   kc.trsm_left(
                                                       "lower" in name, nb, k,
                                                       m, b.element_size())))
     return w
-
-
-def _left_blocked_bf16(name, blk, b):
-    """A bfloat16 left solve over k > 128: each diagonal block of at most
-    128 by the solve kernel, in sweep order (backward for U), starting
-    from the float32 sums of the blocks before it; then the rows still to
-    be solved take its product into those sums by K5's float32 GEMM
-    update (as :func:`_right_blocked_bf16`)."""
-    nb, k, m = b.shape
-    _build.check_cuda(name, blk, b)
-    w = b.clone()
-    if not (nb and m):
-        return w
-    upper = "upper" in name
-    acc = torch.zeros(b.shape, dtype=torch.float32, device=b.device)
-    for s, e in (reversed(_blocks(k)) if upper else _blocks(k)):
-        wb = _left(name, blk[:, s:e, s:e].contiguous(),
-                   w[:, s:e].contiguous(), acc[:, s:e].contiguous())
-        w[:, s:e] = wb
-        if upper and s > 0:
-            _update(acc[:, :s], _as(blk[:, :s, s:e], acc), _as(wb, acc))
-        elif not upper and e < k:
-            _update(acc[:, e:], _as(blk[:, e:, s:e], acc), _as(wb, acc))
-    return w
-
-
-def _left_wide(name, blk, b):
-    """A left solve past 128 rows: one launch of the wide kernel in
-    float64 and float32, blocked over k in bfloat16."""
-    if b.dtype == torch.bfloat16:
-        return _left_blocked_bf16(name, blk, b)
-    return _left(name, blk, b, wide=True)
 
 
 def trsm_left_unit_lower_batched(blk: torch.Tensor,
@@ -280,7 +191,7 @@ def trsm_left_unit_lower_wide(blk: torch.Tensor,
     _check_left(blk, b)
     if b.device.type == "cpu":
         return trsm_left_unit_lower_plain(blk, b)
-    w = _left_wide("trsm_left_unit_lower", blk, b)
+    w = _left("trsm_left_unit_lower", blk, b, wide=True)
     if b.shape[0] and b.shape[2]:
         trsm_left_unit_lower_wide.launches += 1
     return w
@@ -309,7 +220,7 @@ def trsm_left_upper_wide(blk: torch.Tensor,
     _check_left(blk, b)
     if b.device.type == "cpu":
         return trsm_left_upper_plain(blk, b)
-    w = _left_wide("trsm_left_upper", blk, b)
+    w = _left("trsm_left_upper", blk, b, wide=True)
     if b.shape[0] and b.shape[2]:
         trsm_left_upper_wide.launches += 1
     return w

@@ -40,6 +40,7 @@ from repro_torch.kernels.panel import ops as panel  # noqa: E402
 from repro_torch.kernels.suprow import ops as suprow  # noqa: E402
 from repro_torch.kernels.supsup import ops as supsup  # noqa: E402
 from repro_torch.kernels.trisolve import ops as tri  # noqa: E402
+from repro_torch.kernels.trisolve import ref as tri_ref  # noqa: E402
 from repro_torch.kernels.wkv import ops as wkvops  # noqa: E402
 from repro_torch.matrices import circuit_like, fem2d, to_csr  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
@@ -1855,7 +1856,7 @@ def _launch_spy(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt", sorted(TOLS))
+@pytest.mark.parametrize("dt", sorted(TOLS) + ["bfloat16"])
 @pytest.mark.parametrize("k", [129, 150, 256, 600, 1100, 3000])
 def test_trsm_wide(k, dt, cuda, monkeypatch):
     """K3's three entries at k > 128, one launch of the wide kernel each:
@@ -1864,11 +1865,31 @@ def test_trsm_wide(k, dt, cuda, monkeypatch):
     with NaN in the triangle they do not read, m = 1 and 3; each one count
     of its ``*_wide`` wrapper and none of the k <= 128 one, exactly one
     ``hylu_trsm_*_wide_*`` launch and no GEMM update; values within the
-    plain versions' tolerance.  At k = 3000 in float64 the right solve's
-    tiles live in its device-memory scratch and the left solves' w (m = 3)
-    in W itself."""
-    tdt, tol, ltol = TOLS[dt]
-    sfx = {torch.float64: "f64", torch.float32: "f32"}[tdt]
+    plain versions' tolerance.  bfloat16: bit-equal to the plain versions
+    summed in the kernels' order (``ref.*_bf16_ordered``); against the
+    plain versions themselves, whose dots sum in cuBLAS's order, an entry
+    where x - bf16(S) cancels differs by many of its own ulps (k >= 256
+    here).  At k = 3000 in float64 the right solve's tiles live in its
+    device-memory scratch and the left solves' w (m = 3) in W itself."""
+    bf = dt == "bfloat16"
+    tdt, tol, ltol = (torch.bfloat16, None, None) if bf else TOLS[dt]
+    sfx = {torch.float64: "f64", torch.float32: "f32",
+           torch.bfloat16: "bf16"}[tdt]
+    ordered = {tri.trsm_plain: tri_ref.trsm_bf16_ordered,
+               tri.trsm_left_unit_lower_plain:
+                   tri_ref.trsm_left_unit_lower_bf16_ordered,
+               tri.trsm_left_upper_plain:
+                   tri_ref.trsm_left_upper_bf16_ordered}
+
+    def plain_of(plain):
+        return ordered[plain] if bf else plain
+
+    def held(got, ref, t):
+        if bf:
+            assert torch.equal(got, ref)
+        else:
+            torch.testing.assert_close(got, ref, rtol=t, atol=t)
+
     names = _launch_spy(monkeypatch)
     rng = np.random.default_rng(k)
     for nr in (40, 300):
@@ -1876,7 +1897,7 @@ def test_trsm_wide(k, dt, cuda, monkeypatch):
         x = torch.tensor(rng.normal(size=(3, nr, k)), dtype=tdt,
                          device=cuda)
         for unit in (False, True):
-            ref = tri.trsm_plain(src[..., :k], x, unit_diag=unit)
+            ref = plain_of(tri.trsm_plain)(src[..., :k], x, unit_diag=unit)
             before = kernels.launch_counts()
             del names[:]
             got = tri.trsm_batched(src[..., :k], x, unit_diag=unit)
@@ -1884,7 +1905,7 @@ def test_trsm_wide(k, dt, cuda, monkeypatch):
             assert names == [f"hylu_trsm_right_wide_{sfx}"], names
             assert after["trsm_right_wide"] == before["trsm_right_wide"] + 1
             assert after["trsm_batched"] == before["trsm_batched"]
-            torch.testing.assert_close(got, ref, rtol=tol, atol=tol)
+            held(got, ref, tol)
     blk = _wide_block(rng, 2, k)
     for m in (1, 3):
         b = torch.tensor(rng.normal(size=(2, k, m)), dtype=tdt, device=cuda)
@@ -1894,7 +1915,8 @@ def test_trsm_wide(k, dt, cuda, monkeypatch):
                  np.triu_indices(k, 0)),       # the unit diagonal too
                 ("trsm_left_upper", tri.trsm_left_upper_batched,
                  tri.trsm_left_upper_plain, np.tril_indices(k, -1))):
-            ref = plain(torch.tensor(blk, dtype=tdt, device=cuda), b)
+            ref = plain_of(plain)(torch.tensor(blk, dtype=tdt, device=cuda),
+                                  b)
             poisoned = blk.copy()
             poisoned[:, other[0], other[1]] = np.nan
             before = kernels.launch_counts()
@@ -1904,37 +1926,7 @@ def test_trsm_wide(k, dt, cuda, monkeypatch):
             assert names == [f"hylu_{name}_wide_{sfx}"], names
             assert after[name + "_wide"] == before[name + "_wide"] + 1
             assert after[name + "_batched"] == before[name + "_batched"]
-            torch.testing.assert_close(got, ref, rtol=ltol, atol=ltol)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [150, 256])
-def test_trsm_wide_bf16_stays_blocked(k, cuda, monkeypatch):
-    """In bfloat16 the wide wrappers still block over k: per call one
-    count of the ``*_wide`` wrapper, a bfloat16 solve launch per block of
-    at most 128 and a float32 GEMM update between blocks (the values are
-    held by ``test_bf16_k3``)."""
-    names = _launch_spy(monkeypatch)
-    rng = np.random.default_rng(k)
-    blk = _bf16_tensor(_wide_block(rng, 2, k), cuda)
-    x = _bf16_tensor(rng.normal(size=(2, 40, k)), cuda)
-    b = _bf16_tensor(rng.normal(size=(2, k, 1)), cuda)
-    nblk = -(-k // tri.BLOCK_K)
-    for name, call in (("trsm_right", lambda: tri.trsm_batched(blk, x)),
-                       ("trsm_left_unit_lower",
-                        lambda: tri.trsm_left_unit_lower_batched(blk, b)),
-                       ("trsm_left_upper",
-                        lambda: tri.trsm_left_upper_batched(blk, b))):
-        before = kernels.launch_counts()
-        del names[:]
-        call()
-        after = kernels.launch_counts()
-        wrapper = name + "_wide"
-        assert after[wrapper] == before[wrapper] + 1
-        assert names.count(f"hylu_{name}_bf16") == nblk, names
-        assert names.count("hylu_gemm_update_f32") == nblk - 1, names
-        assert len(names) == 2 * nblk - 1, names
-    torch.cuda.synchronize()
+            held(got, ref, ltol)
 
 
 @pytest.mark.cuda
@@ -2447,26 +2439,46 @@ def _bf16_tensor(a, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2, 33, 100, 128, 150, 256])
-def test_bf16_k3(k, cuda):
+def test_bf16_k3(k, cuda, monkeypatch):
     """K3's three entries in bfloat16: the right solve on a strided view of
     source rows (nr 70 and 1), both left solves at one and 17 right-hand
-    sides; k = 150 and 256 run the blocked path, whose trailing updates
-    are K5's bfloat16 GEMM update."""
+    sides; each call one launch of its bfloat16 kernel (k = 150 and 256:
+    the wide one, ``hylu_trsm_*_wide_bf16``), within BF16_ULPS of each
+    entry of the plain version and bit-equal to it summed in the kernels'
+    order (``ref.*_bf16_ordered``)."""
+    names = _launch_spy(monkeypatch)
+    wide = "_wide" if k > tri.BLOCK_K else ""
     rng = np.random.default_rng(k)
     blk = _wide_block(rng, 3, k)
     S = np.concatenate([blk, rng.normal(size=(3, k, 9))], axis=2)
     S = _bf16_tensor(S, cuda)
     U = S[..., :k]                                 # rows k + 9 apart
+
+    def one_launch(name, call):
+        del names[:]
+        got = call()
+        assert names == [f"hylu_{name}{wide}_bf16"], names
+        return got
+
+    def held(got, plain, ordered):
+        _held_bf16(got, plain)
+        assert torch.equal(got, ordered)
+
     for nr in (70, 1):
         x = _bf16_tensor(rng.normal(size=(3, nr, k)), cuda)
-        _held_bf16(tri.trsm_batched(U, x), tri.trsm_plain(U, x))
+        held(one_launch("trsm_right", lambda: tri.trsm_batched(U, x)),
+             tri.trsm_plain(U, x), tri_ref.trsm_bf16_ordered(U, x))
     B = _bf16_tensor(blk, cuda)
     for m in (1, 17):
         b = _bf16_tensor(rng.normal(size=(3, k, m)), cuda)
-        _held_bf16(tri.trsm_left_unit_lower_batched(B, b),
-                   tri.trsm_left_unit_lower_plain(B, b))
-        _held_bf16(tri.trsm_left_upper_batched(B, b),
-                   tri.trsm_left_upper_plain(B, b))
+        held(one_launch("trsm_left_unit_lower",
+                        lambda: tri.trsm_left_unit_lower_batched(B, b)),
+             tri.trsm_left_unit_lower_plain(B, b),
+             tri_ref.trsm_left_unit_lower_bf16_ordered(B, b))
+        held(one_launch("trsm_left_upper",
+                        lambda: tri.trsm_left_upper_batched(B, b)),
+             tri.trsm_left_upper_plain(B, b),
+             tri_ref.trsm_left_upper_bf16_ordered(B, b))
     torch.cuda.synchronize()
 
 
@@ -2516,8 +2528,12 @@ def test_bf16_k4(e, nr, k, m, cuda):
 @pytest.mark.parametrize("shape", [(3, 128, 128, 100), (2, 70, 17, 65),
                                    (1, 1, 200, 3)])
 def test_bf16_k5_gemm_update(shape, cuda):
-    """K5's GEMM update in bfloat16, out of place and in place on a strided
-    view (C - A.B summed in float32 and rounded once)."""
+    """K5's GEMM update in bfloat16 (C - A.B summed in float32 and rounded
+    once), out of place through its wrapper, and through its entry point
+    in place on a strided view (OUT = C, rows m + 3 apart: the kernel's
+    interface for views, which no path of the system uses any more)."""
+    from repro_torch.kernels import _build
+
     e, nr, k, m = shape
     rng = np.random.default_rng(nr + k)
     wide = _bf16_tensor(rng.normal(size=(e, nr, m + 3)), cuda)
@@ -2527,8 +2543,11 @@ def test_bf16_k5_gemm_update(shape, cuda):
     ref = supsup.gemm_update_plain(c, a, b)
     bound = _sum_bound(a, b)
     _held_bf16(supsup.gemm_update(c, a, b), ref, bound=bound)
-    cv = wide[..., :m]                             # a view, rows m + 3 apart
-    tri._update(cv, a, b)
+    cv = wide[..., :m]
+    sc, sa, sb = (_build.row_strides("gemm_update", t) for t in (cv, a, b))
+    _build.launch("hylu_gemm_update_bf16", _build.ptr(cv), *sc,
+                  _build.ptr(a), *sa, _build.ptr(b), *sb, _build.ptr(cv),
+                  *sc, e, nr, k, m, _build.stream_of(cv))
     torch.cuda.synchronize()
     _held_bf16(cv, ref, bound=bound)
 

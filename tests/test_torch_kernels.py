@@ -38,6 +38,7 @@ from repro_torch.kernels.panel import ops as panel  # noqa: E402
 from repro_torch.kernels.suprow import ops as suprow  # noqa: E402
 from repro_torch.kernels.supsup import ops as supsup  # noqa: E402
 from repro_torch.kernels.trisolve import ops as tri  # noqa: E402
+from repro_torch.kernels.trisolve import ref as trisolve_ref  # noqa: E402
 from repro_torch.kernels.wkv import ops as wkvops  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
@@ -269,6 +270,67 @@ def test_trsm_left_solves(kb, k, m, dt):
            jtri.trsm_left_unit_lower_batched(jb, jr), tol)
     _close(tri.trsm_left_upper_batched(tb, tr),
            jtri.trsm_left_upper_batched(jb, jr), tol)
+
+
+# (nr, k) of the bfloat16 K3 parity cases: k = 1, ragged, at and past the
+# k <= 128 kernels' limit (the card's wide kernels take k > 128)
+TRSM_BF16_SHAPES = [(17, 1), (17, 13), (5, 64), (17, 128), (3, 129),
+                    (17, 150), (7, 256)]
+
+
+@pytest.mark.parametrize("nr,k", TRSM_BF16_SHAPES)
+def test_trsm_bf16_matches_jax(nr, k):
+    """K3 in bfloat16 bit for bit against the JAX package's
+    ``trsm_batched``, ``trsm_left_unit_lower_batched`` and
+    ``trsm_left_upper_batched`` (the Pallas kernel in interpret mode): the
+    right solve with and without a unit diagonal, U also as a strided view
+    of source rows with NaN below its diagonal, and the left solves at m =
+    1 and 3, on dominant blocks (16 on the diagonal, off-diagonal parts
+    scaled by 1/sqrt(k)).  The port's wrappers run their plain versions
+    here; equal bits pin the rounding points the card's bfloat16 kernels
+    copy (float32 sums, x - bf16(S) rounded, then the quotient rounded).
+    The versions summed in the sweep's order (``ref.*_bf16_ordered``, the
+    card kernels' exact reference) give the same bits here.  Inputs are
+    rounded to bfloat16 once, by torch, and handed to JAX as those
+    values."""
+    rng = np.random.default_rng(nr * 13 + k)
+    s = rng.normal(size=(3, k, k + 5))
+    s[:, :, :k] = ((np.triu(s[:, :, :k], 1) + np.tril(s[:, :, :k], -1))
+                   / np.sqrt(k) + 16 * np.eye(k))
+    S = torch.tensor(s, dtype=torch.bfloat16)
+    Sn = S.clone()
+    il = np.tril_indices(k, -1)
+    Sn[:, il[0], il[1]] = float("nan")
+    blk = S[..., :k].contiguous()
+    x = torch.tensor(rng.normal(size=(3, nr, k)), dtype=torch.bfloat16)
+
+    def jax_of(t):
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+    def torch_of(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+
+    for unit in (False, True):
+        want = torch_of(jtri.trsm_batched(jax_of(blk), jax_of(x),
+                                          unit_diag=unit))
+        assert bool(torch.isfinite(want.float()).all())
+        for u in (blk, S[..., :k], Sn[..., :k]):
+            assert torch.equal(tri.trsm_batched(u, x, unit_diag=unit), want)
+            assert torch.equal(trisolve_ref.trsm_bf16_ordered(
+                u, x, unit_diag=unit), want)
+    for m in (1, 3):
+        b = torch.tensor(rng.normal(size=(3, k, m)), dtype=torch.bfloat16)
+        for fn, ordered, jfn in (
+                (tri.trsm_left_unit_lower_batched,
+                 trisolve_ref.trsm_left_unit_lower_bf16_ordered,
+                 jtri.trsm_left_unit_lower_batched),
+                (tri.trsm_left_upper_batched,
+                 trisolve_ref.trsm_left_upper_bf16_ordered,
+                 jtri.trsm_left_upper_batched)):
+            want = torch_of(jfn(jax_of(blk), jax_of(b)))
+            assert bool(torch.isfinite(want.float()).all())
+            assert torch.equal(fn(blk, b), want)
+            assert torch.equal(ordered(blk, b), want)
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
